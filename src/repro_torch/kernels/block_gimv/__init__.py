@@ -1,0 +1,4 @@
+from repro_torch.kernels.block_gimv.ops import dense_gimv, has_semiring, semiring_of
+from repro_torch.kernels.block_gimv.ref import dense_gimv_ref
+
+__all__ = ["dense_gimv", "dense_gimv_ref", "has_semiring", "semiring_of"]

@@ -1,0 +1,67 @@
+"""Wrapper of the dense GIM-V kernel (csrc/dense_gimv.cu) and the semiring
+table that maps a GimvSpec to a kernel semiring.
+
+``dense_gimv`` on a CUDA tensor launches the Hopper kernel (or raises); on a
+CPU tensor it runs the plain version in ref.py.  ``dense_gimv.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _common
+from repro_torch.kernels.block_gimv.ref import dense_gimv_ref
+
+__all__ = ["dense_gimv", "semiring_of", "has_semiring"]
+
+_SEMIRING_TABLE = {
+    ("mul", "sum"): "plus_times",
+    ("add", "min"): "min_plus",
+    ("add", "max"): "max_plus",
+    ("src", "min"): "min_src",
+}
+
+
+def semiring_of(combine2: str, combine_all: str) -> str:
+    """Map a GimvSpec's (combine2, combineAll) to a kernel semiring id."""
+    key = (combine2, combine_all)
+    if key not in _SEMIRING_TABLE:
+        raise ValueError(f"no kernel semiring for {key}")
+    return _SEMIRING_TABLE[key]
+
+
+def has_semiring(combine2: str, combine_all: str) -> bool:
+    """Whether the (combine2, combineAll) pair has a kernel semiring."""
+    return (combine2, combine_all) in _SEMIRING_TABLE
+
+
+def dense_gimv(m: torch.Tensor, v: torch.Tensor, *, semiring: str) -> torch.Tensor:
+    """r = M (x) v.  m: float32 [M, K] (for min_src a 0/1 presence matrix);
+    v: float32 or int32 [K] -> r: [M] in v's dtype."""
+    _common.check_semiring(semiring)
+    dev = v.device
+    _common.check_tensor("v", v, dtypes=(torch.float32, torch.int32), ndim=1, device=dev)
+    _common.check_tensor("m", m, dtypes=(torch.float32,), ndim=2, device=dev)
+    if m.shape[1] != v.shape[0]:
+        raise ValueError(f"m {tuple(m.shape)} does not match v {tuple(v.shape)}")
+    if _common.use_plain(dev):
+        return dense_gimv_ref(m, v, semiring=semiring)
+    rows, k = m.shape
+    out = torch.empty(rows, dtype=v.dtype, device=dev)
+    if rows == 0:
+        return out
+    if k == 0:
+        return out.fill_(_common.identity(semiring, v.dtype))
+    from repro_torch.kernels.build import check_rc, load
+
+    fn = load("dense_gimv")
+    with torch.cuda.device(dev):
+        rc = fn(m.data_ptr(), v.data_ptr(), out.data_ptr(), rows, k,
+                _common.SEMIRING_ID[semiring], _common.VALUE_TYPE_ID[v.dtype],
+                _common.current_stream(dev))
+    check_rc(rc, "dense_gimv")
+    dense_gimv.launches += 1
+    return out
+
+
+dense_gimv.launches = 0

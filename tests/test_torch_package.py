@@ -1,0 +1,115 @@
+"""Package rules of the PyTorch port: it never imports JAX or the JAX
+package, its engine runs on the GPU unless told otherwise, and every knob
+outside the ported slice raises NotImplementedError naming the knob."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as J
+import repro_torch.core as T
+from repro.graph import erdos_renyi, rmat
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_modules_never_import_jax_or_reference():
+    """Import every repro_torch module (and chip_smoke.py) in a fresh
+    interpreter: neither jax nor repro may end up in sys.modules."""
+    code = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = []
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(info.name)
+    names.append(info.name)
+import importlib.util
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, env=env, timeout=300, check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    assert {"repro_torch.core.engine", "repro_torch.core.placement",
+            "repro_torch.kernels.build", "repro_torch.kernels.ell_spmv.ops",
+            "repro_torch.kernels.block_gimv.ops",
+            "repro_torch.kernels.scatter_combine.ops"} <= set(report["modules"])
+
+
+def test_engine_without_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    edges = rmat(6, 200, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.PMVEngine(edges, 64, b=2)
+    with pytest.raises(RuntimeError):
+        T.PMVEngine(edges, 64, b=2, device="cuda")
+    assert T.PMVEngine(edges, 64, b=2, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("knob", [
+    dict(mesh=object()), dict(store="x"), dict(residency="disk"), dict(exchange="packed"),
+    dict(exchange="hier"), dict(exchange="auto"), dict(capacity="model"),
+    dict(payload_dtype="bfloat16"), dict(delta_eps=0.0), dict(obs=True), dict(faults=object()),
+    dict(io_retry=object()), dict(backend="pallas"), dict(stream="on")])
+def test_knobs_outside_the_slice_raise(knob):
+    name = next(iter(knob))
+    with pytest.raises(NotImplementedError, match=name):
+        T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
+
+
+def test_checkpointing_and_query_axis_raise():
+    eng = T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, strategy="vertical", device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        eng.run(T.sssp(0), checkpoint_dir="ckpt")
+    matrix, v, ctx, mask, meta = eng.prepare(T.sssp(0))
+    with pytest.raises(NotImplementedError, match="query axis"):
+        T.placement_call(T.sssp(0), meta["cfg"], matrix, v[..., None], ctx, mask)
+
+
+def test_stream_auto_resolving_on_raises():
+    """b=8 with a small capacity makes the JAX package stream; the port has
+    no streamed executor yet and says so."""
+    edges = erdos_renyi(1024, 1500, seed=3)
+    assert J.PMVEngine(edges, 1024, b=8, strategy="vertical", backend="auto").prepare(
+        J.sssp(0))[-1]["cfg"].stream == "on"
+    with pytest.raises(NotImplementedError, match="stream"):
+        T.PMVEngine(edges, 1024, b=8, strategy="vertical", backend="auto",
+                    device="cpu").run(T.sssp(0))
+
+
+def test_spec_without_kernel_semiring_resolves_to_torch():
+    """(mul, min) has no kernel semiring: 'auto' resolves to the plain backend,
+    as the JAX package resolves it to 'xla'."""
+    def spec(mod, xp):
+        return mod.GimvSpec(name="mulmin", combine2="mul", combine_all="min",
+                            dtype=np.float32, assign=lambda v, r, c: xp.minimum(v, r),
+                            init=lambda ids, c: (ids % 7).astype(np.float32))
+    import jax.numpy as jnp
+
+    edges = rmat(7, 600, seed=2)
+    ref = J.PMVEngine(edges, 128, b=4, strategy="vertical", backend="auto")
+    port = T.PMVEngine(edges, 128, b=4, strategy="vertical", backend="auto", device="cpu")
+    j_spec, t_spec = spec(J, jnp), spec(T, torch)
+    assert ref.prepare(j_spec)[-1]["backend"] == "xla"
+    assert port.prepare(t_spec)[-1]["backend"] == "torch"
+    r_ref = ref.run(j_spec, max_iters=20, tol=0.5)
+    r_port = port.run(t_spec, max_iters=20, tol=0.5)
+    np.testing.assert_array_equal(r_port.v, r_ref.v)
+    assert r_port.iterations == r_ref.iterations
+
+
+def test_bad_spec_and_partition_arguments_raise():
+    with pytest.raises(ValueError, match="combine_all"):
+        T.GimvSpec(name="x", combine2="mul", combine_all="prod", dtype=np.float32,
+                   assign=None, init=None)
+    with pytest.raises(ValueError, match="psi"):
+        T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, psi="hash", device="cpu").run(T.sssp(0))
