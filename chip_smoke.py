@@ -5,7 +5,10 @@
 
 Phases, each printed as it ends; any failure exits non-zero:
 
-1. build   -- compile the three CUDA kernels from ``src/repro_torch/kernels/csrc``.
+1. build   -- compile the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+              (``ell_gimv``, ``dense_gimv``, ``scatter_combine`` and their Q-wide
+              forms ``ell_gimv_multi``, ``dense_gimv_multi``,
+              ``scatter_combine_multi``), one ``nvcc`` per source, in parallel.
 2. graph   -- RMAT(scale, 16 << scale) with the paper's a,b,c,d and b = 8 workers.
 3. runs    -- three ``PMVEngine(backend='auto', device='cuda').run`` solves:
               PageRank (strategy='selective'), SSSP from vertex 0
@@ -27,7 +30,28 @@ Phases, each printed as it ends; any failure exits non-zero:
               times are CUDA-event means.
    Each run is also profiled for 3 more iterations (torch.profiler): device
    time per iteration by kernel, host wall per iteration, idle share.
-5. summary -- the card, a ``{"kernels": [...]}`` line, and last the device line.
+5. serve   -- ``PMVServer(strategy='hybrid', theta=3000, backend='auto',
+              scatter='kernel', device='cuda')`` on the directed graph of
+              phase 2 answers 96 RWR (c=0.85, tol 1e-6) and 96 SSSP (tol 0.5)
+              queries, interleaved: each family fills one 64-wide batch and
+              admits 32 queries mid-batch.  Checks: every query retires
+              completed and converged; 8 RWR answers equal a scipy power
+              iteration of their own iteration count (rtol 1e-4), 16 SSSP
+              answers scipy's shortest paths exactly, 4 per family the
+              single-query ``PMVEngine.run`` on the family's own engine (SSSP
+              exactly; RWR for the served step count, rtol 1e-4); the
+              three Q-wide kernels launched and the single-vector ones did
+              not.  Then the Q-wide kernels are held against their plain
+              versions at the run's shapes (every ELL bucket on the served
+              state and a random [N, 64] block, the dense region, the
+              exchange buffers; 4 semirings + int32 min_src at Q = 64 and 5),
+              timed against their plain versions and a library yardstick
+              (ELL: beside the layout bound, the valid-slot bound of a
+              kernel that stops at a row's first all-pad 32-slot chunk),
+              and 3 batched iterations per family are profiled.  Prints
+              queries/s, latency p50/p99, batched-iteration ms and peak memory.
+6. summary -- the card, a ``{"kernels": [...]}`` line (six kernels), and last
+              the device line.
 
 Exits non-zero without a result when no CUDA device is present, or when the
 repository's ``src/repro_torch`` is not beside this file.
@@ -53,7 +77,15 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/block_gimv/block_gimv.py:152"),
     "scatter_combine": ("src/repro_torch/kernels/csrc/scatter_combine.cu",
                         "src/repro/kernels/scatter_combine/scatter_combine.py:61"),
+    "ell_gimv_multi": ("src/repro_torch/kernels/csrc/ell_gimv_multi.cu",
+                       "src/repro/kernels/ell_spmv/ell_spmv.py:135"),
+    "dense_gimv_multi": ("src/repro_torch/kernels/csrc/dense_gimv_multi.cu",
+                         "src/repro/kernels/block_gimv/block_gimv.py:111"),
+    "scatter_combine_multi": ("src/repro_torch/kernels/csrc/scatter_combine_multi.cu",
+                              "src/repro/kernels/scatter_combine/scatter_combine.py:302"),
 }
+SINGLE = ("ell_gimv", "dense_gimv", "scatter_combine")
+MULTI = ("ell_gimv_multi", "dense_gimv_multi", "scatter_combine_multi")
 
 
 class SmokeError(RuntimeError):
@@ -94,7 +126,12 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 
 KERNEL_CLASSES = (("ell_gimv_kernel", "ell_gimv"), ("dense_gimv_kernel", "dense_gimv"),
-                  ("scatter_pass", "scatter_combine"), ("fill_identity", "scatter_combine"))
+                  ("scatter_pass", "scatter_combine"),
+                  ("ell_gimv_multi_kernel", "ell_gimv_multi"),
+                  ("dense_gimv_multi_kernel", "dense_gimv_multi"),
+                  ("scatter_multi_pass", "scatter_combine_multi"),
+                  ("fill_identity_multi", "scatter_combine_multi"),
+                  ("fill_identity", "scatter_combine"))
 
 
 def device_breakdown(torch, run, iters: int) -> dict:
@@ -139,6 +176,11 @@ def device_breakdown(torch, run, iters: int) -> dict:
             "top_host_self_ms": head(host, 8)}
 
 
+def percentile(xs, p: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(p / 100.0 * (len(xs) - 1))))]
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
@@ -181,6 +223,24 @@ def pagerank_ref(np, sp, edges, n, iters, d=0.85):
     return v
 
 
+def rwr_ref(np, sp, edges, n, sources, iters, c=0.85):
+    """RWR of the port's formula, v <- (1-c) e_s + c A v from v = e_s, for
+    each source after its own iteration count (one CSR product per step for
+    all sources together)."""
+    src, dst = edges[:, 0], edges[:, 1]
+    out = np.bincount(src, minlength=n)
+    a = sp.csr_matrix((1.0 / np.maximum(out, 1)[src], (dst, src)), shape=(n, n))
+    e = np.zeros((n, len(sources)))
+    e[np.asarray(sources), np.arange(len(sources))] = 1.0
+    v, want = e.copy(), np.zeros_like(e)
+    for k in range(1, max(iters) + 1):
+        v = (1.0 - c) * e + c * (a @ v)
+        for j, it in enumerate(iters):
+            if it == k:
+                want[:, j] = v[:, j]
+    return want
+
+
 def sssp_ref(np, sp, csgraph, edges, n, source):
     a = sp.csr_matrix((np.ones(len(edges)), (edges[:, 0], edges[:, 1])), shape=(n, n))
     return csgraph.shortest_path(a, directed=True, unweighted=True, indices=source)
@@ -192,6 +252,335 @@ def cc_ref(np, sp, csgraph, edges, n):
     mins = np.full(labels.max() + 1, n, dtype=np.int64)
     np.minimum.at(mins, labels, np.arange(n))
     return mins[labels].astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# serve phase
+
+
+def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows, failures):
+    """PMVServer on the card: 96 RWR + 96 SSSP queries, interleaved, hybrid
+    placement, backend='auto', scatter='kernel', default buckets (8, 16, 32,
+    64): each family fills one 64-wide batch and admits 32 queries mid-batch.
+    Checks every answer's retirement, 8 RWR / 16 SSSP answers against scipy,
+    4 per family against the single-query engine, the launch counters, and
+    the three Q-wide kernels against their plain versions at the run's own
+    shapes; then times them and profiles 3 batched iterations per family."""
+    from repro_torch import kernels
+    from repro_torch.core import placement, sparse_exchange
+    from repro_torch.kernels import block_gimv, ell_spmv, scatter_combine
+    from repro_torch.serving import FAMILIES, PMVServer, Query, make_batched_step
+
+    outdeg = np.bincount(edges[:, 0], minlength=n)
+    srcs = np.random.default_rng(seed).choice(np.flatnonzero(outdeg >= 1), 192,
+                                                   replace=False)
+    queries = []
+    for i in range(96):
+        queries.append(Query("rwr", source=int(srcs[2 * i]), c=0.85, tol=1e-6))
+        queries.append(Query("sssp", source=int(srcs[2 * i + 1]), tol=0.5))
+    srv = PMVServer(edges, n, b=b, strategy="hybrid", theta=theta, backend="auto",
+                    scatter="kernel", stream="off", device=dev, max_iters=200)
+    fams = {}
+    for kind, q0 in (("rwr", queries[0]), ("sssp", queries[1])):
+        t = time.perf_counter()
+        eng, fspec = srv.engine_for(q0)
+        matrix, _, _, fmask, fmeta = eng.prepare(fspec)
+        fams[kind] = (eng, fspec, matrix, fmask, fmeta)
+        hm, dm = fmeta["hm"], matrix["dense_matrix"]
+        log(f"serve family {kind}: prepare_s={fmeta['prepare_s']:.2f} "
+            f"(wall {time.perf_counter() - t:.1f} s) strategy={fmeta['strategy']} "
+            f"backend={fmeta['backend']} theta={fmeta['theta']} dense vertices={fmeta['n_dense']} "
+            f"d_cap={hm.dense.d_cap} dense matrix={list(dm.shape)} "
+            f"({dm.numel() * 4 / 1e9:.2f} GB) capacity={fmeta['capacity']} "
+            f"ell buckets {[list(bk.cols.shape) for bk in matrix['planned_sparse'].buckets]}")
+        if fmeta["backend"] != "planned":
+            raise SmokeError(f"serve {kind}: backend resolved to {fmeta['backend']!r}")
+    torch.cuda.synchronize()
+    log(f"serve resident: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    results = srv.serve(queries)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = srv.stats()
+    lat = [r.latency_s for r in results]
+    walls = [1e3 * w for w in st["iter_wall_s"]]
+    by_kind = {k: [r for r in results if r.query.spec_kind == k] for k in ("rwr", "sssp")}
+    iters = {k: [r.iterations for r in v] for k, v in by_kind.items()}
+    log(f"serve: {len(results)} queries in {serve_s:.3f} s -> {len(results) / serve_s:.3f} "
+        f"queries/s; latency p50 {percentile(lat, 50):.3f} s p99 {percentile(lat, 99):.3f} s; "
+        f"batches={st['batches']} admitted_mid_batch={st['admitted_mid_batch']} "
+        f"batched iterations={int(st['iterations'])} median_iter_ms={np.median(walls):.3f} "
+        f"p99_iter_ms={percentile(walls, 99):.3f} max_iter_ms={max(walls):.3f} "
+        f"peak_gib={peak:.2f} reasons={json.dumps(st['retirement_reasons'])} "
+        f"query iterations rwr {min(iters['rwr'])}-{max(iters['rwr'])} "
+        f"sssp {min(iters['sssp'])}-{max(iters['sssp'])} launches={json.dumps(counts)}")
+
+    # -- checks -------------------------------------------------------------
+    bad = [r.qid for r in results if r.reason != "completed" or not r.converged]
+    if bad:
+        failures.append(f"serve: {len(bad)} queries did not retire completed and converged "
+                        f"(qids {bad[:10]})")
+    if st["batches"] != 2 or st["admitted_mid_batch"] != 64:
+        failures.append(f"serve: expected 2 batches and 64 mid-batch admissions, got "
+                        f"{st['batches']} and {st['admitted_mid_batch']}")
+    for name in MULTI:
+        if counts[name] == 0:
+            raise SmokeError(f"serve: kernel {name} never launched on the serve path")
+        rows.setdefault(name, {"launches": 0})["launches"] += counts[name]
+    for name in SINGLE:
+        if counts[name] != 0:
+            raise SmokeError(f"serve: single-vector kernel {name} launched {counts[name]} "
+                             "times while serving")
+    pick = by_kind["rwr"][::12][:8]
+    want = rwr_ref(np, sp, edges, n, [r.query.source for r in pick], [r.iterations for r in pick])
+    got = np.stack([r.vector for r in pick], axis=1)
+    ok = np.allclose(got, want, rtol=1e-4, atol=1e-12)
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+    log(f"check serve rwr x{len(pick)} vs scipy power iteration (their own iteration counts): "
+        f"max rel err {rel:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("served rwr disagrees with scipy")
+    pick = by_kind["sssp"][::6][:16]
+    want = sssp_ref(np, sp, csgraph, edges, n, [r.query.source for r in pick])
+    ok = all(np.array_equal(r.vector.astype(np.float64), want[j]) for j, r in enumerate(pick))
+    log(f"check serve sssp x{len(pick)} vs scipy shortest_path: reached "
+        f"{int(np.isfinite(want).sum())} (source, vertex) pairs -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("served sssp disagrees with scipy")
+    for kind in ("rwr", "sssp"):
+        eng, fspec = fams[kind][:2]
+        fam = FAMILIES[kind]
+        for r in by_kind[kind][::24][:4]:
+            q = r.query
+            if kind == "sssp":
+                one = eng.run(fspec, fam.ctx_columns(n, q) or None, max_iters=srv.max_iters,
+                              tol=q.tol, v0=fam.init_column(n, q))
+                ok = one.converged and one.iterations == r.iterations and \
+                    np.array_equal(one.v, r.vector)
+            else:
+                # exactly the served query's step count (tol -1 never stops
+                # early), so the two differ by float32 rounding only
+                one = eng.run(fspec, fam.ctx_columns(n, q) or None, max_iters=r.iterations,
+                              tol=-1.0, v0=fam.init_column(n, q))
+                ok = one.iterations == r.iterations and \
+                    np.allclose(one.v, r.vector, rtol=1e-4, atol=1e-12)
+            log(f"check serve {kind} qid {r.qid} (source {q.source}) vs single-query "
+                f"PMVEngine.run: iterations {r.iterations} / {one.iterations} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"served {kind} qid {r.qid} disagrees with the single-query run")
+
+    # -- the Q-wide kernels against their plain versions, at the run's shapes --
+    def rand_block(rows_, nq, dtype=torch.float32):
+        if dtype == torch.int32:
+            return torch.randint(0, n, (rows_, nq), generator=gen, device=dev, dtype=torch.int32)
+        return torch.rand((rows_, nq), generator=gen, device=dev)
+
+    sweep = (("plus_times", torch.float32), ("min_plus", torch.float32),
+             ("max_plus", torch.float32), ("min_src", torch.float32), ("min_src", torch.int32))
+    states, buffers = {}, {}
+    for kind in ("rwr", "sssp"):
+        eng, fspec, matrix, fmask, fmeta = fams[kind]
+        semiring = "plus_times" if kind == "rwr" else "min_plus"
+        part = fmeta["part"]
+        nl = part.n_local
+        state = np.stack([part.to_blocked(r.vector) for r in by_kind[kind][:64]], axis=-1)
+        v_state = torch.from_numpy(np.ascontiguousarray(state)).to(dev)    # [b, nl, 64]
+        states[kind] = v_state
+        v_flat = v_state.reshape(-1, 64)
+        fp = matrix["planned_sparse"]
+        v_rand = rand_block(v_flat.shape[0], 64)
+        for i, bk in enumerate(fp.buckets):
+            for which, v in (("served", v_flat), ("random", v_rand)):
+                compare(torch, ell_spmv.ell_gimv_multi(bk.cols, bk.w, v, semiring=semiring),
+                        ell_spmv.ell_gimv_multi_ref(bk.cols, bk.w, v, semiring=semiring),
+                        semiring, f"serve {kind} ell bucket {i} {tuple(bk.cols.shape)} {which} v")
+        big = max(fp.buckets, key=lambda x: x.cols.numel())
+        for nq in (64, 5):
+            for sr, dtype in sweep:
+                v = rand_block(v_flat.shape[0], nq, dtype)
+                compare(torch, ell_spmv.ell_gimv_multi(big.cols, big.w, v, semiring=sr),
+                        ell_spmv.ell_gimv_multi_ref(big.cols, big.w, v, semiring=sr), sr,
+                        f"serve {kind} ell {sr} {dtype} Q={nq} {tuple(big.cols.shape)}")
+        del v_rand
+        gidx = matrix["dense_region"].gather_idx
+        v_d = torch.gather(v_state, 1, gidx[:, :, None].expand(-1, -1, 64)).reshape(-1, 64)
+        dm = matrix["dense_matrix"]
+        for v in (v_d.contiguous(), v_d[:, :5].contiguous()):
+            compare(torch, block_gimv.dense_gimv_multi(dm, v, semiring=semiring),
+                    block_gimv.dense_gimv_multi_ref(dm, v, semiring=semiring), semiring,
+                    f"serve {kind} dense {tuple(dm.shape)} x served Q={v.shape[1]}")
+        if kind == "rwr":   # finite matrix values: every semiring on it
+            for nq in (64, 5):
+                for sr, dtype in sweep:
+                    v = rand_block(dm.shape[1], nq, dtype)
+                    compare(torch, block_gimv.dense_gimv_multi(dm, v, semiring=sr),
+                            block_gimv.dense_gimv_multi_ref(dm, v, semiring=sr), sr,
+                            f"serve dense {sr} {dtype} Q={nq} {tuple(dm.shape)}")
+        partials = placement._planned_vertical_partials(fspec, fp, v_state, nl)
+        idx, val, _, _ = sparse_exchange.compact_partials(fspec, partials, fmeta["capacity"],
+                                                          batched=True)
+        del partials
+        idx_x, val_x = idx.transpose(0, 1).contiguous(), val.transpose(0, 1).contiguous()
+        del idx, val
+        buffers[kind] = (idx_x, val_x, nl)
+        for vv in (val_x, val_x[..., :5].contiguous()):
+            compare(torch, scatter_combine.scatter_combine_gimv_multi(idx_x, vv, nl,
+                                                                      semiring=semiring),
+                    scatter_combine.scatter_combine_multi_ref(idx_x, vv, nl, semiring=semiring),
+                    semiring, f"serve {kind} scatter {tuple(vv.shape)} served")
+        log(f"kernels serve {kind}: ell_gimv_multi on {len(fp.buckets)} buckets (served and "
+            f"random v) and 4 semirings at Q=64 and 5; dense_gimv_multi {list(dm.shape)}; "
+            f"scatter_combine_multi {list(val_x.shape)} -- all match their plain versions")
+    idx_x, val_x, nl = buffers["sssp"]
+    shape = tuple(val_x.shape)
+    for nq in (64, 5):
+        for sr, dtype in sweep:
+            vv = rand_block(shape[0] * shape[1] * shape[2], nq, dtype).reshape(shape[:3] + (nq,))
+            compare(torch, scatter_combine.scatter_combine_gimv_multi(idx_x, vv, nl, semiring=sr),
+                    scatter_combine.scatter_combine_multi_ref(idx_x, vv, nl, semiring=sr), sr,
+                    f"serve scatter {sr} {dtype} Q={nq} {tuple(idx_x.shape)}")
+    rv = torch.rand(val_x.shape, generator=gen, device=dev)
+    r1 = scatter_combine.scatter_combine_gimv_multi(idx_x, rv, nl, semiring="plus_times")
+    r2 = scatter_combine.scatter_combine_gimv_multi(idx_x, rv, nl, semiring="plus_times")
+    if not torch.equal(r1, r2):
+        raise SmokeError("scatter_combine_multi plus_times is not reproducible run to run")
+    del rv, r1, r2
+    log("kernels serve: scatter_combine_multi matches for 4 semirings at Q=64 and 5; "
+        "plus_times bitwise reproducible")
+
+    # -- times: kernel, plain version, library yardstick, bound ----------------
+    eng, fspec, matrix, fmask, fmeta = fams["rwr"]
+    v_flat = states["rwr"].reshape(-1, 64)
+    big = max(matrix["planned_sparse"].buckets, key=lambda x: x.cols.numel())
+    r_, d_ = big.cols.shape
+    ms = time_ms(torch, lambda: ell_spmv.ell_gimv_multi(big.cols, big.w, v_flat,
+                                                        semiring="plus_times"), 20)
+    plain_ms = time_ms(torch, lambda: ell_spmv.ell_gimv_multi_ref(big.cols, big.w, v_flat,
+                                                                  semiring="plus_times"), 2,
+                       warmup=1)
+    got = ell_spmv.ell_gimv_multi(big.cols, big.w, v_flat, semiring="plus_times")
+    err = compare(torch, got, ell_spmv.ell_gimv_multi_ref(big.cols, big.w, v_flat,
+                                                          semiring="plus_times"),
+                  "plus_times", "ell multi timed bucket")
+    valid = big.cols >= 0
+    nnz = int(valid.sum())
+    deg = valid.sum(dim=1)
+    crow = torch.zeros(r_ + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(deg, 0)
+    lib_ms = None
+    try:   # yardstick only: a CSR x dense product over the bucket's valid slots
+        csr = torch.sparse_csr_tensor(crow, big.cols[valid].to(torch.int64), big.w[valid],
+                                      size=(r_, v_flat.shape[0]))
+        lib_out = torch.sparse.mm(csr, v_flat)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"library yardstick for ell_gimv_multi unavailable: {e}")
+    else:
+        compare(torch, got, lib_out, "plus_times", "ell multi vs torch.sparse.mm")
+        lib_ms = time_ms(torch, lambda: torch.sparse.mm(csr, v_flat), 20)
+        del csr, lib_out
+    nq = 64
+    # the layout bound reads every padded col; the valid-slot bound is what a
+    # kernel that stops at a row's first all-pad 32-slot chunk would read:
+    # 128 B per started chunk, the valid weights, each v row the bucket
+    # touches once (4 * Q bytes), and the [R, Q] output
+    b_ms, b_by = bound(r_ * d_ * 4 + nnz * 4 + min(nnz, v_flat.shape[0]) * nq * 4 + r_ * nq * 4,
+                       2 * nnz * nq)
+    chunks = int(torch.clamp((deg + 31) // 32, min=1).sum())
+    touched = int(torch.unique(big.cols[valid]).numel())
+    valid_b_ms, _ = bound(chunks * 128 + nnz * 4 + touched * nq * 4 + r_ * nq * 4,
+                          2 * nnz * nq)
+    rows["ell_gimv_multi"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, valid_slot_bound_ms=valid_b_ms, semiring="plus_times",
+        shape=[r_, d_, nq], occupancy=nnz / (r_ * d_))
+    log(f"time ell_gimv_multi plus_times {[r_, d_]} x Q={nq} occupancy {nnz / (r_ * d_):.4f}: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.sparse.mm "
+        f"{'unavailable' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound {b_ms:.3f} ms "
+        f"({b_by}, layout), {valid_b_ms:.4f} ms (valid slots: {chunks} chunks, {nnz} slots, "
+        f"{touched} v rows); kernel / valid-slot bound {ms / valid_b_ms:.2f}x")
+    del got, valid, deg, crow
+
+    dm = matrix["dense_matrix"]
+    m_, k_ = dm.shape
+    vf = rand_block(k_, nq)
+    ms = time_ms(torch, lambda: block_gimv.dense_gimv_multi(dm, vf, semiring="plus_times"), 10)
+    plain_ms = time_ms(torch, lambda: block_gimv.dense_gimv_multi_ref(dm, vf,
+                                                                      semiring="plus_times"), 2,
+                       warmup=1)
+    lib_ms = time_ms(torch, lambda: torch.matmul(dm, vf), 10)
+    got = block_gimv.dense_gimv_multi(dm, vf, semiring="plus_times")
+    err = compare(torch, got, block_gimv.dense_gimv_multi_ref(dm, vf, semiring="plus_times"),
+                  "plus_times", "dense multi timed call")
+    compare(torch, got, torch.matmul(dm, vf), "plus_times", "dense multi vs torch.matmul")
+    sdm = fams["sssp"][2]["dense_matrix"]
+    vs = rand_block(sdm.shape[1], nq)
+    ms_min = time_ms(torch, lambda: block_gimv.dense_gimv_multi(sdm, vs, semiring="min_plus"), 10)
+    b_ms, b_by = bound(m_ * k_ * 4 + k_ * nq * 4 + m_ * nq * 4, 2 * m_ * k_ * nq)
+    rows["dense_gimv_multi"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, semiring="plus_times", shape=[m_, k_, nq], min_plus_ms=ms_min)
+    log(f"time dense_gimv_multi {[m_, k_]} x Q={nq}: plus_times kernel {ms:.3f} ms "
+        f"({2 * m_ * k_ * nq / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, torch.matmul "
+        f"(no TF32) {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); min_plus kernel "
+        f"{ms_min:.3f} ms")
+    del got, vf, vs
+
+    idx_x, val_x, nl = buffers["sssp"]
+    s_, b_, cap, _ = val_x.shape
+    ms = time_ms(torch, lambda: scatter_combine.scatter_combine_gimv_multi(
+        idx_x, val_x, nl, semiring="min_plus"), 20)
+    plain_ms = time_ms(torch, lambda: scatter_combine.scatter_combine_multi_ref(
+        idx_x, val_x, nl, semiring="min_plus"), 5, warmup=1)
+    got = scatter_combine.scatter_combine_gimv_multi(idx_x, val_x, nl, semiring="min_plus")
+    err = compare(torch, got, scatter_combine.scatter_combine_multi_ref(
+        idx_x, val_x, nl, semiring="min_plus"), "min_plus", "scatter multi timed call")
+    flat = idx_x.reshape(s_, -1).to(torch.int64)
+    flat = (torch.where(flat < nl, flat, nl)
+            + torch.arange(s_, device=dev)[:, None] * (nl + 1)).reshape(-1)
+    fval = val_x.reshape(-1, nq)
+    base = torch.full((s_ * (nl + 1), nq), float("inf"), device=dev)
+    lib_ms = time_ms(torch, lambda: base.clone().index_reduce_(0, flat, fval, "amin"), 20)
+    lib = base.clone().index_reduce_(0, flat, fval, "amin").reshape(s_, nl + 1, nq)[:, :nl]
+    compare(torch, got, lib, "min_plus", "scatter multi vs index_reduce_")
+    n_valid = int((idx_x < nl).sum())
+    b_ms, b_by = bound(s_ * b_ * cap * 4 + n_valid * nq * 4 + s_ * nl * nq * 4, n_valid * nq)
+    rows["scatter_combine_multi"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, semiring="min_plus", shape=[s_, b_, cap, nq], n_local=nl)
+    log(f"time scatter_combine_multi min_plus {[s_, b_, cap, nq]} n_local {nl} valid "
+        f"{n_valid}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_reduce_ {lib_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    del got, flat, fval, base, lib, buffers
+
+    # -- profile 3 batched iterations per family --------------------------------
+    for kind in ("rwr", "sssp"):
+        eng, fspec, matrix, fmask, fmeta = fams[kind]
+        fam = FAMILIES[kind]
+        step = make_batched_step(fspec, fmeta["cfg"], delta_kind=fam.delta_kind)
+        part = fmeta["part"]
+        ctx = {}
+        if kind == "rwr":
+            restart = np.stack([part.to_blocked(fam.ctx_columns(n, r.query)["restart"])
+                                for r in by_kind[kind][:64]], axis=-1)
+            ctx["restart"] = torch.from_numpy(np.ascontiguousarray(restart)).to(dev)
+        active = torch.ones(64, dtype=torch.bool, device=dev)
+
+        def three(step=step, matrix=matrix, ctx=ctx, fmask=fmask, v=states[kind]):
+            for _ in range(3):
+                v, deltas, _ = step(matrix, v, ctx, fmask, active)
+                deltas.tolist()      # the server's one host copy per iteration
+
+        prof = device_breakdown(torch, three, 3)
+        log(f"profile serve {kind} (3 batched iterations, Q=64): {json.dumps(prof)}")
+    srv.close()
+    del fams, states
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +617,7 @@ def main() -> int:
     from repro_torch.kernels.build import build_all
 
     warnings.filterwarnings("ignore", message="Sparse")   # the CSR yardstick's beta notes
+    warnings.filterwarnings("ignore", message="index_reduce")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -483,6 +873,9 @@ def main() -> int:
         f"torch.mv {lib_ms:.3f} ms, bound {b_ms:.3f} ms; min_src int32 kernel {ms_src:.3f} ms")
     del eng, matrix, fp, dm
     torch.cuda.empty_cache()
+
+    # -- serve: PMVServer, hybrid theta=3000, 96 RWR + 96 SSSP queries at Q=64 ---
+    serve_phase(args.seed, torch, np, sp, csgraph, dev, gen, edges, n, b, 3000.0, rows, failures)
 
     if failures:
         raise SmokeError("; ".join(failures))

@@ -8,6 +8,9 @@ its plain PyTorch version.
 Per iteration the engine reports *physical* communicated elements (the
 static buffers an exchange would move) and *logical* elements (value-level
 non-identity entries, the paper's I/O metric).
+
+``placement_call`` and ``StepConfig`` also serve the multi-query step of
+``repro_torch.serving``: v and ctx may carry a trailing query axis.
 """
 from __future__ import annotations
 
@@ -349,12 +352,22 @@ class PMVEngine:
         checkpoint_dir: str | None = None,
         checkpoint_every: int = 0,
         resume: bool = False,
+        v0: np.ndarray | None = None,
     ) -> PMVResult:
+        """Iterate to ``tol`` or ``max_iters``.
+
+        ``v0`` (a global [n] vector) starts the solve in place of
+        ``spec.init``.  The JAX package has no such argument: it exists for
+        parity checks, so that a query served by ``PMVServer`` can be solved
+        alone on the same prepared spec (``PMVServer.engine_for``) without a
+        second prepare, a spec's static prepare being cached per spec object."""
         if checkpoint_dir is not None or checkpoint_every or resume:
             raise _not_ported("checkpoint_dir / checkpoint_every / resume")
         matrix, v, ctx_b, mask, meta = self.prepare(spec, ctx)
         part: Partition = meta["part"]
         cfg: StepConfig = meta["cfg"]
+        if v0 is not None:
+            v = self._put(part.to_blocked(np.asarray(v0, dtype=spec.dtype)))
 
         per_iter: list[dict] = []
         converged = False

@@ -23,6 +23,13 @@ Backends (``StepConfig.backend``):
 
 ``scatter`` picks the receive side of the compact exchange in both backends:
 'segment' (segment combine) or 'kernel' (the scatter-combine kernel).
+
+Multi-query: v_local may carry a trailing query axis ([b, n_local, Q], one
+query per column, as PMVServer batches them).  Every step carries it through
+gathers, segment combines, the exchange and assign; the planned executors
+then take the Q-wide kernels (``ell_gimv_multi``, ``dense_gimv_multi``,
+``scatter_combine_gimv_multi``), and the compact exchange keeps one index set
+per partial row for all Q columns.
 """
 from __future__ import annotations
 
@@ -35,8 +42,8 @@ from repro_torch.core import sparse_exchange
 from repro_torch.core.blocks import BlockEdges, DenseRegion, PlannedStripe
 from repro_torch.core.gimv import (GimvSpec, combine2, combine_elementwise,
                                    segment_combine, tree_combine)
-from repro_torch.kernels.block_gimv import dense_gimv, semiring_of
-from repro_torch.kernels.ell_spmv import ell_gimv
+from repro_torch.kernels.block_gimv import dense_gimv, dense_gimv_multi, semiring_of
+from repro_torch.kernels.ell_spmv import ell_gimv, ell_gimv_multi
 
 __all__ = [
     "horizontal_step",
@@ -61,10 +68,10 @@ def _ident(spec: GimvSpec, device) -> torch.Tensor:
     return torch.full((), spec.identity, dtype=spec.torch_dtype, device=device)
 
 
-def _single_query(v_local: torch.Tensor) -> None:
-    if v_local.ndim != 2:
-        raise NotImplementedError(
-            "a trailing query axis on v (multi-query) is not supported yet")
+def _num_queries(v_local: torch.Tensor) -> int | None:
+    """Trailing query-axis size of the blocked vector ([b, n_local, Q]), or
+    None for the single-vector path ([b, n_local])."""
+    return v_local.shape[-1] if v_local.ndim == 3 else None
 
 
 # --------------------------------------------------------------------------
@@ -75,47 +82,53 @@ def _edges_x(spec: GimvSpec, stripe: BlockEdges, v_flat: torch.Tensor,
              row_offset: torch.Tensor) -> torch.Tensor:
     """combine2 over all edges of stacked stripes [W, b, E_cap]: edge (w, k, e)
     reads v_flat[row_offset[w, k] + gat_local[w, k, e]].  Padding slots get
-    the identity."""
+    the identity.  A trailing query axis on v_flat ([N, Q]) broadcasts the
+    weights and the padding mask across queries: x [W, b, E_cap, Q]."""
     e_cap = stripe.seg_local.shape[-1]
     dev = v_flat.device
     mask = torch.arange(e_cap, device=dev)[None, None, :] < stripe.count[:, :, None]
     vj = v_flat[stripe.gat_local + row_offset[:, :, None]]
-    x = combine2(spec, stripe.w if spec.needs_weights else None, vj)
+    w = stripe.w if spec.needs_weights else None
+    if v_flat.ndim == 2:
+        mask = mask[..., None]
+        w = None if w is None else w[..., None]
+    x = combine2(spec, w, vj)
     return torch.where(mask, x.to(vj.dtype), _ident(spec, dev))
 
 
 def _segment_blocks(spec: GimvSpec, stripe: BlockEdges, x: torch.Tensor,
                     n_local: int) -> torch.Tensor:
-    """Segment-combine [W, b, E_cap] edge values into [W, b, n_local]."""
-    w_, b, _ = x.shape
+    """Segment-combine [W, b, E_cap(, Q)] edge values into [W, b, n_local(, Q)]."""
+    w_, b = x.shape[:2]
+    tail = tuple(x.shape[3:])
     dev = x.device
     off = (torch.arange(w_ * b, device=dev).reshape(w_, b) * n_local)[:, :, None]
-    flat = segment_combine(spec, x.reshape(-1), (stripe.seg_local + off).reshape(-1),
+    flat = segment_combine(spec, x.reshape((-1,) + tail), (stripe.seg_local + off).reshape(-1),
                            w_ * b * n_local)
-    return flat.reshape(w_, b, n_local)
+    return flat.reshape((w_, b, n_local) + tail)
 
 
 def block_gimv_partials(spec: GimvSpec, stripe: BlockEdges, v_local: torch.Tensor,
                         n_local: int) -> torch.Tensor:
     """Vertical sub-multiplications v^(i,j) = M^(i,j) (x) v^(j) of every
-    worker j: [b_w, b, n_local] (identity where structurally empty)."""
+    worker j: [b_w, b, n_local(, Q)] (identity where structurally empty)."""
     w_, b = stripe.count.shape
     row_off = (torch.arange(w_, device=v_local.device) * n_local)[:, None].expand(w_, b)
-    x = _edges_x(spec, stripe, v_local.reshape(-1), row_off)
+    x = _edges_x(spec, stripe, v_local.reshape((-1,) + tuple(v_local.shape[2:])), row_off)
     return _segment_blocks(spec, stripe, x, n_local)
 
 
 def gathered_gimv(spec: GimvSpec, stripe: BlockEdges, v_blocks: torch.Tensor,
                   n_local: int) -> torch.Tensor:
     """Horizontal compute of every worker: r^(i) = combineAll_j M^(i,j) (x)
-    v^(j), with v_blocks [b, m] the gathered per-block source vectors
+    v^(j), with v_blocks [b, m(, Q)] the gathered per-block source vectors
     (m = n_local, or d_cap for the hybrid dense region).  combineAll across
     source blocks is the pairwise tree fold (order set by b alone).
-    Returns [b_w, n_local]."""
+    Returns [b_w, n_local(, Q)]."""
     w_, b = stripe.count.shape
     m = v_blocks.shape[1]
     row_off = (torch.arange(b, device=v_blocks.device) * m)[None, :].expand(w_, b)
-    x = _edges_x(spec, stripe, v_blocks.reshape(-1), row_off)
+    x = _edges_x(spec, stripe, v_blocks.reshape((-1,) + tuple(v_blocks.shape[2:])), row_off)
     contribs = _segment_blocks(spec, stripe, x, n_local)
     return tree_combine(spec, [contribs[:, j] for j in range(b)])
 
@@ -125,22 +138,27 @@ def gathered_gimv(spec: GimvSpec, stripe: BlockEdges, v_blocks: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def ell_gimv_call(spec: GimvSpec, cols, w, v):
-    """One ELL table [R, D] through the ELL GIM-V kernel -> r [R]."""
-    return ell_gimv(cols, w if spec.needs_weights else None, v,
-                    semiring=semiring_of(spec.combine2, spec.combine_all))
+    """One ELL table [R, D] through the ELL GIM-V kernel: v [N] -> r [R], or
+    the multi-query kernel: v [N, Q] -> r [R, Q]."""
+    fn = ell_gimv_multi if v.ndim == 2 else ell_gimv
+    return fn(cols, w if spec.needs_weights else None, v,
+              semiring=semiring_of(spec.combine2, spec.combine_all))
 
 
 def _dense_call(spec: GimvSpec, matrix2d, operand):
-    """One dense launch over a materialized matrix [M, K] -> r [M]."""
-    return dense_gimv(matrix2d, operand, semiring=semiring_of(spec.combine2, spec.combine_all))
+    """One dense launch over a materialized matrix [M, K]: operand [K] ->
+    r [M], or (multi-query kernel) operand [K, Q] -> r [M, Q]."""
+    fn = dense_gimv_multi if operand.ndim == 2 else dense_gimv
+    return fn(matrix2d, operand, semiring=semiring_of(spec.combine2, spec.combine_all))
 
 
 def _dense_region_gimv(spec: GimvSpec, dense_matrix, v_d, n_local: int):
     """Hybrid dense region: the materialized [b_w * n_local, b * d_cap] matrix
-    against the flat gathered dense sub-vector v_d [b, d_cap], one dense
-    kernel launch.  Returns r_dense [b_w, n_local]."""
-    r = _dense_call(spec, dense_matrix, v_d.reshape(-1).contiguous())
-    return r.reshape(-1, n_local)
+    against the flat gathered dense sub-vector v_d [b, d_cap(, Q)], one dense
+    kernel launch.  Returns r_dense [b_w, n_local(, Q)]."""
+    tail = tuple(v_d.shape[2:])
+    r = _dense_call(spec, dense_matrix, v_d.reshape((-1,) + tail).contiguous())
+    return r.reshape((-1, n_local) + tail)
 
 
 # --------------------------------------------------------------------------
@@ -232,10 +250,10 @@ def flatten_planned(planned: PlannedStripe, n_local: int, n_workers: int,
 
 
 def _planned_out(spec: GimvSpec, fp: FlatPlanned, v_flat: torch.Tensor) -> torch.Tensor:
-    """Run every ELL bucket against v_flat and place its rows in the flat
-    output [drop + 1] (identity where no bucket has the row)."""
-    out = torch.full((fp.drop + 1,), spec.identity, dtype=spec.torch_dtype,
-                     device=v_flat.device)
+    """Run every ELL bucket against v_flat [N(, Q)] and place its rows in the
+    flat output [drop + 1(, Q)] (identity where no bucket has the row)."""
+    out = torch.full((fp.drop + 1,) + tuple(v_flat.shape[1:]), spec.identity,
+                     dtype=spec.torch_dtype, device=v_flat.device)
     for bk in fp.buckets:
         out.index_copy_(0, bk.rows, ell_gimv_call(spec, bk.cols, bk.w, v_flat))
     return out
@@ -245,12 +263,14 @@ def _planned_merged_gimv(spec: GimvSpec, fp: FlatPlanned, v_local: torch.Tensor,
                          n_local: int) -> torch.Tensor:
     """Planned horizontal compute: per-bucket ELL launches against the flat
     gathered vector (which in emulation is v_local itself) plus one dense
-    launch per worker.  Returns r [b_w, n_local]."""
+    launch per worker.  Returns r [b_w, n_local(, Q)]."""
     b_w = v_local.shape[0]
-    out = _planned_out(spec, fp, v_local.reshape(-1))
-    r_all = out[:fp.drop].reshape(b_w, n_local)
+    tail = tuple(v_local.shape[2:])
+    out = _planned_out(spec, fp, v_local.reshape((-1,) + tail))
+    r_all = out[:fp.drop].reshape((b_w, n_local) + tail)
     if fp.dense_matrix is not None:
-        r_ds = [_dense_call(spec, fp.dense_matrix[wk], v_local[fp.dense_index[wk]].reshape(-1))
+        r_ds = [_dense_call(spec, fp.dense_matrix[wk],
+                            v_local[fp.dense_index[wk]].reshape((-1,) + tail))
                 for wk in range(b_w)]
         r_all = combine_elementwise(spec, r_all, torch.stack(r_ds))
     return r_all
@@ -260,25 +280,30 @@ def _planned_vertical_partials(spec: GimvSpec, fp: FlatPlanned, v_local: torch.T
                                n_local: int) -> torch.Tensor:
     """Planned vertical compute: all destination-block partials through the
     per-bucket ELL launches plus one dense launch per worker, placed into the
-    flat partial space.  Returns partials [b_w, b, n_local]."""
+    flat partial space.  Returns partials [b_w, b, n_local(, Q)]."""
     b_w = v_local.shape[0]
-    out = _planned_out(spec, fp, v_local.reshape(-1))
+    tail = tuple(v_local.shape[2:])
+    out = _planned_out(spec, fp, v_local.reshape((-1,) + tail))
     if fp.dense_matrix is not None:
         for wk in range(b_w):
             out.index_copy_(0, fp.dense_rows[wk],
                             _dense_call(spec, fp.dense_matrix[wk], v_local[wk]))
-    return out[:fp.drop].reshape(b_w, fp.rows_out // n_local, n_local)
+    return out[:fp.drop].reshape((b_w, fp.rows_out // n_local, n_local) + tail)
 
 
 # --------------------------------------------------------------------------
-# Placement steps: take/return the blocked vector v_local [b, n_local] and
-# return (v_new, r, stats).  stats counts GLOBAL elements / bytes per
-# iteration; values are Python floats or float32 scalar tensors.
+# Placement steps: take/return the blocked vector v_local [b, n_local(, Q)]
+# and return (v_new, r, stats).  stats counts GLOBAL elements / bytes per
+# iteration (a Q-wide batch moves Q values per element); values are Python
+# floats or float32 scalar tensors.
 # --------------------------------------------------------------------------
 
 def apply_assign(spec: GimvSpec, v_local, r_local, ctx_local, real_mask):
-    """assign, with padding ids (real_mask False) frozen."""
+    """assign, with padding ids (real_mask False) frozen; the mask broadcasts
+    over a trailing query axis."""
     v_new = spec.assign(v_local, r_local, ctx_local)
+    if v_new.ndim > real_mask.ndim:
+        real_mask = real_mask[..., None]
     return torch.where(real_mask, v_new.to(v_local.dtype), v_local)
 
 
@@ -286,7 +311,7 @@ def horizontal_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_loca
                     real_mask, *, n_local: int, planned: FlatPlanned | None = None,
                     backend: str = "torch"):
     """Alg. 1: gather the whole vector, compute the row stripe locally."""
-    _single_query(v_local)
+    nq = _num_queries(v_local)
     if backend == "planned":
         r = _planned_merged_gimv(spec, planned, v_local, n_local)
     else:
@@ -295,28 +320,30 @@ def horizontal_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_loca
     b = v_local.shape[0]
     vb = np.dtype(spec.dtype).itemsize
     stats = {
-        "gathered_elems": float(b * (b - 1) * n_local),
+        "gathered_elems": float(b * (b - 1) * n_local * (nq or 1)),
         "exchanged_elems": 0.0,
-        "gathered_bytes": float(b * (b - 1) * n_local * vb),
+        "gathered_bytes": float(b * (b - 1) * n_local * (nq or 1) * vb),
         "exchanged_bytes": 0.0,
     }
     return v_new, r, stats
 
 
-def _compact_exchange(spec: GimvSpec, partials, capacity: int, n_local: int, scatter: str):
-    """Compact the [b_w, b, n_local] partials, exchange them (transpose) and
-    fold them at their owners.  Returns (r [b, n_local], stats)."""
-    idx, val, overflow, logical = sparse_exchange.compact_partials(spec, partials, capacity)
+def _compact_exchange(spec: GimvSpec, partials, capacity: int, n_local: int, scatter: str,
+                      nq: int | None):
+    """Compact the [b_w, b, n_local(, Q)] partials, exchange them (transpose)
+    and fold them at their owners.  Returns (r [b, n_local(, Q)], stats)."""
+    idx, val, overflow, logical = sparse_exchange.compact_partials(
+        spec, partials, capacity, batched=nq is not None)
     r = sparse_exchange.scatter_partials(spec, _all_to_all(idx), _all_to_all(val), n_local,
                                          method=scatter)
     b = idx.shape[-2]
     itemsize = np.dtype(spec.dtype).itemsize
-    id_b, pay_b = sparse_exchange.exchange_wire_split(b, capacity, None, itemsize)
+    id_b, pay_b = sparse_exchange.exchange_wire_split(b, capacity, nq, itemsize)
     stats = {
         "gathered_elems": 0.0,
-        "exchanged_elems": float(b * (b - 1) * capacity * 2),
+        "exchanged_elems": float(b * (b - 1) * capacity * (1 + (nq or 1))),
         "gathered_bytes": 0.0,
-        "exchanged_bytes": sparse_exchange.exchange_wire_bytes(b, capacity, None, itemsize),
+        "exchanged_bytes": sparse_exchange.exchange_wire_bytes(b, capacity, nq, itemsize),
         "exchange_id_bytes": id_b,
         "exchange_payload_bytes": pay_b,
         "logical_elems": logical,
@@ -334,7 +361,7 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
     exchange='dense' ships the full [b, n_local] partials; 'sparse' compacts
     them to (idx, val) pairs of static ``capacity`` first -- the paper's
     "only non-empty v^(i,j) entries" transport."""
-    _single_query(v_local)
+    nq = _num_queries(v_local)
     if backend == "planned":
         partials = _planned_vertical_partials(spec, planned, v_local, n_local)
     else:
@@ -350,14 +377,15 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
             r = received.amax(dim=1)
         stats = {
             "gathered_elems": 0.0,
-            "exchanged_elems": float(b * (b - 1) * n_local),
+            "exchanged_elems": float(b * (b - 1) * n_local * (nq or 1)),
             "gathered_bytes": 0.0,
-            "exchanged_bytes": float(b * (b - 1) * n_local * partials.element_size()),
+            "exchanged_bytes": float(b * (b - 1) * n_local * (nq or 1)
+                                     * partials.element_size()),
             "logical_elems": sparse_exchange.count_non_identity(spec, partials),
         }
     elif exchange == "sparse":
         assert capacity is not None, "sparse exchange needs a static capacity"
-        r, stats = _compact_exchange(spec, partials, capacity, n_local, scatter)
+        r, stats = _compact_exchange(spec, partials, capacity, n_local, scatter, nq)
     else:
         raise NotImplementedError(f"exchange={exchange!r} is not supported yet")
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
@@ -374,19 +402,23 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
     is the compacted gather of high-out-degree entries [b, d_cap]; backend
     'planned' runs the dense region through the dense GIM-V kernel on the
     materialized ``dense_matrix`` and the sparse region through the plan."""
-    _single_query(v_local)
-    v_d = torch.gather(v_local, 1, dense_region.gather_idx)       # [b, d_cap]
+    nq = _num_queries(v_local)
+    gather_idx = dense_region.gather_idx                           # [b, d_cap]
+    if nq is not None:
+        gather_idx = gather_idx[:, :, None].expand(-1, -1, nq)
+    v_d = torch.gather(v_local, 1, gather_idx)                     # [b, d_cap(, Q)]
     if backend == "planned":
         r_dense = _dense_region_gimv(spec, dense_matrix, v_d, n_local)
         partials = _planned_vertical_partials(spec, planned_sparse, v_local, n_local)
     else:
         r_dense = gathered_gimv(spec, dense_stripe, v_d, n_local)
         partials = block_gimv_partials(spec, sparse_stripe, v_local, n_local)
-    r_sparse, stats = _compact_exchange(spec, partials, capacity, n_local, scatter)
+    r_sparse, stats = _compact_exchange(spec, partials, capacity, n_local, scatter, nq)
     r = combine_elementwise(spec, r_sparse, r_dense)
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
     b = v_local.shape[0]
     d_cap = dense_region.d_cap
-    stats["gathered_elems"] = float(b * (b - 1) * d_cap)
-    stats["gathered_bytes"] = float(b * (b - 1) * d_cap * np.dtype(spec.dtype).itemsize)
+    stats["gathered_elems"] = float(b * (b - 1) * d_cap * (nq or 1))
+    stats["gathered_bytes"] = float(b * (b - 1) * d_cap * (nq or 1)
+                                    * np.dtype(spec.dtype).itemsize)
     return v_new, r, stats

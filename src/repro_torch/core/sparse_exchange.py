@@ -45,7 +45,7 @@ def exchange_wire_split(b: int, capacity: int, nq: int | None,
 
 def count_non_identity(spec: GimvSpec, partials: torch.Tensor) -> torch.Tensor:
     """Number of logically transferred elements (paper's I/O accounting)."""
-    return torch.sum((partials != spec.identity).to(torch.float32))
+    return (partials != spec.identity).sum().to(torch.float32)
 
 
 def _compact_idx_scan(valid: torch.Tensor, capacity: int, n_local: int) -> torch.Tensor:
@@ -67,25 +67,43 @@ def _compact_idx_scan(valid: torch.Tensor, capacity: int, n_local: int) -> torch
     return out.reshape(rows, capacity + 1)[:, :capacity].reshape(lead + (capacity,))
 
 
-def compact_partials(spec: GimvSpec, partials: torch.Tensor, capacity: int):
+def compact_partials(spec: GimvSpec, partials: torch.Tensor, capacity: int, *,
+                     batched: bool = False):
     """[..., b, n_local] -> idx [..., b, cap] int32, val [..., b, cap].
 
     idx == n_local marks padding; entries equal to the combineAll identity
     are dropped (they are no-ops under combineAll).  Returns (idx, val,
     overflow_rows, logical_elems), the counters as float32 scalars.
+
+    batched=True: partials carry a trailing query axis [..., n_local, Q] and
+    each partial row keeps ONE index set shared by its Q columns: an entry is
+    kept when it is not the identity in any column, and val [..., b, cap, Q]
+    takes all Q values with it (the wire format (idx, val[Q])).  overflow
+    counts rows; logical_elems counts every non-identity scalar.
     """
     ident = spec.identity
-    valid = partials != ident
+    valid_q = partials != ident
+    valid = valid_q.any(dim=-1) if batched else valid_q
     n_local = valid.shape[-1]
     capacity = min(capacity, n_local)
     idx = _compact_idx_scan(valid, capacity, n_local)
     taken = idx < n_local
     safe = torch.where(taken, idx, 0).to(torch.int64)
-    val = torch.where(taken, torch.gather(partials, -1, safe),
-                      torch.full((), ident, dtype=partials.dtype, device=partials.device))
+    fill = torch.full((), ident, dtype=partials.dtype, device=partials.device)
+    if batched:
+        # one row gather per kept index: [rows * n_local, Q] -> [rows * cap, Q]
+        nq = partials.shape[-1]
+        rows = valid.numel() // n_local
+        base = torch.arange(rows, dtype=torch.int64, device=partials.device)[:, None] * n_local
+        flat = (safe.reshape(rows, capacity) + base).reshape(-1)
+        val = partials.reshape(rows * n_local, nq).index_select(0, flat)
+        val = val.masked_fill_(~taken.reshape(-1, 1), fill).reshape(idx.shape + (nq,))
+    else:
+        val = torch.where(taken, torch.gather(partials, -1, safe), fill)
     counts = valid.sum(dim=-1)
-    overflow = torch.sum((counts > capacity).to(torch.float32))
-    logical = torch.sum(valid.to(torch.float32))
+    # exact integer counts, reported as float32 (no float copy of the masks)
+    overflow = (counts > capacity).sum().to(torch.float32)
+    logical = valid_q.sum().to(torch.float32)
     return idx, val, overflow, logical
 
 
@@ -100,30 +118,35 @@ def scatter_partials(spec: GimvSpec, idx: torch.Tensor, val: torch.Tensor,
                      n_local: int, *, method: str = "segment") -> torch.Tensor:
     """combineAll of received compact partials: [..., b, cap] x2 -> r [..., n_local].
 
+    A trailing query axis on ``val`` ([..., b, cap, Q] with idx [..., b, cap])
+    combines columnwise and returns r [..., n_local, Q].
+
     method 'segment': segment-combine over the flattened rows, each set offset
     into its own (n_local + 1)-wide output segment whose last slot catches
-    the padding.  method 'kernel': the scatter-combine kernel, which folds
-    the b received rows of each set in order (idx must be the compacted
-    layout of :func:`compact_partials`).
+    the padding.  method 'kernel': the scatter-combine kernel (its Q-wide
+    form for a batched val), which folds the b received rows of each set in
+    order (idx must be the compacted layout of :func:`compact_partials`).
     """
     assert method in SCATTER_METHODS, method
-    if val.ndim != idx.ndim:
-        raise NotImplementedError("a trailing query axis is not supported yet")
+    batched = val.ndim == idx.ndim + 1
+    tail = tuple(val.shape[idx.ndim:])
     lead = idx.shape[:-2]
     n_sets = math.prod(lead) if lead else 1
     if method == "kernel":
         from repro_torch.kernels.block_gimv import semiring_of
-        from repro_torch.kernels.scatter_combine import scatter_combine_gimv
+        from repro_torch.kernels.scatter_combine import (scatter_combine_gimv,
+                                                         scatter_combine_gimv_multi)
 
-        semiring = semiring_of(spec.combine2, spec.combine_all)
-        out = scatter_combine_gimv(
-            idx.reshape((n_sets,) + idx.shape[-2:]).contiguous(),
-            val.reshape((n_sets,) + val.shape[-2:]).contiguous(),
-            n_local, semiring=semiring)
-        return out.reshape(lead + (n_local,))
+        fn = scatter_combine_gimv_multi if batched else scatter_combine_gimv
+        out = fn(idx.reshape((n_sets,) + idx.shape[-2:]).contiguous(),
+                 val.reshape((n_sets,) + val.shape[-2 - len(tail):]).contiguous(),
+                 n_local, semiring=semiring_of(spec.combine2, spec.combine_all))
+        return out.reshape(lead + (n_local,) + tail)
     seg_w = n_local + 1
     idx2 = idx.reshape(n_sets, -1).to(torch.int64)
     off = torch.arange(n_sets, dtype=torch.int64, device=idx.device)[:, None] * seg_w
     flat_idx = (idx2 + off).reshape(-1)
-    out = segment_combine(spec, val.reshape(-1), flat_idx, n_sets * seg_w)
-    return out.reshape(lead + (seg_w,))[..., :n_local]
+    out = segment_combine(spec, val.reshape((flat_idx.shape[0],) + tail), flat_idx,
+                          n_sets * seg_w)
+    out = out.reshape(lead + (seg_w,) + tail)
+    return out[..., :n_local, :] if batched else out[..., :n_local]

@@ -1,22 +1,30 @@
-"""Hand-written Hopper kernels of the PMV main path, one package each:
+"""Hand-written Hopper kernels of the PMV main path and of multi-query
+serving, one package each, a single-vector and a Q-wide kernel per package:
 
-- ``ell_spmv``: ELL GIM-V over the planner's bucketed ELL tables;
-- ``block_gimv``: dense GIM-V over a materialized dense block;
-- ``scatter_combine``: the receive-side fold of the compact sparse exchange.
+- ``ell_spmv``: ELL GIM-V over the planner's bucketed ELL tables
+  (``ell_gimv``, v [N]; ``ell_gimv_multi``, v [N, Q]);
+- ``block_gimv``: dense GIM-V over a materialized dense block
+  (``dense_gimv``, v [K]; ``dense_gimv_multi``, v [K, Q]);
+- ``scatter_combine``: the receive-side fold of the compact sparse exchange
+  (``scatter_combine_gimv``, one value per slot;
+  ``scatter_combine_gimv_multi``, Q values per slot).
 
-Each has ``ops.py`` (the wrapper, which launches the CUDA kernel on a CUDA
-tensor and runs the plain version on a CPU tensor, and counts launches),
-``ref.py`` (the plain PyTorch version) and a source under ``csrc/``.
+Each has ``ops.py`` (the wrappers, which launch the CUDA kernels on CUDA
+tensors, run the plain versions on CPU tensors, and count launches),
+``ref.py`` (the plain PyTorch versions) and sources under ``csrc/``.
 """
-from repro_torch.kernels.block_gimv import dense_gimv
-from repro_torch.kernels.ell_spmv import ell_gimv
-from repro_torch.kernels.scatter_combine import scatter_combine_gimv
+from repro_torch.kernels.block_gimv import dense_gimv, dense_gimv_multi
+from repro_torch.kernels.ell_spmv import ell_gimv, ell_gimv_multi
+from repro_torch.kernels.scatter_combine import scatter_combine_gimv, scatter_combine_gimv_multi
 
-__all__ = ["ell_gimv", "dense_gimv", "scatter_combine_gimv", "launch_counts",
+__all__ = ["ell_gimv", "dense_gimv", "scatter_combine_gimv", "ell_gimv_multi",
+           "dense_gimv_multi", "scatter_combine_gimv_multi", "launch_counts",
            "reset_launch_counts", "WRAPPERS"]
 
 WRAPPERS = {"ell_gimv": ell_gimv, "dense_gimv": dense_gimv,
-            "scatter_combine": scatter_combine_gimv}
+            "scatter_combine": scatter_combine_gimv,
+            "ell_gimv_multi": ell_gimv_multi, "dense_gimv_multi": dense_gimv_multi,
+            "scatter_combine_multi": scatter_combine_gimv_multi}
 
 
 def launch_counts() -> dict[str, int]:

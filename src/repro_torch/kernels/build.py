@@ -25,6 +25,9 @@ SOURCES = {
     "ell_gimv": "ell_gimv.cu",
     "dense_gimv": "dense_gimv.cu",
     "scatter_combine": "scatter_combine.cu",
+    "ell_gimv_multi": "ell_gimv_multi.cu",
+    "dense_gimv_multi": "dense_gimv_multi.cu",
+    "scatter_combine_multi": "scatter_combine_multi.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -37,6 +40,12 @@ _ARGTYPES = {
     "dense_gimv": [_P, _P, _P, _LL, _I, _I, _I, _P],
     # idx, val, out, sets, senders, cap, n_local, semiring, vtype, stream
     "scatter_combine": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # cols, w, v, out, rows, width, nq, semiring, vtype, stream
+    "ell_gimv_multi": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # m, v, out, rows, k, nq, semiring, vtype, stream
+    "dense_gimv_multi": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    # idx, val, out, sets, senders, cap, n_local, nq, semiring, vtype, stream
+    "scatter_combine_multi": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _FNS: dict = {}

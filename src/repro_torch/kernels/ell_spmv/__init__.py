@@ -1,4 +1,4 @@
-from repro_torch.kernels.ell_spmv.ops import ell_from_edges, ell_gimv
-from repro_torch.kernels.ell_spmv.ref import ell_gimv_ref
+from repro_torch.kernels.ell_spmv.ops import ell_from_edges, ell_gimv, ell_gimv_multi
+from repro_torch.kernels.ell_spmv.ref import ell_gimv_multi_ref, ell_gimv_ref
 
-__all__ = ["ell_gimv", "ell_gimv_ref", "ell_from_edges"]
+__all__ = ["ell_gimv", "ell_gimv_ref", "ell_gimv_multi", "ell_gimv_multi_ref", "ell_from_edges"]

@@ -71,7 +71,56 @@ def test_cuda_kernels_match_plain_versions(cuda_device, semiring, dtype):
                   scatter_combine.scatter_combine_ref(idx, val, 500, semiring=semiring),
                   semiring, dtype)
     after = kernels.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    assert all(after[k] == before[k] + 1 for k in ("ell_gimv", "dense_gimv", "scatter_combine"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [5, 64, 67])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32], ids=["f32", "i32"])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_cuda_multi_kernels_match_plain_versions(cuda_device, semiring, dtype, nq):
+    """The Q-wide kernels at an odd Q, at 64 and past one 64-column tile;
+    column 0 of every block is all identity (a padded serving column)."""
+    rng = np.random.default_rng(12)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    ident = {"plus_times": 0, "min_plus": np.inf, "max_plus": -np.inf, "min_src": np.inf}
+    ident = ident[semiring] if dtype == np.float32 else \
+        {"plus_times": 0, "max_plus": -2**31}.get(semiring, 2**31 - 1)
+
+    def block(shape):
+        x = _values(rng, shape, dtype)
+        x[:, 0] = ident
+        return x
+
+    before = kernels.launch_counts()
+    deg = rng.integers(0, 71, 1000)
+    cols = np.where(np.arange(70)[None, :] < deg[:, None], rng.integers(0, 3000, (1000, 70)), -1)
+    w = (rng.integers(1, 4, cols.shape) if dtype == np.int32 else rng.random(cols.shape))
+    args = (put(cols.astype(np.int32)), put(w.astype(np.float32)), put(block((3000, nq))))
+    _assert_match(ell_spmv.ell_gimv_multi(*args, semiring=semiring),
+                  ell_spmv.ell_gimv_multi_ref(*args, semiring=semiring), semiring, dtype)
+    _assert_match(ell_spmv.ell_gimv_multi(args[0], None, args[2], semiring=semiring),
+                  ell_spmv.ell_gimv_multi_ref(args[0], None, args[2], semiring=semiring),
+                  semiring, dtype)
+
+    m = rng.random((999, 1233))
+    m = (m > 0.7) if semiring == "min_src" else (np.round(m * 6) - 3 if dtype == np.int32 else m)
+    m, v = put(m.astype(np.float32)), put(block((1233, nq)))
+    _assert_match(block_gimv.dense_gimv_multi(m, v, semiring=semiring),
+                  block_gimv.dense_gimv_multi_ref(m, v, semiring=semiring), semiring, dtype)
+
+    idx = put(_compacted(rng, 8, 8, 300, 500))
+    val = put(block((8 * 8 * 300, nq)).reshape(8, 8, 300, nq))
+    got = scatter_combine.scatter_combine_gimv_multi(idx, val, 500, semiring=semiring)
+    _assert_match(got, scatter_combine.scatter_combine_multi_ref(idx, val, 500, semiring=semiring),
+                  semiring, dtype)
+    # a fixed fold in sender order: the same bits from run to run
+    assert torch.equal(got, scatter_combine.scatter_combine_gimv_multi(idx, val, 500,
+                                                                       semiring=semiring))
+    after = kernels.launch_counts()
+    assert after["ell_gimv_multi"] == before["ell_gimv_multi"] + 2
+    assert after["dense_gimv_multi"] == before["dense_gimv_multi"] + 1
+    assert after["scatter_combine_multi"] == before["scatter_combine_multi"] + 2
 
 
 @pytest.mark.cuda
@@ -90,3 +139,32 @@ def test_cuda_engine_runs_on_the_kernels(cuda_device):
     assert counts["ell_gimv"] > 0 and counts["scatter_combine"] > 0
     np.testing.assert_array_equal(on_card.v, on_host.v)
     assert on_card.iterations == on_host.iterations
+
+
+@pytest.mark.cuda
+def test_cuda_server_runs_on_the_multi_kernels(cuda_device):
+    """A small hybrid serve on the card goes through the three Q-wide
+    kernels only and equals the same serve through the plain versions."""
+    from repro_torch.graph import rmat
+    from repro_torch.serving import PMVServer, Query
+
+    n = 1 << 12
+    edges = rmat(12, 8 << 12, seed=3)
+    queries = [Query("sssp", source=s, tol=0.5) for s in range(0, 40, 4)]
+    queries += [Query("rwr", source=s, tol=1e-6) for s in range(1, 41, 4)]
+    kw = dict(b=4, strategy="hybrid", theta=40.0, backend="auto", scatter="kernel",
+              stream="off", buckets=(8,))
+    kernels.reset_launch_counts()
+    on_card = PMVServer(edges, n, device="cuda", **kw).serve(queries)
+    counts = kernels.launch_counts()
+    on_host = PMVServer(edges, n, device="cpu", **kw).serve(queries)
+    assert all(counts[k] > 0 for k in ("ell_gimv_multi", "dense_gimv_multi",
+                                       "scatter_combine_multi"))
+    assert all(counts[k] == 0 for k in ("ell_gimv", "dense_gimv", "scatter_combine"))
+    for a, h in zip(on_card, on_host):
+        assert a.converged and h.converged
+        if a.query.spec_kind == "sssp":
+            np.testing.assert_array_equal(a.vector, h.vector)
+            assert a.iterations == h.iterations
+        else:
+            np.testing.assert_allclose(a.vector, h.vector, rtol=1e-5, atol=1e-7)

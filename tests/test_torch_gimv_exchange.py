@@ -1,6 +1,8 @@
 """GIM-V ops and the compact sparse exchange of the PyTorch port against the
 JAX package, on the same numpy inputs.  Compaction and scatter must be equal
-element for element."""
+element for element, with and without a trailing query axis."""
+import zlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,3 +121,69 @@ def test_wire_bytes_match_jax():
     for b, cap, item in ((8, 100, 4), (2, 1, 4), (4, 33, 2)):
         assert tx.exchange_wire_bytes(b, cap, None, item) == jx.exchange_wire_bytes(b, cap, None, item)
         assert tx.exchange_wire_split(b, cap, None, item) == jx.exchange_wire_split(b, cap, None, item)
+
+
+@pytest.mark.parametrize("semiring", list(SPECS))
+@pytest.mark.parametrize("shape,capacity", [((4, 4, 30, 3), 30), ((2, 2, 50, 8), 9),
+                                            ((3, 3, 1, 1), 1), ((2, 4, 64, 5), 64)])
+def test_batched_compaction_and_scatter_equal_jax(semiring, shape, capacity):
+    """A trailing query axis: one index set per partial row (any column not
+    the identity), Q values per kept index.  idx, val and both counters equal
+    the JAX package's; column 0 is all identity (a padded serving column) and
+    rows where every column is the identity compact to nothing."""
+    jspec, tspec = SPECS[semiring]
+    rng = np.random.default_rng(zlib.crc32(repr((semiring, shape)).encode()))
+    partials = _values(rng, jspec, shape, sparsity=0.7)
+    partials[..., 0] = np.asarray(jspec.identity, partials.dtype)
+    partials[:, :, ::4, :] = np.asarray(jspec.identity, partials.dtype)
+    n_local = shape[-2]
+    j_idx, j_val, j_over, j_log = jx.compact_partials(jspec, jnp.asarray(partials), capacity,
+                                                      None, batched=True)
+    t_idx, t_val, t_over, t_log = tx.compact_partials(tspec, torch.from_numpy(partials),
+                                                      capacity, batched=True)
+    _eq(t_idx, j_idx)
+    _eq(t_val, j_val)
+    assert float(t_over) == float(j_over) and float(t_log) == float(j_log)
+    j_rx = (jnp.swapaxes(j_idx, 0, 1), jnp.swapaxes(j_val, 0, 1))
+    t_rx = (t_idx.transpose(0, 1).contiguous(), t_val.transpose(0, 1).contiguous())
+    for method in ("segment", "kernel"):
+        want = jx.scatter_partials(jspec, *j_rx, n_local, method=method, interpret=True)
+        _eq(tx.scatter_partials(tspec, *t_rx, n_local, method=method), want,
+            exact=semiring != "plus_times")
+
+
+def test_batched_compaction_overflow_counts_rows():
+    """overflow counts partial rows past the capacity, not row x query pairs."""
+    jspec, tspec = SPECS["min_plus"]
+    partials = np.zeros((2, 6, 4), np.float32)
+    partials[1, :, 2] = np.inf                       # row 1 keeps 5 of 6 entries
+    j = jx.compact_partials(jspec, jnp.asarray(partials), 3, None, batched=True)
+    t = tx.compact_partials(tspec, torch.from_numpy(partials), 3, batched=True)
+    assert float(t[2]) == float(j[2]) == 2.0
+    assert float(t[3]) == float(j[3]) == float((partials != np.inf).sum())
+    _eq(t[0], j[0])
+
+
+def test_batched_wire_bytes_match_jax():
+    for b, cap, nq, item in ((8, 100, 64, 4), (2, 1, 3, 4), (4, 33, 16, 2)):
+        assert tx.exchange_wire_bytes(b, cap, nq, item) == jx.exchange_wire_bytes(b, cap, nq, item)
+        assert tx.exchange_wire_split(b, cap, nq, item) == jx.exchange_wire_split(b, cap, nq, item)
+
+
+@pytest.mark.parametrize("semiring", list(SPECS))
+def test_gimv_ops_with_query_axis_match_jax(semiring):
+    """segment_combine, combine_elementwise and tree_combine on [..., Q]
+    operands, as the batched placements call them."""
+    jspec, tspec = SPECS[semiring]
+    exact = semiring != "plus_times"
+    rng = np.random.default_rng(zlib.crc32(semiring.encode()))
+    x = _values(rng, jspec, (40, 3))
+    seg = rng.integers(0, 9, 40).astype(np.int32)
+    _eq(tgimv.segment_combine(tspec, torch.from_numpy(x), torch.from_numpy(seg), 12),
+        jgimv.segment_combine(jspec, jnp.asarray(x), jnp.asarray(seg), 12), exact)
+    parts = [_values(rng, jspec, (2, 17, 3)) for _ in range(5)]
+    for k in (1, 2, 5):
+        _eq(tgimv.tree_combine(tspec, [torch.from_numpy(p) for p in parts[:k]]),
+            jgimv.tree_combine(jspec, [jnp.asarray(p) for p in parts[:k]]))
+    _eq(tgimv.combine_elementwise(tspec, torch.from_numpy(parts[0]), torch.from_numpy(parts[1])),
+        jgimv.combine_elementwise(jspec, jnp.asarray(parts[0]), jnp.asarray(parts[1])))

@@ -154,7 +154,9 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     idx = torch.tensor([[[0, 2]]], dtype=torch.int32)
     assert scatter_combine.scatter_combine_gimv(
         idx, torch.tensor([[[1.0, 9.0]]]), 2, semiring="min_plus").tolist() == [[1.0, float("inf")]]
-    assert kernels.launch_counts() == {"ell_gimv": 0, "dense_gimv": 0, "scatter_combine": 0}
+    assert kernels.launch_counts() == {"ell_gimv": 0, "dense_gimv": 0, "scatter_combine": 0,
+                                       "ell_gimv_multi": 0, "dense_gimv_multi": 0,
+                                       "scatter_combine_multi": 0}
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "device", "semiring", "contiguous"])

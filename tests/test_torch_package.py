@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: it never imports JAX or the JAX
-package, its engine runs on the GPU unless told otherwise, and every knob
-outside the ported slice raises NotImplementedError naming the knob."""
+package, its engine and server run on the GPU unless told otherwise, and
+every knob outside the ported slice raises NotImplementedError naming the
+knob."""
 import json
 import os
 import subprocess
@@ -13,6 +14,7 @@ import torch
 
 import repro.core as J
 import repro_torch.core as T
+import repro_torch.serving as TS
 from repro.graph import erdos_renyi, rmat
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -40,9 +42,11 @@ print(json.dumps({"modules": names, "bad": bad}))
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     assert {"repro_torch.core.engine", "repro_torch.core.placement",
+            "repro_torch.core.sparse_exchange",
             "repro_torch.kernels.build", "repro_torch.kernels.ell_spmv.ops",
             "repro_torch.kernels.block_gimv.ops",
-            "repro_torch.kernels.scatter_combine.ops"} <= set(report["modules"])
+            "repro_torch.kernels.scatter_combine.ops",
+            "repro_torch.serving.batcher", "repro_torch.serving.server"} <= set(report["modules"])
 
 
 def test_engine_without_device_raises_without_gpu(monkeypatch):
@@ -55,24 +59,40 @@ def test_engine_without_device_raises_without_gpu(monkeypatch):
     assert T.PMVEngine(edges, 64, b=2, device="cpu").device.type == "cpu"
 
 
+ENGINE_ONLY = ("delta_eps",)
+SERVER_ONLY = ("telemetry", "store_budget_bytes", "slack")
+
+
 @pytest.mark.parametrize("knob", [
     dict(mesh=object()), dict(store="x"), dict(residency="disk"), dict(exchange="packed"),
     dict(exchange="hier"), dict(exchange="auto"), dict(capacity="model"),
     dict(payload_dtype="bfloat16"), dict(delta_eps=0.0), dict(obs=True), dict(faults=object()),
-    dict(io_retry=object()), dict(backend="pallas"), dict(stream="on")])
+    dict(io_retry=object()), dict(backend="pallas"), dict(stream="on"),
+    dict(telemetry=True), dict(store_budget_bytes=1 << 20), dict(slack=1.5)])
 def test_knobs_outside_the_slice_raise(knob):
+    """PMVEngine and PMVServer both refuse each knob they take."""
     name = next(iter(knob))
-    with pytest.raises(NotImplementedError, match=name):
-        T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
+    if name not in SERVER_ONLY:
+        with pytest.raises(NotImplementedError, match=name):
+            T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
+    if name not in ENGINE_ONLY:
+        with pytest.raises(NotImplementedError, match=name):
+            TS.PMVServer(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
 
 
 def test_checkpointing_and_query_axis_raise():
+    """Checkpointing raises; a trailing query axis is served: a one-column
+    batch [b, n_local, 1] steps exactly as the single vector does."""
     eng = T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, strategy="vertical", device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         eng.run(T.sssp(0), checkpoint_dir="ckpt")
     matrix, v, ctx, mask, meta = eng.prepare(T.sssp(0))
-    with pytest.raises(NotImplementedError, match="query axis"):
-        T.placement_call(T.sssp(0), meta["cfg"], matrix, v[..., None], ctx, mask)
+    one, r_one, _ = T.placement_call(T.sssp(0), meta["cfg"], matrix, v, ctx, mask)
+    batched, r_b, stats = T.placement_call(T.sssp(0), meta["cfg"], matrix, v[..., None], ctx,
+                                           mask)
+    assert tuple(batched.shape) == tuple(v.shape) + (1,)
+    assert torch.equal(batched[..., 0], one) and torch.equal(r_b[..., 0], r_one)
+    assert float(stats["overflow"]) == 0.0
 
 
 def test_stream_auto_resolving_on_raises():
