@@ -5,10 +5,12 @@
 
 Phases, each printed as it ends; any failure exits non-zero:
 
-1. build   -- compile the six CUDA kernels from ``src/repro_torch/kernels/csrc``
-              (``ell_gimv``, ``dense_gimv``, ``scatter_combine`` and their Q-wide
+1. build   -- compile the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+              (``ell_gimv``, ``dense_gimv``, ``scatter_combine``, their Q-wide
               forms ``ell_gimv_multi``, ``dense_gimv_multi``,
-              ``scatter_combine_multi``), one ``nvcc`` per source, in parallel.
+              ``scatter_combine_multi``, and the packed exchange's
+              ``packed_scatter_combine`` / ``packed_scatter_combine_multi``),
+              one ``nvcc`` per source, in parallel.
 2. graph   -- RMAT(scale, 16 << scale) with the paper's a,b,c,d and b = 8 workers.
 3. runs    -- three ``PMVEngine(backend='auto', device='cuda').run`` solves:
               PageRank (strategy='selective'), SSSP from vertex 0
@@ -50,7 +52,23 @@ Phases, each printed as it ends; any failure exits non-zero:
               kernel that stops at a row's first all-pad 32-slot chunk),
               and 3 batched iterations per family are profiled.  Prints
               queries/s, latency p50/p99, batched-iteration ms and peak memory.
-6. summary -- the card, a ``{"kernels": [...]}`` line (six kernels), and last
+6. packed  -- the packed exchange (``exchange='packed'``, ids decoded in the
+              kernel).  Run: PageRank, strategy='vertical', scatter='kernel',
+              delta_eps=0.0 (the packed scatter kernel; held against the
+              scipy power iteration at rtol 1e-4; prints the ExchangePlan, the
+              per-iteration delta rows and the packed wire bytes against the
+              padded stream's).  Serve: ``PMVServer(strategy='hybrid',
+              theta=3000, scatter='kernel', exchange='packed')`` answers the
+              96 RWR queries of phase 5 (the Q-wide packed kernel), each
+              answer and iteration count bitwise phase 5's.  Kernels, outside
+              the counted runs: both packed kernels against their plain
+              versions on the runs' own buffers (4 semirings + int32 min_src;
+              Q = 64 and 5), bitwise against the sparse kernels fed the
+              compacted buffers of the same partials, at synthetic widths 4,
+              8, 16 and 32 bits (n_local 15, 255, 65535, 131072; Q = 64 and
+              67), and plus_times the same bits twice; timed against their
+              plain versions and ``index_add_`` on pre-decoded ids.
+7. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
               the device line.
 
 Exits non-zero without a result when no CUDA device is present, or when the
@@ -83,8 +101,13 @@ KERNEL_SOURCES = {
                          "src/repro/kernels/block_gimv/block_gimv.py:111"),
     "scatter_combine_multi": ("src/repro_torch/kernels/csrc/scatter_combine_multi.cu",
                               "src/repro/kernels/scatter_combine/scatter_combine.py:302"),
+    "packed_scatter_combine": ("src/repro_torch/kernels/csrc/packed_scatter_combine.cu",
+                               "src/repro/kernels/scatter_combine/scatter_combine.py:153"),
+    "packed_scatter_combine_multi": (
+        "src/repro_torch/kernels/csrc/packed_scatter_combine_multi.cu",
+        "src/repro/kernels/scatter_combine/scatter_combine.py:230"),
 }
-SINGLE = ("ell_gimv", "dense_gimv", "scatter_combine")
+SINGLE = ("ell_gimv", "dense_gimv", "scatter_combine", "packed_scatter_combine")
 MULTI = ("ell_gimv_multi", "dense_gimv_multi", "scatter_combine_multi")
 
 
@@ -125,7 +148,12 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-KERNEL_CLASSES = (("ell_gimv_kernel", "ell_gimv"), ("dense_gimv_kernel", "dense_gimv"),
+# first match wins: the packed kernels' names contain the sparse ones'
+KERNEL_CLASSES = (("packed_scatter_multi_pass", "packed_scatter_combine_multi"),
+                  ("packed_fill_identity_multi", "packed_scatter_combine_multi"),
+                  ("packed_scatter_pass", "packed_scatter_combine"),
+                  ("packed_fill_identity", "packed_scatter_combine"),
+                  ("ell_gimv_kernel", "ell_gimv"), ("dense_gimv_kernel", "dense_gimv"),
                   ("scatter_pass", "scatter_combine"),
                   ("ell_gimv_multi_kernel", "ell_gimv_multi"),
                   ("dense_gimv_multi_kernel", "dense_gimv_multi"),
@@ -265,7 +293,9 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
     Checks every answer's retirement, 8 RWR / 16 SSSP answers against scipy,
     4 per family against the single-query engine, the launch counters, and
     the three Q-wide kernels against their plain versions at the run's own
-    shapes; then times them and profiles 3 batched iterations per family."""
+    shapes; then times them and profiles 3 batched iterations per family.
+    Returns the RWR answers on the host, in submission order, as (source,
+    vector, iterations)."""
     from repro_torch import kernels
     from repro_torch.core import placement, sparse_exchange
     from repro_torch.kernels import block_gimv, ell_spmv, scatter_combine
@@ -581,6 +611,388 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
     srv.close()
     del fams, states
     torch.cuda.empty_cache()
+    return [(r.query.source, r.vector, r.iterations) for r in by_kind["rwr"]]
+
+
+# ---------------------------------------------------------------------------
+# packed exchange phases
+
+PACKED_SWEEP = (("plus_times", "float32"), ("min_plus", "float32"), ("max_plus", "float32"),
+                ("min_src", "float32"), ("min_src", "int32"))
+
+
+def semiring_spec(np, semiring: str, dtype: str):
+    """A GimvSpec of ``semiring`` over ``dtype`` (gather and compaction read
+    only its identity)."""
+    from repro_torch.core import GimvSpec
+
+    c2, call = {"plus_times": ("mul", "sum"), "min_plus": ("add", "min"),
+                "max_plus": ("add", "max"), "min_src": ("src", "min")}[semiring]
+    return GimvSpec(name=semiring, combine2=c2, combine_all=call, dtype=np.dtype(dtype).type,
+                    assign=lambda v, r, ctx: r, init=lambda ids, ctx: ids)
+
+
+def rand_values(torch, gen, dev, shape, spec, identity_share=0.2):
+    """Random values of ``spec``'s type, ``identity_share`` of them its
+    identity."""
+    if spec.torch_dtype == torch.int32:
+        x = torch.randint(0, 1000, shape, generator=gen, device=dev, dtype=torch.int32)
+    else:
+        x = torch.rand(shape, generator=gen, device=dev)
+    ident = torch.rand(shape, generator=gen, device=dev) < identity_share
+    return x.masked_fill_(ident, spec.identity)
+
+
+def structured_partials(torch, gen, spec, send_rows, n_local, nq):
+    """Partials [b_w, b, n_local(, Q)] with random values on the structural
+    rows of ``send_rows`` (a fifth of them the identity) and the identity on
+    every other row, as a GIM-V step's partials are."""
+    dev = send_rows.device
+    tail = () if nq is None else (nq,)
+    vals = rand_values(torch, gen, dev, tuple(send_rows.shape) + tail, spec)
+    part = torch.full(tuple(send_rows.shape[:2]) + (n_local + 1,) + tail, spec.identity,
+                      dtype=spec.torch_dtype, device=dev)
+    idx = send_rows.to(torch.int64)
+    if nq is not None:
+        idx = idx[..., None].expand(-1, -1, -1, nq)
+    part.scatter_(2, idx, vals)     # the sentinel rows land in row n_local, cut below
+    return part[:, :, :n_local].contiguous()
+
+
+def packed_vs_sparse(torch, spec, partials, xchg, xplan, capacity, n_local, what):
+    """Fold ``partials`` through the packed exchange's kernel (gathered at
+    the static send order) and through the sparse exchange's kernel (the
+    compacted buffers): the same bits for every semiring, both folding the
+    senders of a set in order."""
+    from repro_torch.core import sparse_exchange
+    from repro_torch.exchange import gather_payload, scatter_payload
+
+    batched = partials.ndim == 4
+    payload = gather_payload(spec, partials, xchg["send_rows"])
+    got = scatter_payload(spec, payload.transpose(0, 1).contiguous(), n_local,
+                          recv_words=xchg["recv_words"], p_dev=xplan.p_dev,
+                          width=xplan.width_dev, method="kernel")
+    del payload
+    idx, val, over, _ = sparse_exchange.compact_partials(spec, partials, capacity,
+                                                         batched=batched)
+    if float(over) != 0.0:
+        raise SmokeError(f"{what}: compaction overflowed capacity {capacity}")
+    want = sparse_exchange.scatter_partials(spec, idx.transpose(0, 1).contiguous(),
+                                            val.transpose(0, 1).contiguous(), n_local,
+                                            method="kernel")
+    if not torch.equal(got, want):
+        err = float((got.double() - want.double()).abs().nan_to_num(0.0).max())
+        raise SmokeError(f"{what}: packed kernel and sparse kernel folds differ "
+                         f"(max |err| {err})")
+
+
+def packed_time_row(torch, dev, name, words, val, n_out, kw, structural, rows):
+    """Time one packed kernel at a run's shapes against its plain version and
+    index_add_ of the structural slots at pre-decoded ids (the yardstick
+    leaves out the decode and the sentinel slots)."""
+    from repro_torch.kernels import scatter_combine
+    from repro_torch.kernels.scatter_combine.ref import packed_targets
+
+    multi = val.ndim == 2
+    nq = val.shape[1] if multi else 1
+    fn = (scatter_combine.packed_scatter_combine_gimv_multi if multi
+          else scatter_combine.packed_scatter_combine_gimv)
+    ref = (scatter_combine.packed_scatter_combine_multi_ref if multi
+           else scatter_combine.packed_scatter_combine_ref)
+    plain_kw = {k: v for k, v in kw.items() if k != "senders"}
+    ms = time_ms(torch, lambda: fn(words, val, n_out, **kw), 20)
+    plain_ms = time_ms(torch, lambda: ref(words, val, n_out, **plain_kw), 3, warmup=1)
+    got = fn(words, val, n_out, **kw)
+    err = compare(torch, got, ref(words, val, n_out, **plain_kw), kw["semiring"],
+                  f"{name} timed call")
+    tgt = packed_targets(words, val.shape[0], n_out, set_slots=kw["set_slots"],
+                         n_local=kw["n_local"], width=kw["width"])
+    keep = tgt < n_out
+    tgt, val_s = tgt[keep], val[keep]
+    base = torch.zeros((n_out,) + tuple(val.shape[1:]), dtype=val.dtype, device=dev)
+    lib_ms = time_ms(torch, lambda: base.clone().index_add_(0, tgt, val_s), 20)
+    compare(torch, got, base.clone().index_add_(0, tgt, val_s), kw["semiring"],
+            f"{name} vs index_add_")
+    del tgt, val_s, keep, base
+    nbytes = words.numel() * 4 + structural * nq * 4 + n_out * nq * 4
+    b_ms, b_by = bound(nbytes, structural * nq)
+    rows[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=lib_ms, semiring=kw["semiring"],
+                      shape=[int(val.shape[0])] + ([nq] if multi else []),
+                      width=kw["width"], n_local=kw["n_local"], structural_slots=structural)
+    log(f"time {name} {kw['semiring']} slots {val.shape[0]}{f' x Q={nq}' if multi else ''} "
+        f"width {kw['width']} n_local {kw['n_local']} structural {structural}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, index_add_ of the structural slots at pre-decoded ids "
+        f"{lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+
+
+def packed_run_checks(torch, np, dev, gen, eng, spec, res, meta, rows):
+    """The packed PageRank run's plan, delta rows and wire bytes; kernel 7 on
+    the run's own buffers against its plain version (4 semirings + int32
+    min_src), bitwise against the sparse kernel on the compacted buffers of
+    the same partials, the same bits twice; its times."""
+    from repro_torch.core import cost_model, placement
+    from repro_torch.exchange import gather_payload
+    from repro_torch.kernels import scatter_combine
+
+    matrix = eng.prepare(spec)[0]
+    xp, xchg, part = meta["cfg"].xplan, matrix["xchg"], meta["part"]
+    nl, b, cap = part.n_local, xp.b, meta["capacity"]
+    log(f"exchange plan: exchange={meta['exchange']} ({meta['exchange_decision']}) b={b} "
+        f"n_local={nl} p_cap={xp.p_cap} p_dev={xp.p_dev} width_dev={xp.width_dev} "
+        f"payload_slots={xp.payload_slots} id_bytes={xp.id_bytes} "
+        f"bitmap_bytes={xp.bitmap_bytes} capacity={cap} delta_eps={meta['delta_eps']} "
+        f"({meta['delta_reason']})")
+    if meta["exchange"] != "packed" or meta["delta_reason"] != "active":
+        raise SmokeError(f"packed run resolved exchange={meta['exchange']!r}, "
+                         f"delta {meta['delta_reason']!r}")
+    sent = [int(r["delta_sent_rows"]) for r in res.per_iter]
+    supp = [int(r["delta_suppressed_rows"]) for r in res.per_iter]
+    log(f"delta rows per iteration: sent {sent}; suppressed {supp}")
+    wire = res.totals["wire_bytes"]
+    padded = cost_model.padded_exchange_bytes(b, cap, None, 4) * res.iterations
+    log(f"wire bytes over {res.iterations} iterations: packed {wire:.0f} (ids once "
+        f"{res.totals['exchange_id_bytes']:.0f} + payload and bitmaps "
+        f"{res.totals['exchange_payload_bytes']:.0f}) vs the padded stream's {padded:.0f} "
+        f"at capacity {cap}: {padded / wire:.3f}x")
+
+    v_local = torch.from_numpy(part.to_blocked(res.v.astype(np.float32)).copy()).to(dev)
+    partials = placement._planned_vertical_partials(spec, matrix["planned"], v_local, nl)
+    payload = gather_payload(spec, partials, xchg["send_rows"])
+    val_x = payload.transpose(0, 1).contiguous().reshape(-1)
+    words = xchg["recv_words"].reshape(-1)
+    kw = dict(set_slots=b * xp.p_dev, n_local=nl, width=xp.width_dev)
+    n_out = b * (nl + 1)
+    compare(torch, scatter_combine.packed_scatter_combine_gimv(
+                words, val_x, n_out, semiring="plus_times", senders=b, **kw),
+            scatter_combine.packed_scatter_combine_ref(words, val_x, n_out,
+                                                       semiring="plus_times", **kw),
+            "plus_times", "packed run payload")
+    packed_vs_sparse(torch, spec, partials, xchg, xp, cap, nl, "packed run partials plus_times")
+    for sr, dt in PACKED_SWEEP:
+        s_spec = semiring_spec(np, sr, dt)
+        vv = rand_values(torch, gen, dev, tuple(val_x.shape), s_spec)
+        compare(torch, scatter_combine.packed_scatter_combine_gimv(
+                    words, vv, n_out, semiring=sr, senders=b, **kw),
+                scatter_combine.packed_scatter_combine_ref(words, vv, n_out, semiring=sr, **kw),
+                sr, f"packed {sr} {dt} {tuple(val_x.shape)}")
+        packed_vs_sparse(torch, s_spec, structured_partials(torch, gen, s_spec,
+                                                            xchg["send_rows"], nl, None),
+                         xchg, xp, cap, nl, f"packed vs sparse {sr} {dt}")
+    rv = torch.rand(val_x.shape, generator=gen, device=dev)
+    r1 = scatter_combine.packed_scatter_combine_gimv(words, rv, n_out, semiring="plus_times",
+                                                     senders=b, **kw)
+    r2 = scatter_combine.packed_scatter_combine_gimv(words, rv, n_out, semiring="plus_times",
+                                                     senders=b, **kw)
+    if not torch.equal(r1, r2):
+        raise SmokeError("packed_scatter_combine plus_times is not reproducible run to run")
+    log(f"kernels packed run: packed_scatter_combine matches its plain version on "
+        f"{list(payload.shape)} (width {xp.width_dev}) for 4 semirings, equals the sparse "
+        "kernel on the compacted buffers bitwise, plus_times bitwise reproducible")
+    structural = int((xchg["recv_rows"] < nl).sum())
+    packed_time_row(torch, dev, "packed_scatter_combine", words, val_x, n_out,
+                    dict(kw, semiring="plus_times", senders=b), structural, rows)
+    del partials, payload, val_x, rv, r1, r2
+
+
+def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, rows, failures):
+    """The 96 RWR queries of the serve phase through PMVServer(exchange=
+    'packed'): every answer and iteration count bitwise the sparse serve's;
+    kernel 8 on the batched buffers against its plain version (4 semirings +
+    int32 min_src, Q = 64 and 5), bitwise against the sparse Q-wide kernel on
+    the compacted buffers, the same bits twice; its times; 3 profiled
+    batched iterations."""
+    from repro_torch import kernels
+    from repro_torch.core import placement
+    from repro_torch.exchange import gather_payload
+    from repro_torch.kernels import scatter_combine
+    from repro_torch.serving import FAMILIES, PMVServer, Query, make_batched_step
+
+    queries = [Query("rwr", source=int(src), c=0.85, tol=1e-6) for src, _, _ in rwr_answers]
+    srv = PMVServer(edges, n, b=b, strategy="hybrid", theta=theta, backend="auto",
+                    scatter="kernel", exchange="packed", stream="off", device=dev,
+                    max_iters=200)
+    t = time.perf_counter()
+    eng, fspec = srv.engine_for(queries[0])
+    matrix, _, _, fmask, fmeta = eng.prepare(fspec)
+    xp, xchg, part = fmeta["cfg"].xplan, matrix["xchg"], fmeta["part"]
+    nl = part.n_local
+    log(f"packed serve family rwr: prepare_s={fmeta['prepare_s']:.2f} (wall "
+        f"{time.perf_counter() - t:.1f} s) exchange={fmeta['exchange']} backend="
+        f"{fmeta['backend']} capacity={fmeta['capacity']} p_cap={xp.p_cap} p_dev={xp.p_dev} "
+        f"width_dev={xp.width_dev} payload_slots={xp.payload_slots} id_bytes={xp.id_bytes}")
+    if fmeta["exchange"] != "packed" or fmeta["backend"] != "planned":
+        raise SmokeError(f"packed serve resolved exchange={fmeta['exchange']!r} backend="
+                         f"{fmeta['backend']!r}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    results = srv.serve(queries)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = srv.stats()
+    lat = [r.latency_s for r in results]
+    walls = [1e3 * w for w in st["iter_wall_s"]]
+    log(f"packed serve: {len(results)} queries in {serve_s:.3f} s -> "
+        f"{len(results) / serve_s:.3f} queries/s; latency p50 {percentile(lat, 50):.3f} s "
+        f"p99 {percentile(lat, 99):.3f} s; batches={st['batches']} "
+        f"admitted_mid_batch={st['admitted_mid_batch']} batched iterations="
+        f"{int(st['iterations'])} median_iter_ms={np.median(walls):.3f} "
+        f"p99_iter_ms={percentile(walls, 99):.3f} peak_gib={peak:.2f} "
+        f"launches={json.dumps(counts)}")
+    for name in ("ell_gimv_multi", "dense_gimv_multi", "packed_scatter_combine_multi"):
+        if counts[name] == 0:
+            raise SmokeError(f"packed serve: kernel {name} never launched on the serve path")
+        rows.setdefault(name, {"launches": 0})["launches"] += counts[name]
+    for name in SINGLE + ("scatter_combine_multi",):
+        if counts[name] != 0:
+            raise SmokeError(f"packed serve: kernel {name} launched {counts[name]} times")
+    bad = [r.qid for r in results if r.reason != "completed" or not r.converged]
+    differ = [j for j, (r, (_, vec, its)) in enumerate(zip(results, rwr_answers))
+              if r.iterations != its or not np.array_equal(r.vector, vec)]
+    worst = max((float(np.max(np.abs(results[j].vector - rwr_answers[j][1]))) for j in differ),
+                default=0.0)
+    log(f"check packed serve rwr x{len(results)} vs the sparse serve's answers: "
+        f"{len(results) - len(differ)} bitwise with equal iteration counts, {len(differ)} "
+        f"differ (max |diff| {worst:.3e}) -> {'ok' if not differ and not bad else 'FAIL'}")
+    if bad:
+        failures.append(f"packed serve: {len(bad)} queries did not retire completed and "
+                        "converged")
+    if differ:
+        failures.append(f"packed serve: {len(differ)} answers differ from the sparse serve's")
+
+    # -- kernel 8 on the batched buffers ------------------------------------
+    state = np.stack([part.to_blocked(r.vector) for r in results[:64]], axis=-1)
+    v_state = torch.from_numpy(np.ascontiguousarray(state)).to(dev)     # [b, nl, 64]
+    partials = placement._planned_vertical_partials(fspec, matrix["planned_sparse"], v_state, nl)
+    payload = gather_payload(fspec, partials, xchg["send_rows"])
+    val_x = payload.transpose(0, 1).contiguous().reshape(-1, 64)
+    del payload
+    words = xchg["recv_words"].reshape(-1)
+    kw = dict(set_slots=b * xp.p_dev, n_local=nl, width=xp.width_dev)
+    n_out = b * (nl + 1)
+    for vv in (val_x, val_x[:, :5].contiguous()):
+        compare(torch, scatter_combine.packed_scatter_combine_gimv_multi(
+                    words, vv, n_out, semiring="plus_times", senders=b, **kw),
+                scatter_combine.packed_scatter_combine_multi_ref(
+                    words, vv, n_out, semiring="plus_times", **kw),
+                "plus_times", f"packed serve payload {tuple(vv.shape)}")
+    packed_vs_sparse(torch, fspec, partials, xchg, xp, fmeta["capacity"], nl,
+                     "packed serve partials plus_times Q=64")
+    del partials
+    for nq in (64, 5):
+        for sr, dt in PACKED_SWEEP:
+            s_spec = semiring_spec(np, sr, dt)
+            vv = rand_values(torch, gen, dev, (val_x.shape[0], nq), s_spec)
+            compare(torch, scatter_combine.packed_scatter_combine_gimv_multi(
+                        words, vv, n_out, semiring=sr, senders=b, **kw),
+                    scatter_combine.packed_scatter_combine_multi_ref(
+                        words, vv, n_out, semiring=sr, **kw),
+                    sr, f"packed multi {sr} {dt} Q={nq}")
+            if nq == 64:
+                packed_vs_sparse(torch, s_spec, structured_partials(
+                    torch, gen, s_spec, xchg["send_rows"], nl, nq), xchg, xp,
+                    fmeta["capacity"], nl, f"packed vs sparse multi {sr} {dt} Q={nq}")
+            del vv
+    rv = torch.rand(val_x.shape, generator=gen, device=dev)
+    r1 = scatter_combine.packed_scatter_combine_gimv_multi(words, rv, n_out,
+                                                           semiring="plus_times", senders=b, **kw)
+    r2 = scatter_combine.packed_scatter_combine_gimv_multi(words, rv, n_out,
+                                                           semiring="plus_times", senders=b, **kw)
+    if not torch.equal(r1, r2):
+        raise SmokeError("packed_scatter_combine_multi plus_times is not reproducible")
+    del rv, r1, r2
+    log(f"kernels packed serve: packed_scatter_combine_multi matches its plain version on "
+        f"[{val_x.shape[0]}, 64] (width {xp.width_dev}) for 4 semirings at Q=64 and 5, equals "
+        "the sparse Q-wide kernel on the compacted buffers bitwise, plus_times reproducible")
+    structural = int((xchg["recv_rows"] < nl).sum())
+    packed_time_row(torch, dev, "packed_scatter_combine_multi", words, val_x, n_out,
+                    dict(kw, semiring="plus_times", senders=b), structural, rows)
+    del val_x
+
+    fam = FAMILIES["rwr"]
+    step = make_batched_step(fspec, fmeta["cfg"], delta_kind=fam.delta_kind)
+    restart = np.stack([part.to_blocked(fam.ctx_columns(n, r.query)["restart"])
+                        for r in results[:64]], axis=-1)
+    ctx = {"restart": torch.from_numpy(np.ascontiguousarray(restart)).to(dev)}
+    active = torch.ones(64, dtype=torch.bool, device=dev)
+
+    def three(v=v_state):
+        for _ in range(3):
+            v, deltas, _ = step(matrix, v, ctx, fmask, active)
+            deltas.tolist()
+    prof = device_breakdown(torch, three, 3)
+    log(f"profile packed serve rwr (3 batched iterations, Q=64): {json.dumps(prof)}")
+    srv.close()
+    del matrix, v_state, ctx, eng
+    torch.cuda.empty_cache()
+
+
+def packed_widths_phase(torch, np, dev, gen):
+    """Both packed kernels at the four device widths: random sorted sets of
+    b = 8 senders padded with the sentinel, n_local at the top of each
+    width's domain, every semiring, single-vector and Q = 64 / 67, against
+    the plain versions and bitwise against the sparse kernels fed the same
+    rows as int32 indices."""
+    from repro_torch.exchange import codec
+    from repro_torch.kernels import scatter_combine
+
+    rng = np.random.default_rng(7)
+    b = 8
+    for width, nl in ((4, 15), (8, 255), (16, 65535), (32, 131072)):
+        if codec.device_width(nl) != width:
+            raise SmokeError(f"device_width({nl}) is {codec.device_width(nl)}, not {width}")
+        k = 32 // width
+        p_cap = min(nl, 4096)
+        p = -(-p_cap // k) * k
+        sets = np.full((b, b, p), nl, np.int64)
+        for s in range(b):
+            for j in range(b):
+                c = int(rng.integers(0, p_cap + 1))
+                sets[s, j, :c] = np.sort(rng.choice(nl, c, replace=False))
+        words = torch.from_numpy(codec.pack_uniform(sets, width).reshape(-1)).to(dev)
+        idx = torch.from_numpy(sets.astype(np.int32)).to(dev)
+        pad = idx >= nl
+        kw = dict(set_slots=b * p, n_local=nl, width=width)
+        n_out = b * (nl + 1)
+        for sr, dt in PACKED_SWEEP:
+            s_spec = semiring_spec(np, sr, dt)
+            for nq in (None, 64, 67):
+                shape = (b, b, p) + (() if nq is None else (nq,))
+                vv = rand_values(torch, gen, dev, shape, s_spec)
+                vv.masked_fill_(pad if nq is None else pad[..., None], s_spec.identity)
+                if nq is None:
+                    got = scatter_combine.packed_scatter_combine_gimv(
+                        words, vv.reshape(-1), n_out, semiring=sr, senders=b, **kw)
+                    want = scatter_combine.packed_scatter_combine_ref(
+                        words, vv.reshape(-1), n_out, semiring=sr, **kw)
+                    sparse = scatter_combine.scatter_combine_gimv(idx, vv, nl, semiring=sr)
+                else:
+                    got = scatter_combine.packed_scatter_combine_gimv_multi(
+                        words, vv.reshape(-1, nq), n_out, semiring=sr, senders=b, **kw)
+                    want = scatter_combine.packed_scatter_combine_multi_ref(
+                        words, vv.reshape(-1, nq), n_out, semiring=sr, **kw)
+                    sparse = scatter_combine.scatter_combine_gimv_multi(idx, vv, nl,
+                                                                        semiring=sr)
+                what = f"packed width {width} {sr} {dt} Q={nq}"
+                compare(torch, got, want, sr, what)
+                seg = got.reshape((b, nl + 1) + (() if nq is None else (nq,)))[:, :nl]
+                if not torch.equal(seg, sparse):
+                    raise SmokeError(f"{what}: differs from the sparse kernel")
+        rv = torch.rand((b * b * p, 64), generator=gen, device=dev)
+        if not torch.equal(
+                scatter_combine.packed_scatter_combine_gimv_multi(
+                    words, rv, n_out, semiring="plus_times", senders=b, **kw),
+                scatter_combine.packed_scatter_combine_gimv_multi(
+                    words, rv, n_out, semiring="plus_times", senders=b, **kw)):
+            raise SmokeError(f"packed width {width}: plus_times is not reproducible")
+        log(f"kernels packed width {width} (n_local {nl}, {b}x{b}x{p} slots, "
+            f"{int((~pad).sum())} structural): both packed kernels match their plain versions "
+            "and the sparse kernels bitwise for 4 semirings, single and Q=64/67")
 
 
 # ---------------------------------------------------------------------------
@@ -672,7 +1084,7 @@ def main() -> int:
             if counts[name] == 0:
                 raise SmokeError(f"{label}: kernel {name} never launched on the main path")
             rows.setdefault(name, {"launches": 0})["launches"] += counts[name]
-        return res, meta
+        return res, meta, counts
 
     def ell_sweep(label, fp, v_flat, main_semiring, has_w_semirings):
         """Every bucket with the run's semiring, on the run's own vector and
@@ -702,7 +1114,7 @@ def main() -> int:
     # -- run 1: PageRank, selective (horizontal at this density) ----------------
     eng = PMVEngine(edges, n, b=b, strategy="selective", backend="auto", device=dev)
     spec = pagerank(n)
-    res, meta = drive("pagerank/selective", eng, spec, max_iters=100, tol=1e-6,
+    res, meta, _ = drive("pagerank/selective", eng, spec, max_iters=100, tol=1e-6,
                       expect=("ell_gimv",))
     want = pagerank_ref(np, sp, edges, n, res.iterations)
     ok = np.allclose(res.v, want, rtol=1e-4, atol=1e-12)
@@ -765,7 +1177,7 @@ def main() -> int:
     eng = PMVEngine(edges, n, b=b, strategy="vertical", backend="auto", scatter="kernel",
                     stream="off", device=dev)
     spec = sssp(0)
-    res, meta = drive("sssp/vertical", eng, spec, max_iters=100, tol=0.5,
+    res, meta, _ = drive("sssp/vertical", eng, spec, max_iters=100, tol=0.5,
                       expect=("ell_gimv", "scatter_combine"))
     want = sssp_ref(np, sp, csgraph, edges, n, 0)
     ok = res.converged and np.array_equal(res.v.astype(np.float64), want)
@@ -828,7 +1240,7 @@ def main() -> int:
     eng = PMVEngine(sym, n, b=b, strategy="hybrid", theta=3000.0, backend="auto",
                     stream="off", device=dev)
     spec = connected_components()
-    res, meta = drive("cc/hybrid", eng, spec, max_iters=100, tol=0.5,
+    res, meta, _ = drive("cc/hybrid", eng, spec, max_iters=100, tol=0.5,
                       expect=("ell_gimv", "dense_gimv"))
     hm = meta["hm"]
     log(f"hybrid: theta={meta['theta']} dense vertices={meta['n_dense']} d_cap={hm.dense.d_cap} "
@@ -874,8 +1286,33 @@ def main() -> int:
     del eng, matrix, fp, dm
     torch.cuda.empty_cache()
 
+    # -- run 4: PageRank, vertical, packed exchange with the packed kernel -----
+    eng = PMVEngine(edges, n, b=b, strategy="vertical", backend="auto", scatter="kernel",
+                    exchange="packed", delta_eps=0.0, device=dev)
+    spec = pagerank(n)
+    res, meta, counts = drive("pagerank/vertical packed", eng, spec, max_iters=100, tol=1e-6,
+                              expect=("ell_gimv", "packed_scatter_combine"))
+    if counts["scatter_combine"] != 0:
+        raise SmokeError("pagerank/vertical packed: the sparse scatter kernel launched "
+                         f"{counts['scatter_combine']} times on the packed path")
+    want = pagerank_ref(np, sp, edges, n, res.iterations)
+    ok = np.allclose(res.v, want, rtol=1e-4, atol=1e-12)
+    rel = float(np.max(np.abs(res.v - want) / np.maximum(want, 1e-30)))
+    log(f"check packed pagerank vs scipy power iteration ({res.iterations} iters): "
+        f"max rel err {rel:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("packed pagerank disagrees with scipy")
+    packed_run_checks(torch, np, dev, gen, eng, spec, res, meta, rows)
+    del eng
+    torch.cuda.empty_cache()
+
     # -- serve: PMVServer, hybrid theta=3000, 96 RWR + 96 SSSP queries at Q=64 ---
-    serve_phase(args.seed, torch, np, sp, csgraph, dev, gen, edges, n, b, 3000.0, rows, failures)
+    rwr_answers = serve_phase(args.seed, torch, np, sp, csgraph, dev, gen, edges, n, b, 3000.0,
+                              rows, failures)
+    # -- packed serve: the same 96 RWR queries through the packed exchange -------
+    packed_serve_phase(torch, np, dev, gen, edges, n, b, 3000.0, rwr_answers, rows, failures)
+    del rwr_answers
+    packed_widths_phase(torch, np, dev, gen)
 
     if failures:
         raise SmokeError("; ".join(failures))

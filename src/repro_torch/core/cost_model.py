@@ -9,10 +9,10 @@ drives three decisions, as in the paper:
 3. Capacity sizing of the compacted sparse exchange (Eq. 4 / Eq. 8 x slack).
 
 The per-block crossovers below (``ell_block_cost`` / ``dense_block_cost``,
-``prefer_streamed``, ``prefer_kernel_scatter``) are ratios, kept equal to
-the JAX package's so both packages draw the same plans.  They were set for
-the TPU and have not been recalibrated on the H100 yet (ROADMAP).  No
-device rate appears in this module.
+``prefer_streamed``, ``prefer_kernel_scatter``, ``prefer_packed_exchange``)
+are ratios, kept equal to the JAX package's so both packages draw the same
+plans.  They were set for the TPU and have not been recalibrated on the H100
+yet (ROADMAP).  No device rate appears in this module.
 """
 from __future__ import annotations
 
@@ -39,6 +39,10 @@ __all__ = [
     "kernel_scatter_cost",
     "segment_scatter_cost",
     "prefer_kernel_scatter",
+    "PACKED_ID_AMORTIZATION_ITERS",
+    "padded_exchange_bytes",
+    "packed_exchange_bytes",
+    "prefer_packed_exchange",
 ]
 
 
@@ -207,3 +211,42 @@ def segment_scatter_cost(t: float) -> float:
 def prefer_kernel_scatter(t: float, n_out: int, *, interpret: bool = False) -> bool:
     """scatter='auto' crossover."""
     return kernel_scatter_cost(t, n_out, interpret=interpret) < segment_scatter_cost(t)
+
+
+# ---------------------------------------------------------------------------
+# Packed-exchange transport (repro_torch.exchange).  The compact sparse
+# exchange re-ships an int32 index for every capacity slot every iteration;
+# the packed exchange derives the per-(src, dst) index sets once at prepare
+# time, ships the packed ids a single time and then streams only payloads:
+#   padded:  b(b-1) * capacity * (4 + q*itemsize)          per iteration
+#   packed:  payload_slots * q * itemsize                  per iteration
+#            + id_bytes / PACKED_ID_AMORTIZATION_ITERS     (one-time, amortized)
+# The constant is the JAX package's, so exchange='auto' decides as it does.
+# ---------------------------------------------------------------------------
+
+PACKED_ID_AMORTIZATION_ITERS = 10.0
+
+
+def padded_exchange_bytes(b: int, capacity: int, nq: int | None,
+                          itemsize: int) -> float:
+    """Per-iteration wire bytes of the capacity-padded (idx, val) exchange
+    (the byte model of ``sparse_exchange.exchange_wire_bytes``)."""
+    return float(b * (b - 1) * capacity * (4 + (nq or 1) * itemsize))
+
+
+def packed_exchange_bytes(payload_slots: int, nq: int | None,
+                          itemsize: int) -> float:
+    """Per-iteration wire bytes of the packed exchange's payload stream (the
+    static ids ship once and are amortized separately)."""
+    return float(payload_slots * (nq or 1) * itemsize)
+
+
+def prefer_packed_exchange(b: int, capacity: int, payload_slots: int, id_bytes: int,
+                           nq: int | None, itemsize: int, *,
+                           amortization_iters: float = PACKED_ID_AMORTIZATION_ITERS) -> bool:
+    """exchange='auto' gate: take the packed transport when its amortized
+    per-iteration bytes undercut the padded stream's."""
+    padded = padded_exchange_bytes(b, capacity, nq, itemsize)
+    packed = (packed_exchange_bytes(payload_slots, nq, itemsize)
+              + id_bytes / amortization_iters)
+    return packed < padded

@@ -11,6 +11,11 @@ non-identity entries, the paper's I/O metric).
 
 ``placement_call`` and ``StepConfig`` also serve the multi-query step of
 ``repro_torch.serving``: v and ctx may carry a trailing query axis.
+
+``exchange='packed'`` derives the per-(source, destination) row sets once at
+prepare (``repro_torch.exchange``) and ships only payloads each iteration;
+``delta_eps`` then re-sends only the rows that moved, carrying the last
+shipped payload from one iteration to the next.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from repro_torch.core import blocks as blocks_lib
 from repro_torch.core import cost_model, placement, planner
 from repro_torch.core.gimv import GimvSpec
 from repro_torch.core.partition import HybridMatrix, Partition, PartitionedMatrix, partition_graph
+from repro_torch.exchange import plan as exchange_plan
 from repro_torch.graph.generators import symmetrize_edges
 from repro_torch.graph.stats import compute_stats
 from repro_torch.kernels.block_gimv import has_semiring, semiring_of
@@ -40,14 +46,22 @@ class StepConfig:
 
     strategy: str            # 'horizontal' | 'vertical' | 'hybrid'
     n_local: int
-    exchange: str = "sparse"  # 'sparse' | 'dense'
+    exchange: str = "sparse"  # resolved transport: 'sparse' | 'dense' | 'packed'
     capacity: int | None = None
     backend: str = "torch"
     plan: planner.ExecutionPlan | None = None
+    # packed exchange: the static byte-model plan, and the resolved
+    # delta-iteration threshold (None = full stream; set only where the
+    # semiring admits suppression, see PMVEngine._resolve_exchange).
+    xplan: exchange_plan.ExchangePlan | None = None
+    delta_eps: float | None = None
 
 
-def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask):
-    """Dispatch one placement step for ``cfg.strategy`` -> (v_new, r, stats)."""
+def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask,
+                   xstate=None):
+    """Dispatch one placement step for ``cfg.strategy`` -> (v_new, r, stats),
+    plus the new delta-iteration state as a fourth element when ``xstate``
+    (the previously shipped packed payload) is passed."""
     scatter = cfg.plan.scatter if cfg.plan is not None else "segment"
     if cfg.strategy == "horizontal":
         return placement.horizontal_step(
@@ -57,14 +71,16 @@ def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask):
         return placement.vertical_step(
             spec, matrix.get("stripe"), v, ctx, mask, n_local=cfg.n_local,
             exchange=cfg.exchange, capacity=cfg.capacity,
-            planned=matrix.get("planned"), backend=cfg.backend, scatter=scatter)
+            planned=matrix.get("planned"), backend=cfg.backend, scatter=scatter,
+            xchg=matrix.get("xchg"), xplan=cfg.xplan, delta_eps=cfg.delta_eps,
+            delta_state=xstate)
     if cfg.strategy == "hybrid":
         return placement.hybrid_step(
             spec, matrix.get("sparse_stripe"), matrix.get("dense_stripe"),
             matrix["dense_region"], v, ctx, mask, n_local=cfg.n_local,
             capacity=cfg.capacity, planned_sparse=matrix.get("planned_sparse"),
             dense_matrix=matrix.get("dense_matrix"), backend=cfg.backend,
-            scatter=scatter)
+            scatter=scatter, exchange=cfg.exchange, xchg=matrix.get("xchg"), xplan=cfg.xplan)
     raise ValueError(cfg.strategy)
 
 
@@ -113,21 +129,32 @@ class PMVEngine:
     strategy: 'horizontal' | 'vertical' | 'selective' (Eq. 5 pick between the
       two basics; 'auto' is an alias) | 'hybrid' (θ-split).
     theta: float or 'auto' (θ* of Lemma 3.3).
-    exchange: 'sparse' (compacted) | 'dense' (full partials).
+    exchange: 'sparse' (compacted) | 'dense' (full partials) | 'packed'
+      (repro_torch.exchange: per-(src, dst) row sets derived once at
+      prepare, ids shipped once, each iteration ships payloads only) |
+      'auto' (packed when ``cost_model.prefer_packed_exchange`` says its
+      amortized bytes undercut the padded stream's, else sparse).  The
+      horizontal placement exchanges no partials: 'packed' / 'auto' resolve
+      to 'sparse' there.  meta['exchange'] / ['exchange_decision'] record it.
+    delta_eps: delta iteration over the packed exchange: re-send only rows
+      that moved more than delta_eps since the last send (0.0: any bitwise
+      change, exact).  Active only for a vertical packed solve whose
+      combineAll is 'sum' over a float type; meta['delta_reason'] says why
+      not otherwise.
     capacity: 'structural' (exact max partial nnz, overflow-free).
     backend: 'torch' (plain tensor ops) | 'auto' (the per-block planner with
       the ELL / dense / scatter-combine kernels).  A spec whose
       (combine2, combineAll) pair has no kernel semiring resolves to 'torch',
       recorded in meta['backend'].
-    scatter: receive side of the sparse exchange -- 'segment' | 'kernel' |
-      'auto' (the cost model's crossover).
+    scatter: receive side of the sparse and packed exchanges -- 'segment' |
+      'kernel' | 'auto' (the cost model's crossover).
     stream: 'auto' | 'off' (this package runs the materialized schedule; a
       stream that resolves to 'on' raises).
     device: None (the GPU; raises without one) | 'cuda' | 'cpu'.
 
-    The JAX package's other knobs (mesh, store / residency, exchange
-    'packed' / 'hier' / 'auto', capacity='model', payload_dtype, delta_eps,
-    obs, faults, io_retry, checkpointing) raise NotImplementedError.
+    The JAX package's other knobs (mesh, store / residency, exchange='hier',
+    capacity='model', payload_dtype, obs, faults, io_retry, checkpointing)
+    raise NotImplementedError.
     """
 
     def __init__(
@@ -162,14 +189,16 @@ class PMVEngine:
             raise _not_ported("store")
         if residency != "device":
             raise _not_ported(f"residency={residency!r}")
-        if exchange not in ("sparse", "dense"):
+        if exchange == "hier":
             raise _not_ported(f"exchange={exchange!r}")
+        if exchange not in ("sparse", "dense", "packed", "auto"):
+            raise ValueError(f"unknown exchange {exchange!r}")
         if capacity != "structural":
             raise _not_ported(f"capacity={capacity!r}")
         if payload_dtype is not None:
             raise _not_ported("payload_dtype")
-        if delta_eps is not None:
-            raise _not_ported("delta_eps")
+        if delta_eps is not None and not delta_eps >= 0.0:
+            raise ValueError(f"delta_eps must be >= 0, got {delta_eps}")
         if obs:
             raise _not_ported("obs")
         if faults is not None:
@@ -198,6 +227,7 @@ class PMVEngine:
         self.theta = theta
         self.psi = psi or "cyclic"
         self.exchange = exchange
+        self.delta_eps = delta_eps
         self.backend = backend
         self.scatter = scatter
         self.stream = stream
@@ -228,7 +258,9 @@ class PMVEngine:
 
     def _resolve_stream(self, strategy: str, backend: str, capacity: int | None,
                         part: Partition) -> str:
-        """Only the planned vertical/hybrid compact path has partials to stream."""
+        """Only the planned vertical/hybrid compact path has partials to
+        stream (the streamed packed executor is not ported: packed vertical
+        keeps the fused schedule)."""
         streamable = (backend == "planned" and capacity is not None and
                       (strategy == "hybrid" or
                        (strategy == "vertical" and self.exchange == "sparse")))
@@ -328,18 +360,74 @@ class PMVEngine:
                 for w, s in enumerate(stripes)], semiring)
             matrix[key] = placement.flatten_planned(packed, nl, self.b, self.device)
         real_mask = self._put(part.global_ids_grid() < self.n)
-        cfg = StepConfig(strategy=strategy, n_local=nl, exchange=self.exchange,
-                         capacity=capacity, backend=backend, plan=plan)
+        exchange, xplan, delta_eps, xmeta = self._resolve_exchange(
+            spec, strategy, capacity, plan,
+            pm.vertical if strategy == "vertical" else
+            (hm.sparse_vertical if hm is not None else None),
+            part, matrix)
+        cfg = StepConfig(strategy=strategy, n_local=nl, exchange=exchange,
+                         capacity=capacity, backend=backend, plan=plan, xplan=xplan,
+                         delta_eps=delta_eps)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         meta = {
             "strategy": strategy, "theta": theta, "capacity": capacity, "part": part,
             "pm": pm, "hm": hm, "cfg": cfg, "backend": backend, "plan": plan,
-            "exchange": self.exchange, "device": str(self.device),
+            "device": str(self.device),
             "n_dense": int(hm.dense.d_count.sum()) if hm is not None else 0,
             "prepare_s": time.perf_counter() - t0,
+            **xmeta,
         }
         return matrix, real_mask, meta
+
+    def _resolve_exchange(self, spec: GimvSpec, strategy: str, capacity: int | None,
+                          plan: planner.ExecutionPlan, stripes, part: Partition, matrix: dict):
+        """Resolve self.exchange ('auto' weighs packed against the padded
+        stream with the cost model) and, for 'packed', derive the static row
+        sets from the block structure, put their arrays on the device as
+        matrix['xchg'] (send_rows / recv_rows int32; recv_words uint32 under
+        scatter='kernel'), and gate delta iteration.  Returns (exchange,
+        xplan, delta_eps, meta_extra), as the JAX package resolves them."""
+        exchange = self.exchange
+        xplan = None
+        delta_eps = None
+        decision = "forced"
+        if strategy == "horizontal":
+            if exchange in ("packed", "auto"):
+                exchange = "sparse"  # no partial exchange to pack
+            return exchange, None, None, {"exchange": exchange, "exchange_decision": "n/a"}
+        itemsize = np.dtype(spec.dtype).itemsize
+        if exchange in ("packed", "auto"):
+            row_sets = exchange_plan.row_sets_from_stripes(stripes, self.b)
+            xp, arrays = exchange_plan.build_exchange(row_sets, part.n_local,
+                                                      scatter=plan.scatter)
+            if exchange == "auto":
+                use_packed = cost_model.prefer_packed_exchange(
+                    self.b, capacity, xp.payload_slots, xp.id_bytes, None, itemsize)
+                exchange = "packed" if use_packed else "sparse"
+                decision = ("auto: packed undercuts padded" if use_packed
+                            else "auto: padded stream kept")
+            if exchange == "packed":
+                matrix["xchg"] = {k: self._put(a) for k, a in arrays.items()}
+                xplan = xp
+        delta_reason = None
+        if self.delta_eps is not None:
+            if exchange != "packed":
+                delta_reason = "needs exchange='packed'"
+            elif strategy != "vertical":
+                delta_reason = "vertical-only (hybrid keeps the full stream)"
+            elif spec.combine_all != "sum":
+                delta_reason = (f"combineAll={spec.combine_all!r} is exact "
+                                "selection — full stream kept")
+            elif not np.issubdtype(np.dtype(spec.dtype), np.floating):
+                delta_reason = "integer payloads keep the full stream"
+            else:
+                delta_eps = float(self.delta_eps)
+                delta_reason = "active"
+        return exchange, xplan, delta_eps, {
+            "exchange": exchange, "exchange_decision": decision,
+            "delta_eps": delta_eps, "delta_reason": delta_reason,
+        }
 
     # ------------------------------------------------------------------
     def run(
@@ -368,13 +456,24 @@ class PMVEngine:
         cfg: StepConfig = meta["cfg"]
         if v0 is not None:
             v = self._put(part.to_blocked(np.asarray(v0, dtype=spec.dtype)))
+        # delta-iteration carried state: the previously shipped packed
+        # payload, initialized to the combineAll identity (a suppressed row
+        # then delivers the identity, a no-op, until it first moves)
+        xstate = None
+        if cfg.delta_eps is not None:
+            xstate = torch.full((self.b, self.b, cfg.xplan.p_dev), spec.identity,
+                                dtype=spec.torch_dtype, device=self.device)
 
         per_iter: list[dict] = []
         converged = False
         it = 0
         for it in range(max_iters):
             t0 = time.perf_counter()
-            v_new, _r, stats = placement_call(spec, cfg, matrix, v, ctx_b, mask)
+            if xstate is not None:
+                v_new, _r, stats, xstate = placement_call(spec, cfg, matrix, v, ctx_b, mask,
+                                                          xstate)
+            else:
+                v_new, _r, stats = placement_call(spec, cfg, matrix, v, ctx_b, mask)
             delta = spec.default_delta(v, v_new)
             # one device->host copy per iteration for every scalar the
             # iteration produced (it also waits for the iteration to finish)
@@ -409,9 +508,17 @@ class PMVEngine:
             "gathered_bytes": sum(r.get("gathered_bytes", 0.0) for r in per_iter),
         }
         if per_iter and "exchange_id_bytes" in per_iter[0]:
-            totals["exchange_id_bytes"] = sum(r["exchange_id_bytes"] for r in per_iter)
+            # the packed transport ships its ids ONCE (at prepare), so the
+            # total counts them once; the padded stream re-ships its int32
+            # ids every iteration
+            totals["exchange_id_bytes"] = (
+                per_iter[0]["exchange_id_bytes"] if meta["exchange"] == "packed"
+                else sum(r["exchange_id_bytes"] for r in per_iter))
             totals["exchange_payload_bytes"] = sum(r["exchange_payload_bytes"] for r in per_iter)
             totals["wire_bytes"] = totals["exchange_id_bytes"] + totals["exchange_payload_bytes"]
+        if per_iter and "delta_sent_rows" in per_iter[0]:
+            totals["delta_sent_rows"] = sum(r["delta_sent_rows"] for r in per_iter)
+            totals["delta_suppressed_rows"] = sum(r["delta_suppressed_rows"] for r in per_iter)
         return PMVResult(v=v_np, iterations=it, converged=converged,
                          strategy=meta["strategy"], theta=meta["theta"],
                          capacity=meta["capacity"], per_iter=per_iter, totals=totals)

@@ -7,9 +7,13 @@ all-to-all of the vertical placement a transpose of the first two axes.
 
 - PMV_horizontal (Alg. 1): gather the whole vector, compute the local stripe.
 - PMV_vertical   (Alg. 2): local column-stripe partials v^(i,j), exchanged
-  dense ([b, n_local]) or compacted to (idx, val) pairs (sparse_exchange.py).
+  dense ([b, n_local]), compacted to (idx, val) pairs (sparse_exchange.py),
+  or packed: gathered at the static per-pair row sets that prepare derived
+  once, so only payloads move (repro_torch.exchange; with optional delta
+  iteration).
 - PMV_hybrid     (Alg. 4): the sparse region runs vertically with the compact
-  exchange; the small dense sub-vector v_d is gathered (horizontal).
+  or the packed exchange; the small dense sub-vector v_d is gathered
+  (horizontal).
 
 Backends (``StepConfig.backend``):
 - 'torch': plain tensor ops (gather + segment combine) over the edge stripes.
@@ -21,8 +25,10 @@ Backends (``StepConfig.backend``):
   this once, at prepare time: the worker axis is folded into the rows and the
   per-worker offsets are applied to rows and cols.
 
-``scatter`` picks the receive side of the compact exchange in both backends:
-'segment' (segment combine) or 'kernel' (the scatter-combine kernel).
+``scatter`` picks the receive side of the compact and packed exchanges in
+both backends: 'segment' (segment combine) or 'kernel' (the scatter-combine
+kernel; for the packed exchange its packed-id form, which decodes the
+bit-packed ids in the kernel).
 
 Multi-query: v_local may carry a trailing query axis ([b, n_local, Q], one
 query per column, as PMVServer batches them).  Every step carries it through
@@ -42,6 +48,7 @@ from repro_torch.core import sparse_exchange
 from repro_torch.core.blocks import BlockEdges, DenseRegion, PlannedStripe
 from repro_torch.core.gimv import (GimvSpec, combine2, combine_elementwise,
                                    segment_combine, tree_combine)
+from repro_torch.exchange import runtime as packed_rt
 from repro_torch.kernels.block_gimv import dense_gimv, dense_gimv_multi, semiring_of
 from repro_torch.kernels.ell_spmv import ell_gimv, ell_gimv_multi
 
@@ -352,21 +359,69 @@ def _compact_exchange(spec: GimvSpec, partials, capacity: int, n_local: int, sca
     return r, stats
 
 
+def _packed_exchange(spec: GimvSpec, partials, xchg: dict, xplan, n_local: int, scatter: str,
+                     nq: int | None, *, delta_eps: float | None = None, delta_state=None):
+    """The packed exchange of the [b_w, b, n_local(, Q)] partials: gather
+    each pair's payload at its static send order, suppress unmoved rows when
+    ``delta_state`` (the previously shipped payload [b_w, b, p_dev]) is given,
+    exchange (transpose) and fold at the owners.  Returns (r [b, n_local(, Q)],
+    stats, shipped payload or None).  The ids crossed the wire once, at
+    prepare: the per-iteration stats charge payloads, plus the send bitmap
+    under delta iteration."""
+    send_rows = xchg["send_rows"]
+    payload = packed_rt.gather_payload(spec, partials, send_rows)
+    logical = packed_rt.payload_logical(spec, payload)
+    itemsize = payload.element_size()
+    shipped = None
+    if delta_state is not None:
+        pair_mask = packed_rt.pair_slot_mask(send_rows, n_local)
+        payload, sent, suppressed = packed_rt.delta_update(
+            spec, payload, delta_state, delta_eps or 0.0, pair_mask)
+        shipped = payload
+        payload_bytes = sent * float((nq or 1) * itemsize) + float(xplan.bitmap_bytes)
+    else:
+        payload_bytes = xplan.payload_bytes_per_iter(nq, itemsize)
+    r = packed_rt.scatter_payload(
+        spec, _all_to_all(payload), n_local, recv_rows=xchg.get("recv_rows"),
+        recv_words=xchg.get("recv_words"), p_dev=xplan.p_dev, width=xplan.width_dev,
+        method=scatter)
+    b = send_rows.shape[-2]
+    stats = {
+        "gathered_elems": 0.0,
+        "exchanged_elems": float(b * (b - 1) * xplan.p_dev * (nq or 1)),
+        "gathered_bytes": 0.0,
+        "exchanged_bytes": payload_bytes,
+        "exchange_payload_bytes": payload_bytes,
+        "exchange_id_bytes": float(xplan.id_bytes),
+        "logical_elems": logical,
+        "overflow": 0.0,
+    }
+    if delta_state is not None:
+        stats["delta_sent_rows"] = sent
+        stats["delta_suppressed_rows"] = suppressed
+    return r, stats, shipped
+
+
 def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local, real_mask,
                   *, n_local: int, exchange: str = "sparse", capacity: int | None = None,
                   planned: FlatPlanned | None = None, backend: str = "torch",
-                  scatter: str = "segment"):
+                  scatter: str = "segment", xchg: dict | None = None, xplan=None,
+                  delta_eps: float | None = None, delta_state=None):
     """Alg. 2: local column-stripe partials, exchange, combine at the owner.
 
     exchange='dense' ships the full [b, n_local] partials; 'sparse' compacts
     them to (idx, val) pairs of static ``capacity`` first -- the paper's
-    "only non-empty v^(i,j) entries" transport."""
+    "only non-empty v^(i,j) entries" transport; 'packed' gathers them at the
+    static row sets of ``xchg`` / ``xplan`` (repro_torch.exchange).  With
+    ``delta_state`` (packed only) the step also returns the new state as a
+    fourth element."""
     nq = _num_queries(v_local)
     if backend == "planned":
         partials = _planned_vertical_partials(spec, planned, v_local, n_local)
     else:
         partials = block_gimv_partials(spec, stripe, v_local, n_local)
     b = partials.shape[1]
+    shipped = None
     if exchange == "dense":
         received = _all_to_all(partials)            # [b_dest, b_sender, n_local]
         if spec.combine_all == "sum":
@@ -386,9 +441,16 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
     elif exchange == "sparse":
         assert capacity is not None, "sparse exchange needs a static capacity"
         r, stats = _compact_exchange(spec, partials, capacity, n_local, scatter, nq)
+    elif exchange == "packed":
+        assert xchg is not None and xplan is not None, \
+            "packed exchange needs the prepare-built index arrays and plan"
+        r, stats, shipped = _packed_exchange(spec, partials, xchg, xplan, n_local, scatter,
+                                             nq, delta_eps=delta_eps, delta_state=delta_state)
     else:
         raise NotImplementedError(f"exchange={exchange!r} is not supported yet")
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
+    if delta_state is not None:
+        return v_new, r, stats, shipped
     return v_new, r, stats
 
 
@@ -396,12 +458,15 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
                 dense_stripe: BlockEdges | None, dense_region: DenseRegion, v_local,
                 ctx_local, real_mask, *, n_local: int, capacity: int,
                 planned_sparse: FlatPlanned | None = None, dense_matrix=None,
-                backend: str = "torch", scatter: str = "segment"):
+                backend: str = "torch", scatter: str = "segment", exchange: str = "sparse",
+                xchg: dict | None = None, xplan=None):
     """Alg. 4: vertical over the sparse region + horizontal over the dense
     region, combined at the owner, then assign.  The dense sub-vector v_d
     is the compacted gather of high-out-degree entries [b, d_cap]; backend
     'planned' runs the dense region through the dense GIM-V kernel on the
-    materialized ``dense_matrix`` and the sparse region through the plan."""
+    materialized ``dense_matrix`` and the sparse region through the plan.
+    The sparse region's partials take the packed exchange when ``exchange``
+    is 'packed', else the compact one (hybrid has no dense exchange)."""
     nq = _num_queries(v_local)
     gather_idx = dense_region.gather_idx                           # [b, d_cap]
     if nq is not None:
@@ -413,7 +478,12 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
     else:
         r_dense = gathered_gimv(spec, dense_stripe, v_d, n_local)
         partials = block_gimv_partials(spec, sparse_stripe, v_local, n_local)
-    r_sparse, stats = _compact_exchange(spec, partials, capacity, n_local, scatter, nq)
+    if exchange == "packed":
+        assert xchg is not None and xplan is not None, \
+            "packed exchange needs the prepare-built index arrays and plan"
+        r_sparse, stats, _ = _packed_exchange(spec, partials, xchg, xplan, n_local, scatter, nq)
+    else:
+        r_sparse, stats = _compact_exchange(spec, partials, capacity, n_local, scatter, nq)
     r = combine_elementwise(spec, r_sparse, r_dense)
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
     b = v_local.shape[0]

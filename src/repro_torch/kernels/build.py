@@ -28,6 +28,8 @@ SOURCES = {
     "ell_gimv_multi": "ell_gimv_multi.cu",
     "dense_gimv_multi": "dense_gimv_multi.cu",
     "scatter_combine_multi": "scatter_combine_multi.cu",
+    "packed_scatter_combine": "packed_scatter_combine.cu",
+    "packed_scatter_combine_multi": "packed_scatter_combine_multi.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -46,6 +48,11 @@ _ARGTYPES = {
     "dense_gimv_multi": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     # idx, val, out, sets, senders, cap, n_local, nq, semiring, vtype, stream
     "scatter_combine_multi": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # words, val, out, sets, set_slots, senders, n_local, n_out, width, semiring, vtype, stream
+    "packed_scatter_combine": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # words, val, out, sets, set_slots, senders, n_local, n_out, nq, width, semiring, vtype,
+    # stream
+    "packed_scatter_combine_multi": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _FNS: dict = {}

@@ -1,20 +1,27 @@
-"""Wrappers of the scatter-combine kernels (csrc/scatter_combine.cu, one
-value per slot; csrc/scatter_combine_multi.cu, Q values per slot), the
-receive side of the compact sparse exchange.
+"""Wrappers of the scatter-combine kernels: the receive side of the compact
+sparse exchange (csrc/scatter_combine.cu, one value per slot;
+csrc/scatter_combine_multi.cu, Q values per slot) and of the packed exchange,
+whose ids arrive bit-packed (csrc/packed_scatter_combine.cu and
+csrc/packed_scatter_combine_multi.cu).
 
-``scatter_combine_gimv`` / ``scatter_combine_gimv_multi`` on a CUDA tensor
-launch their Hopper kernel (or raise); on a CPU tensor they run the plain
-version in ref.py.  Each wrapper's ``launches`` counts kernel launches.
+Each wrapper on a CUDA tensor launches its Hopper kernel (or raises); on a
+CPU tensor it runs the plain version in ref.py.  Its ``launches`` counts
+kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _common
-from repro_torch.kernels.scatter_combine.ref import (scatter_combine_multi_ref,
+from repro_torch.kernels.scatter_combine.ref import (packed_scatter_combine_multi_ref,
+                                                     packed_scatter_combine_ref,
+                                                     scatter_combine_multi_ref,
                                                      scatter_combine_ref)
 
-__all__ = ["scatter_combine_gimv", "scatter_combine_gimv_multi"]
+__all__ = ["scatter_combine_gimv", "scatter_combine_gimv_multi",
+           "packed_scatter_combine_gimv", "packed_scatter_combine_gimv_multi"]
+
+PACKED_WIDTHS = (4, 8, 16, 32)
 
 
 def scatter_combine_gimv(idx: torch.Tensor, val: torch.Tensor, n_local: int, *,
@@ -98,3 +105,99 @@ def scatter_combine_gimv_multi(idx: torch.Tensor, val: torch.Tensor, n_local: in
 
 
 scatter_combine_gimv_multi.launches = 0
+
+
+def _check_packed(words: torch.Tensor, val: torch.Tensor, n_out: int, set_slots: int,
+                  n_local: int, width: int, senders: int, semiring: str, val_ndim: int) -> None:
+    _common.check_semiring(semiring)
+    dev = val.device
+    _common.check_tensor("val", val, dtypes=(torch.float32, torch.int32), ndim=val_ndim,
+                         device=dev)
+    _common.check_tensor("words", words, dtypes=(torch.uint32,), ndim=1, device=dev)
+    if width not in PACKED_WIDTHS:
+        raise ValueError(f"width must be one of {PACKED_WIDTHS}, got {width}")
+    n_slots = val.shape[0]
+    per_word = 32 // width
+    if n_slots % per_word or words.shape[0] != n_slots // per_word:
+        raise ValueError(f"{n_slots} slots at width {width} need {-(-n_slots // per_word)} "
+                         f"words (and a multiple of {per_word} slots); got {words.shape[0]}")
+    if set_slots <= 0 or n_slots % set_slots:
+        raise ValueError(f"set_slots {set_slots} must divide the {n_slots} slots")
+    if senders <= 0 or set_slots % senders:
+        raise ValueError(f"senders {senders} must divide set_slots {set_slots}")
+    if n_local <= 0 or n_out < 0 or n_out >= 2**31:
+        raise ValueError(f"bad n_local {n_local} / n_out {n_out}")
+
+
+def packed_scatter_combine_gimv(words: torch.Tensor, val: torch.Tensor, n_out: int, *,
+                                set_slots: int, n_local: int, width: int, semiring: str,
+                                senders: int) -> torch.Tensor:
+    """r[o] = combineAll_{t : target(t) == o} val[t], the ids decoded from
+    bit-packed words inside the kernel.
+
+    words: uint32 [T * width / 32], 32 / width ids per word, LSB first
+    (``exchange.codec.pack_uniform``); val: float32 or int32 [T], the payload
+    in the same static order.  Slot t of set s = t // set_slots targets row
+    id(t) + s * (n_local + 1); an id of n_local or more (the sentinel) or a
+    target of n_out or more is dropped, so every set's drop slot, and every
+    output no slot reaches, holds the identity.  -> r: [n_out].
+
+    The arguments are the JAX package's ``packed_scatter_combine_gimv``'s
+    plus ``senders``: each set's slots are ``senders`` rows of
+    set_slots / senders slots.  The kernel folds the rows of a set in sender
+    order and relies on the ids below n_local being unique within a row
+    (``exchange.plan.build_exchange``'s sets are); the plain version accepts
+    any ids.  Unlike the Pallas kernel, which folds the sentinel slots'
+    values into each set's drop slot, both leave the drop slot at the
+    identity; the exchange slices it off either way.
+    """
+    _check_packed(words, val, n_out, set_slots, n_local, width, senders, semiring, 1)
+    dev = val.device
+    if _common.use_plain(dev):
+        return packed_scatter_combine_ref(words, val, n_out, set_slots=set_slots,
+                                          n_local=n_local, width=width, semiring=semiring)
+    out = torch.empty((n_out,), dtype=val.dtype, device=dev)
+    from repro_torch.kernels.build import check_rc, load
+
+    fn = load("packed_scatter_combine")
+    with torch.cuda.device(dev):
+        rc = fn(words.data_ptr(), val.data_ptr(), out.data_ptr(), val.shape[0] // set_slots,
+                set_slots, senders, n_local, n_out, width, _common.SEMIRING_ID[semiring],
+                _common.VALUE_TYPE_ID[val.dtype], _common.current_stream(dev))
+    check_rc(rc, "packed_scatter_combine")
+    packed_scatter_combine_gimv.launches += 1
+    return out
+
+
+packed_scatter_combine_gimv.launches = 0
+
+
+def packed_scatter_combine_gimv_multi(words: torch.Tensor, val: torch.Tensor, n_out: int, *,
+                                      set_slots: int, n_local: int, width: int,
+                                      semiring: str, senders: int) -> torch.Tensor:
+    """Q-wide :func:`packed_scatter_combine_gimv`: every slot's Q values go to
+    its one target row.  words: uint32 [T * width / 32]; val: float32 or
+    int32 [T, Q] -> r: [n_out, Q]."""
+    _check_packed(words, val, n_out, set_slots, n_local, width, senders, semiring, 2)
+    dev = val.device
+    if _common.use_plain(dev):
+        return packed_scatter_combine_multi_ref(words, val, n_out, set_slots=set_slots,
+                                                n_local=n_local, width=width,
+                                                semiring=semiring)
+    nq = val.shape[1]
+    out = torch.empty((n_out, nq), dtype=val.dtype, device=dev)
+    if nq == 0:
+        return out
+    from repro_torch.kernels.build import check_rc, load
+
+    fn = load("packed_scatter_combine_multi")
+    with torch.cuda.device(dev):
+        rc = fn(words.data_ptr(), val.data_ptr(), out.data_ptr(), val.shape[0] // set_slots,
+                set_slots, senders, n_local, n_out, nq, width, _common.SEMIRING_ID[semiring],
+                _common.VALUE_TYPE_ID[val.dtype], _common.current_stream(dev))
+    check_rc(rc, "packed_scatter_combine_multi")
+    packed_scatter_combine_gimv_multi.launches += 1
+    return out
+
+
+packed_scatter_combine_gimv_multi.launches = 0

@@ -6,7 +6,8 @@ the device while query vectors come and go as columns of a blocked
 [b, n_local, Q] batch: every placement (core/placement.py) carries the
 trailing query axis, and with backend='auto' the planned executors run the
 Q-wide kernels (``ell_gimv_multi``, ``dense_gimv_multi``,
-``scatter_combine_gimv_multi``), so one iteration of the batched step
+``scatter_combine_gimv_multi``, or ``packed_scatter_combine_gimv_multi`` under
+``exchange='packed'``), so one iteration of the batched step
 advances all in-flight queries at the cost of one matrix traversal.
 
 Continuous batching: each query column tracks its own convergence delta; a
@@ -28,8 +29,9 @@ reason -- completed | deadline_exceeded | shed | failed -- tallied in
 This is the counterpart of the JAX package's ``repro.serving.server``.  Its
 knobs outside the ported slice (``store``, ``residency`` other than
 'device', ``mesh``, ``obs``, ``faults``, ``io_retry``, ``telemetry``,
-``exchange`` other than 'sparse' / 'dense', and what the engine itself
-refuses) raise NotImplementedError.
+``exchange='hier'``, and what the engine itself refuses) raise
+NotImplementedError.  As in the JAX package, the server carries no
+delta-iteration state: a packed exchange ships its full payload stream.
 """
 from __future__ import annotations
 
@@ -241,7 +243,7 @@ class PMVServer:
             raise _not_ported("io_retry")
         if telemetry:
             raise _not_ported("telemetry")
-        if exchange not in ("sparse", "dense"):
+        if exchange == "hier":
             raise _not_ported(f"exchange={exchange!r}")
         if slack is not None:
             raise _not_ported("slack", "it sizes capacity='model', which is not ported")

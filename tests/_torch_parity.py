@@ -23,10 +23,12 @@ REFERENCE_BACKEND = {"torch": "xla", "auto": "auto"}
 
 
 def run_both(edges, n, b, algo, *, strategy, backend, scatter, theta=None,
-             reference_backend=None):
-    """Returns (reference PMVResult, port PMVResult, port meta)."""
+             reference_backend=None, **engine_kw):
+    """Returns (reference PMVResult, port PMVResult, port meta).
+    ``engine_kw`` (e.g. exchange=, delta_eps=) goes to both engines."""
     mk, ctx_mk, sym, _, run_kw = ALGOS[algo]
-    kw = dict(b=b, strategy=strategy, scatter=scatter, stream="off", symmetrize=sym)
+    kw = dict(b=b, strategy=strategy, scatter=scatter, stream="off", symmetrize=sym,
+              **engine_kw)
     if theta is not None:
         kw["theta"] = theta
     ref = J.PMVEngine(edges, n, backend=reference_backend or REFERENCE_BACKEND[backend], **kw)

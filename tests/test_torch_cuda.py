@@ -168,3 +168,109 @@ def test_cuda_server_runs_on_the_multi_kernels(cuda_device):
             assert a.iterations == h.iterations
         else:
             np.testing.assert_allclose(a.vector, h.vector, rtol=1e-5, atol=1e-7)
+
+
+# the packed kernels' widths, each with the largest id domain it holds (the
+# sentinel n_local takes the top code)
+PACKED_WIDTHS = {4: 15, 8: 255, 16: 65535, 32: 131072}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.int32], ids=["f32", "i32"])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("width", sorted(PACKED_WIDTHS))
+def test_cuda_packed_kernels_match_plain_and_sparse_kernels(cuda_device, width, semiring,
+                                                            dtype):
+    """Kernels 7 and 8 (ids decoded in the kernel) against their plain
+    versions at the four widths, single-vector and Q in {5, 64, 67}, and
+    bitwise against the sparse kernels (3 and 6) fed the same rows as int32
+    indices: both fold the senders of a set in order."""
+    from repro_torch.exchange import codec
+
+    n_local = PACKED_WIDTHS[width]
+    sets, senders, k = 4, 8, 32 // width
+    p = -(-300 // k) * k
+    rng = np.random.default_rng(width)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    rows = _compacted(rng, sets, senders, p, n_local)
+    words = put(codec.pack_uniform(rows, width).reshape(-1))
+    idx = put(rows)
+    n_out = sets * (n_local + 1)
+    kw = dict(set_slots=senders * p, n_local=n_local, width=width, semiring=semiring,
+              senders=senders)
+    ident = {"plus_times": 0, "min_plus": np.inf, "max_plus": -np.inf, "min_src": np.inf}
+    ident = ident[semiring] if dtype == np.float32 else \
+        {"plus_times": 0, "max_plus": -2**31}.get(semiring, 2**31 - 1)
+    before = kernels.launch_counts()
+    for nq in (None, 5, 64, 67):
+        shape = rows.shape + (() if nq is None else (nq,))
+        x = _values(rng, shape, dtype)
+        x[(rows >= n_local) if nq is None else np.broadcast_to((rows >= n_local)[..., None],
+                                                                shape)] = ident
+        val = put(x)
+        if nq is None:
+            got = scatter_combine.packed_scatter_combine_gimv(words, val.reshape(-1), n_out, **kw)
+            want = scatter_combine.packed_scatter_combine_ref(
+                words, val.reshape(-1), n_out, **{a: kw[a] for a in kw if a != "senders"})
+            sparse = scatter_combine.scatter_combine_gimv(idx, val, n_local, semiring=semiring)
+        else:
+            got = scatter_combine.packed_scatter_combine_gimv_multi(
+                words, val.reshape(-1, nq), n_out, **kw)
+            want = scatter_combine.packed_scatter_combine_multi_ref(
+                words, val.reshape(-1, nq), n_out, **{a: kw[a] for a in kw if a != "senders"})
+            sparse = scatter_combine.scatter_combine_gimv_multi(idx, val, n_local,
+                                                                semiring=semiring)
+        _assert_match(got, want, semiring, dtype)
+        seg = got.reshape((sets, n_local + 1) + (() if nq is None else (nq,)))
+        assert torch.equal(seg[:, :n_local], sparse)
+        # a fixed fold in sender order: the same bits from run to run
+        again = (scatter_combine.packed_scatter_combine_gimv(words, val.reshape(-1), n_out, **kw)
+                 if nq is None else scatter_combine.packed_scatter_combine_gimv_multi(
+                     words, val.reshape(-1, nq), n_out, **kw))
+        assert torch.equal(got, again)
+    after = kernels.launch_counts()
+    assert after["packed_scatter_combine"] == before["packed_scatter_combine"] + 2
+    assert after["packed_scatter_combine_multi"] == before["packed_scatter_combine_multi"] + 6
+
+
+@pytest.mark.cuda
+def test_cuda_engine_packed_runs_on_the_packed_kernel(cuda_device):
+    """A small packed PageRank with delta iteration on the card launches the
+    packed kernel (not the sparse one) and equals the host's solve."""
+    from repro_torch.core import PMVEngine, pagerank
+    from repro_torch.graph import rmat
+
+    n = 1 << 12
+    edges = rmat(12, 8 << 12, seed=3)
+    kw = dict(b=4, strategy="vertical", backend="auto", scatter="kernel", stream="off",
+              exchange="packed", delta_eps=0.0)
+    kernels.reset_launch_counts()
+    on_card = PMVEngine(edges, n, device="cuda", **kw).run(pagerank(n), tol=1e-7)
+    counts = kernels.launch_counts()
+    on_host = PMVEngine(edges, n, device="cpu", **kw).run(pagerank(n), tol=1e-7)
+    assert counts["packed_scatter_combine"] > 0 and counts["scatter_combine"] == 0
+    np.testing.assert_allclose(on_card.v, on_host.v, rtol=1e-5, atol=1e-9)
+    assert [r["delta_sent_rows"] for r in on_card.per_iter[:3]] == \
+        [r["delta_sent_rows"] for r in on_host.per_iter[:3]]
+
+
+@pytest.mark.cuda
+def test_cuda_server_packed_runs_on_the_packed_multi_kernel(cuda_device):
+    """A small packed hybrid serve on the card goes through the Q-wide packed
+    kernel and equals the same serve through the plain versions."""
+    from repro_torch.graph import rmat
+    from repro_torch.serving import PMVServer, Query
+
+    n = 1 << 12
+    edges = rmat(12, 8 << 12, seed=3)
+    queries = [Query("sssp", source=s, tol=0.5) for s in range(0, 40, 4)]
+    kw = dict(b=4, strategy="hybrid", theta=40.0, backend="auto", scatter="kernel",
+              stream="off", buckets=(8,), exchange="packed")
+    kernels.reset_launch_counts()
+    on_card = PMVServer(edges, n, device="cuda", **kw).serve(queries)
+    counts = kernels.launch_counts()
+    on_host = PMVServer(edges, n, device="cpu", **kw).serve(queries)
+    assert counts["packed_scatter_combine_multi"] > 0 and counts["scatter_combine_multi"] == 0
+    for a, h in zip(on_card, on_host):
+        assert a.converged and h.converged and a.iterations == h.iterations
+        np.testing.assert_array_equal(a.vector, h.vector)

@@ -154,9 +154,14 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     idx = torch.tensor([[[0, 2]]], dtype=torch.int32)
     assert scatter_combine.scatter_combine_gimv(
         idx, torch.tensor([[[1.0, 9.0]]]), 2, semiring="min_plus").tolist() == [[1.0, float("inf")]]
+    words = torch.tensor([0x22012210], dtype=torch.uint32)  # ids 0,1,2,2 | 1,0,2,2 at width 4
+    assert scatter_combine.packed_scatter_combine_gimv(
+        words, torch.tensor([1.0, 2, 4, 8, 16, 32, 64, 128]), 3, set_slots=8, n_local=2,
+        width=4, semiring="plus_times", senders=2).tolist() == [33.0, 18.0, 0.0]
     assert kernels.launch_counts() == {"ell_gimv": 0, "dense_gimv": 0, "scatter_combine": 0,
                                        "ell_gimv_multi": 0, "dense_gimv_multi": 0,
-                                       "scatter_combine_multi": 0}
+                                       "scatter_combine_multi": 0, "packed_scatter_combine": 0,
+                                       "packed_scatter_combine_multi": 0}
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "device", "semiring", "contiguous"])

@@ -42,7 +42,8 @@ print(json.dumps({"modules": names, "bad": bad}))
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     assert {"repro_torch.core.engine", "repro_torch.core.placement",
-            "repro_torch.core.sparse_exchange",
+            "repro_torch.core.sparse_exchange", "repro_torch.exchange.codec",
+            "repro_torch.exchange.plan", "repro_torch.exchange.runtime",
             "repro_torch.kernels.build", "repro_torch.kernels.ell_spmv.ops",
             "repro_torch.kernels.block_gimv.ops",
             "repro_torch.kernels.scatter_combine.ops",
@@ -59,14 +60,14 @@ def test_engine_without_device_raises_without_gpu(monkeypatch):
     assert T.PMVEngine(edges, 64, b=2, device="cpu").device.type == "cpu"
 
 
-ENGINE_ONLY = ("delta_eps",)
+ENGINE_ONLY = ()
 SERVER_ONLY = ("telemetry", "store_budget_bytes", "slack")
 
 
 @pytest.mark.parametrize("knob", [
-    dict(mesh=object()), dict(store="x"), dict(residency="disk"), dict(exchange="packed"),
-    dict(exchange="hier"), dict(exchange="auto"), dict(capacity="model"),
-    dict(payload_dtype="bfloat16"), dict(delta_eps=0.0), dict(obs=True), dict(faults=object()),
+    dict(mesh=object()), dict(store="x"), dict(residency="disk"), dict(backend="xla"),
+    dict(exchange="hier"), dict(residency="host"), dict(capacity="model"),
+    dict(payload_dtype="bfloat16"), dict(capacity="fixed"), dict(obs=True), dict(faults=object()),
     dict(io_retry=object()), dict(backend="pallas"), dict(stream="on"),
     dict(telemetry=True), dict(store_budget_bytes=1 << 20), dict(slack=1.5)])
 def test_knobs_outside_the_slice_raise(knob):
@@ -78,6 +79,19 @@ def test_knobs_outside_the_slice_raise(knob):
     if name not in ENGINE_ONLY:
         with pytest.raises(NotImplementedError, match=name):
             TS.PMVServer(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
+
+
+def test_packed_exchange_and_delta_eps_are_accepted():
+    """exchange='packed' / 'auto' and delta_eps are in the slice: the engine
+    and the server take them; a negative delta_eps is refused."""
+    edges = rmat(6, 200, seed=0)
+    for exchange in ("packed", "auto"):
+        eng = T.PMVEngine(edges, 64, b=2, strategy="vertical", exchange=exchange,
+                          delta_eps=0.0, device="cpu")
+        assert eng.prepare(T.pagerank(64))[-1]["exchange"] in ("packed", "sparse")
+        TS.PMVServer(edges, 64, b=2, exchange=exchange, device="cpu")
+    with pytest.raises(ValueError, match="delta_eps"):
+        T.PMVEngine(edges, 64, b=2, delta_eps=-1.0, device="cpu")
 
 
 def test_checkpointing_and_query_axis_raise():

@@ -49,10 +49,11 @@ def _batch(rng, algo, part, nq):
     return v, ctx
 
 
-def _check_step(edges, n, b, algo, strategy, backend, scatter, nq=NQ, theta=3.0):
+def _check_step(edges, n, b, algo, strategy, backend, scatter, nq=NQ, theta=3.0,
+                exchange="sparse"):
     mk, _ctx_mk, sym, exact, _ = ALGOS[algo]
     kw = dict(b=b, strategy=strategy, scatter=scatter, stream="off", symmetrize=sym,
-              theta=theta)
+              theta=theta, exchange=exchange)
     ref = J.PMVEngine(edges, n, backend=REFERENCE_BACKEND[backend], **kw)
     port = T.PMVEngine(edges, n, backend=backend, device="cpu", **kw)
     j_spec, t_spec = mk(J, n), mk(T, n)

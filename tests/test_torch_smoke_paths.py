@@ -1,6 +1,7 @@
-"""The three solves of ``chip_smoke.py`` at a small scale on the CPU: the same
+"""The solves of ``chip_smoke.py`` at a small scale on the CPU: the same
 knobs (b=8, backend='auto', PageRank/selective, SSSP/vertical with the
-scatter kernel, CC/hybrid on the symmetrized edges) through the port's
+scatter kernel, CC/hybrid on the symmetrized edges, PageRank/vertical over
+the packed exchange with delta_eps=0) through the port's
 ``PMVEngine(device='cpu')``, held against the smoke's own scipy references
 with its tolerances (PageRank rtol 1e-4; SSSP and CC exact)."""
 import importlib.util
@@ -54,3 +55,15 @@ def test_cc_hybrid(theta):
     assert meta["backend"] == "planned" and meta["n_dense"] > 0
     assert res.converged
     np.testing.assert_array_equal(res.v, smoke.cc_ref(np, sp, csgraph, sym, N))
+
+
+def test_pagerank_vertical_packed_delta():
+    eng = PMVEngine(EDGES, N, b=8, strategy="vertical", backend="auto", scatter="kernel",
+                    exchange="packed", delta_eps=0.0, device="cpu")
+    res = eng.run(pagerank(N), max_iters=100, tol=1e-6)
+    meta = eng.prepare(pagerank(N))[-1]
+    assert meta["exchange"] == "packed" and meta["delta_reason"] == "active"
+    assert meta["plan"].scatter == "kernel" and "recv_words" in eng.prepare(pagerank(N))[0]["xchg"]
+    assert res.converged
+    want = smoke.pagerank_ref(np, sp, EDGES, N, res.iterations)
+    np.testing.assert_allclose(res.v, want, rtol=1e-4, atol=1e-12)
