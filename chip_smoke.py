@@ -49,8 +49,12 @@ Phases, each printed as it ends; any failure exits non-zero:
               exchange buffers; 4 semirings + int32 min_src at Q = 64 and 5),
               timed against their plain versions and a library yardstick
               (ELL: beside the layout bound, the valid-slot bound of a
-              kernel that stops at a row's first all-pad 32-slot chunk),
-              and 3 batched iterations per family are profiled.  Prints
+              kernel that stops at a row's first all-pad 32-slot chunk;
+              dense: plus_times on the tensor cores (3xTF32) must give the
+              same bits twice and is printed in TFLOP/s beside its byte,
+              FP32 and 3xTF32 operation bounds, min_plus beside its
+              two-instructions-per-cell bound), and 3 batched iterations per
+              family are profiled.  Prints
               queries/s, latency p50/p99, batched-iteration ms and peak memory.
 6. packed  -- the packed exchange (``exchange='packed'``, ids decoded in the
               kernel).  Run: PageRank, strategy='vertical', scatter='kernel',
@@ -67,7 +71,9 @@ Phases, each printed as it ends; any failure exits non-zero:
               compacted buffers of the same partials, at synthetic widths 4,
               8, 16 and 32 bits (n_local 15, 255, 65535, 131072; Q = 64 and
               67), and plus_times the same bits twice; timed against their
-              plain versions and ``index_add_`` on pre-decoded ids.
+              plain versions and ``index_add_`` on pre-decoded ids, and
+              profiled: device launches and device ms per call (kernel 7
+              must make exactly one launch per call).
 7. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
               the device line.
 
@@ -84,9 +90,12 @@ import time
 import warnings
 from pathlib import Path
 
-# H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 on CUDA cores.
+# H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 on CUDA cores (33.5e12
+# lane instructions/s: an FMA counts two operations), 495 TFLOP/s TF32 on
+# the tensor cores (dense).
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
+H100_TF32_OPS_PER_S = 495e12
 
 KERNEL_SOURCES = {
     "ell_gimv": ("src/repro_torch/kernels/csrc/ell_gimv.cu",
@@ -151,12 +160,12 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 # first match wins: the packed kernels' names contain the sparse ones'
 KERNEL_CLASSES = (("packed_scatter_multi_pass", "packed_scatter_combine_multi"),
                   ("packed_fill_identity_multi", "packed_scatter_combine_multi"),
-                  ("packed_scatter_pass", "packed_scatter_combine"),
-                  ("packed_fill_identity", "packed_scatter_combine"),
+                  ("packed_scatter_tile", "packed_scatter_combine"),
                   ("ell_gimv_kernel", "ell_gimv"), ("dense_gimv_kernel", "dense_gimv"),
                   ("scatter_pass", "scatter_combine"),
                   ("ell_gimv_multi_kernel", "ell_gimv_multi"),
                   ("dense_gimv_multi_kernel", "dense_gimv_multi"),
+                  ("dense_gimv_multi_tf32x3", "dense_gimv_multi"),
                   ("scatter_multi_pass", "scatter_combine_multi"),
                   ("fill_identity_multi", "scatter_combine_multi"),
                   ("fill_identity", "scatter_combine"))
@@ -177,6 +186,9 @@ def device_breakdown(torch, run, iters: int) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+        # late in a long process the trace drops device events near the
+        # window's end (a short window's all of them): keep it open past them
+        time.sleep(0.5)
     per: dict[str, float] = {}
     launches: dict[str, int] = {}
     top: dict[str, float] = {}
@@ -188,7 +200,7 @@ def device_breakdown(torch, run, iters: int) -> dict:
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        cls = next((c for key, c in KERNEL_CLASSES if key in evt.key), "other")
+        cls = kernel_class(evt.key)
         per[cls] = per.get(cls, 0.0) + us / 1e3 / iters
         launches[cls] = launches.get(cls, 0) + evt.count
         if cls == "other":
@@ -202,6 +214,30 @@ def device_breakdown(torch, run, iters: int) -> dict:
             "idle_share": max(0.0, 1.0 - busy * iters / wall_ms), "by_kernel_ms": per,
             "device_launches": launches, "top_other_device_ms": head(top, 5),
             "top_host_self_ms": head(host, 8)}
+
+
+def kernel_class(key: str) -> str:
+    return next((c for k, c in KERNEL_CLASSES if k in key), "other")
+
+
+def profiled_calls(torch, fn, cls: str, calls: int = 20) -> tuple[float, float, dict]:
+    """Device launches and device ms per call of ``fn`` for the kernel class
+    ``cls`` (or of every device op when ``cls`` is "all"), read from
+    :func:`device_breakdown` over ``calls`` calls; also its launches by
+    class.  The trace can drop events but never adds one, so of up to three
+    windows the one that caught the most launches is read."""
+    best = None
+    for _ in range(3):
+        prof = device_breakdown(torch, lambda: [fn() for _ in range(calls)], calls)
+        launches = prof["device_launches"]
+        n = sum(launches.values()) if cls == "all" else launches.get(cls, 0)
+        if best is None or n > best[0]:
+            best = (n, prof)
+        if cls != "all" and n == calls:
+            break
+    n, prof = best
+    dev_ms = prof["device_ms_per_iter"] if cls == "all" else prof["by_kernel_ms"].get(cls, 0.0)
+    return n / calls, dev_ms, prof["device_launches"]
 
 
 def percentile(xs, p: float) -> float:
@@ -527,7 +563,7 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
                           2 * nnz * nq)
     rows["ell_gimv_multi"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, valid_slot_bound_ms=valid_b_ms, semiring="plus_times",
+        library_ms=lib_ms, semiring="plus_times",
         shape=[r_, d_, nq], occupancy=nnz / (r_ * d_))
     log(f"time ell_gimv_multi plus_times {[r_, d_]} x Q={nq} occupancy {nnz / (r_ * d_):.4f}: "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.sparse.mm "
@@ -548,17 +584,48 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
     err = compare(torch, got, block_gimv.dense_gimv_multi_ref(dm, vf, semiring="plus_times"),
                   "plus_times", "dense multi timed call")
     compare(torch, got, torch.matmul(dm, vf), "plus_times", "dense multi vs torch.matmul")
+    # tensor cores (3xTF32), a fixed k order and no split-K: the same bits twice
+    if not torch.equal(got, block_gimv.dense_gimv_multi(dm, vf, semiring="plus_times")):
+        raise SmokeError("dense_gimv_multi plus_times is not the same bits twice")
+    # relative error against a float64 product on the first 8192 rows, beside
+    # torch.matmul's: the largest, and the mean with its sign (a drift)
+    exact = dm[:8192].double() @ vf.double()
+    nz = exact != 0
+    if not bool(nz.any()):
+        raise SmokeError("dense multi: the first 8192 rows of the dense matrix are empty")
+    rel = {}
+    for what, r in (("kernel", got[:8192]), ("torch.matmul", torch.matmul(dm[:8192], vf))):
+        d = ((r.double() - exact) / exact)[nz]
+        rel[what] = (float(d.abs().max()), float(d.mean()))
+    del exact, nz
     sdm = fams["sssp"][2]["dense_matrix"]
-    vs = rand_block(sdm.shape[1], nq)
+    sm_, sk_ = sdm.shape
+    vs = rand_block(sk_, nq)
     ms_min = time_ms(torch, lambda: block_gimv.dense_gimv_multi(sdm, vs, semiring="min_plus"), 10)
-    b_ms, b_by = bound(m_ * k_ * 4 + k_ * nq * 4 + m_ * nq * 4, 2 * m_ * k_ * nq)
+    # plus_times: M, V and R once over the memory rate; the three TF32 products
+    # over the tensor cores' rate (what the kernel does), and one FP32 FMA
+    # product over the CUDA cores' (what a float32 kernel without them does)
+    bytes_ms = (m_ * k_ * 4 + k_ * nq * 4 + m_ * nq * 4) / H100_BYTES_PER_S * 1e3
+    tf32_ms = 3 * 2 * m_ * k_ * nq / H100_TF32_OPS_PER_S * 1e3
+    fp32_ms = 2 * m_ * k_ * nq / H100_F32_OPS_PER_S * 1e3
+    b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= tf32_ms else (tf32_ms, "operations")
+    # min_plus: an add and a min per cell, lane instructions at half the FP32 rate
+    min_bound_ms = 2 * sm_ * sk_ * nq / (H100_F32_OPS_PER_S / 2) * 1e3
     rows["dense_gimv_multi"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, semiring="plus_times", shape=[m_, k_, nq], min_plus_ms=ms_min)
-    log(f"time dense_gimv_multi {[m_, k_]} x Q={nq}: plus_times kernel {ms:.3f} ms "
-        f"({2 * m_ * k_ * nq / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, torch.matmul "
-        f"(no TF32) {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); min_plus kernel "
-        f"{ms_min:.3f} ms")
+        library_ms=lib_ms, semiring="plus_times", shape=[m_, k_, nq],
+        tflops=2 * m_ * k_ * nq / ms / 1e9, min_plus_ms=ms_min,
+        min_plus_shape=[sm_, sk_, nq],
+        rel_err_max=rel["kernel"][0], rel_err_mean=rel["kernel"][1],
+        matmul_rel_err_max=rel["torch.matmul"][0], matmul_rel_err_mean=rel["torch.matmul"][1])
+    log(f"time dense_gimv_multi {[m_, k_]} x Q={nq}: plus_times kernel (3xTF32) {ms:.3f} ms "
+        f"({2 * m_ * k_ * nq / ms / 1e9:.2f} TFLOP/s), the same bits twice; plain "
+        f"{plain_ms:.3f} ms, torch.matmul (FP32, no TF32) {lib_ms:.3f} ms; bounds: bytes "
+        f"{bytes_ms:.3f} ms, FP32 operations {fp32_ms:.3f} ms, 3xTF32 operations "
+        f"{tf32_ms:.3f} ms; min_plus {[sm_, sk_]} kernel {ms_min:.3f} ms against its "
+        f"{min_bound_ms:.3f} ms instruction bound; relative error against float64 on 8192 "
+        f"rows: kernel max {rel['kernel'][0]:.3e} mean {rel['kernel'][1]:.3e}, torch.matmul "
+        f"max {rel['torch.matmul'][0]:.3e} mean {rel['torch.matmul'][1]:.3e}")
     del got, vf, vs
 
     idx_x, val_x, nl = buffers["sssp"]
@@ -713,18 +780,28 @@ def packed_time_row(torch, dev, name, words, val, n_out, kw, structural, rows):
     lib_ms = time_ms(torch, lambda: base.clone().index_add_(0, tgt, val_s), 20)
     compare(torch, got, base.clone().index_add_(0, tgt, val_s), kw["semiring"],
             f"{name} vs index_add_")
+    # device time and launches per call from the profiler: the CUDA-event
+    # times above also hold the wrapper's host work between launches
+    per_call, dev_ms, seen = profiled_calls(torch, lambda: fn(words, val, n_out, **kw), name)
+    _, lib_dev_ms, _ = profiled_calls(torch, lambda: base.clone().index_add_(0, tgt, val_s), "all")
+    if name == "packed_scatter_combine" and per_call != 1:
+        raise SmokeError(f"{name}: {per_call} device launches per call, not 1 (launches by "
+                         f"class over 20 calls: {json.dumps(seen)})")
     del tgt, val_s, keep, base
     nbytes = words.numel() * 4 + structural * nq * 4 + n_out * nq * 4
     b_ms, b_by = bound(nbytes, structural * nq)
     rows[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                       library_ms=lib_ms, semiring=kw["semiring"],
                       shape=[int(val.shape[0])] + ([nq] if multi else []),
-                      width=kw["width"], n_local=kw["n_local"], structural_slots=structural)
+                      width=kw["width"], n_local=kw["n_local"], structural_slots=structural,
+                      device_launches_per_call=per_call, device_ms=dev_ms,
+                      library_device_ms=lib_dev_ms)
     log(f"time {name} {kw['semiring']} slots {val.shape[0]}{f' x Q={nq}' if multi else ''} "
         f"width {kw['width']} n_local {kw['n_local']} structural {structural}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.3f} ms, index_add_ of the structural slots at pre-decoded ids "
         f"{lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}); profiler: {per_call:g} device launches per call, "
+        f"device {dev_ms:.4f} ms per call (index_add_ with its clone {lib_dev_ms:.4f} ms)")
 
 
 def packed_run_checks(torch, np, dev, gen, eng, spec, res, meta, rows):
@@ -938,7 +1015,7 @@ def packed_widths_phase(torch, np, dev, gen):
     width's domain, every semiring, single-vector and Q = 64 / 67, against
     the plain versions and bitwise against the sparse kernels fed the same
     rows as int32 indices."""
-    from repro_torch.exchange import codec
+    from repro_torch.exchange import codec, plan
     from repro_torch.kernels import scatter_combine
 
     rng = np.random.default_rng(7)
@@ -954,6 +1031,7 @@ def packed_widths_phase(torch, np, dev, gen):
             for j in range(b):
                 c = int(rng.integers(0, p_cap + 1))
                 sets[s, j, :c] = np.sort(rng.choice(nl, c, replace=False))
+        plan.check_sorted_rows(sets, nl)   # the layout the packed kernel searches
         words = torch.from_numpy(codec.pack_uniform(sets, width).reshape(-1)).to(dev)
         idx = torch.from_numpy(sets.astype(np.int32)).to(dev)
         pad = idx >= nl
@@ -1161,7 +1239,7 @@ def main() -> int:
     del valid, deg, crow, got
     rows["ell_gimv"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, valid_slot_bound_ms=valid_b_ms, semiring="plus_times",
+        library_ms=lib_ms, semiring="plus_times",
         shape=[r_, d_], occupancy=nnz / (r_ * d_))
     lib_txt = "unavailable" if lib_ms is None else f"{lib_ms:.3f} ms"
     log(f"time ell_gimv plus_times {[r_, d_]} occupancy {nnz / (r_ * d_):.4f}: "

@@ -88,6 +88,20 @@ def row_sets_from_nnz_template(partial_nnz: np.ndarray) -> list:
     return [[int(partial_nnz[i, j]) for j in range(b)] for i in range(b)]
 
 
+def check_sorted_rows(rows: np.ndarray, n_local: int) -> None:
+    """Raise ValueError unless every row of ``rows`` ([..., p]) is a strictly
+    ascending run of ids in [0, n_local) followed only by the sentinel
+    n_local: the layout the packed scatter-combine kernel searches."""
+    rows = np.asarray(rows, np.int64)
+    valid = (rows >= 0) & (rows < n_local)
+    if np.any((rows < 0) | ((rows >= n_local) & (rows != n_local))):
+        raise ValueError(f"row ids must lie in [0, {n_local}] (n_local is the sentinel)")
+    if np.any(~valid[..., :-1] & valid[..., 1:]):
+        raise ValueError("an id follows the sentinel in a row")
+    if np.any(np.diff(rows, axis=-1)[valid[..., :-1] & valid[..., 1:]] <= 0):
+        raise ValueError("row ids are not strictly ascending")
+
+
 def build_exchange(
     row_sets: list,
     n_local: int,
@@ -130,6 +144,8 @@ def build_exchange(
 
     arrays = {"send_rows": send_rows, "recv_rows": recv_rows}
     if scatter == "kernel":
+        # The packed kernel searches each sender row: check the order it needs.
+        check_sorted_rows(recv_rows, n_local)
         # Per receiving worker: its b sets' words concatenated in set order.
         arrays["recv_words"] = codec.pack_uniform(
             recv_rows, width_dev).reshape(b, -1)

@@ -12,35 +12,45 @@
 // _decode_packed_ids), which decoded a tile of ids with vector shift/mask
 // in VMEM and reduced a one-hot (rows x slots) tile on the MXU/VPU.
 //
-// Here each thread owns one slot: it reads the slot's word, shifts and masks
-// its id out in registers (the ids never exist as int32 in device memory),
-// and folds its value into the output.  Precondition (the layout of
-// repro_torch.exchange.plan.build_exchange): a set's set_slots slots are
-// `senders` rows of p = set_slots / senders slots, and the ids below n_local
-// within one row are unique (each row is a sorted np.unique set padded with
-// the sentinel).  The fold is then deterministic and uses no atomics, as in
-// scatter_combine.cu: r starts at the identity, then one pass per sender
-// k = 0..senders-1, in order; within a pass no two threads touch the same
-// output.  The result is exact for min/max and the same bits from run to
-// run for plus_times, summed in sender order as the sparse kernel sums them
-// (the padded slots that the sparse stream drops fold in the identity here).
+// One launch, each output written once.  A block owns one set s and a tile
+// of kTile consecutive output rows of it (the tiles cover the set's
+// n_local + 1 rows, the drop row included; outputs at n_out or more are not
+// written).  It
+//   1. puts kTile identities in shared memory;
+//   2. finds, for every sender k, the range [lo_k, hi_k) of sender row k
+//      whose ids fall in the tile: a 32-ary search by one warp per
+//      (sender, bound) pair, each lane decoding one probe from the words
+//      (the ids never exist as int32 in device memory), ~4 dependent loads
+//      for a row of 85K slots where a binary search takes 17;
+//   3. loads the ranges' values (read once, streaming) and ids into
+//      registers, kItems per thread, and folds them into the shared tile
+//      sender by sender, k = 0..senders-1, with a barrier between senders;
+//   4. writes the tile out once, coalesced.
+// So no fill kernel, no re-read of an output, and the sentinel tail of a
+// row is never read.
 //
-// Bound: device-memory bytes -- each slot's word share and value are read
-// once and the output written once; the passes re-read and re-write the
-// touched outputs, which stay in L2 at the exchange's sizes.
+// Precondition (the layout of repro_torch.exchange.plan.build_exchange): a
+// set's set_slots slots are `senders` rows of p = set_slots / senders slots,
+// and in each row the ids below n_local are strictly ascending and followed
+// only by ids of n_local or more (each row is a sorted np.unique set padded
+// with the sentinel; build_exchange refuses rows that are not, with
+// plan.check_sorted_rows, and a row out of order here gives a wrong result,
+// not an error).  The search needs the order; uniqueness makes the
+// fold of one sender race-free without atomics.  The fold order per output
+// is identity (+) v_0 (+) v_1 (+) ... in sender order, as in the sparse
+// kernel (scatter_combine.cu), so the two give the same bits and plus_times
+// is the same bits from run to run.
+//
+// Bound: device-memory bytes -- the structural slots' words and values read
+// once and every output written once.
 #include "semiring.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-template <int S, typename T>
-__global__ void __launch_bounds__(kThreads)
-packed_fill_identity(T* __restrict__ out, long long n) {
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * kThreads)
-    out[i] = pmv::identity<S, T>();
-}
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 4096;   // output rows per block
+constexpr int kItems = 8;     // slots per thread per chunk
 
 // The id of slot t: field t % (32 / W) of word t / (32 / W).
 template <int W>
@@ -51,47 +61,122 @@ __device__ __forceinline__ unsigned decode_id(const unsigned* __restrict__ words
   else return (word >> (static_cast<int>(t % kPer) * W)) & ((1u << W) - 1u);
 }
 
+// First position j in [0, p) of the row starting at slot `row` whose id is
+// x or more, or p; x <= n_local, so the sentinel tail is "x or more".  Each
+// step the 32 lanes probe 32 evenly spaced positions of the open range and
+// a ballot keeps the one gap that holds the answer.  Every lane returns it.
+template <int W>
+__device__ int warp_lower_bound(const unsigned* __restrict__ words, long long row, int p,
+                                unsigned x, int lane) {
+  int lo = 0, hi = p;   // the answer lies in [lo, hi]
+  while (hi > lo) {
+    const long long len = hi - lo;
+    const int q = lo + static_cast<int>(((lane + 1) * len) >> 5) - 1;   // in [lo - 1, hi - 1]
+    const bool below = q < lo || decode_id<W>(words, row + q) < x;
+    const int c = __popc(__ballot_sync(0xffffffffu, below));          // lanes 0..c-1 below
+    const int nlo = lo + static_cast<int>((c * len) >> 5);             // q_{c-1} + 1
+    const int nhi = c < 32 ? lo + static_cast<int>(((c + 1) * len) >> 5) - 1 : hi;  // q_c
+    lo = nlo;
+    hi = nhi;
+  }
+  return lo;
+}
+
 template <int S, typename T, int W>
 __global__ void __launch_bounds__(kThreads)
-packed_scatter_pass(const unsigned* __restrict__ words, const T* __restrict__ val,
-                    T* __restrict__ out, int n_sets, int set_slots, int p, int n_local,
-                    int n_out, int k) {
-  const long long u = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (u >= static_cast<long long>(n_sets) * p) return;
-  const int s = static_cast<int>(u / p);
-  const int j = static_cast<int>(u - static_cast<long long>(s) * p);
-  const long long t = static_cast<long long>(s) * set_slots + static_cast<long long>(k) * p + j;
-  const unsigned id = decode_id<W>(words, t);
-  if (id >= static_cast<unsigned>(n_local)) return;
-  const long long o = static_cast<long long>(s) * (n_local + 1) + id;
-  if (o >= n_out) return;
-  out[o] = pmv::combine_all<S, T>(out[o], __ldcs(val + t));
+packed_scatter_tile(const unsigned* __restrict__ words, const T* __restrict__ val,
+                    T* __restrict__ out, int n_sets, int set_slots, int senders, int n_local,
+                    int n_out, int tiles_per_set) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tile = reinterpret_cast<T*>(smem);
+  int* bnd = reinterpret_cast<int*>(tile + kTile);   // [lo_0, hi_0, lo_1, hi_1, ...]
+  int* off = bnd + 2 * senders;                      // prefix sums of the range lengths
+  const int s = static_cast<int>(blockIdx.x / tiles_per_set);
+  const int i0 = static_cast<int>(blockIdx.x - s * tiles_per_set) * kTile;
+  const long long o0 = static_cast<long long>(s) * (n_local + 1) + i0;
+  const int n_here = min(kTile, n_local + 1 - i0);
+  const int lane = threadIdx.x & 31;
+  const int p = set_slots / senders;
+  const long long set0 = static_cast<long long>(s) * set_slots;
+  constexpr int kPer = 32 / W;
+  constexpr unsigned kMask = W == 32 ? 0xffffffffu : (1u << W) - 1u;
+
+  for (int i = threadIdx.x; i < n_here; i += kThreads) tile[i] = pmv::identity<S, T>();
+  if (s < n_sets && i0 < n_local) {   // block-uniform
+    const unsigned x_lo = static_cast<unsigned>(i0);
+    const unsigned x_hi = static_cast<unsigned>(min(i0 + kTile, n_local));
+    for (int pr = threadIdx.x >> 5; pr < 2 * senders; pr += kWarps) {
+      const int k = pr >> 1;
+      const int pos = warp_lower_bound<W>(words, set0 + static_cast<long long>(k) * p, p,
+                                          (pr & 1) ? x_hi : x_lo, lane);
+      if (lane == 0) bnd[pr] = pos;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      off[0] = 0;
+      for (int k = 0; k < senders; ++k) off[k + 1] = off[k] + bnd[2 * k + 1] - bnd[2 * k];
+    }
+    __syncthreads();
+    const int total = off[senders];
+    int k = 0;   // sender of this thread's next slot: nondecreasing, flat order is sender order
+    for (int c0 = 0; c0 < total; c0 += kThreads * kItems) {
+      // every load of the chunk is in flight before any is used: the id is
+      // cut out of its word only at the fold
+      T v[kItems];
+      unsigned word[kItems];
+      int shift[kItems];
+      int from[kItems];
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int f = c0 + static_cast<int>(threadIdx.x) + i * kThreads;
+        from[i] = -1;
+        if (f < total) {
+          while (off[k + 1] <= f) ++k;
+          const long long t = set0 + static_cast<long long>(k) * p + bnd[2 * k] + (f - off[k]);
+          word[i] = __ldg(words + t / kPer);
+          shift[i] = static_cast<int>(t % kPer) * W;
+          v[i] = __ldcs(val + t);
+          from[i] = k;
+        }
+      }
+      const int c1 = min(total, c0 + kThreads * kItems);
+      for (int ks = 0; ks < senders; ++ks) {
+        if (off[ks + 1] <= c0 || off[ks] >= c1) continue;   // block-uniform
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+          if (from[i] != ks) continue;
+          const unsigned id = (W == 32 ? word[i] : (word[i] >> shift[i]) & kMask) - x_lo;
+          // true under the precondition; a row out of order (which
+          // plan.check_sorted_rows refuses) cannot write outside the tile
+          if (id < static_cast<unsigned>(kTile))
+            tile[id] = pmv::combine_all<S, T>(tile[id], v[i]);
+        }
+        __syncthreads();
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_here; i += kThreads)
+    if (o0 + i < n_out) out[o0 + i] = tile[i];
 }
 
 template <int S, typename T, int W>
 cudaError_t launch_w(const void* words, const void* val, void* out, int n_sets,
                      int set_slots, int senders, int n_local, int n_out,
                      cudaStream_t stream) {
-  auto* o = static_cast<T*>(out);
-  const long long fill_blocks = (static_cast<long long>(n_out) + kThreads - 1) / kThreads;
-  const unsigned fill_grid = static_cast<unsigned>(fill_blocks < 65535 ? fill_blocks : 65535);
-  if (n_out > 0) {
-    packed_fill_identity<S, T><<<fill_grid, kThreads, 0, stream>>>(o, n_out);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  const int p = set_slots / senders;
-  const long long slots = static_cast<long long>(n_sets) * p;
-  if (slots == 0 || n_out == 0) return cudaSuccess;
-  const unsigned grid = static_cast<unsigned>((slots + kThreads - 1) / kThreads);
-  for (int k = 0; k < senders; ++k) {
-    packed_scatter_pass<S, T, W><<<grid, kThreads, 0, stream>>>(
-        static_cast<const unsigned*>(words), static_cast<const T*>(val), o, n_sets,
-        set_slots, p, n_local, n_out, k);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  if (n_out == 0) return cudaSuccess;
+  const long long seg_w = static_cast<long long>(n_local) + 1;
+  const long long tiles_per_set = (seg_w + kTile - 1) / kTile;
+  // every set the outputs reach; sets past n_sets (n_out beyond the
+  // exchange's segments) hold identities only
+  const long long grid_sets = (n_out + seg_w - 1) / seg_w;
+  const long long blocks = grid_sets * tiles_per_set;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const size_t smem = kTile * sizeof(T) + (3 * static_cast<size_t>(senders) + 1) * sizeof(int);
+  packed_scatter_tile<S, T, W><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const unsigned*>(words), static_cast<const T*>(val), static_cast<T*>(out),
+      n_sets, set_slots, senders, n_local, n_out, static_cast<int>(tiles_per_set));
+  return cudaGetLastError();
 }
 
 template <int S, typename T>
@@ -109,8 +194,8 @@ cudaError_t launch(const void* words, const void* val, void* out, int n_sets, in
 }  // namespace
 
 // words: uint32 [n_sets * set_slots * width / 32]; val: value type
-// [n_sets * set_slots]; out: value type [n_out].  Returns the first failing
-// launch's cudaError_t, or cudaSuccess.
+// [n_sets * set_slots]; out: value type [n_out].  One launch; returns its
+// cudaError_t (cudaSuccess without a launch when n_out is 0).
 extern "C" int packed_scatter_combine(const void* words, const void* val, void* out,
                                       int n_sets, int set_slots, int senders, int n_local,
                                       int n_out, int width, int semiring, int vtype,

@@ -144,12 +144,20 @@ def packed_scatter_combine_gimv(words: torch.Tensor, val: torch.Tensor, n_out: i
 
     The arguments are the JAX package's ``packed_scatter_combine_gimv``'s
     plus ``senders``: each set's slots are ``senders`` rows of
-    set_slots / senders slots.  The kernel folds the rows of a set in sender
-    order and relies on the ids below n_local being unique within a row
-    (``exchange.plan.build_exchange``'s sets are); the plain version accepts
-    any ids.  Unlike the Pallas kernel, which folds the sentinel slots'
-    values into each set's drop slot, both leave the drop slot at the
-    identity; the exchange slices it off either way.
+    set_slots / senders slots.  Precondition of the kernel: in every sender
+    row the ids below n_local are strictly ascending and followed only by
+    ids of n_local or more (``exchange.plan.build_exchange``'s rows are: a
+    sorted ``np.unique`` set padded with the sentinel, and it refuses rows
+    that are not, with ``exchange.plan.check_sorted_rows``; hold words from
+    elsewhere to that check before they reach the card).  One launch: a
+    block per tile of a set's output rows searches each row for the slots
+    that land in its tile and folds them in sender order, so rows out of
+    order give a wrong result, not an error; the wrapper does not check
+    them, as that would cost more than the kernel.  The plain version
+    accepts any ids.
+    Unlike the Pallas kernel, which folds the sentinel slots' values into
+    each set's drop slot, both leave the drop slot at the identity; the
+    exchange slices it off either way.
     """
     _check_packed(words, val, n_out, set_slots, n_local, width, senders, semiring, 1)
     dev = val.device

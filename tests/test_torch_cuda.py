@@ -274,3 +274,160 @@ def test_cuda_server_packed_runs_on_the_packed_multi_kernel(cuda_device):
     for a, h in zip(on_card, on_host):
         assert a.converged and h.converged and a.iterations == h.iterations
         np.testing.assert_array_equal(a.vector, h.vector)
+
+
+# kernel 4's two paths: tensor cores (plus_times, float32) and CUDA cores
+# (the rest); every row, k and Q edge of the 128 x 64 / 256 x 64 block tiles,
+# the 32 / 16 k steps and the 16-byte copies (k % 4)
+DENSE_CASES = [("plus_times", np.float32), ("min_plus", np.float32), ("max_plus", np.float32),
+               ("min_src", np.float32), ("min_src", np.int32)]
+
+
+def _identity_np(semiring, dtype):
+    if semiring == "plus_times":
+        return dtype(0)
+    if dtype == np.float32:
+        return np.float32(-np.inf if semiring == "max_plus" else np.inf)
+    return np.int32(-2**31 if semiring == "max_plus" else 2**31 - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 127, 129, 1000])
+@pytest.mark.parametrize("semiring,dtype", DENSE_CASES, ids=[f"{s}-{np.dtype(d).name}"
+                                                            for s, d in DENSE_CASES])
+def test_cuda_dense_multi_both_paths_at_tile_edges(cuda_device, semiring, dtype, rows):
+    """dense_gimv_multi against its plain version at k in {1, 31, 33, 1232}
+    and Q in {1, 5, 8, 63, 64, 67, 130}; column 0 of V is all identity and
+    min/max_plus see the dense region's +-inf fill; plus_times is the same
+    bits twice (fixed k order, no split-K)."""
+    rng = np.random.default_rng(rows)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    ident = _identity_np(semiring, dtype)
+    before = kernels.launch_counts()["dense_gimv_multi"]
+    calls = 0
+    for k in (1, 31, 33, 1232):
+        m = rng.random((rows, k))
+        if semiring == "min_src":
+            m = m > 0.7
+        elif semiring in ("min_plus", "max_plus"):
+            m[rng.random((rows, k)) < 0.5] = np.inf if semiring == "min_plus" else -np.inf
+        m = put(m.astype(np.float32))
+        for nq in (1, 5, 8, 63, 64, 67, 130):
+            x = _values(rng, (k, nq), dtype)
+            x[:, 0] = ident
+            x[rng.random((k, nq)) < 0.1] = ident
+            v = put(x)
+            got = block_gimv.dense_gimv_multi(m, v, semiring=semiring)
+            _assert_match(got, block_gimv.dense_gimv_multi_ref(m, v, semiring=semiring),
+                          semiring, dtype)
+            calls += 1
+            if semiring == "plus_times":
+                assert torch.equal(got, block_gimv.dense_gimv_multi(m, v, semiring=semiring))
+                calls += 1
+    assert kernels.launch_counts()["dense_gimv_multi"] == before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["matrix", "vectors"])
+def test_cuda_dense_multi_plus_times_infinite_operand(cuda_device, where):
+    """The stated limit of the 3xTF32 path: an infinite operand (plus_times
+    values are finite on every path of the engine) makes its whole output
+    row (an inf in M) or column (an inf in V) non-finite -- NaN, where the
+    plain version gives inf or NaN -- and leaves every other cell equal to
+    the plain version's at the usual tolerance."""
+    rng = np.random.default_rng(3)
+    rows, k, nq = 300, 200, 67
+    m = rng.random((rows, k)).astype(np.float32)
+    x = rng.random((k, nq)).astype(np.float32)
+    if where == "matrix":
+        m[17, 40] = np.inf
+    else:
+        x[40, 5] = np.inf
+    m_d, v_d = torch.from_numpy(m).to(cuda_device), torch.from_numpy(x).to(cuda_device)
+    got = block_gimv.dense_gimv_multi(m_d, v_d, semiring="plus_times").cpu()
+    want = block_gimv.dense_gimv_multi_ref(m_d, v_d, semiring="plus_times").cpu()
+    hit = torch.zeros((rows, nq), dtype=torch.bool)
+    if where == "matrix":
+        hit[17, :] = True
+    else:
+        hit[:, 5] = True
+    assert not torch.isfinite(got[hit]).any() and not torch.isfinite(want[hit]).any()
+    _assert_match(got[~hit], want[~hit], "plus_times", np.float32)
+
+
+def _straddling_rows(rng, sets, senders, p, n_local):
+    """Sender rows in the exchange's layout (ascending unique ids below
+    n_local, then the sentinel), cycling through four kinds: empty (all
+    sentinel), full (no sentinel where n_local >= p), the two ends of the id
+    domain alone, and random ids with both ends."""
+    rows = np.full((sets, senders, p), n_local, np.int64)
+    cap = min(p, n_local)
+    for s in range(sets):
+        for k in range(senders):
+            kind = (s + k) % 4
+            if kind == 0:
+                continue
+            if kind == 1:
+                ids = np.sort(rng.choice(n_local, cap, replace=False))
+            elif kind == 2:
+                ids = np.unique([0, n_local - 1])
+            else:
+                cnt = int(rng.integers(1, cap + 1))
+                ids = np.unique(np.concatenate([rng.choice(n_local, cnt, replace=False),
+                                                [0, n_local - 1]]))[:cap]
+            rows[s, k, :len(ids)] = ids
+    return rows
+
+
+# (width, n_local): each width at the top of its domain; for 16 and 32 bits
+# n_local + 1 at (4095), just past (4096, 4097) and well past (5000) the
+# 4096-row tile of kernel 7, and inside one tile (2047, 2048)
+STRADDLE = [(4, 15), (4, 6), (8, 255), (8, 100), (16, 2047), (16, 2048), (16, 4095),
+            (16, 4096), (16, 5000), (16, 65535), (32, 4097), (32, 131072)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring,dtype", DENSE_CASES, ids=[f"{s}-{np.dtype(d).name}"
+                                                            for s, d in DENSE_CASES])
+@pytest.mark.parametrize("width,n_local", STRADDLE)
+def test_cuda_packed_kernel_at_tile_edges(cuda_device, width, n_local, semiring, dtype):
+    """Kernel 7 (one launch: a block per 4096-row tile of a set) against its
+    plain version and bitwise against the sparse kernel on the same rows,
+    with empty, full and (0, n_local - 1) sender rows, at n_out equal to, a
+    set and a half under, one row under and 3000 rows over the sets'
+    n_sets * (n_local + 1); plus_times the same bits twice."""
+    from repro_torch.exchange import codec
+
+    sets, senders = 3, 5
+    per = 32 // width
+    p = -(-min(n_local, 3000) // per) * per
+    rng = np.random.default_rng(n_local * 100 + width)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    rows = _straddling_rows(rng, sets, senders, p, n_local)
+    assert (rows[..., 0] == 0).any() and (rows == n_local - 1).any()
+    words = put(codec.pack_uniform(rows, width).reshape(-1))
+    x = _values(rng, rows.shape, dtype)
+    x[rows >= n_local] = _identity_np(semiring, dtype)
+    val = put(x)
+    kw = dict(set_slots=senders * p, n_local=n_local, width=width, semiring=semiring)
+    full = sets * (n_local + 1)
+    before = kernels.launch_counts()["packed_scatter_combine"]
+    calls = 0
+    for n_out in (full, full - (n_local + 1) - (n_local + 1) // 2, full - 1, full + 3000):
+        if n_out <= 0:
+            continue
+        got = scatter_combine.packed_scatter_combine_gimv(words, val.reshape(-1), n_out,
+                                                          senders=senders, **kw)
+        _assert_match(got, scatter_combine.packed_scatter_combine_ref(words, val.reshape(-1),
+                                                                      n_out, **kw),
+                      semiring, dtype)
+        calls += 1
+        if n_out == full:
+            sparse = scatter_combine.scatter_combine_gimv(put(rows.astype(np.int32)), val,
+                                                          n_local, semiring=semiring)
+            assert torch.equal(got.reshape(sets, n_local + 1)[:, :n_local], sparse)
+            if semiring == "plus_times":
+                assert torch.equal(got, scatter_combine.packed_scatter_combine_gimv(
+                    words, val.reshape(-1), n_out, senders=senders, **kw))
+                calls += 1
+    assert kernels.launch_counts()["packed_scatter_combine"] == before + calls

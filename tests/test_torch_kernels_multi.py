@@ -204,3 +204,97 @@ def test_multi_wrappers_check_arguments(case):
                 semiring="plus_times")
         else:
             ell_spmv.ell_gimv_multi(cols, None, torch.zeros((2, 5)).t(), semiring="plus_times")
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 method of the Hopper kernel's plus_times path
+# (csrc/dense_gimv_multi.cu), emulated in plain torch here only: each operand
+# splits into big = rna(x) and small = rna(x - big), rna rounding float32 to
+# TF32 (10 mantissa bits) to nearest with ties away from zero, and the
+# product sums small_a*big_v + big_a*small_v + big_a*big_v (small*small left
+# out) in float32, one fresh partial per 32 k added in k order, as the
+# kernel adds its per-tile partials.  Products of TF32 parts are exact in
+# float32, so what differs from a float32 dot is the dropped small*small
+# term (~2^-22 of a product) and the summation order.  Not modelled: the
+# tensor cores truncate as they accumulate inside a 32-k tile, where each
+# partial here is a torch float32 matmul that rounds to nearest.  So these
+# tests hold the split, the dropped term and the per-tile partials, not the
+# card's in-tile rounding: that is held on the card only (test_torch_cuda.py
+# and the chip smoke, at the same tolerance).
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _dense_3xtf32(m: np.ndarray, v: np.ndarray, tile: int = 32) -> np.ndarray:
+    a, b = torch.from_numpy(m), torch.from_numpy(v)
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    a_small, b_small = _tf32_rna(a - a_big), _tf32_rna(b - b_big)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], tile):
+        ks = slice(k0, k0 + tile)
+        acc += (a_small[:, ks] @ b_big[ks] + a_big[:, ks] @ b_small[ks]) + a_big[:, ks] @ b_big[ks]
+    return acc.numpy()
+
+
+def _rwr_like(rng, rows, k, nq, signed):
+    """A dense region's row-stochastic weights (90% zero) times RWR-scale
+    columns (each sums to 1 in absolute value); ``signed`` flips a random
+    half of both."""
+    m = rng.random((rows, k))
+    m[rng.random((rows, k)) < 0.9] = 0
+    m /= np.maximum(m.sum(axis=1, keepdims=True), 1e-30)
+    v = rng.random((k, nq)) ** 4
+    v /= v.sum(axis=0, keepdims=True)
+    if signed:
+        m *= np.where(rng.random(m.shape) < 0.5, -1.0, 1.0)
+        v *= np.where(rng.random(v.shape) < 0.5, -1.0, 1.0)
+    return m.astype(np.float32), v.astype(np.float32)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10   # a TF32 ulp at 1.0
+    x = torch.tensor([1.0, 1.0 + one_ulp / 2, 1.0 + one_ulp / 2 - 2.0 ** -23, -(1.0 + one_ulp / 2),
+                      1.0 + 1.5 * one_ulp, 3.0e-39, float("inf")], dtype=torch.float32)
+    want = [1.0, 1.0 + one_ulp, 1.0, -(1.0 + one_ulp), 1.0 + 2 * one_ulp]
+    got = _tf32_rna(x)
+    assert got[:5].tolist() == want
+    assert got[6] == float("inf")
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+
+
+@pytest.mark.parametrize("nq", [5, 64, 67])
+@pytest.mark.parametrize("signed", [False, True], ids=["nonneg", "signed"])
+def test_dense_multi_3xtf32_method_matches_jax_kernel(signed, nq):
+    """The emulated method against the Pallas kernel in interpret mode at 256
+    rows and k = 1232, within the chip smoke's plus_times tolerance (rtol
+    1e-5, atol 1e-6 * min(1, max|want|)): the method's split, dropped term
+    and per-tile partials leave room for the card's check.  The card's
+    truncating in-tile accumulation is not emulated, so this does not show
+    that the card's result holds."""
+    rng = _rng("3xtf32", signed, nq)
+    m, v = _rwr_like(rng, 256, 1232, nq, signed)
+    want = np.asarray(jax_dense_multi(jnp.asarray(m), jnp.asarray(v), semiring="plus_times",
+                                      interpret=True))
+    got = _dense_3xtf32(m, v)
+    scale = min(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("nq", [5, 64, 67])
+def test_dense_multi_3xtf32_method_as_accurate_as_a_float32_dot(nq):
+    """Signed unit-scale data (M and V uniform in [-1, 1], outputs up to ~45
+    with heavy cancellation): here no float32 sum meets an absolute 1e-6 --
+    the Pallas kernel's own result sits ~1.2e-5 from the float64 product.
+    So the method is held to that: its largest error against float64 is at
+    most twice the Pallas kernel's, and its mean error at most 1.5 times."""
+    rng = _rng("3xtf32-unit", nq)
+    m = rng.uniform(-1, 1, (256, 1232)).astype(np.float32)
+    v = rng.uniform(-1, 1, (1232, nq)).astype(np.float32)
+    exact = m.astype(np.float64) @ v.astype(np.float64)
+    ref_err = np.abs(np.asarray(jax_dense_multi(jnp.asarray(m), jnp.asarray(v),
+                                                semiring="plus_times", interpret=True)) - exact)
+    err = np.abs(_dense_3xtf32(m, v) - exact)
+    assert err.max() <= 2.0 * ref_err.max(), (err.max(), ref_err.max())
+    assert err.mean() <= 1.5 * ref_err.mean(), (err.mean(), ref_err.mean())
