@@ -26,10 +26,15 @@ Phases, each printed as it ends; any failure exits non-zero:
               for all four semirings (plus int32 for min_src): exact for
               min_plus / max_plus / min_src, rtol 1e-5 / atol 1e-6 for
               plus_times (the summation order differs; atol scales down with
-              data below 1).  Every ELL bucket is also run on a uniform
-              random vector.  These launches are
-              outside the counted runs.  Kernel, plain-version and library
-              times are CUDA-event means.
+              data below 1), which must also give the same bits twice.
+              Every ELL bucket is also run on a uniform random vector.
+              These launches are outside the counted runs.  Kernel,
+              plain-version and library times are CUDA-event means.  The
+              PageRank run times ``ell_gimv`` on every bucket of one
+              iteration ("bucket" lines: shape, occupancy, longest row,
+              kernel and CSR ``torch.mv`` ms, the valid-slot and layout
+              bounds; first asserting every row left-packed, the ELL
+              kernels' precondition) and prints their sum.
    Each run is also profiled for 3 more iterations (torch.profiler): device
    time per iteration by kernel, host wall per iteration, idle share.
 5. serve   -- ``PMVServer(strategy='hybrid', theta=3000, backend='auto',
@@ -46,10 +51,10 @@ Phases, each printed as it ends; any failure exits non-zero:
               not.  Then the Q-wide kernels are held against their plain
               versions at the run's shapes (every ELL bucket on the served
               state and a random [N, 64] block, the dense region, the
-              exchange buffers; 4 semirings + int32 min_src at Q = 64 and 5),
-              timed against their plain versions and a library yardstick
-              (ELL: beside the layout bound, the valid-slot bound of a
-              kernel that stops at a row's first all-pad 32-slot chunk;
+              exchange buffers; 4 semirings + int32 min_src at Q = 64 and 5,
+              every ELL bucket), timed against their plain versions and a
+              library yardstick (ELL: every bucket of the RWR family at
+              Q = 64, as for PageRank, against CSR ``torch.sparse.mm``;
               dense: plus_times on the tensor cores (3xTF32) must give the
               same bits twice and is printed in TFLOP/s beside its byte,
               FP32 and 3xTF32 operation bounds, min_plus beside its
@@ -65,15 +70,16 @@ Phases, each printed as it ends; any failure exits non-zero:
               theta=3000, scatter='kernel', exchange='packed')`` answers the
               96 RWR queries of phase 5 (the Q-wide packed kernel), each
               answer and iteration count bitwise phase 5's.  Kernels, outside
-              the counted runs: both packed kernels against their plain
-              versions on the runs' own buffers (4 semirings + int32 min_src;
-              Q = 64 and 5), bitwise against the sparse kernels fed the
-              compacted buffers of the same partials, at synthetic widths 4,
-              8, 16 and 32 bits (n_local 15, 255, 65535, 131072; Q = 64 and
-              67), and plus_times the same bits twice; timed against their
-              plain versions and ``index_add_`` on pre-decoded ids, and
-              profiled: device launches and device ms per call (kernel 7
-              must make exactly one launch per call).
+              the counted runs: both ELL kernels on every bucket of the two
+              packed runs, as in phases 4 and 5; both packed kernels against
+              their plain versions on the runs' own buffers (4 semirings +
+              int32 min_src; Q = 64 and 5), bitwise against the sparse
+              kernels fed the compacted buffers of the same partials, at
+              synthetic widths 4, 8, 16 and 32 bits (n_local 15, 255, 65535,
+              131072; Q = 64 and 67), and plus_times the same bits twice;
+              timed against their plain versions and ``index_add_`` on
+              pre-decoded ids, and profiled: device launches and device ms
+              per call (kernel 7 must make exactly one launch per call).
 7. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
               the device line.
 
@@ -161,9 +167,11 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 KERNEL_CLASSES = (("packed_scatter_multi_pass", "packed_scatter_combine_multi"),
                   ("packed_fill_identity_multi", "packed_scatter_combine_multi"),
                   ("packed_scatter_tile", "packed_scatter_combine"),
-                  ("ell_gimv_kernel", "ell_gimv"), ("dense_gimv_kernel", "dense_gimv"),
-                  ("scatter_pass", "scatter_combine"),
+                  ("ell_gimv_kernel", "ell_gimv"), ("ell_gimv_wide_kernel", "ell_gimv"),
+                  ("dense_gimv_kernel", "dense_gimv"), ("scatter_pass", "scatter_combine"),
                   ("ell_gimv_multi_kernel", "ell_gimv_multi"),
+                  ("ell_gimv_multi_wide_kernel", "ell_gimv_multi"),
+                  ("ell_gimv_multi_half_kernel", "ell_gimv_multi"),
                   ("dense_gimv_multi_kernel", "dense_gimv_multi"),
                   ("dense_gimv_multi_tf32x3", "dense_gimv_multi"),
                   ("scatter_multi_pass", "scatter_combine_multi"),
@@ -251,6 +259,89 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ell_bucket_times(torch, label: str, buckets, v, row: dict, reps: int = 20) -> list[dict]:
+    """Time the ELL kernel (``ell_gimv`` for v [N], ``ell_gimv_multi`` for
+    v [N, Q]) on every bucket of one iteration with plus_times, beside CSR
+    ``torch.mv`` / ``torch.sparse.mm`` over the bucket's valid slots and two
+    bounds: the layout bound reads every padded col; the valid-slot bound is
+    the least a kernel that stops at a row's first pad must read: a row's
+    cols up to that pad (min(width, deg + 1) slots) in 32-byte sectors, the
+    valid weights, the v rows (single: min(nnz, N) values; Q-wide: each row
+    the bucket touches once) and the output.  Asserts first that every row is left-packed (no valid
+    slot after a pad), the kernels' precondition.  Prints one line a bucket
+    and the sum over the buckets (one launch each per iteration), fills the
+    kernels line's ``row`` from the largest bucket (most slots of the
+    layout; with its plain version's time and error) and returns the
+    per-bucket dicts."""
+    from repro_torch.kernels import ell_spmv
+
+    multi = v.ndim == 2
+    nq = v.shape[1] if multi else 1
+    fn = ell_spmv.ell_gimv_multi if multi else ell_spmv.ell_gimv
+    out, total, total_lib = [], 0.0, 0.0
+    for i, bk in enumerate(buckets):
+        cols, w = bk.cols, bk.w
+        r_, d_ = cols.shape
+        valid = cols >= 0
+        if bool((valid[:, 1:] & ~valid[:, :-1]).any()):
+            raise SmokeError(f"{label} ell bucket {i} {[r_, d_]}: a valid slot after a pad "
+                             "(rows must be left-packed)")
+        deg = valid.sum(dim=1)
+        nnz = int(deg.sum())
+        longest = int(deg.max()) if r_ else 0
+        sectors = int(((torch.clamp(deg + 1, max=d_) + 7) // 8).sum())   # 8 cols a sector
+        touched = int(torch.unique(cols[valid]).numel()) if multi else min(nnz, v.shape[0])
+        ms = time_ms(torch, lambda: fn(cols, w, v, semiring="plus_times"), reps)
+        crow = torch.zeros(r_ + 1, dtype=torch.int64, device=cols.device)
+        crow[1:] = torch.cumsum(deg, 0)
+        csr = torch.sparse_csr_tensor(crow, cols[valid].to(torch.int64), w[valid],
+                                      size=(r_, v.shape[0]))
+        lib = (lambda: torch.sparse.mm(csr, v)) if multi else (lambda: torch.mv(csr, v))
+        got = fn(cols, w, v, semiring="plus_times")
+        compare(torch, got, lib(), "plus_times", f"{label} ell bucket {i} vs the CSR library call")
+        if not torch.equal(got, fn(cols, w, v, semiring="plus_times")):
+            raise SmokeError(f"{label} ell bucket {i}: plus_times not the same bits twice")
+        lib_ms = time_ms(torch, lib, max(2, reps // 2))
+        del valid, crow, csr, got
+        out_b = r_ * nq * 4
+        layout_ms, _ = bound(r_ * d_ * 4 + nnz * 4 + min(nnz, v.shape[0]) * nq * 4 + out_b,
+                             2 * nnz * nq)
+        valid_ms, valid_by = bound(sectors * 32 + nnz * 4 + touched * nq * 4 + out_b,
+                                   2 * nnz * nq)
+        occ = nnz / max(1, r_ * d_)
+        out.append(dict(shape=[r_, d_], occupancy=occ, longest_row=longest, nnz=nnz,
+                        col_sectors=sectors, ms=ms, library_ms=lib_ms, layout_bound_ms=layout_ms,
+                        valid_bound_ms=valid_ms, valid_bound_by=valid_by, touched=touched))
+        total += ms
+        total_lib += lib_ms
+        log(f"bucket {label} {i} {[r_, d_]}{f' x Q={nq}' if multi else ''}: occupancy "
+            f"{occ:.4f}, longest row {longest}, kernel {ms:.4f} ms, CSR library {lib_ms:.4f} ms, "
+            f"bound {valid_ms:.4f} ms (valid slots, {valid_by}; {sectors} sectors of cols, {nnz} slots, "
+            f"{touched} v rows), {layout_ms:.4f} ms (layout); kernel / valid-slot bound "
+            f"{ms / valid_ms:.2f}x")
+    log(f"buckets {label}: {len(out)} launches per iteration, kernel sum {total:.4f} ms, CSR "
+        f"library sum {total_lib:.4f} ms, valid-slot bound sum "
+        f"{sum(x['valid_bound_ms'] for x in out):.4f} ms")
+    ibig = max(range(len(buckets)), key=lambda i: buckets[i].cols.numel())
+    big, tb = buckets[ibig], out[ibig]
+    plain = ell_spmv.ell_gimv_multi_ref if multi else ell_spmv.ell_gimv_ref
+    plain_ms = time_ms(torch, lambda: plain(big.cols, big.w, v, semiring="plus_times"),
+                       2 if multi else 5, warmup=1)
+    err = compare(torch, fn(big.cols, big.w, v, semiring="plus_times"),
+                  plain(big.cols, big.w, v, semiring="plus_times"), "plus_times",
+                  f"{label} ell timed bucket")
+    row.update(max_abs_err=err, ms=tb["ms"], plain_ms=plain_ms, bound_ms=tb["valid_bound_ms"],
+               bound_by=tb["valid_bound_by"], library_ms=tb["library_ms"], semiring="plus_times",
+               shape=tb["shape"] + ([nq] if multi else []), occupancy=tb["occupancy"],
+               iteration_ms=total)
+    log(f"time {fn.__name__} plus_times {tb['shape']}{f' x Q={nq}' if multi else ''} occupancy "
+        f"{tb['occupancy']:.4f}: kernel {tb['ms']:.3f} ms, plain {plain_ms:.3f} ms, CSR library "
+        f"{tb['library_ms']:.3f} ms, bound {tb['valid_bound_ms']:.4f} ms (valid slots, "
+        f"{tb['valid_bound_by']}), {tb['layout_bound_ms']:.3f} ms (layout); all "
+        f"{len(buckets)} buckets {total:.3f} ms")
+    return out
+
+
 def compare(torch, got, want, semiring: str, what: str) -> float:
     """Hold a kernel result against its plain version; returns max |err|.
     plus_times: rtol 1e-5 and atol 1e-6, the atol scaled down with the data
@@ -320,6 +411,37 @@ def cc_ref(np, sp, csgraph, edges, n):
 
 # ---------------------------------------------------------------------------
 # serve phase
+
+
+def ell_multi_sweep(torch, rand_block, label, buckets, v_served, semiring) -> None:
+    """``ell_gimv_multi`` on every bucket against its plain version: with
+    the run's semiring on the served state and a random block, then for 4
+    semirings + int32 min_src on random blocks at Q = 64 and 5; plus_times
+    the same bits twice.  ``rand_block(rows, nq, dtype)`` makes the blocks."""
+    from repro_torch.kernels import ell_spmv
+
+    sweep = (("plus_times", torch.float32), ("min_plus", torch.float32),
+             ("max_plus", torch.float32), ("min_src", torch.float32), ("min_src", torch.int32))
+    rows_ = v_served.shape[0]
+    for which, v in (("served", v_served), ("random", rand_block(rows_, 64, torch.float32))):
+        for i, bk in enumerate(buckets):
+            compare(torch, ell_spmv.ell_gimv_multi(bk.cols, bk.w, v, semiring=semiring),
+                    ell_spmv.ell_gimv_multi_ref(bk.cols, bk.w, v, semiring=semiring),
+                    semiring, f"{label} ell bucket {i} {tuple(bk.cols.shape)} {which} v")
+        del v
+    for nq in (64, 5):
+        for sr, dtype in sweep:
+            v = rand_block(rows_, nq, dtype)
+            for i, bk in enumerate(buckets):
+                got = ell_spmv.ell_gimv_multi(bk.cols, bk.w, v, semiring=sr)
+                what = f"{label} ell bucket {i} {sr} {dtype} Q={nq} {tuple(bk.cols.shape)}"
+                compare(torch, got, ell_spmv.ell_gimv_multi_ref(bk.cols, bk.w, v, semiring=sr),
+                        sr, what)
+                if sr == "plus_times" and not torch.equal(
+                        got, ell_spmv.ell_gimv_multi(bk.cols, bk.w, v, semiring=sr)):
+                    raise SmokeError(f"{what}: not the same bits twice")
+                del got
+            del v
 
 
 def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows, failures):
@@ -460,20 +582,7 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
         states[kind] = v_state
         v_flat = v_state.reshape(-1, 64)
         fp = matrix["planned_sparse"]
-        v_rand = rand_block(v_flat.shape[0], 64)
-        for i, bk in enumerate(fp.buckets):
-            for which, v in (("served", v_flat), ("random", v_rand)):
-                compare(torch, ell_spmv.ell_gimv_multi(bk.cols, bk.w, v, semiring=semiring),
-                        ell_spmv.ell_gimv_multi_ref(bk.cols, bk.w, v, semiring=semiring),
-                        semiring, f"serve {kind} ell bucket {i} {tuple(bk.cols.shape)} {which} v")
-        big = max(fp.buckets, key=lambda x: x.cols.numel())
-        for nq in (64, 5):
-            for sr, dtype in sweep:
-                v = rand_block(v_flat.shape[0], nq, dtype)
-                compare(torch, ell_spmv.ell_gimv_multi(big.cols, big.w, v, semiring=sr),
-                        ell_spmv.ell_gimv_multi_ref(big.cols, big.w, v, semiring=sr), sr,
-                        f"serve {kind} ell {sr} {dtype} Q={nq} {tuple(big.cols.shape)}")
-        del v_rand
+        ell_multi_sweep(torch, rand_block, f"serve {kind}", fp.buckets, v_flat, semiring)
         gidx = matrix["dense_region"].gather_idx
         v_d = torch.gather(v_state, 1, gidx[:, :, None].expand(-1, -1, 64)).reshape(-1, 64)
         dm = matrix["dense_matrix"]
@@ -501,7 +610,8 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
                     scatter_combine.scatter_combine_multi_ref(idx_x, vv, nl, semiring=semiring),
                     semiring, f"serve {kind} scatter {tuple(vv.shape)} served")
         log(f"kernels serve {kind}: ell_gimv_multi on {len(fp.buckets)} buckets (served and "
-            f"random v) and 4 semirings at Q=64 and 5; dense_gimv_multi {list(dm.shape)}; "
+            f"random v), each for 4 semirings and int32 at Q=64 and 5 (plus_times the same "
+            f"bits twice); dense_gimv_multi {list(dm.shape)}; "
             f"scatter_combine_multi {list(val_x.shape)} -- all match their plain versions")
     idx_x, val_x, nl = buffers["sssp"]
     shape = tuple(val_x.shape)
@@ -521,56 +631,10 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
         "plus_times bitwise reproducible")
 
     # -- times: kernel, plain version, library yardstick, bound ----------------
-    eng, fspec, matrix, fmask, fmeta = fams["rwr"]
-    v_flat = states["rwr"].reshape(-1, 64)
-    big = max(matrix["planned_sparse"].buckets, key=lambda x: x.cols.numel())
-    r_, d_ = big.cols.shape
-    ms = time_ms(torch, lambda: ell_spmv.ell_gimv_multi(big.cols, big.w, v_flat,
-                                                        semiring="plus_times"), 20)
-    plain_ms = time_ms(torch, lambda: ell_spmv.ell_gimv_multi_ref(big.cols, big.w, v_flat,
-                                                                  semiring="plus_times"), 2,
-                       warmup=1)
-    got = ell_spmv.ell_gimv_multi(big.cols, big.w, v_flat, semiring="plus_times")
-    err = compare(torch, got, ell_spmv.ell_gimv_multi_ref(big.cols, big.w, v_flat,
-                                                          semiring="plus_times"),
-                  "plus_times", "ell multi timed bucket")
-    valid = big.cols >= 0
-    nnz = int(valid.sum())
-    deg = valid.sum(dim=1)
-    crow = torch.zeros(r_ + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(deg, 0)
-    lib_ms = None
-    try:   # yardstick only: a CSR x dense product over the bucket's valid slots
-        csr = torch.sparse_csr_tensor(crow, big.cols[valid].to(torch.int64), big.w[valid],
-                                      size=(r_, v_flat.shape[0]))
-        lib_out = torch.sparse.mm(csr, v_flat)
-    except (RuntimeError, NotImplementedError) as e:
-        log(f"library yardstick for ell_gimv_multi unavailable: {e}")
-    else:
-        compare(torch, got, lib_out, "plus_times", "ell multi vs torch.sparse.mm")
-        lib_ms = time_ms(torch, lambda: torch.sparse.mm(csr, v_flat), 20)
-        del csr, lib_out
+    matrix = fams["rwr"][2]
+    ell_bucket_times(torch, "serve rwr Q=64", matrix["planned_sparse"].buckets,
+                     states["rwr"].reshape(-1, 64), rows["ell_gimv_multi"])
     nq = 64
-    # the layout bound reads every padded col; the valid-slot bound is what a
-    # kernel that stops at a row's first all-pad 32-slot chunk would read:
-    # 128 B per started chunk, the valid weights, each v row the bucket
-    # touches once (4 * Q bytes), and the [R, Q] output
-    b_ms, b_by = bound(r_ * d_ * 4 + nnz * 4 + min(nnz, v_flat.shape[0]) * nq * 4 + r_ * nq * 4,
-                       2 * nnz * nq)
-    chunks = int(torch.clamp((deg + 31) // 32, min=1).sum())
-    touched = int(torch.unique(big.cols[valid]).numel())
-    valid_b_ms, _ = bound(chunks * 128 + nnz * 4 + touched * nq * 4 + r_ * nq * 4,
-                          2 * nnz * nq)
-    rows["ell_gimv_multi"].update(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, semiring="plus_times",
-        shape=[r_, d_, nq], occupancy=nnz / (r_ * d_))
-    log(f"time ell_gimv_multi plus_times {[r_, d_]} x Q={nq} occupancy {nnz / (r_ * d_):.4f}: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.sparse.mm "
-        f"{'unavailable' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound {b_ms:.3f} ms "
-        f"({b_by}, layout), {valid_b_ms:.4f} ms (valid slots: {chunks} chunks, {nnz} slots, "
-        f"{touched} v rows); kernel / valid-slot bound {ms / valid_b_ms:.2f}x")
-    del got, valid, deg, crow
 
     dm = matrix["dense_matrix"]
     m_, k_ = dm.shape
@@ -945,6 +1009,18 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
     # -- kernel 8 on the batched buffers ------------------------------------
     state = np.stack([part.to_blocked(r.vector) for r in results[:64]], axis=-1)
     v_state = torch.from_numpy(np.ascontiguousarray(state)).to(dev)     # [b, nl, 64]
+
+    def rand_block(rows_, nq, dtype=torch.float32):
+        if dtype == torch.int32:
+            return torch.randint(0, n, (rows_, nq), generator=gen, device=dev, dtype=torch.int32)
+        return torch.rand((rows_, nq), generator=gen, device=dev)
+
+    buckets = matrix["planned_sparse"].buckets
+    ell_multi_sweep(torch, rand_block, "packed serve", buckets, v_state.reshape(-1, 64),
+                    "plus_times")
+    log(f"kernels packed serve: ell_gimv_multi matches its plain version on {len(buckets)} "
+        "buckets (served and random v), each for 4 semirings and int32 at Q=64 and 5 "
+        "(plus_times the same bits twice)")
     partials = placement._planned_vertical_partials(fspec, matrix["planned_sparse"], v_state, nl)
     payload = gather_payload(fspec, partials, xchg["send_rows"])
     val_x = payload.transpose(0, 1).contiguous().reshape(-1, 64)
@@ -1166,10 +1242,13 @@ def main() -> int:
 
     def ell_sweep(label, fp, v_flat, main_semiring, has_w_semirings):
         """Every bucket with the run's semiring, on the run's own vector and
-        on a uniform random one; the widest bucket across all four semirings
-        (+ int32 min_src)."""
+        on a uniform random one, and across all four semirings (+ int32
+        min_src) on random vectors; plus_times the same bits twice."""
         n_src = v_flat.shape[0]
         v_rand = rand_v(n_src, v_flat.dtype)
+        sweep = [(sr, dt, rand_v(n_src, dt)) for sr, dt in (
+            ("plus_times", torch.float32), ("min_plus", torch.float32),
+            ("max_plus", torch.float32), ("min_src", torch.float32), ("min_src", torch.int32))]
         for i, bk in enumerate(fp.buckets):
             w = bk.w if main_semiring in has_w_semirings else None
             for which, v in (("run v", v_flat), ("random v", v_rand)):
@@ -1177,17 +1256,16 @@ def main() -> int:
                 want = ell_spmv.ell_gimv_ref(bk.cols, w, v, semiring=main_semiring)
                 compare(torch, got, want, main_semiring,
                         f"{label} ell bucket {i} {tuple(bk.cols.shape)} {which}")
-        big = max(fp.buckets, key=lambda x: x.cols.numel())
-        for semiring, dtype in (("plus_times", torch.float32), ("min_plus", torch.float32),
-                                ("max_plus", torch.float32), ("min_src", torch.float32),
-                                ("min_src", torch.int32)):
-            v = rand_v(n_src, dtype)
-            got = ell_spmv.ell_gimv(big.cols, big.w, v, semiring=semiring)
-            want = ell_spmv.ell_gimv_ref(big.cols, big.w, v, semiring=semiring)
-            compare(torch, got, want, semiring, f"{label} ell {semiring} {dtype} {tuple(big.cols.shape)}")
+            for semiring, dtype, v in sweep:
+                got = ell_spmv.ell_gimv(bk.cols, bk.w, v, semiring=semiring)
+                want = ell_spmv.ell_gimv_ref(bk.cols, bk.w, v, semiring=semiring)
+                what = f"{label} ell bucket {i} {semiring} {dtype} {tuple(bk.cols.shape)}"
+                compare(torch, got, want, semiring, what)
+                if semiring == "plus_times" and not torch.equal(
+                        got, ell_spmv.ell_gimv(bk.cols, bk.w, v, semiring=semiring)):
+                    raise SmokeError(f"{what}: not the same bits twice")
         log(f"kernels {label}: ell_gimv matches its plain version on {len(fp.buckets)} buckets "
-            "(run and random v) and 4 semirings")
-        return big
+            "(run and random v) for 4 semirings and int32; plus_times the same bits twice")
 
     # -- run 1: PageRank, selective (horizontal at this density) ----------------
     eng = PMVEngine(edges, n, b=b, strategy="selective", backend="auto", device=dev)
@@ -1204,51 +1282,9 @@ def main() -> int:
     fp = eng.prepare(spec)[0]["planned"]
     part = meta["part"]
     v_flat = torch.from_numpy(part.to_blocked(res.v.astype(np.float32)).reshape(-1).copy()).to(dev)
-    big = ell_sweep("pagerank", fp, v_flat, "plus_times", ("plus_times", "min_plus", "max_plus"))
-    nnz = int((big.cols >= 0).sum())
-    r_, d_ = big.cols.shape
-    ms = time_ms(torch, lambda: ell_spmv.ell_gimv(big.cols, big.w, v_flat, semiring="plus_times"), 20)
-    plain_ms = time_ms(torch, lambda: ell_spmv.ell_gimv_ref(big.cols, big.w, v_flat,
-                                                            semiring="plus_times"), 5, warmup=1)
-    got = ell_spmv.ell_gimv(big.cols, big.w, v_flat, semiring="plus_times")
-    err = compare(torch, got, ell_spmv.ell_gimv_ref(big.cols, big.w, v_flat, semiring="plus_times"),
-                  "plus_times", "ell timed bucket")
-    valid = big.cols >= 0
-    deg = valid.sum(dim=1)
-    # yardstick only: a CSR matvec over the bucket's valid slots
-    crow = torch.zeros(r_ + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(deg, 0)
-    lib_ms = None
-    try:
-        csr = torch.sparse_csr_tensor(crow, big.cols[valid].to(torch.int64), big.w[valid],
-                                      size=(r_, v_flat.shape[0]))
-        lib_out = torch.mv(csr, v_flat)
-    except (RuntimeError, NotImplementedError) as e:  # the library call only
-        log(f"library yardstick for ell_gimv unavailable: {e}")
-    else:
-        compare(torch, got, lib_out, "plus_times", "ell vs CSR matvec")
-        lib_ms = time_ms(torch, lambda: torch.mv(csr, v_flat), 20)
-        del csr, lib_out
-    # the layout bound reads every padded col; the valid-slot bound is what a
-    # kernel that stops at a row's first all-pad 32-slot chunk would read
-    nbytes = r_ * d_ * 4 + nnz * 4 + min(nnz, v_flat.shape[0]) * 4 + r_ * 4
-    b_ms, b_by = bound(nbytes, 2 * nnz)
-    chunks = int(torch.clamp((deg + 31) // 32, min=1).sum())
-    valid_b_ms, _ = bound(chunks * 128 + nnz * 4 + min(nnz, v_flat.shape[0]) * 4 + r_ * 4,
-                          2 * nnz)
-    del valid, deg, crow, got
-    rows["ell_gimv"].update(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, semiring="plus_times",
-        shape=[r_, d_], occupancy=nnz / (r_ * d_))
-    lib_txt = "unavailable" if lib_ms is None else f"{lib_ms:.3f} ms"
-    log(f"time ell_gimv plus_times {[r_, d_]} occupancy {nnz / (r_ * d_):.4f}: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, CSR matvec {lib_txt}, "
-        f"bound {b_ms:.3f} ms (layout), {valid_b_ms:.4f} ms (valid slots)")
-    occ = {f"{bk.cols.shape[1]}": [int(bk.cols.shape[0]), float((bk.cols >= 0).float().mean())]
-           for bk in fp.buckets}
-    log(f"buckets pagerank (width: [rows, occupancy]): {json.dumps(occ)}")
-    del eng, fp, big, v_flat
+    ell_sweep("pagerank", fp, v_flat, "plus_times", ("plus_times", "min_plus", "max_plus"))
+    ell_bucket_times(torch, "pagerank", fp.buckets, v_flat, rows["ell_gimv"])
+    del eng, fp, v_flat
     torch.cuda.empty_cache()
 
     # -- run 2: SSSP, vertical with the scatter-combine kernel -----------------
@@ -1381,7 +1417,10 @@ def main() -> int:
     if not ok:
         failures.append("packed pagerank disagrees with scipy")
     packed_run_checks(torch, np, dev, gen, eng, spec, res, meta, rows)
-    del eng
+    v_local = torch.from_numpy(meta["part"].to_blocked(res.v.astype(np.float32)).copy()).to(dev)
+    ell_sweep("pagerank packed", eng.prepare(spec)[0]["planned"], v_local.reshape(-1),
+              "plus_times", ("plus_times", "min_plus", "max_plus"))
+    del eng, v_local
     torch.cuda.empty_cache()
 
     # -- serve: PMVServer, hybrid theta=3000, 96 RWR + 96 SSSP queries at Q=64 ---

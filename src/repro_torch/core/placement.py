@@ -50,7 +50,7 @@ from repro_torch.core.gimv import (GimvSpec, combine2, combine_elementwise,
                                    segment_combine, tree_combine)
 from repro_torch.exchange import runtime as packed_rt
 from repro_torch.kernels.block_gimv import dense_gimv, dense_gimv_multi, semiring_of
-from repro_torch.kernels.ell_spmv import ell_gimv, ell_gimv_multi
+from repro_torch.kernels.ell_spmv import check_left_packed, ell_gimv, ell_gimv_multi
 
 __all__ = [
     "horizontal_step",
@@ -213,7 +213,8 @@ def flatten_planned(planned: PlannedStripe, n_local: int, n_workers: int,
     emulation vectors are applied here once, not every iteration: a bucket
     row r of worker w writes output w * rows_out + r; a 'vertical' col c of
     worker w reads v_flat[w * n_local + c] ('merged' cols already index the
-    flat gathered vector)."""
+    flat gathered vector).  Refuses a bucket whose rows are not left-packed
+    (``check_left_packed``), the layout the ELL kernels need."""
     assert planned.layout in ("vertical", "merged"), planned.layout
     rows_out = planned.rows_out
     n_w = n_workers
@@ -232,8 +233,10 @@ def flatten_planned(planned: PlannedStripe, n_local: int, n_workers: int,
             cols = np.where(cols >= 0, cols + (np.arange(n_w, dtype=np.int32) * n_local)[:, None, None],
                             np.int32(-1)).astype(np.int32)
         d = cols.shape[-1]
+        cols = put(cols.reshape(-1, d))
+        check_left_packed(cols)
         buckets.append(FlatBucket(
-            rows=put(rows.reshape(-1)), cols=put(cols.reshape(-1, d)),
+            rows=put(rows.reshape(-1)), cols=cols,
             w=None if bk.w is None else put(np.asarray(bk.w).reshape(-1, d))))
 
     dense_matrix = dense_index = dense_rows = None

@@ -1,5 +1,5 @@
 // Semiring algebra shared by the GIM-V kernels (ell_gimv.cu, dense_gimv.cu,
-// scatter_combine.cu).
+// scatter_combine.cu and the others), and a launch helper.
 //
 // A semiring is a pair (combine2, combineAll) of the paper's GIM-V:
 //   PLUS_TIMES  x = w * v,  combineAll = sum   (PageRank, RWR)
@@ -62,6 +62,28 @@ template <int S, typename T> __device__ __forceinline__ T warp_combine(T acc) {
   for (int offset = 16; offset > 0; offset >>= 1)
     acc = combine_all<S, T>(acc, __shfl_xor_sync(0xffffffffu, acc, offset));
   return acc;
+}
+
+// Blocks of Kernel (at `threads` a block) that fit on the card at once, at
+// most `wanted`: the grid of a kernel whose blocks loop over their work.
+// Read once per kernel (the card's SM count and the kernel's occupancy).
+template <auto Kernel>
+inline unsigned resident_grid(int threads, long long wanted) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, threads, 0) !=
+            cudaSuccess ||
+        sms * per_sm <= 0) {
+      cudaGetLastError();   // a failed query leaves no error for the launch to report
+      sms = 132;
+      per_sm = 1;
+    }
+    resident = sms * per_sm;
+  }
+  return static_cast<unsigned>(wanted < resident ? wanted : resident);
 }
 
 }  // namespace pmv

@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import _common
 from repro_torch.kernels.ell_spmv.ref import ell_gimv_multi_ref, ell_gimv_ref
 
-__all__ = ["ell_gimv", "ell_gimv_multi", "ell_from_edges"]
+__all__ = ["ell_gimv", "ell_gimv_multi", "ell_from_edges", "check_left_packed"]
 
 
 def ell_from_edges(dst: np.ndarray, src: np.ndarray, w: np.ndarray | None, n_rows: int,
@@ -22,6 +22,8 @@ def ell_from_edges(dst: np.ndarray, src: np.ndarray, w: np.ndarray | None, n_row
 
     Vectorized (stable argsort + offset-from-row-start slots); slot order
     within a row is edge submission order.  ``d_cap`` forces a wider table.
+    A row of degree d fills slots 0..d-1 and pads the rest: every row is
+    left-packed, which the ELL kernels rely on.
     """
     dst = np.asarray(dst, dtype=np.int64)
     src = np.asarray(src, dtype=np.int64)
@@ -43,11 +45,31 @@ def ell_from_edges(dst: np.ndarray, src: np.ndarray, w: np.ndarray | None, n_row
     return cols, ww
 
 
+def check_left_packed(cols: torch.Tensor) -> None:
+    """Raise ValueError unless every row of ``cols`` ([R, D] int32, on any
+    device) is left-packed: no valid slot (col >= 0) after a pad.  One pass
+    over the table, in row blocks of at most 2**26 slots, and one host sync;
+    run once where a table is built, since the kernels do not check it."""
+    step = max(1, (1 << 26) // max(1, cols.shape[1]))
+    bad = [((blk[:, 1:] >= 0) & (blk[:, :-1] < 0)).any()
+           for blk in torch.split(cols, step)]
+    if bad and bool(torch.stack(bad).any()):
+        raise ValueError("an ELL row holds a valid slot after a pad (rows must be left-packed)")
+
+
 def ell_gimv(cols: torch.Tensor, w: torch.Tensor | None, v: torch.Tensor, *,
              semiring: str) -> torch.Tensor:
     """r[i] = combineAll_d combine2(w[i,d], v[cols[i,d]]), pads (col < 0)
     skipped.  cols: int32 [R, D]; w: float32 [R, D] or None; v: float32 or
-    int32 [N] -> r: [R] in v's dtype.  Every col must be < N."""
+    int32 [N] -> r: [R] in v's dtype.  Every col must be < N.
+
+    The kernel needs every row left-packed (no valid slot after a pad), as
+    ``ell_from_edges`` and the planner's stacking and flattening lay them
+    out: it stops reading a row after its first 32-slot chunk that holds a
+    pad.  The wrapper does not check it (a check would read every col, the
+    bytes the kernel saves): :func:`check_left_packed` does, once, where
+    ``flatten_planned`` builds the tables.  The plain version takes any
+    layout."""
     _common.check_semiring(semiring)
     dev = v.device
     _common.check_tensor("v", v, dtypes=(torch.float32, torch.int32), ndim=1, device=dev)
@@ -82,7 +104,9 @@ def ell_gimv_multi(cols: torch.Tensor, w: torch.Tensor | None, v: torch.Tensor, 
     """r[i, q] = combineAll_d combine2(w[i,d], v[cols[i,d], q]), pads
     (col < 0) skipped.  cols: int32 [R, D]; w: float32 [R, D] or None; v:
     float32 or int32 [N, Q] row-major (one query per column) -> r: [R, Q] in
-    v's dtype.  Every col must be < N."""
+    v's dtype.  Every col must be < N.  Rows must be left-packed, as for
+    :func:`ell_gimv` (not checked here; the plain version takes any
+    layout)."""
     _common.check_semiring(semiring)
     dev = v.device
     _common.check_tensor("v", v, dtypes=(torch.float32, torch.int32), ndim=2, device=dev)

@@ -431,3 +431,141 @@ def test_cuda_packed_kernel_at_tile_edges(cuda_device, width, n_local, semiring,
                     words, val.reshape(-1), n_out, senders=senders, **kw))
                 calls += 1
     assert kernels.launch_counts()["packed_scatter_combine"] == before + calls
+
+
+# The ELL kernels stop at a row's first chunk that holds a pad (32 slots; 16
+# on the Q-wide kernel's half-warp rows, buckets up to 256 wide at Q % 4 ==
+# 0) and split a row wider than 1024 slots over a block of warps: widths
+# below, at and above both edges, a power of two past the split, and two
+# that are not a multiple of 32 (the widest buckets of the RMAT-20 serve
+# and PageRank)
+ELL_WIDTHS = (70, 256, 257, 1023, 1024, 1025, 2048, 24570, 69017)
+
+
+def _ell_table(rng, width, n_src, dtype, degrees=None):
+    """A left-packed table: rows of degree 0 (empty, all pad), 15, 16, 17,
+    31, 32, 33 and 64 (each side of the chunk edges), the width less one, the
+    full width, and five at random, then one more all-pad row."""
+    if degrees is None:
+        degrees = [0, 15, 16, 17, 31, 32, 33, 64, width - 1, width,
+                   *rng.integers(0, width + 1, 5), 0]
+    deg = np.minimum(np.asarray(degrees), width)
+    cols = np.where(np.arange(width)[None, :] < deg[:, None],
+                    rng.integers(0, n_src, (len(deg), width)), -1).astype(np.int32)
+    w = rng.integers(1, 4, cols.shape) if dtype == np.int32 else rng.random(cols.shape)
+    return cols, w.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.int32], ids=["f32", "i32"])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_cuda_ell_gimv_at_chunk_and_split_edges(cuda_device, semiring, dtype):
+    """ell_gimv against its plain version at every width of ELL_WIDTHS, with
+    and without weights, and on a table of all-pad rows (the identity);
+    plus_times gives the same bits twice."""
+    rng = np.random.default_rng(31)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    before = kernels.launch_counts()["ell_gimv"]
+    calls = 0
+    for width in ELL_WIDTHS:
+        cols, w = _ell_table(rng, width, 3000, dtype)
+        c, v = put(cols), put(_values(rng, 3000, dtype))
+        for ww in (put(w), None):
+            got = ell_spmv.ell_gimv(c, ww, v, semiring=semiring)
+            _assert_match(got, ell_spmv.ell_gimv_ref(c, ww, v, semiring=semiring), semiring, dtype)
+            calls += 1
+            if semiring == "plus_times":
+                assert torch.equal(got, ell_spmv.ell_gimv(c, ww, v, semiring=semiring))
+                calls += 1
+        pads = put(np.full((3, width), -1, np.int32))
+        got = ell_spmv.ell_gimv(pads, put(w[:3]), v, semiring=semiring).cpu()
+        assert torch.equal(got, torch.full((3,), _identity_np(semiring, dtype).item(),
+                                           dtype=got.dtype))
+        calls += 1
+    assert kernels.launch_counts()["ell_gimv"] == before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 32, 33, 64, 67])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32], ids=["f32", "i32"])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_cuda_ell_gimv_multi_at_chunk_and_split_edges(cuda_device, semiring, dtype, nq):
+    """ell_gimv_multi against its plain version at every width of
+    ELL_WIDTHS (one query tile and two: Q = 67), with and without weights,
+    and on all-pad rows; plus_times gives the same bits twice."""
+    rng = np.random.default_rng(nq)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    before = kernels.launch_counts()["ell_gimv_multi"]
+    calls = 0
+    for width in ELL_WIDTHS:
+        cols, w = _ell_table(rng, width, 3000, dtype)
+        c, v = put(cols), put(_values(rng, (3000, nq), dtype))
+        for ww in (put(w), None):
+            got = ell_spmv.ell_gimv_multi(c, ww, v, semiring=semiring)
+            _assert_match(got, ell_spmv.ell_gimv_multi_ref(c, ww, v, semiring=semiring),
+                          semiring, dtype)
+            calls += 1
+            if semiring == "plus_times":
+                assert torch.equal(got, ell_spmv.ell_gimv_multi(c, ww, v, semiring=semiring))
+                calls += 1
+        pads = put(np.full((3, width), -1, np.int32))
+        got = ell_spmv.ell_gimv_multi(pads, put(w[:3]), v, semiring=semiring).cpu()
+        assert torch.equal(got, torch.full((3, nq), _identity_np(semiring, dtype).item(),
+                                           dtype=got.dtype))
+        calls += 1
+    assert kernels.launch_counts()["ell_gimv_multi"] == before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,rows", [(70, 20000), (300, 20000), (1025, 700)])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_cuda_ell_kernels_with_more_rows_than_resident_warps(cuda_device, semiring, width, rows):
+    """More rows than the card holds warps (a warp or a half-warp a row) or
+    blocks (a block a row), so the kernels' loops over rows and their
+    prefetch of the next row run; both kernels against their plain versions
+    (Q = 64)."""
+    rng = np.random.default_rng(rows)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    cols, w = _ell_table(rng, width, 5000, np.float32, rng.integers(0, width + 1, rows))
+    c, ww = put(cols), put(w)
+    v = put(_values(rng, 5000, np.float32))
+    _assert_match(ell_spmv.ell_gimv(c, ww, v, semiring=semiring),
+                  ell_spmv.ell_gimv_ref(c, ww, v, semiring=semiring), semiring, np.float32)
+    vq = put(_values(rng, (5000, 64), np.float32))
+    _assert_match(ell_spmv.ell_gimv_multi(c, ww, vq, semiring=semiring),
+                  ell_spmv.ell_gimv_multi_ref(c, ww, vq, semiring=semiring), semiring, np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [100, 4000, 20000])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_cuda_ell_wide_bucket_of_short_rows(cuda_device, semiring, rows):
+    """A bucket wider than the split (2048) whose rows are mostly shorter
+    than one chunk, as the lowest bucket of a graph whose longest row is
+    over 128 times the split would be, with long rows among them (every
+    97th and a run of 300).  Fewer rows than resident blocks (100: a block
+    a row on the split path), fewer than the card's resident warps (4000:
+    the split path, a warp per short row, several rows a pass) and more
+    (20000: one warp a row); both kernels against their plain versions
+    (Q = 5 and 64), plus_times the same bits twice."""
+    rng = np.random.default_rng(rows + 7)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    width = 2048
+    deg = rng.integers(0, 40, rows)
+    deg[::97] = rng.integers(1025, width + 1, len(deg[::97]))
+    run = slice(rows // 2, rows // 2 + 300)
+    deg[run] = rng.integers(33, width + 1, len(deg[run]))
+    cols, w = _ell_table(rng, width, 5000, np.float32, deg)
+    c, ww = put(cols), put(w)
+    v = put(_values(rng, 5000, np.float32))
+    got = ell_spmv.ell_gimv(c, ww, v, semiring=semiring)
+    _assert_match(got, ell_spmv.ell_gimv_ref(c, ww, v, semiring=semiring), semiring, np.float32)
+    if semiring == "plus_times":
+        assert torch.equal(got, ell_spmv.ell_gimv(c, ww, v, semiring=semiring))
+    for nq in (5, 64):
+        vq = put(_values(rng, (5000, nq), np.float32))
+        got = ell_spmv.ell_gimv_multi(c, ww, vq, semiring=semiring)
+        _assert_match(got, ell_spmv.ell_gimv_multi_ref(c, ww, vq, semiring=semiring), semiring,
+                      np.float32)
+        if semiring == "plus_times":
+            assert torch.equal(got, ell_spmv.ell_gimv_multi(c, ww, vq, semiring=semiring))
