@@ -52,14 +52,19 @@ Phases, each printed as it ends; any failure exits non-zero:
               versions at the run's shapes (every ELL bucket on the served
               state and a random [N, 64] block, the dense region, the
               exchange buffers; 4 semirings + int32 min_src at Q = 64 and 5,
-              every ELL bucket), timed against their plain versions and a
-              library yardstick (ELL: every bucket of the RWR family at
-              Q = 64, as for PageRank, against CSR ``torch.sparse.mm``;
-              dense: plus_times on the tensor cores (3xTF32) must give the
-              same bits twice and is printed in TFLOP/s beside its byte,
-              FP32 and 3xTF32 operation bounds, min_plus beside its
-              two-instructions-per-cell bound), and 3 batched iterations per
-              family are profiled.  Prints
+              every ELL bucket; the scatter also at Q = 67 and, on every
+              case, bitwise against a plain fold in sender order, the order
+              of the one-pass-per-sender kernel it replaced), timed against
+              their plain versions and a library yardstick (ELL: every
+              bucket of the RWR family at Q = 64, as for PageRank, against
+              CSR ``torch.sparse.mm``; dense: plus_times on the tensor cores
+              (3xTF32) must give the same bits twice and is printed in
+              TFLOP/s beside its byte, FP32 and 3xTF32 operation bounds,
+              min_plus beside its two-instructions-per-cell bound; scatter:
+              min_plus on the SSSP buffers against ``index_reduce_`` and
+              plus_times on the RWR buffers against ``index_add_``, both at
+              the valid slots, and profiled: one device launch per call),
+              and 3 batched iterations per family are profiled.  Prints
               queries/s, latency p50/p99, batched-iteration ms and peak memory.
 6. packed  -- the packed exchange (``exchange='packed'``, ids decoded in the
               kernel).  Run: PageRank, strategy='vertical', scatter='kernel',
@@ -73,13 +78,14 @@ Phases, each printed as it ends; any failure exits non-zero:
               the counted runs: both ELL kernels on every bucket of the two
               packed runs, as in phases 4 and 5; both packed kernels against
               their plain versions on the runs' own buffers (4 semirings +
-              int32 min_src; Q = 64 and 5), bitwise against the sparse
+              int32 min_src; Q = 64, 5 and 67 for kernel 8, which is also
+              held bitwise to the sender-order fold), bitwise against the sparse
               kernels fed the compacted buffers of the same partials, at
               synthetic widths 4, 8, 16 and 32 bits (n_local 15, 255, 65535,
               131072; Q = 64 and 67), and plus_times the same bits twice;
               timed against their plain versions and ``index_add_`` on
               pre-decoded ids, and profiled: device launches and device ms
-              per call (kernel 7 must make exactly one launch per call).
+              per call (each must make exactly one launch per call).
 7. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
               the device line.
 
@@ -164,8 +170,7 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 
 # first match wins: the packed kernels' names contain the sparse ones'
-KERNEL_CLASSES = (("packed_scatter_multi_pass", "packed_scatter_combine_multi"),
-                  ("packed_fill_identity_multi", "packed_scatter_combine_multi"),
+KERNEL_CLASSES = (("packed_scatter_multi_tile", "packed_scatter_combine_multi"),
                   ("packed_scatter_tile", "packed_scatter_combine"),
                   ("ell_gimv_kernel", "ell_gimv"), ("ell_gimv_wide_kernel", "ell_gimv"),
                   ("dense_gimv_kernel", "dense_gimv"), ("scatter_pass", "scatter_combine"),
@@ -174,8 +179,7 @@ KERNEL_CLASSES = (("packed_scatter_multi_pass", "packed_scatter_combine_multi"),
                   ("ell_gimv_multi_half_kernel", "ell_gimv_multi"),
                   ("dense_gimv_multi_kernel", "dense_gimv_multi"),
                   ("dense_gimv_multi_tf32x3", "dense_gimv_multi"),
-                  ("scatter_multi_pass", "scatter_combine_multi"),
-                  ("fill_identity_multi", "scatter_combine_multi"),
+                  ("scatter_multi_tile", "scatter_combine_multi"),
                   ("fill_identity", "scatter_combine"))
 
 
@@ -365,6 +369,43 @@ def compare(torch, got, want, semiring: str, what: str) -> float:
 
 # ---------------------------------------------------------------------------
 # scipy references
+
+
+def sender_order_fold(torch, rows, val, n_rows: int, semiring: str):
+    """The fold of the Q-wide scatter kernels in plain torch: the identity,
+    then the slots of sender 0, 1, ... combined in, one sender at a time.
+    rows [S, B, p]: each slot's flat output row (n_rows or more: dropped);
+    val [S, B, p, Q] -> [n_rows, Q].  Per output the same order as the
+    kernels (and their one-pass-per-sender predecessors), so the same bits,
+    plus_times included."""
+    from repro_torch.kernels._common import identity
+
+    nq = val.shape[-1]
+    out = torch.full((n_rows, nq), identity(semiring, val.dtype), dtype=val.dtype,
+                     device=val.device)
+    op = {"plus_times": torch.add, "min_plus": torch.minimum, "max_plus": torch.maximum,
+          "min_src": torch.minimum}[semiring]
+    for k in range(rows.shape[1]):
+        r, v = rows[:, k].reshape(-1), val[:, k].reshape(-1, nq)
+        keep = r < n_rows
+        r, v = r[keep], v[keep]
+        out[r] = op(out[r], v)
+    return out
+
+
+def sparse_rows(torch, idx, n_local: int):
+    """Flat output rows of the compacted idx [S, B, cap] (n_local and more
+    -> S * n_local, dropped)."""
+    sets = idx.shape[0]
+    base = torch.arange(sets, device=idx.device, dtype=torch.int64)[:, None, None] * n_local
+    return torch.where(idx < n_local, idx.to(torch.int64) + base, sets * n_local)
+
+
+def check_sender_order(torch, got, rows, val, n_rows, semiring, what) -> None:
+    want = sender_order_fold(torch, rows, val, n_rows, semiring)
+    if not torch.equal(got.reshape(want.shape), want):
+        err = float((got.reshape(want.shape).double() - want.double()).abs().nan_to_num(0.0).max())
+        raise SmokeError(f"{what}: not the bits of the sender-order fold (max |err| {err})")
 
 
 def pagerank_ref(np, sp, edges, n, iters, d=0.85):
@@ -604,31 +645,41 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
         idx_x, val_x = idx.transpose(0, 1).contiguous(), val.transpose(0, 1).contiguous()
         del idx, val
         buffers[kind] = (idx_x, val_x, nl)
+        rows_x = sparse_rows(torch, idx_x, nl)
         for vv in (val_x, val_x[..., :5].contiguous()):
-            compare(torch, scatter_combine.scatter_combine_gimv_multi(idx_x, vv, nl,
-                                                                      semiring=semiring),
-                    scatter_combine.scatter_combine_multi_ref(idx_x, vv, nl, semiring=semiring),
-                    semiring, f"serve {kind} scatter {tuple(vv.shape)} served")
+            got = scatter_combine.scatter_combine_gimv_multi(idx_x, vv, nl, semiring=semiring)
+            what = f"serve {kind} scatter {tuple(vv.shape)} served"
+            compare(torch, got, scatter_combine.scatter_combine_multi_ref(
+                idx_x, vv, nl, semiring=semiring), semiring, what)
+            check_sender_order(torch, got, rows_x, vv, idx_x.shape[0] * nl, semiring, what)
+            del got
+        del rows_x
         log(f"kernels serve {kind}: ell_gimv_multi on {len(fp.buckets)} buckets (served and "
             f"random v), each for 4 semirings and int32 at Q=64 and 5 (plus_times the same "
             f"bits twice); dense_gimv_multi {list(dm.shape)}; "
             f"scatter_combine_multi {list(val_x.shape)} -- all match their plain versions")
     idx_x, val_x, nl = buffers["sssp"]
     shape = tuple(val_x.shape)
-    for nq in (64, 5):
+    rows_x = sparse_rows(torch, idx_x, nl)
+    for nq in (64, 5, 67):
         for sr, dtype in sweep:
             vv = rand_block(shape[0] * shape[1] * shape[2], nq, dtype).reshape(shape[:3] + (nq,))
-            compare(torch, scatter_combine.scatter_combine_gimv_multi(idx_x, vv, nl, semiring=sr),
-                    scatter_combine.scatter_combine_multi_ref(idx_x, vv, nl, semiring=sr), sr,
-                    f"serve scatter {sr} {dtype} Q={nq} {tuple(idx_x.shape)}")
+            got = scatter_combine.scatter_combine_gimv_multi(idx_x, vv, nl, semiring=sr)
+            what = f"serve scatter {sr} {dtype} Q={nq} {tuple(idx_x.shape)}"
+            compare(torch, got, scatter_combine.scatter_combine_multi_ref(idx_x, vv, nl,
+                                                                          semiring=sr), sr, what)
+            check_sender_order(torch, got, rows_x, vv, shape[0] * nl, sr, what)
+            del vv, got
+    del rows_x
     rv = torch.rand(val_x.shape, generator=gen, device=dev)
     r1 = scatter_combine.scatter_combine_gimv_multi(idx_x, rv, nl, semiring="plus_times")
     r2 = scatter_combine.scatter_combine_gimv_multi(idx_x, rv, nl, semiring="plus_times")
     if not torch.equal(r1, r2):
         raise SmokeError("scatter_combine_multi plus_times is not reproducible run to run")
     del rv, r1, r2
-    log("kernels serve: scatter_combine_multi matches for 4 semirings at Q=64 and 5; "
-        "plus_times bitwise reproducible")
+    log("kernels serve: scatter_combine_multi matches its plain version for 4 semirings and "
+        "int32 at Q=64, 5 and 67 and is bitwise the sender-order fold (the parent kernel's "
+        "order) there and on the served buffers; plus_times bitwise reproducible")
 
     # -- times: kernel, plain version, library yardstick, bound ----------------
     matrix = fams["rwr"][2]
@@ -692,32 +743,64 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
         f"max {rel['torch.matmul'][0]:.3e} mean {rel['torch.matmul'][1]:.3e}")
     del got, vf, vs
 
-    idx_x, val_x, nl = buffers["sssp"]
-    s_, b_, cap, _ = val_x.shape
-    ms = time_ms(torch, lambda: scatter_combine.scatter_combine_gimv_multi(
-        idx_x, val_x, nl, semiring="min_plus"), 20)
-    plain_ms = time_ms(torch, lambda: scatter_combine.scatter_combine_multi_ref(
-        idx_x, val_x, nl, semiring="min_plus"), 5, warmup=1)
-    got = scatter_combine.scatter_combine_gimv_multi(idx_x, val_x, nl, semiring="min_plus")
-    err = compare(torch, got, scatter_combine.scatter_combine_multi_ref(
-        idx_x, val_x, nl, semiring="min_plus"), "min_plus", "scatter multi timed call")
-    flat = idx_x.reshape(s_, -1).to(torch.int64)
-    flat = (torch.where(flat < nl, flat, nl)
-            + torch.arange(s_, device=dev)[:, None] * (nl + 1)).reshape(-1)
-    fval = val_x.reshape(-1, nq)
-    base = torch.full((s_ * (nl + 1), nq), float("inf"), device=dev)
-    lib_ms = time_ms(torch, lambda: base.clone().index_reduce_(0, flat, fval, "amin"), 20)
-    lib = base.clone().index_reduce_(0, flat, fval, "amin").reshape(s_, nl + 1, nq)[:, :nl]
-    compare(torch, got, lib, "min_plus", "scatter multi vs index_reduce_")
-    n_valid = int((idx_x < nl).sum())
-    b_ms, b_by = bound(s_ * b_ * cap * 4 + n_valid * nq * 4 + s_ * nl * nq * 4, n_valid * nq)
+    # kernel 6 on both families' served buffers: min_plus (SSSP) against
+    # index_reduce_, plus_times (RWR, the serve's own fold) against
+    # index_add_, both libraries at the valid slots; one launch per call
+    times = {}
+    for kind, sr in (("sssp", "min_plus"), ("rwr", "plus_times")):
+        idx_x, val_x, nl = buffers[kind]
+        s_, b_, cap, _ = val_x.shape
+        call = (lambda idx_x=idx_x, val_x=val_x, nl=nl, sr=sr:
+                scatter_combine.scatter_combine_gimv_multi(idx_x, val_x, nl, semiring=sr))
+        ms = time_ms(torch, call, 20)
+        plain_ms = time_ms(torch, lambda: scatter_combine.scatter_combine_multi_ref(
+            idx_x, val_x, nl, semiring=sr), 5, warmup=1)
+        got = call()
+        err = compare(torch, got, scatter_combine.scatter_combine_multi_ref(
+            idx_x, val_x, nl, semiring=sr), sr, f"scatter multi {kind} timed call")
+        flat = idx_x.reshape(s_, -1).to(torch.int64)
+        keep = (flat < nl).reshape(-1)
+        flat = (flat + torch.arange(s_, device=dev)[:, None] * nl).reshape(-1)[keep]
+        fval = val_x.reshape(-1, nq)[keep]
+        if sr == "min_plus":
+            base = torch.full((s_ * nl, nq), float("inf"), device=dev)
+            lib_call = lambda base=base, flat=flat, fval=fval: base.clone().index_reduce_(  # noqa: E731
+                0, flat, fval, "amin")
+            lib_name = "index_reduce_"
+        else:
+            base = torch.zeros((s_ * nl, nq), device=dev)
+            lib_call = lambda base=base, flat=flat, fval=fval: base.clone().index_add_(  # noqa: E731
+                0, flat, fval)
+            lib_name = "index_add_"
+        lib_ms = time_ms(torch, lib_call, 20)
+        compare(torch, got, lib_call().reshape(s_, nl, nq), sr, f"scatter multi vs {lib_name}")
+        per_call, dev_ms, seen = profiled_calls(torch, call, "scatter_combine_multi")
+        if per_call != 1:
+            raise SmokeError(f"scatter_combine_multi: {per_call} device launches per call, not 1 "
+                             f"(launches by class over 20 calls: {json.dumps(seen)})")
+        n_valid = int(keep.sum())
+        # the kernel reads a row's valid prefix only: each valid slot's index
+        # and Q values once, the output written once
+        b_ms, b_by = bound(n_valid * 4 + n_valid * nq * 4 + s_ * nl * nq * 4, n_valid * nq)
+        times[sr] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, err=err, bound_ms=b_ms,
+                         bound_by=b_by, shape=[s_, b_, cap, nq], n_local=nl, n_valid=n_valid,
+                         device_ms=dev_ms, per_call=per_call)
+        log(f"time scatter_combine_multi {sr} ({kind} served buffers) {[s_, b_, cap, nq]} "
+            f"n_local {nl} valid {n_valid}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"{lib_name} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); profiler: "
+            f"{per_call:g} device launches per call, device {dev_ms:.4f} ms per call")
+        del got, flat, fval, base, keep, lib_call
+    mp, pt = times["min_plus"], times["plus_times"]
     rows["scatter_combine_multi"].update(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, semiring="min_plus", shape=[s_, b_, cap, nq], n_local=nl)
-    log(f"time scatter_combine_multi min_plus {[s_, b_, cap, nq]} n_local {nl} valid "
-        f"{n_valid}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_reduce_ {lib_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    del got, flat, fval, base, lib, buffers
+        max_abs_err=mp["err"], ms=mp["ms"], plain_ms=mp["plain_ms"], bound_ms=mp["bound_ms"],
+        bound_by=mp["bound_by"], library_ms=mp["lib_ms"], semiring="min_plus",
+        shape=mp["shape"], n_local=mp["n_local"], valid_slots=mp["n_valid"],
+        device_launches_per_call=mp["per_call"], device_ms=mp["device_ms"],
+        plus_times_ms=pt["ms"], plus_times_library_ms=pt["lib_ms"],
+        plus_times_bound_ms=pt["bound_ms"], plus_times_plain_ms=pt["plain_ms"],
+        plus_times_max_abs_err=pt["err"], plus_times_shape=pt["shape"],
+        plus_times_valid_slots=pt["n_valid"], plus_times_device_ms=pt["device_ms"])
+    del buffers
 
     # -- profile 3 batched iterations per family --------------------------------
     for kind in ("rwr", "sssp"):
@@ -848,11 +931,13 @@ def packed_time_row(torch, dev, name, words, val, n_out, kw, structural, rows):
     # times above also hold the wrapper's host work between launches
     per_call, dev_ms, seen = profiled_calls(torch, lambda: fn(words, val, n_out, **kw), name)
     _, lib_dev_ms, _ = profiled_calls(torch, lambda: base.clone().index_add_(0, tgt, val_s), "all")
-    if name == "packed_scatter_combine" and per_call != 1:
+    if per_call != 1:
         raise SmokeError(f"{name}: {per_call} device launches per call, not 1 (launches by "
                          f"class over 20 calls: {json.dumps(seen)})")
     del tgt, val_s, keep, base
-    nbytes = words.numel() * 4 + structural * nq * 4 + n_out * nq * 4
+    # the tile kernels read a row's structural prefix only: its slots' W-bit
+    # ids and values once, the output written once
+    nbytes = structural * kw["width"] / 8 + structural * nq * 4 + n_out * nq * 4
     b_ms, b_by = bound(nbytes, structural * nq)
     rows[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                       library_ms=lib_ms, semiring=kw["semiring"],
@@ -948,6 +1033,7 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
     from repro_torch.core import placement
     from repro_torch.exchange import gather_payload
     from repro_torch.kernels import scatter_combine
+    from repro_torch.kernels.scatter_combine.ref import packed_targets
     from repro_torch.serving import FAMILIES, PMVServer, Query, make_batched_step
 
     queries = [Query("rwr", source=int(src), c=0.85, tol=1e-6) for src, _, _ in rwr_answers]
@@ -1028,24 +1114,31 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
     words = xchg["recv_words"].reshape(-1)
     kw = dict(set_slots=b * xp.p_dev, n_local=nl, width=xp.width_dev)
     n_out = b * (nl + 1)
+    rows_x = packed_targets(words, val_x.shape[0], n_out, **kw).reshape(b, b, xp.p_dev)
     for vv in (val_x, val_x[:, :5].contiguous()):
-        compare(torch, scatter_combine.packed_scatter_combine_gimv_multi(
-                    words, vv, n_out, semiring="plus_times", senders=b, **kw),
-                scatter_combine.packed_scatter_combine_multi_ref(
-                    words, vv, n_out, semiring="plus_times", **kw),
-                "plus_times", f"packed serve payload {tuple(vv.shape)}")
+        got = scatter_combine.packed_scatter_combine_gimv_multi(
+            words, vv, n_out, semiring="plus_times", senders=b, **kw)
+        what = f"packed serve payload {tuple(vv.shape)}"
+        compare(torch, got, scatter_combine.packed_scatter_combine_multi_ref(
+            words, vv, n_out, semiring="plus_times", **kw), "plus_times", what)
+        check_sender_order(torch, got, rows_x, vv.reshape(b, b, xp.p_dev, -1), n_out,
+                           "plus_times", what)
+        del got
     packed_vs_sparse(torch, fspec, partials, xchg, xp, fmeta["capacity"], nl,
                      "packed serve partials plus_times Q=64")
     del partials
-    for nq in (64, 5):
+    for nq in (64, 5, 67):
         for sr, dt in PACKED_SWEEP:
             s_spec = semiring_spec(np, sr, dt)
             vv = rand_values(torch, gen, dev, (val_x.shape[0], nq), s_spec)
-            compare(torch, scatter_combine.packed_scatter_combine_gimv_multi(
-                        words, vv, n_out, semiring=sr, senders=b, **kw),
-                    scatter_combine.packed_scatter_combine_multi_ref(
-                        words, vv, n_out, semiring=sr, **kw),
-                    sr, f"packed multi {sr} {dt} Q={nq}")
+            got = scatter_combine.packed_scatter_combine_gimv_multi(
+                words, vv, n_out, semiring=sr, senders=b, **kw)
+            what = f"packed multi {sr} {dt} Q={nq}"
+            compare(torch, got, scatter_combine.packed_scatter_combine_multi_ref(
+                words, vv, n_out, semiring=sr, **kw), sr, what)
+            check_sender_order(torch, got, rows_x, vv.reshape(b, b, xp.p_dev, nq), n_out, sr,
+                               what)
+            del got
             if nq == 64:
                 packed_vs_sparse(torch, s_spec, structured_partials(
                     torch, gen, s_spec, xchg["send_rows"], nl, nq), xchg, xp,
@@ -1058,10 +1151,11 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
                                                            semiring="plus_times", senders=b, **kw)
     if not torch.equal(r1, r2):
         raise SmokeError("packed_scatter_combine_multi plus_times is not reproducible")
-    del rv, r1, r2
+    del rv, r1, r2, rows_x
     log(f"kernels packed serve: packed_scatter_combine_multi matches its plain version on "
-        f"[{val_x.shape[0]}, 64] (width {xp.width_dev}) for 4 semirings at Q=64 and 5, equals "
-        "the sparse Q-wide kernel on the compacted buffers bitwise, plus_times reproducible")
+        f"[{val_x.shape[0]}, 64] (width {xp.width_dev}) for 4 semirings and int32 at Q=64, 5 "
+        "and 67 and is bitwise the sender-order fold there, equals the sparse Q-wide kernel "
+        "on the compacted buffers bitwise, plus_times reproducible")
     structural = int((xchg["recv_rows"] < nl).sum())
     packed_time_row(torch, dev, "packed_scatter_combine_multi", words, val_x, n_out,
                     dict(kw, semiring="plus_times", senders=b), structural, rows)

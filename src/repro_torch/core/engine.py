@@ -148,8 +148,10 @@ class PMVEngine:
       recorded in meta['backend'].
     scatter: receive side of the sparse and packed exchanges -- 'segment' |
       'kernel' | 'auto' (the cost model's crossover).
-    stream: 'auto' | 'off' (this package runs the materialized schedule; a
-      stream that resolves to 'on' raises).
+    stream: 'auto' | 'on' | 'off' (this package runs the materialized
+      schedule; a stream that resolves to 'on' raises at prepare: a forced
+      'on' resolves to 'off' where nothing streams -- horizontal, the dense
+      exchange, backend='torch' -- as in the JAX package).
     device: None (the GPU; raises without one) | 'cuda' | 'cpu'.
 
     The JAX package's other knobs (mesh, store / residency, exchange='hier',
@@ -213,8 +215,6 @@ class PMVEngine:
             raise ValueError(scatter)
         if stream not in ("auto", "on", "off"):
             raise ValueError(stream)
-        if stream == "on":
-            raise _not_ported("stream='on'")
         if edges is None or n is None or b is None:
             raise ValueError("PMVEngine needs (edges, n, b=)")
         self.device = resolve_device(device)
@@ -259,14 +259,26 @@ class PMVEngine:
     def _resolve_stream(self, strategy: str, backend: str, capacity: int | None,
                         part: Partition) -> str:
         """Only the planned vertical/hybrid compact path has partials to
-        stream (the streamed packed executor is not ported: packed vertical
-        keeps the fused schedule)."""
+        stream: the horizontal step never materializes partials, the dense
+        exchange ships them whole and the 'torch' backend has no streamed
+        form, so there a forced 'on' resolves to 'off', as in the JAX
+        package.  Where that package streams a forced 'on' (planned hybrid;
+        planned vertical with the sparse, packed or auto exchange) it
+        raises: the streamed executor is not ported.  'auto' asks the cost
+        model on the hybrid and sparse vertical paths (the streamed packed
+        executor is not ported either: packed vertical keeps the fused
+        schedule)."""
         streamable = (backend == "planned" and capacity is not None and
                       (strategy == "hybrid" or
-                       (strategy == "vertical" and self.exchange == "sparse")))
-        if not streamable:
+                       (strategy == "vertical" and
+                        self.exchange in ("sparse", "packed", "auto"))))
+        if not streamable or self.stream == "off":
             return "off"
-        if self.stream == "auto" and cost_model.prefer_streamed(self.b, part.n_local, capacity):
+        if self.stream == "on":
+            raise _not_ported("stream='on'", f"the JAX package streams this {strategy} "
+                              f"solve (exchange={self.exchange!r}); pass stream='off'")
+        if ((strategy == "hybrid" or self.exchange == "sparse") and
+                cost_model.prefer_streamed(self.b, part.n_local, capacity)):
             raise _not_ported(
                 "stream='auto'", f"it resolves to 'on' at b={self.b}, n_local="
                 f"{part.n_local}, capacity={capacity}; pass stream='off'")

@@ -18,8 +18,8 @@
 // written).  It
 //   1. puts kTile identities in shared memory;
 //   2. finds, for every sender k, the range [lo_k, hi_k) of sender row k
-//      whose ids fall in the tile: a 32-ary search by one warp per
-//      (sender, bound) pair, each lane decoding one probe from the words
+//      whose ids fall in the tile: a 32-ary search (scatter_tile.cuh) by one
+//      warp per (sender, bound) pair, each lane decoding one probe from the words
 //      (the ids never exist as int32 in device memory), ~4 dependent loads
 //      for a row of 85K slots where a binary search takes 17;
 //   3. loads the ranges' values (read once, streaming) and ids into
@@ -43,7 +43,7 @@
 //
 // Bound: device-memory bytes -- the structural slots' words and values read
 // once and every output written once.
-#include "semiring.cuh"
+#include "scatter_tile.cuh"
 
 namespace {
 
@@ -51,36 +51,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 4096;   // output rows per block
 constexpr int kItems = 8;     // slots per thread per chunk
-
-// The id of slot t: field t % (32 / W) of word t / (32 / W).
-template <int W>
-__device__ __forceinline__ unsigned decode_id(const unsigned* __restrict__ words, long long t) {
-  constexpr int kPer = 32 / W;
-  const unsigned word = __ldg(words + t / kPer);
-  if constexpr (W == 32) return word;
-  else return (word >> (static_cast<int>(t % kPer) * W)) & ((1u << W) - 1u);
-}
-
-// First position j in [0, p) of the row starting at slot `row` whose id is
-// x or more, or p; x <= n_local, so the sentinel tail is "x or more".  Each
-// step the 32 lanes probe 32 evenly spaced positions of the open range and
-// a ballot keeps the one gap that holds the answer.  Every lane returns it.
-template <int W>
-__device__ int warp_lower_bound(const unsigned* __restrict__ words, long long row, int p,
-                                unsigned x, int lane) {
-  int lo = 0, hi = p;   // the answer lies in [lo, hi]
-  while (hi > lo) {
-    const long long len = hi - lo;
-    const int q = lo + static_cast<int>(((lane + 1) * len) >> 5) - 1;   // in [lo - 1, hi - 1]
-    const bool below = q < lo || decode_id<W>(words, row + q) < x;
-    const int c = __popc(__ballot_sync(0xffffffffu, below));          // lanes 0..c-1 below
-    const int nlo = lo + static_cast<int>((c * len) >> 5);             // q_{c-1} + 1
-    const int nhi = c < 32 ? lo + static_cast<int>(((c + 1) * len) >> 5) - 1 : hi;  // q_c
-    lo = nlo;
-    hi = nhi;
-  }
-  return lo;
-}
 
 template <int S, typename T, int W>
 __global__ void __launch_bounds__(kThreads)
@@ -107,8 +77,9 @@ packed_scatter_tile(const unsigned* __restrict__ words, const T* __restrict__ va
     const unsigned x_hi = static_cast<unsigned>(min(i0 + kTile, n_local));
     for (int pr = threadIdx.x >> 5; pr < 2 * senders; pr += kWarps) {
       const int k = pr >> 1;
-      const int pos = warp_lower_bound<W>(words, set0 + static_cast<long long>(k) * p, p,
-                                          (pr & 1) ? x_hi : x_lo, lane);
+      const int pos = pmv::warp_lower_bound(pmv::PackedIds<W>{words},
+                                            set0 + static_cast<long long>(k) * p, 0, p,
+                                            (pr & 1) ? x_hi : x_lo, lane);
       if (lane == 0) bnd[pr] = pos;
     }
     __syncthreads();

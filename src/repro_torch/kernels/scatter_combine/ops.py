@@ -71,10 +71,18 @@ def scatter_combine_gimv_multi(idx: torch.Tensor, val: torch.Tensor, n_local: in
     """r[s, n, q] = combineAll_{k, t : idx[s,k,t] == n} val[s,k,t,q]; idx
     outside [0, n_local) is dropped and an unreached n gets the identity.
 
-    idx: int32 [S, B, cap] in the layout of :func:`scatter_combine_gimv` (one
-    index set shared by the Q columns; the kernel relies on it, the plain
-    version accepts any idx); val: float32 or int32 [S, B, cap, Q] -> r:
-    [S, n_local, Q].
+    idx: int32 [S, B, cap], one index set shared by the Q columns of a row;
+    val: float32 or int32 [S, B, cap, Q] -> r: [S, n_local, Q].
+
+    Precondition of the kernel: every row (s, k) of idx is strictly
+    ascending below n_local and then holds only the sentinel n_local
+    (``sparse_exchange.compact_partials`` gives that layout, with
+    ``batched=True`` one index set per row).  One launch: a block per tile
+    of a set's output rows and slab of up to 64 columns searches each row
+    for the slots that land in its tile and folds them in sender order, so
+    a row out of order gives a wrong result, not an error; the wrapper does
+    not check it, as that would cost more than the kernel.  The plain
+    version accepts any idx.
     """
     _common.check_semiring(semiring)
     dev = val.device
@@ -185,7 +193,9 @@ def packed_scatter_combine_gimv_multi(words: torch.Tensor, val: torch.Tensor, n_
                                       semiring: str, senders: int) -> torch.Tensor:
     """Q-wide :func:`packed_scatter_combine_gimv`: every slot's Q values go to
     its one target row.  words: uint32 [T * width / 32]; val: float32 or
-    int32 [T, Q] -> r: [n_out, Q]."""
+    int32 [T, Q] -> r: [n_out, Q].  The same precondition and the same one
+    launch, each block a tile of a set's output rows and a slab of up to 64
+    columns, folded in sender order."""
     _check_packed(words, val, n_out, set_slots, n_local, width, senders, semiring, 2)
     dev = val.device
     if _common.use_plain(dev):

@@ -433,6 +433,98 @@ def test_cuda_packed_kernel_at_tile_edges(cuda_device, width, n_local, semiring,
     assert kernels.launch_counts()["packed_scatter_combine"] == before + calls
 
 
+# Kernels 6 and 8 (one launch: a block per tile of a set's output rows and
+# slab of up to 64 query columns; the tile is 128 rows at Q >= 64, 8192 / Q
+# rows below, at most 4096): Q of one column, inside one slab, at its edge,
+# one past it and two slabs and a bit; n_local below, at and past a 128-row
+# tile (kernel 8 adds each set's drop row), past two of them, and one row
+# past the 1638-row tile of Q = 5 and past two of them
+SCATTER_MULTI_Q = (1, 5, 64, 67, 130)
+SCATTER_MULTI_NL = (127, 128, 129, 257, 1639, 3277)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring,dtype", DENSE_CASES, ids=[f"{s}-{np.dtype(d).name}"
+                                                            for s, d in DENSE_CASES])
+@pytest.mark.parametrize("n_local", SCATTER_MULTI_NL)
+@pytest.mark.parametrize("nq", SCATTER_MULTI_Q)
+def test_cuda_scatter_multi_kernels_at_tile_edges(cuda_device, nq, n_local, semiring, dtype):
+    """Kernels 6 and 8 against their plain versions, and kernel 8 bitwise
+    against kernel 6 on the same rows, with empty, full and (0, n_local - 1)
+    sender rows; kernel 8 also at n_out a set and a half under and 700 rows
+    over the sets' outputs.  One launch a call; plus_times the same bits
+    twice."""
+    from repro_torch.exchange import codec
+
+    sets, senders = 3, 5
+    width = codec.device_width(n_local)
+    per = 32 // width
+    p = -(-min(n_local, 600) // per) * per
+    rng = np.random.default_rng(nq * 10000 + n_local)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    rows = _straddling_rows(rng, sets, senders, p, n_local)
+    idx, words = put(rows.astype(np.int32)), put(codec.pack_uniform(rows, width).reshape(-1))
+    x = _values(rng, rows.shape + (nq,), dtype)
+    x[np.broadcast_to((rows >= n_local)[..., None], x.shape)] = _identity_np(semiring, dtype)
+    val = put(x)
+    before = kernels.launch_counts()
+    got = scatter_combine.scatter_combine_gimv_multi(idx, val, n_local, semiring=semiring)
+    _assert_match(got, scatter_combine.scatter_combine_multi_ref(idx, val, n_local,
+                                                                 semiring=semiring),
+                  semiring, dtype)
+    kw = dict(set_slots=senders * p, n_local=n_local, width=width, semiring=semiring)
+    full = sets * (n_local + 1)
+    flat = val.reshape(-1, nq)
+    for n_out in (full, full - (n_local + 1) - (n_local + 1) // 2, full + 700):
+        packed = scatter_combine.packed_scatter_combine_gimv_multi(words, flat, n_out,
+                                                                   senders=senders, **kw)
+        _assert_match(packed, scatter_combine.packed_scatter_combine_multi_ref(words, flat,
+                                                                               n_out, **kw),
+                      semiring, dtype)
+        if n_out == full:
+            assert torch.equal(packed.reshape(sets, n_local + 1, nq)[:, :n_local], got)
+    calls = 1
+    if semiring == "plus_times":
+        assert torch.equal(got, scatter_combine.scatter_combine_gimv_multi(
+            idx, val, n_local, semiring=semiring))
+        calls = 2
+    after = kernels.launch_counts()
+    assert after["scatter_combine_multi"] == before["scatter_combine_multi"] + calls
+    assert after["packed_scatter_combine_multi"] == before["packed_scatter_combine_multi"] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [5, 64, 67])
+@pytest.mark.parametrize("semiring,dtype", DENSE_CASES, ids=[f"{s}-{np.dtype(d).name}"
+                                                            for s, d in DENSE_CASES])
+def test_cuda_scatter_multi_kernels_without_slots(cuda_device, semiring, dtype, nq):
+    """No slot reaches an output: kernel 6 with cap = 0 and kernel 8 with
+    every sender row all sentinel give the identity everywhere, in one
+    launch each."""
+    from repro_torch.exchange import codec
+
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    n_local, sets, senders = 300, 3, 4
+    ident = _identity_np(semiring, dtype)
+    before = kernels.launch_counts()
+    idx = torch.empty((sets, senders, 0), dtype=torch.int32, device=cuda_device)
+    val = torch.empty((sets, senders, 0, nq), dtype=torch.from_numpy(np.zeros(1, dtype)).dtype,
+                      device=cuda_device)
+    got = scatter_combine.scatter_combine_gimv_multi(idx, val, n_local, semiring=semiring)
+    assert torch.equal(got.cpu(), torch.from_numpy(np.full((sets, n_local, nq), ident, dtype)))
+    rows = np.full((sets, senders, 32), n_local, np.int64)
+    words = put(codec.pack_uniform(rows, 16).reshape(-1))
+    flat = put(_values(np.random.default_rng(nq), (rows.size, nq), dtype))
+    n_out = sets * (n_local + 1)
+    got = scatter_combine.packed_scatter_combine_gimv_multi(
+        words, flat, n_out, set_slots=senders * 32, n_local=n_local, width=16,
+        semiring=semiring, senders=senders)
+    assert torch.equal(got.cpu(), torch.from_numpy(np.full((n_out, nq), ident, dtype)))
+    after = kernels.launch_counts()
+    assert after["scatter_combine_multi"] == before["scatter_combine_multi"] + 1
+    assert after["packed_scatter_combine_multi"] == before["packed_scatter_combine_multi"] + 1
+
+
 # The ELL kernels stop at a row's first chunk that holds a pad (32 slots; 16
 # on the Q-wide kernel's half-warp rows, buckets up to 256 wide at Q % 4 ==
 # 0) and split a row wider than 1024 slots over a block of warps: widths

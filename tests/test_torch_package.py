@@ -68,7 +68,7 @@ SERVER_ONLY = ("telemetry", "store_budget_bytes", "slack")
     dict(mesh=object()), dict(store="x"), dict(residency="disk"), dict(backend="xla"),
     dict(exchange="hier"), dict(residency="host"), dict(capacity="model"),
     dict(payload_dtype="bfloat16"), dict(capacity="fixed"), dict(obs=True), dict(faults=object()),
-    dict(io_retry=object()), dict(backend="pallas"), dict(stream="on"),
+    dict(io_retry=object()), dict(backend="pallas"),
     dict(telemetry=True), dict(store_budget_bytes=1 << 20), dict(slack=1.5)])
 def test_knobs_outside_the_slice_raise(knob):
     """PMVEngine and PMVServer both refuse each knob they take."""
@@ -118,6 +118,48 @@ def test_stream_auto_resolving_on_raises():
     with pytest.raises(NotImplementedError, match="stream"):
         T.PMVEngine(edges, 1024, b=8, strategy="vertical", backend="auto",
                     device="cpu").run(T.sssp(0))
+
+
+# (engine knobs, whether the JAX package streams the solve on a forced 'on')
+FORCED_STREAM = {
+    "horizontal": (dict(strategy="horizontal", backend="auto"), False),
+    "torch_backend": (dict(strategy="vertical", backend="torch"), False),
+    "dense_exchange": (dict(strategy="vertical", backend="auto", exchange="dense"), False),
+    "hybrid_torch": (dict(strategy="hybrid", theta=6.0, backend="torch"), False),
+    "planned_hybrid": (dict(strategy="hybrid", theta=6.0, backend="auto"), True),
+    "planned_vertical_sparse": (dict(strategy="vertical", backend="auto"), True),
+    "planned_vertical_packed": (dict(strategy="vertical", backend="auto",
+                                     exchange="packed"), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORCED_STREAM))
+def test_forced_stream_on(case):
+    """A forced stream='on' resolves to 'off' wherever the JAX package finds
+    nothing to stream, and then solves bit for bit as 'off' does; where that
+    package would stream it, the port (no streamed executor) raises at
+    prepare.  The server builds its engines with the same knobs."""
+    knobs, streams = FORCED_STREAM[case]
+    edges = rmat(7, 700, seed=5)
+    ref_knobs = dict(knobs, backend={"torch": "xla"}.get(knobs["backend"], knobs["backend"]))
+    ref = J.PMVEngine(edges, 128, b=4, stream="on", **ref_knobs).prepare(J.sssp(0))[-1]
+    assert (ref["cfg"].stream == "on") == streams
+    port = T.PMVEngine(edges, 128, b=4, stream="on", device="cpu", **knobs)
+    server = TS.PMVServer(edges, 128, b=4, stream="on", device="cpu", **knobs)
+    if streams:
+        with pytest.raises(NotImplementedError, match="stream"):
+            port.run(T.sssp(0), max_iters=30, tol=0.5)
+        with pytest.raises(NotImplementedError, match="stream"):
+            server.serve([TS.Query("sssp", source=0, tol=0.5)])
+        return
+    assert port.prepare(T.sssp(0))[-1]["cfg"].plan.stream == "off"
+    on = port.run(T.sssp(0), max_iters=30, tol=0.5)
+    off = T.PMVEngine(edges, 128, b=4, stream="off", device="cpu", **knobs).run(
+        T.sssp(0), max_iters=30, tol=0.5)
+    np.testing.assert_array_equal(on.v, off.v)
+    assert on.iterations == off.iterations and on.converged
+    served = server.serve([TS.Query("sssp", source=0, tol=0.5)])[0]
+    np.testing.assert_array_equal(served.vector, off.v)
 
 
 def test_spec_without_kernel_semiring_resolves_to_torch():

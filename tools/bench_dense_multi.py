@@ -22,12 +22,9 @@ import argparse
 import ctypes
 import json
 import statistics
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+from benchlib import alternate, card_line, event_ms, nvcc_libs
 
 PROBE = r"""
 #include <cuda_runtime.h>
@@ -61,15 +58,6 @@ PROBE_ACC = 8
 MMA_FLOPS = 2 * 16 * 8 * 8   # one m16n8k8 for a warp
 
 
-def card_line() -> str:
-    try:
-        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              timeout=30).stdout.strip() or "nvidia-smi printed nothing"
-    except (OSError, subprocess.SubprocessError) as e:
-        return f"nvidia-smi failed: {e}"
-
-
 def build_probe():
     from repro_torch.kernels import build
 
@@ -77,24 +65,11 @@ def build_probe():
     out_dir.mkdir(parents=True, exist_ok=True)
     src, lib = out_dir / "mma_tf32_probe.cu", out_dir / "libmma_tf32_probe.so"
     src.write_text(PROBE)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True)
+    nvcc_libs({"probe": (src, lib)})
     fn = ctypes.CDLL(str(lib)).mma_tf32_probe_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
-
-
-def event_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -137,11 +112,8 @@ def main() -> int:
     v = torch.rand((k, nq), device=dev, generator=gen)
     kernel = lambda: block_gimv.dense_gimv_multi(m, v, semiring="plus_times")  # noqa: E731
     matmul = lambda: torch.matmul(m, v)  # noqa: E731
-    readings = {"kernel": [], "torch.matmul": []}
-    for r in range(args.rounds):
-        order = (("kernel", kernel), ("torch.matmul", matmul))
-        for name, fn in (order if r % 2 == 0 else order[::-1]):
-            readings[name].append(event_ms(torch, fn, args.reps))
+    readings = alternate(torch, [("kernel", kernel), ("torch.matmul", matmul)], args.rounds,
+                         args.reps)
     flops = 2 * rows * k * nq
     peak = max(result[f"mma_sync_tf32_tflops_threads{t}"] for t in (128, 256, 512))
     result.update(

@@ -35,39 +35,14 @@ object.  Exits 1 without a card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
-import subprocess
 import sys
 import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-
-def card_line() -> str:
-    try:
-        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              timeout=30).stdout.strip() or "nvidia-smi printed nothing"
-    except (OSError, subprocess.SubprocessError) as e:
-        return f"nvidia-smi failed: {e}"
-
-
-def event_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+from benchlib import alternate, card_line, load_entries
 
 
 def csr_of(torch, bk, n_src):
@@ -120,19 +95,10 @@ def load_parent(torch, csrc: Path) -> dict:
     with this tree's signature (no launch counts, no checks)."""
     from repro_torch.kernels import _common, build
 
-    out_dir = build.build_dir() / "parent"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {name: subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
-                                     str(out_dir / f"lib{name}.so"), str(csrc / f"{name}.cu")])
-             for name in ("ell_gimv", "ell_gimv_multi")}
+    fns = load_entries({"parent": csrc}, ("ell_gimv", "ell_gimv_multi"),
+                       build.build_dir() / "bench_ell")["parent"]
     calls = {}
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise SystemExit(f"nvcc failed on {csrc / name}.cu")
-        fn = getattr(ctypes.CDLL(str(out_dir / f"lib{name}.so")), name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = build._ARGTYPES[name]
-
+    for name, fn in fns.items():
         def call(cols, w, v, *, semiring, fn=fn, name=name):
             out = torch.empty((cols.shape[0],) + tuple(v.shape[1:]), dtype=v.dtype,
                               device=v.device)
@@ -230,12 +196,7 @@ def main() -> int:
                 sides.append(("narrow", pair(torch, ell, ref, [narrow], vec, lib_call)[0]))
             if name in parents:
                 sides.append(("parent", pair(torch, parents[name], ref, sel, vec, lib_call)[0]))
-            got = {side: [] for side, _ in sides}
-            for r in range(args.rounds):   # each side first in turn
-                for side, fn in sides[r % len(sides):] + sides[:r % len(sides)]:
-                    got[side].append(event_ms(torch, fn, args.reps))
-                print(f"{name} {which} round {r}: " + ", ".join(
-                    f"{side} {got[side][-1]:.4f} ms" for side, _ in sides), flush=True)
+            got = alternate(torch, sides, args.rounds, args.reps, f"{name} {which}")
             ratio = [b / a for a, b in zip(got["kernel"], got["library"])]
             result[f"{name}_{which}"] = {
                 "shapes": [list(bk.cols.shape) for bk in sel],
