@@ -28,6 +28,12 @@ Phases, each printed as it ends; any failure exits non-zero:
               plus_times (the summation order differs; atol scales down with
               data below 1), which must also give the same bits twice.
               Every ELL bucket is also run on a uniform random vector.
+              The SSSP run's scatter (kernel 3) is also held, on every
+              case, bitwise against a plain fold in sender order, timed
+              (min_plus on the run's values against ``index_reduce_`` at
+              the valid slots and ``scatter_reduce`` over every slot;
+              plus_times on random values against ``index_add_`` at the
+              valid slots) and profiled: one device launch per call.
               These launches are outside the counted runs.  Kernel,
               plain-version and library times are CUDA-event means.  The
               PageRank run times ``ell_gimv`` on every bucket of one
@@ -171,16 +177,16 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 # first match wins: the packed kernels' names contain the sparse ones'
 KERNEL_CLASSES = (("packed_scatter_multi_tile", "packed_scatter_combine_multi"),
-                  ("packed_scatter_tile", "packed_scatter_combine"),
+                  ("packed_scatter_combine_tile", "packed_scatter_combine"),
                   ("ell_gimv_kernel", "ell_gimv"), ("ell_gimv_wide_kernel", "ell_gimv"),
-                  ("dense_gimv_kernel", "dense_gimv"), ("scatter_pass", "scatter_combine"),
+                  ("dense_gimv_kernel", "dense_gimv"),
+                  ("scatter_combine_tile", "scatter_combine"),
                   ("ell_gimv_multi_kernel", "ell_gimv_multi"),
                   ("ell_gimv_multi_wide_kernel", "ell_gimv_multi"),
                   ("ell_gimv_multi_half_kernel", "ell_gimv_multi"),
                   ("dense_gimv_multi_kernel", "dense_gimv_multi"),
                   ("dense_gimv_multi_tf32x3", "dense_gimv_multi"),
-                  ("scatter_multi_tile", "scatter_combine_multi"),
-                  ("fill_identity", "scatter_combine"))
+                  ("scatter_multi_tile", "scatter_combine_multi"))
 
 
 def device_breakdown(torch, run, iters: int) -> dict:
@@ -190,16 +196,23 @@ def device_breakdown(torch, run, iters: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the trace can miss the window's first device activity: make it this
-        torch.ones(1, device="cuda").add_(1)
+
+    def markers():
+        for _ in range(4):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # late in a long process the trace can miss a window's first device
+        # events and drop some near its end (a short window's all of them):
+        # open and close it on markers (torch.cuda._sleep) that no sum
+        # reads, and keep it open past them
+        markers()
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-        # late in a long process the trace drops device events near the
-        # window's end (a short window's all of them): keep it open past them
+        markers()
         time.sleep(0.5)
     per: dict[str, float] = {}
     launches: dict[str, int] = {}
@@ -208,6 +221,8 @@ def device_breakdown(torch, run, iters: int) -> dict:
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             host[evt.key[:50]] = evt.self_cpu_time_total / 1e3 / iters
+            continue
+        if "spin_kernel" in evt.key:   # torch.cuda._sleep: the window's markers
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -232,24 +247,66 @@ def kernel_class(key: str) -> str:
     return next((c for k, c in KERNEL_CLASSES if k in key), "other")
 
 
+def graph_nodes(torch, fn) -> dict:
+    """The device work of one call of ``fn``, by node type ("kernel",
+    "memcpy", "memset", ...), from that call captured in a CUDA graph: a
+    capture records every launch, copy and fill the call enqueues, where the
+    profiler's trace can drop some."""
+    import ctypes
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    rc = cuda.cuGraphGetNodes(raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    rc = rc or cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kinds: dict[str, int] = {}
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        rc = rc or cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        name = {0: "kernel", 1: "memcpy", 2: "memset"}.get(t.value, f"type {t.value}")
+        kinds[name] = kinds.get(name, 0) + 1
+    del graph
+    if rc:
+        raise SmokeError(f"reading a captured CUDA graph's nodes failed: CUresult {rc}")
+    return kinds
+
+
 def profiled_calls(torch, fn, cls: str, calls: int = 20) -> tuple[float, float, dict]:
     """Device launches and device ms per call of ``fn`` for the kernel class
-    ``cls`` (or of every device op when ``cls`` is "all"), read from
-    :func:`device_breakdown` over ``calls`` calls; also its launches by
-    class.  The trace can drop events but never adds one, so of up to three
-    windows the one that caught the most launches is read."""
-    best = None
-    for _ in range(3):
+    ``cls`` (or of every device op when ``cls`` is "all"); also its launches
+    by class.  The device ms is read from :func:`device_breakdown` over
+    ``calls`` calls.  Late in a long process the trace drops kernel events
+    (1-2 of 20, in every window alike), though it never adds one, so for a
+    class the launches per call come from one call captured in a CUDA graph
+    (:func:`graph_nodes`): its kernel nodes, with every node that is not a
+    kernel counted as well.  The trace must then show that class and no
+    other, never more than once a call; of up to eight windows the one that
+    caught the most launches is read, and each window's count is listed."""
+    best, caught = None, []
+    for _ in range(8):
         prof = device_breakdown(torch, lambda: [fn() for _ in range(calls)], calls)
         launches = prof["device_launches"]
         n = sum(launches.values()) if cls == "all" else launches.get(cls, 0)
+        caught.append(n)
         if best is None or n > best[0]:
             best = (n, prof)
         if cls != "all" and n == calls:
             break
     n, prof = best
-    dev_ms = prof["device_ms_per_iter"] if cls == "all" else prof["by_kernel_ms"].get(cls, 0.0)
-    return n / calls, dev_ms, prof["device_launches"]
+    seen = dict(prof["device_launches"], windows_caught=caught)
+    if cls == "all":
+        return n / calls, prof["device_ms_per_iter"], seen
+    if set(prof["device_launches"]) != {cls} or n > calls:
+        raise SmokeError(f"{cls}: the profiler saw {json.dumps(seen)} over {calls} calls, "
+                         f"not {cls} alone at most once a call")
+    nodes = graph_nodes(torch, fn)
+    seen["graph_nodes_per_call"] = nodes
+    per_call = nodes.get("kernel", 0) + sum(v for k, v in nodes.items() if k != "kernel")
+    return per_call, prof["by_kernel_ms"][cls], seen
 
 
 def percentile(xs, p: float) -> float:
@@ -835,6 +892,102 @@ PACKED_SWEEP = (("plus_times", "float32"), ("min_plus", "float32"), ("max_plus",
                 ("min_src", "float32"), ("min_src", "int32"))
 
 
+def sparse_scatter_phase(torch, dev, gen, n, idx_x, val_x, nl, rows) -> None:
+    """Kernel 3 on the SSSP run's compacted buffers (idx_x, val_x [S, B, cap]):
+    against its plain version and, bitwise, the sender-order fold for 4
+    semirings and int32 min_src (plus_times within tolerance of the plain
+    version, and the same bits twice); its times and bound into
+    ``rows["scatter_combine"]``."""
+    from repro_torch.kernels import scatter_combine
+
+    s_, b_, cap = idx_x.shape
+    rows_x = sparse_rows(torch, idx_x, nl)
+    errs = []
+
+    def rand():
+        return torch.rand(val_x.shape, generator=gen, device=dev)
+
+    for semiring, vv in (("min_plus", val_x), ("plus_times", rand()), ("max_plus", rand()),
+                         ("min_src", rand()),
+                         ("min_src", torch.randint(0, n, val_x.shape, generator=gen, device=dev,
+                                                   dtype=torch.int32))):
+        got = scatter_combine.scatter_combine_gimv(idx_x, vv, nl, semiring=semiring)
+        wnt = scatter_combine.scatter_combine_ref(idx_x, vv, nl, semiring=semiring)
+        what = f"scatter {semiring} {vv.dtype} {tuple(idx_x.shape)}"
+        errs.append(compare(torch, got, wnt, semiring, what))
+        check_sender_order(torch, got, rows_x, vv[..., None], s_ * nl, semiring, what)
+    del rows_x
+    # plus_times is the same bits from run to run (fixed sender order)
+    rv = rand()
+    r1 = scatter_combine.scatter_combine_gimv(idx_x, rv, nl, semiring="plus_times")
+    r2 = scatter_combine.scatter_combine_gimv(idx_x, rv, nl, semiring="plus_times")
+    if not torch.equal(r1, r2):
+        raise SmokeError("scatter_combine plus_times is not reproducible run to run")
+    log(f"kernels sssp: scatter_combine matches its plain version at {list(idx_x.shape)} "
+        "for 4 semirings and int32, bitwise the sender-order fold for each; plus_times "
+        "bitwise reproducible")
+    # times: min_plus on the run's values against index_reduce_ at the valid
+    # slots (and PR 16's yardstick, scatter_reduce over every slot),
+    # plus_times on random values against index_add_ at the valid slots;
+    # profiled, one device launch per call
+    keep = (idx_x < nl).reshape(-1)
+    flat_all = idx_x.reshape(s_, -1).to(torch.int64)
+    flat_all = (torch.where(flat_all < nl, flat_all, nl)
+                + torch.arange(s_, device=dev)[:, None] * (nl + 1)).reshape(-1)
+    flat = sparse_rows(torch, idx_x, nl).reshape(-1)[keep]
+    n_valid = int(keep.sum())
+    times = {}
+    for sr, vv in (("min_plus", val_x), ("plus_times", rv)):
+        call = lambda vv=vv, sr=sr: scatter_combine.scatter_combine_gimv(  # noqa: E731
+            idx_x, vv, nl, semiring=sr)
+        ms = time_ms(torch, call, 20)
+        plain_ms = time_ms(torch, lambda vv=vv, sr=sr: scatter_combine.scatter_combine_ref(
+            idx_x, vv, nl, semiring=sr), 20)
+        fval = vv.reshape(-1)[keep]
+        if sr == "min_plus":
+            base = torch.full((s_ * nl,), float("inf"), device=dev)
+            lib_call = lambda base=base, fval=fval: base.clone().index_reduce_(  # noqa: E731
+                0, flat, fval, "amin")
+            lib_name = "index_reduce_"
+        else:
+            base = torch.zeros((s_ * nl,), device=dev)
+            lib_call = lambda base=base, fval=fval: base.clone().index_add_(  # noqa: E731
+                0, flat, fval)
+            lib_name = "index_add_"
+        lib_ms = time_ms(torch, lib_call, 20)
+        compare(torch, call(), lib_call().reshape(s_, nl), sr, f"scatter vs {lib_name}")
+        per_call, dev_ms, seen = profiled_calls(torch, call, "scatter_combine")
+        if per_call != 1:
+            raise SmokeError(f"scatter_combine {sr}: {per_call} device launches per call, not 1 "
+                             f"(launches by class over 20 calls: {json.dumps(seen)})")
+        times[sr] = dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, device_ms=dev_ms,
+                         per_call=per_call, lib_name=lib_name)
+        del base, fval, lib_call
+    fval = val_x.reshape(-1)
+    base = torch.full((s_ * (nl + 1),), float("inf"), device=dev)
+    all_ms = time_ms(torch, lambda: base.clone().scatter_reduce_(0, flat_all, fval, reduce="amin"),
+                     20)
+    # the kernel reads a row's valid prefix only: each valid slot's index and
+    # value once, the output written once
+    b_ms, b_by = bound(n_valid * 4 + n_valid * 4 + s_ * nl * 4, n_valid)
+    mp, pt = times["min_plus"], times["plus_times"]
+    rows["scatter_combine"].update(
+        max_abs_err=errs[0], ms=mp["ms"], plain_ms=mp["plain_ms"], bound_ms=b_ms,
+        bound_by=b_by, library_ms=mp["lib_ms"], semiring="min_plus", shape=[s_, b_, cap],
+        n_local=nl, valid_slots=n_valid, device_launches_per_call=mp["per_call"],
+        device_ms=mp["device_ms"], scatter_reduce_all_slots_ms=all_ms,
+        plus_times_ms=pt["ms"], plus_times_device_ms=pt["device_ms"],
+        plus_times_library_ms=pt["lib_ms"], plus_times_plain_ms=pt["plain_ms"])
+    for sr, t in times.items():
+        log(f"time scatter_combine {sr} {[s_, b_, cap]} n_local {nl} valid {n_valid}: "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, {t['lib_name']} at the "
+            f"valid slots {t['lib_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); profiler: "
+            f"{t['per_call']:g} device launches per call, device {t['device_ms']:.4f} ms per "
+            "call")
+    log(f"time scatter_combine min_plus: scatter_reduce over all {s_ * b_ * cap} slots "
+        f"{all_ms:.4f} ms")
+
+
 def semiring_spec(np, semiring: str, dtype: str):
     """A GimvSpec of ``semiring`` over ``dtype`` (gather and compaction read
     only its identity)."""
@@ -1405,43 +1558,8 @@ def main() -> int:
     idx, val, _, _ = sparse_exchange.compact_partials(spec, partials, meta["capacity"])
     idx_x, val_x = idx.transpose(0, 1).contiguous(), val.transpose(0, 1).contiguous()
     del partials
-    errs = []
-    for semiring, vv in (("min_plus", val_x), ("plus_times", torch.rand(val_x.shape, generator=gen, device=dev)),
-                         ("max_plus", torch.rand(val_x.shape, generator=gen, device=dev)),
-                         ("min_src", torch.rand(val_x.shape, generator=gen, device=dev)),
-                         ("min_src", torch.randint(0, n, val_x.shape, generator=gen, device=dev,
-                                                   dtype=torch.int32))):
-        got = scatter_combine.scatter_combine_gimv(idx_x, vv, nl, semiring=semiring)
-        wnt = scatter_combine.scatter_combine_ref(idx_x, vv, nl, semiring=semiring)
-        errs.append(compare(torch, got, wnt, semiring,
-                            f"scatter {semiring} {vv.dtype} {tuple(idx_x.shape)}"))
-    # plus_times is the same bits from run to run (fixed sender order)
-    rv = torch.rand(val_x.shape, generator=gen, device=dev)
-    r1 = scatter_combine.scatter_combine_gimv(idx_x, rv, nl, semiring="plus_times")
-    r2 = scatter_combine.scatter_combine_gimv(idx_x, rv, nl, semiring="plus_times")
-    if not torch.equal(r1, r2):
-        raise SmokeError("scatter_combine plus_times is not reproducible run to run")
-    log(f"kernels sssp: scatter_combine matches its plain version at {list(idx_x.shape)} "
-        "for 4 semirings; plus_times bitwise reproducible")
-    s_, b_, cap = idx_x.shape
-    ms = time_ms(torch, lambda: scatter_combine.scatter_combine_gimv(idx_x, val_x, nl, semiring="min_plus"), 20)
-    plain_ms = time_ms(torch, lambda: scatter_combine.scatter_combine_ref(idx_x, val_x, nl,
-                                                                          semiring="min_plus"), 20)
-    flat = idx_x.reshape(s_, -1).to(torch.int64)
-    flat = torch.where(flat < nl, flat, nl) + torch.arange(s_, device=dev)[:, None] * (nl + 1)
-    flat, fval = flat.reshape(-1), val_x.reshape(-1)
-    base = torch.full((s_ * (nl + 1),), float("inf"), device=dev)
-    lib_ms = time_ms(torch, lambda: base.clone().scatter_reduce_(0, flat, fval, reduce="amin"), 20)
-    n_valid = int((idx_x < nl).sum())
-    nbytes = s_ * b_ * cap * 4 + n_valid * 4 + s_ * nl * 4
-    b_ms, b_by = bound(nbytes, n_valid)
-    rows["scatter_combine"].update(
-        max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, semiring="min_plus", shape=[s_, b_, cap], n_local=nl)
-    log(f"time scatter_combine min_plus {[s_, b_, cap]} n_local {nl} valid {n_valid}: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, scatter_reduce {lib_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms")
-    del eng, fp, idx, val, idx_x, val_x, flat, fval, base
+    sparse_scatter_phase(torch, dev, gen, n, idx_x, val_x, nl, rows)
+    del eng, fp, idx, val, idx_x, val_x
     torch.cuda.empty_cache()
 
     # -- run 3: connected components, hybrid theta=3000 -------------------------

@@ -42,9 +42,9 @@ packed_scatter_multi_tile(pmv::PackedIds<W> ids, const T* __restrict__ val,
                           int n_local, int n_out, int nq, int tile_rows, int tiles_per_set,
                           int slabs) {
   extern __shared__ __align__(16) unsigned char smem[];
-  pmv::tile_fold_multi<S, T, V>(reinterpret_cast<T*>(smem), ids, val, out, n_sets, set_slots,
-                                senders, n_local, n_local + 1, n_out, nq, tile_rows,
-                                tiles_per_set, slabs);
+  pmv::tile_fold<S, T, V, pmv::kTileThreads, pmv::kTileItems>(
+      reinterpret_cast<T*>(smem), ids, val, out, n_sets, set_slots, senders, n_local,
+      n_local + 1, n_out, nq, tile_rows, tiles_per_set, slabs);
 }
 
 template <int S, typename T, int V, int W>
@@ -52,7 +52,8 @@ cudaError_t launch_vw(const void* words, const void* val, void* out, int n_sets,
                       int set_slots, int senders, int n_local, int n_out, int nq,
                       cudaStream_t stream) {
   if (n_out == 0) return cudaSuccess;
-  const pmv::TileLaunch L = pmv::tile_launch<T>(senders, n_local + 1, n_out, nq);
+  const pmv::TileLaunch L = pmv::tile_launch<T>(senders, n_local + 1, n_out, nq,
+                                                pmv::multi_tile_rows<T>(nq));
   if (L.blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   constexpr auto kernel = packed_scatter_multi_tile<S, T, V, W>;
   cudaError_t err = pmv::allow_smem<kernel>(L.smem);

@@ -7,80 +7,70 @@
 // (scatter_combine_pallas / _scatter_combine_kernel), which built a one-hot
 // (rows x slots) tile and reduced it on the MXU/VPU.
 //
-// Precondition (the layout sparse_exchange.compact_partials produces): each
-// row (s, k) holds strictly ascending unique indices, padded with n_local.
-// The fold is deterministic and uses no atomics: r starts at the identity,
-// then one pass per sender k = 0..b-1, in order; within a pass each thread
-// owns one slot (s, t) and does r[s, idx] = r[s, idx] (+) val, and no two
-// threads of a pass touch the same output because the row's indices are
-// unique.  The result is exact for min/max and the same bits from run to run
-// for plus_times (the sum of each output is taken in sender order).
+// One launch, each output written once: the tile fold of scatter_tile.cuh
+// at Q = 1, the one packed_scatter_combine.cu runs on bit-packed ids.  A
+// block owns one set s and a tile of kScalarTileRows consecutive output rows
+// of it; the grid covers every output row, so an output no slot reaches gets
+// the identity from the tile (with cap = 0 the launch writes identities
+// only).  A 32-ary warp search of each sender row finds the range of slots
+// whose indices fall in the tile; the block loads those slots' values (read
+// once, streaming) and indices into registers, folds them into the shared
+// tile in sender order, with a barrier between senders, and writes the tile
+// out once, coalesced.  So no fill kernel, no re-read of an output, and no
+// thread for a padding slot: the sentinel tail of a row is never folded.
 //
-// Bound: device-memory bytes -- each slot's index and value are read once
-// and the output written once; the passes also re-read and re-write the
-// touched outputs, which stay in L2 at the exchange's sizes.
-#include "semiring.cuh"
+// Precondition (the layout sparse_exchange.compact_partials produces): each
+// row (s, k) holds strictly ascending indices below n_local, then only
+// indices of n_local or more (the sentinel n_local).  The search needs the
+// order: a row out of order gives a wrong result, not an error, and writes
+// nothing outside the block's tile.  An index below 0 sorts before every
+// tile and is dropped.  Uniqueness makes the fold of one sender race-free
+// without atomics.  The fold order per output is identity (+) v_0 (+) v_1
+// (+) ... in sender order: exact for min/max and the same bits from run to
+// run for plus_times, the bits of the one-pass-per-sender kernel this
+// replaced and of packed_scatter_combine.cu on the same rows.
+//
+// Bound: device-memory bytes -- each valid slot's index and value read once
+// and the [sets, n_local] output written once.
+#include "scatter_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
 template <int S, typename T>
-__global__ void __launch_bounds__(kThreads)
-fill_identity(T* __restrict__ out, long long n) {
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * kThreads)
-    out[i] = pmv::identity<S, T>();
-}
-
-template <int S, typename T>
-__global__ void __launch_bounds__(kThreads)
-scatter_pass(const int* __restrict__ idx, const T* __restrict__ val, T* __restrict__ out,
-             int sets, int senders, int cap, int n_local, int k) {
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<long long>(sets) * cap) return;
-  const int s = static_cast<int>(t / cap);
-  const int slot = static_cast<int>(t - static_cast<long long>(s) * cap);
-  const long long in = (static_cast<long long>(s) * senders + k) * cap + slot;
-  const int j = __ldcs(idx + in);
-  if (j >= 0 && j < n_local) {
-    T* o = out + static_cast<long long>(s) * n_local + j;
-    *o = pmv::combine_all<S, T>(*o, __ldcs(val + in));
-  }
+__global__ void __launch_bounds__(pmv::kScalarThreads, pmv::kScalarBlocksPerSm)
+scatter_combine_tile(pmv::IntIds ids, const T* __restrict__ val, T* __restrict__ out, int sets,
+                     int set_slots, int senders, int n_local, int tiles_per_set) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  pmv::tile_fold<S, T, 1, pmv::kScalarThreads, pmv::kScalarItems>(
+      reinterpret_cast<T*>(smem), ids, val, out, sets, set_slots, senders, n_local, n_local,
+      static_cast<long long>(sets) * n_local, 1, pmv::kScalarTileRows, tiles_per_set, 1);
 }
 
 template <int S, typename T>
 cudaError_t launch(const void* idx, const void* val, void* out, int sets, int senders,
                    int cap, int n_local, cudaStream_t stream) {
-  auto* o = static_cast<T*>(out);
-  const long long n_out = static_cast<long long>(sets) * n_local;
-  const unsigned fill_grid = static_cast<unsigned>(
-      (n_out + kThreads - 1) / kThreads < 65535 ? (n_out + kThreads - 1) / kThreads : 65535);
-  fill_identity<S, T><<<fill_grid, kThreads, 0, stream>>>(o, n_out);
-  cudaError_t err = cudaGetLastError();
+  const pmv::TileLaunch L = pmv::tile_launch<T>(
+      senders, n_local, static_cast<long long>(sets) * n_local, 1, pmv::kScalarTileRows);
+  if (L.blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  constexpr auto kernel = scatter_combine_tile<S, T>;
+  cudaError_t err = pmv::allow_smem<kernel>(L.smem);
   if (err != cudaSuccess) return err;
-  const long long slots = static_cast<long long>(sets) * cap;
-  if (slots == 0) return cudaSuccess;
-  const unsigned grid = static_cast<unsigned>((slots + kThreads - 1) / kThreads);
-  for (int k = 0; k < senders; ++k) {
-    scatter_pass<S, T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const int*>(idx), static_cast<const T*>(val), o, sets, senders, cap,
-        n_local, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  kernel<<<static_cast<unsigned>(L.blocks), pmv::kScalarThreads, L.smem, stream>>>(
+      pmv::IntIds{static_cast<const int*>(idx)}, static_cast<const T*>(val),
+      static_cast<T*>(out), sets, senders * cap, senders, n_local, L.tiles_per_set);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // idx: int32 [sets, senders, cap]; val: value type [sets, senders, cap];
-// out: value type [sets, n_local].  Returns the first failing launch's
-// cudaError_t, or cudaSuccess.
+// out: value type [sets, n_local].  One launch; returns its cudaError_t.
 extern "C" int scatter_combine(const void* idx, const void* val, void* out, int sets,
                                int senders, int cap, int n_local, int semiring, int vtype,
                                void* stream) {
-  if (sets <= 0 || senders <= 0 || cap < 0 || n_local <= 0) return cudaErrorInvalidValue;
+  if (sets <= 0 || senders <= 0 || cap < 0 || n_local <= 0 ||
+      static_cast<long long>(senders) * cap > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
   return static_cast<int>(PMV_DISPATCH(semiring, vtype, launch, idx, val, out, sets,
                                        senders, cap, n_local,
                                        static_cast<cudaStream_t>(stream)));

@@ -43,17 +43,16 @@ scatter_multi_tile(pmv::IntIds ids, const T* __restrict__ val, T* __restrict__ o
                    int sets, int set_slots, int senders, int n_local, int nq, int tile_rows,
                    int tiles_per_set, int slabs) {
   extern __shared__ __align__(16) unsigned char smem[];
-  pmv::tile_fold_multi<S, T, V>(reinterpret_cast<T*>(smem), ids, val, out, sets, set_slots,
-                                senders, n_local, n_local,
-                                static_cast<long long>(sets) * n_local, nq, tile_rows,
-                                tiles_per_set, slabs);
+  pmv::tile_fold<S, T, V, pmv::kTileThreads, pmv::kTileItems>(
+      reinterpret_cast<T*>(smem), ids, val, out, sets, set_slots, senders, n_local, n_local,
+      static_cast<long long>(sets) * n_local, nq, tile_rows, tiles_per_set, slabs);
 }
 
 template <int S, typename T, int V>
 cudaError_t launch_v(const void* idx, const void* val, void* out, int sets, int senders,
                      int cap, int n_local, int nq, cudaStream_t stream) {
-  const pmv::TileLaunch L = pmv::tile_launch<T>(senders, n_local,
-                                                static_cast<long long>(sets) * n_local, nq);
+  const pmv::TileLaunch L = pmv::tile_launch<T>(
+      senders, n_local, static_cast<long long>(sets) * n_local, nq, pmv::multi_tile_rows<T>(nq));
   if (L.blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   constexpr auto kernel = scatter_multi_tile<S, T, V>;
   cudaError_t err = pmv::allow_smem<kernel>(L.smem);

@@ -1,9 +1,11 @@
-// The output-tile design shared by the receive-side scatter kernels
-// (packed_scatter_combine.cu, scatter_combine_multi.cu,
-// packed_scatter_combine_multi.cu): a block owns a tile of consecutive output
-// rows of one receiving set, a warp finds each sender row's range of slots
-// whose ids fall in the tile, and the block folds those ranges into the tile
-// in shared memory, sender by sender, then writes the tile once.
+// The output-tile design shared by the four receive-side scatter kernels
+// (scatter_combine.cu, packed_scatter_combine.cu and their Q-wide forms
+// scatter_combine_multi.cu, packed_scatter_combine_multi.cu): a block owns
+// a tile of consecutive output rows of one receiving set, a warp finds each
+// sender row's range of slots whose ids fall in the tile, and the block
+// folds those ranges into the tile in shared memory, sender by sender, then
+// writes the tile once.  One fold, tile_fold, serves all four; the
+// single-vector kernels run it at Q = 1 with constants of their own.
 //
 // The sender rows have one layout: the ids below n_local are strictly
 // ascending and followed only by ids of n_local or more (the sentinel).  Two
@@ -69,10 +71,10 @@ __device__ int warp_lower_bound(const Ids& ids, long long row, int lo, int hi,
 }
 
 // ---------------------------------------------------------------------------
-// The Q-wide tile fold (scatter_combine_multi.cu, packed_scatter_combine_multi.cu)
+// The fold's constants, one set for each form
 
+// Q-wide (scatter_combine_multi.cu, packed_scatter_combine_multi.cu)
 constexpr int kTileThreads = 256;
-constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kTileItems = 4;        // slots per thread per chunk
 constexpr int kSlabCols = 64;        // query columns per block
 constexpr int kTileBytes = 32768;    // the shared tile: 128 rows at 64 float columns
@@ -84,6 +86,19 @@ constexpr int kMaxTileRows = 4096;
 // than the other neighbours timed, except 40 KB tiles (0.6% faster, inside
 // the rounds' spread).
 constexpr int kTileBlocksPerSm = 4;
+
+// Single-vector, Q = 1 (scatter_combine.cu, packed_scatter_combine.cu).  The
+// fold is latency-bound at the exchange's sizes (~5K valid slots a 4096-row
+// tile): small blocks and tiles keep more blocks resident to overlap each
+// one's search, loads, fold and write, and asking for kScalarBlocksPerSm
+// blocks an SM caps the registers (at 40 a thread for 6 blocks of 256
+// threads; left to itself the compiler took 48, 5 blocks).  Chosen with
+// tools/bench_scatter.py --variants on the SSSP and packed PageRank buffers
+// (PERF.md).
+constexpr int kScalarThreads = 256;
+constexpr int kScalarItems = 4;      // slots per thread per chunk
+constexpr int kScalarTileRows = 1024;
+constexpr int kScalarBlocksPerSm = 6;
 
 // V consecutive values of type T moved as one: V = 4 (16-byte loads and
 // stores, Q % 4 == 0 and aligned pointers) or 1.
@@ -112,7 +127,7 @@ template <> struct Vec<int, 4> {
   }
 };
 
-// One block of the Q-wide fold:
+// One block of the fold, at THREADS threads and ITEMS slots a thread:
 //   r[o, q] = combineAll_{slots t -> o} val[t, q]
 // for the block's set s, output rows [i0, i0 + tile_rows) of the set and
 // query columns [c0, c0 + cols) with c0 = slab * kSlabCols.  The set's
@@ -121,14 +136,16 @@ template <> struct Vec<int, 4> {
 // s * seg_w + i (seg_w = n_local, or n_local + 1 with the packed exchange's
 // drop row); rows at n_out or more are not written, and a set at n_sets or
 // more holds identities only.  tile is the block's dynamic shared memory
-// (tile_rows * min(nq, kSlabCols) values, then 3 * senders + 1 ints).
+// (tile_rows * min(nq, kSlabCols) values, then 3 * senders + 1 ints).  The
+// single-vector kernels pass nq = 1 and slabs = 1, which the inlined body
+// folds away.
 //
 //   1. the tile's rows get the identity;
-//   2. warp k % kTileWarps finds sender row k's range [lo_k, hi_k) of slots
-//      whose ids fall in [i0, min(i0 + tile_rows, n_local)): lo_k by a
-//      32-ary search of the row, hi_k by one of [lo_k, lo_k + tile rows]
+//   2. warp k % (THREADS / 32) finds sender row k's range [lo_k, hi_k) of
+//      slots whose ids fall in [i0, min(i0 + tile_rows, n_local)): lo_k by
+//      a 32-ary search of the row, hi_k by one of [lo_k, lo_k + tile rows]
 //      (a row's ids are unique, so no more slots than rows land in a tile);
-//   3. in chunks of kTileItems slots a thread, the block loads the ranges'
+//   3. in chunks of ITEMS slots a thread, the block loads the ranges'
 //      values (read once, streaming, V at a time: 2^lg threads a slot, the
 //      lanes on consecutive columns) and raw ids into registers, then folds
 //      them into the tile sender by sender, k = 0..senders-1, with a barrier
@@ -137,9 +154,10 @@ template <> struct Vec<int, 4> {
 //      same bits, plus_times included.  No atomics: a row's ids are unique.
 //   4. the tile is written out once, coalesced.
 // An id outside the tile (a row out of order, which the precondition
-// excludes) writes nothing.
-template <int S, typename T, int V, typename Ids>
-__device__ __forceinline__ void tile_fold_multi(
+// excludes) writes nothing.  An id below 0 sorts before every tile and one
+// of n_local or more after it: both are dropped.
+template <int S, typename T, int V, int THREADS, int ITEMS, typename Ids>
+__device__ __forceinline__ void tile_fold(
     T* __restrict__ tile, const Ids& ids, const T* __restrict__ val, T* __restrict__ out,
     int n_sets, int set_slots, int senders, int n_local, int seg_w, long long n_out, int nq,
     int tile_rows, int tiles_per_set, int slabs) {
@@ -155,7 +173,7 @@ __device__ __forceinline__ void tile_fold_multi(
   const int cols = min(kSlabCols, nq - c0);
   const int cv = cols / V;                                  // vectors a row
   const int lg = cv <= 1 ? 0 : 32 - __clz(cv - 1);          // 2^lg >= cv threads a row
-  const int per_pass = kTileThreads >> lg;                  // rows (slots) a pass
+  const int per_pass = THREADS >> lg;                       // rows (slots) a pass
   const int col = static_cast<int>(threadIdx.x) & ((1 << lg) - 1);
   const int sub = static_cast<int>(threadIdx.x) >> lg;
   const bool col_ok = col < cv;
@@ -172,7 +190,7 @@ __device__ __forceinline__ void tile_fold_multi(
     const int span = min(tile_rows, n_local - i0);
     const auto x_lo = static_cast<typename Ids::id_type>(i0);
     const auto x_hi = static_cast<typename Ids::id_type>(i0 + span);
-    for (int k = static_cast<int>(threadIdx.x >> 5); k < senders; k += kTileWarps) {
+    for (int k = static_cast<int>(threadIdx.x >> 5); k < senders; k += THREADS / 32) {
       const long long row = set0 + static_cast<long long>(k) * p;
       const int lo = warp_lower_bound(ids, row, 0, p, x_lo, lane);
       const int hi = warp_lower_bound(ids, row, lo, min(p, lo + span), x_hi, lane);
@@ -188,18 +206,18 @@ __device__ __forceinline__ void tile_fold_multi(
     }
     __syncthreads();
     const int total = off[senders];
-    const int chunk = per_pass * kTileItems;
+    const int chunk = per_pass * ITEMS;
     const T* __restrict__ vcol = val + c0 + col * V;
     int k = 0;   // sender of this thread's next slot: nondecreasing, flat order is sender order
     for (int g0 = 0; g0 < total; g0 += chunk) {
       // every load of the chunk is in flight before any is used: the id is
       // cut out of its raw load only at the fold
-      Vt v[kTileItems];
-      unsigned raw[kTileItems];
-      int shift[kTileItems];
-      int from[kTileItems];
+      Vt v[ITEMS];
+      unsigned raw[ITEMS];
+      int shift[ITEMS];
+      int from[ITEMS];
 #pragma unroll
-      for (int i = 0; i < kTileItems; ++i) {
+      for (int i = 0; i < ITEMS; ++i) {
         const int g = g0 + sub + i * per_pass;
         from[i] = -1;
         if (col_ok && g < total) {
@@ -215,7 +233,7 @@ __device__ __forceinline__ void tile_fold_multi(
       for (int ks = 0; ks < senders; ++ks) {
         if (off[ks + 1] <= g0 || off[ks] >= g1) continue;   // block-uniform
 #pragma unroll
-        for (int i = 0; i < kTileItems; ++i) {
+        for (int i = 0; i < ITEMS; ++i) {
           if (from[i] != ks) continue;
           // below tile_rows under the precondition; a row out of order cannot
           // write outside the tile
@@ -235,10 +253,9 @@ __device__ __forceinline__ void tile_fold_multi(
       *reinterpret_cast<Vt*>(out + (o0 + r) * nq + c0 + col * V) = tv[r * cv + col];
 }
 
-// Grid and shared memory of a Q-wide tile launch: one block per (set, tile
-// of tile_rows output rows, slab of kSlabCols columns), over every set that
-// the n_out output rows reach; tile_rows fills kTileBytes with one slab's
-// columns, at most kMaxTileRows.
+// Grid and shared memory of a tile launch: one block per (set, tile of
+// tile_rows output rows, slab of kSlabCols columns), over every set that the
+// n_out output rows reach.
 struct TileLaunch {
   int tile_rows, tiles_per_set, slabs;
   long long blocks;
@@ -246,18 +263,25 @@ struct TileLaunch {
 };
 
 template <typename T>
-inline TileLaunch tile_launch(int senders, int seg_w, long long n_out, int nq) {
+inline TileLaunch tile_launch(int senders, int seg_w, long long n_out, int nq, int tile_rows) {
   TileLaunch L;
   const int cmax = nq < kSlabCols ? nq : kSlabCols;
-  L.tile_rows = kTileBytes / (cmax * static_cast<int>(sizeof(T)));
-  if (L.tile_rows > kMaxTileRows) L.tile_rows = kMaxTileRows;
-  L.tiles_per_set = (seg_w + L.tile_rows - 1) / L.tile_rows;
+  L.tile_rows = tile_rows;
+  L.tiles_per_set = (seg_w + tile_rows - 1) / tile_rows;
   L.slabs = (nq + kSlabCols - 1) / kSlabCols;
   const long long grid_sets = (n_out + seg_w - 1) / seg_w;
   L.blocks = grid_sets * L.tiles_per_set * L.slabs;
-  L.smem = static_cast<size_t>(L.tile_rows) * cmax * sizeof(T) +
+  L.smem = static_cast<size_t>(tile_rows) * cmax * sizeof(T) +
            (3 * static_cast<size_t>(senders) + 1) * sizeof(int);
   return L;
+}
+
+// The Q-wide fold's tile rows: kTileBytes of one slab's columns, at most
+// kMaxTileRows.
+template <typename T>
+inline int multi_tile_rows(int nq) {
+  const int rows = kTileBytes / ((nq < kSlabCols ? nq : kSlabCols) * static_cast<int>(sizeof(T)));
+  return rows < kMaxTileRows ? rows : kMaxTileRows;
 }
 
 // Let Kernel take `bytes` of dynamic shared memory (above 48 KB a kernel

@@ -30,10 +30,16 @@ def scatter_combine_gimv(idx: torch.Tensor, val: torch.Tensor, n_local: int, *,
     [0, n_local) is dropped and an unreached n gets the identity.
 
     idx: int32 [S, B, cap] -- S receiving sets, B senders, each row (s, k) a
-    compacted partial: strictly ascending unique indices padded with n_local
-    (sparse_exchange.compact_partials).  The kernel folds the B rows of a set
-    in sender order and relies on that layout; the plain version accepts any
-    idx.  val: float32 or int32 [S, B, cap] -> r: [S, n_local].
+    compacted partial; val: float32 or int32 [S, B, cap] -> r: [S, n_local].
+
+    Precondition of the kernel: every row (s, k) of idx is strictly
+    ascending below n_local and then holds only indices of n_local or more
+    (``sparse_exchange.compact_partials`` gives that layout, padded with the
+    sentinel n_local).  One launch: a block per tile of a set's output rows
+    searches each row for the slots that land in its tile and folds them in
+    sender order, so a row out of order gives a wrong result, not an error;
+    the wrapper does not check it, as that would cost more than the kernel.
+    The plain version accepts any idx.
     """
     _common.check_semiring(semiring)
     dev = val.device

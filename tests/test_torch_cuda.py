@@ -4,6 +4,9 @@ JAX nor the JAX package so that it runs where only PyTorch is installed:
 
     python3 -m pytest -m cuda tests/test_torch_cuda.py
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -380,8 +383,9 @@ def _straddling_rows(rng, sets, senders, p, n_local):
 
 
 # (width, n_local): each width at the top of its domain; for 16 and 32 bits
-# n_local + 1 at (4095), just past (4096, 4097) and well past (5000) the
-# 4096-row tile of kernel 7, and inside one tile (2047, 2048)
+# n_local + 1 at (4095), just past (4096, 4097) and well past (5000) a
+# multiple of kernel 7's tile rows (kScalarTileRows, a power of two up to
+# 4096), and at and past half of 4096 (2047, 2048)
 STRADDLE = [(4, 15), (4, 6), (8, 255), (8, 100), (16, 2047), (16, 2048), (16, 4095),
             (16, 4096), (16, 5000), (16, 65535), (32, 4097), (32, 131072)]
 
@@ -391,7 +395,7 @@ STRADDLE = [(4, 15), (4, 6), (8, 255), (8, 100), (16, 2047), (16, 2048), (16, 40
                                                             for s, d in DENSE_CASES])
 @pytest.mark.parametrize("width,n_local", STRADDLE)
 def test_cuda_packed_kernel_at_tile_edges(cuda_device, width, n_local, semiring, dtype):
-    """Kernel 7 (one launch: a block per 4096-row tile of a set) against its
+    """Kernel 7 (one launch: a block per tile of a set's rows) against its
     plain version and bitwise against the sparse kernel on the same rows,
     with empty, full and (0, n_local - 1) sender rows, at n_out equal to, a
     set and a half under, one row under and 3000 rows over the sets'
@@ -523,6 +527,97 @@ def test_cuda_scatter_multi_kernels_without_slots(cuda_device, semiring, dtype, 
     after = kernels.launch_counts()
     assert after["scatter_combine_multi"] == before["scatter_combine_multi"] + 1
     assert after["packed_scatter_combine_multi"] == before["packed_scatter_combine_multi"] + 1
+
+
+def _scalar_tile_rows() -> int:
+    """kScalarTileRows of csrc/scatter_tile.cuh: the output rows of a block
+    of kernels 3 and 7."""
+    hdr = Path(scatter_combine.__file__).resolve().parents[1] / "csrc" / "scatter_tile.cuh"
+    return int(re.search(r"constexpr int kScalarTileRows = (\d+);", hdr.read_text()).group(1))
+
+
+# Kernels 3 and 7 (one launch: a block per tile of R = kScalarTileRows output
+# rows of a set): n_local at R - 1, R, R + 1 and 2R + 1, as (multiple of R,
+# offset); fewer senders than a block has warps, and more
+SCALAR_NL = ((1, -1), (1, 0), (1, 1), (2, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring,dtype", DENSE_CASES, ids=[f"{s}-{np.dtype(d).name}"
+                                                            for s, d in DENSE_CASES])
+@pytest.mark.parametrize("senders", [5, 9])
+@pytest.mark.parametrize("tiles,extra", SCALAR_NL, ids=["R-1", "R", "R+1", "2R+1"])
+def test_cuda_scatter_combine_at_tile_edges(cuda_device, tiles, extra, senders, semiring,
+                                            dtype):
+    """Kernel 3 against its plain version at n_local around its tile edges,
+    with empty, full and (0, n_local - 1) sender rows, and bitwise against
+    kernel 7 on the same rows (both run the Q = 1 tile fold); one launch a
+    call each, plus_times the same bits twice."""
+    from repro_torch.exchange import codec
+
+    n_local = tiles * _scalar_tile_rows() + extra
+    sets = 3
+    width = codec.device_width(n_local)
+    per = 32 // width
+    p = -(-min(n_local, 3000) // per) * per
+    rng = np.random.default_rng(n_local * 10 + senders)
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    rows = _straddling_rows(rng, sets, senders, p, n_local)
+    idx = put(rows.astype(np.int32))
+    x = _values(rng, rows.shape, dtype)
+    x[rows >= n_local] = _identity_np(semiring, dtype)
+    val = put(x)
+    before = kernels.launch_counts()
+    got = scatter_combine.scatter_combine_gimv(idx, val, n_local, semiring=semiring)
+    _assert_match(got, scatter_combine.scatter_combine_ref(idx, val, n_local,
+                                                           semiring=semiring),
+                  semiring, dtype)
+    words = put(codec.pack_uniform(rows, width).reshape(-1))
+    packed = scatter_combine.packed_scatter_combine_gimv(
+        words, val.reshape(-1), sets * (n_local + 1), set_slots=senders * p, n_local=n_local,
+        width=width, semiring=semiring, senders=senders)
+    assert torch.equal(packed.reshape(sets, n_local + 1)[:, :n_local], got)
+    calls = 1
+    if semiring == "plus_times":
+        assert torch.equal(got, scatter_combine.scatter_combine_gimv(idx, val, n_local,
+                                                                     semiring=semiring))
+        calls = 2
+    after = kernels.launch_counts()
+    assert after["scatter_combine"] == before["scatter_combine"] + calls
+    assert after["packed_scatter_combine"] == before["packed_scatter_combine"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring,dtype", DENSE_CASES, ids=[f"{s}-{np.dtype(d).name}"
+                                                            for s, d in DENSE_CASES])
+def test_cuda_scatter_combine_empty_full_and_negative_rows(cuda_device, semiring, dtype):
+    """Kernel 3 against its plain version with cap = 0 (identities only), and
+    with cap = n_local past one tile: an empty row (all sentinel), a full row
+    (every index), a row whose ids start below 0 (dropped) and a random
+    row; one launch a call."""
+    put = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    n_local, sets, senders = _scalar_tile_rows() * 2 - 120, 2, 4
+    rng = np.random.default_rng(len(semiring))
+    before = kernels.launch_counts()["scatter_combine"]
+    idx = torch.empty((sets, senders, 0), dtype=torch.int32, device=cuda_device)
+    val = put(np.zeros((sets, senders, 0), dtype))
+    got = scatter_combine.scatter_combine_gimv(idx, val, n_local, semiring=semiring)
+    assert torch.equal(got.cpu(), torch.from_numpy(
+        np.full((sets, n_local), _identity_np(semiring, dtype), dtype)))
+    rows = np.full((sets, senders, n_local), n_local, np.int64)
+    for s in range(sets):
+        rows[s, 1] = np.arange(n_local)
+        neg = np.r_[[-900, -33, -1], np.sort(rng.choice(n_local, n_local // 2, replace=False))]
+        rows[s, 2, :len(neg)] = neg
+        cnt = int(rng.integers(1, n_local))
+        rows[s, 3, :cnt] = np.sort(rng.choice(n_local, cnt, replace=False))
+    idx = put(rows.astype(np.int32))
+    val = put(_values(rng, rows.shape, dtype))
+    got = scatter_combine.scatter_combine_gimv(idx, val, n_local, semiring=semiring)
+    _assert_match(got, scatter_combine.scatter_combine_ref(idx, val, n_local,
+                                                           semiring=semiring),
+                  semiring, dtype)
+    assert kernels.launch_counts()["scatter_combine"] == before + 2
 
 
 # The ELL kernels stop at a row's first chunk that holds a pad (32 slots; 16

@@ -12,12 +12,17 @@ topologies of ``test_fuzz_parity``, an RMAT graph and one served family's
 steps, and on random partials at random capacities.
 
 The emulation folds per output tile (``csrc/scatter_tile.cuh``): the tile
-rows the kernels take for Q columns, per sender the range of slots found by
-``searchsorted`` (the upper bound searched only within a tile's rows of the
-lower one, as the kernels do), folded sender by sender.  It must give the
+rows the kernels take (for Q columns on the Q-wide kernels, the
+single-vector ones' own at Q = 1), per sender the range of slots found by
+``searchsorted`` (the upper bound only within a tile's rows of the lower
+one, as the kernels do), folded sender by sender.  It must give the
 bits of the plain versions of kernels 6 and 8 for every semiring, int32
-included, at Q = 1, 5, 64 and 67.
+included, at Q = 1, 5, 64 and 67, and of kernels 3 and 7 at n_local
+around their tile edges.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -134,9 +139,17 @@ def test_compacted_rows_on_random_partials(data):
 
 
 # ---------------------------------------------------------------------------
-# the tile fold of kernels 6 and 8, emulated
+# the tile fold of kernels 3, 6, 7 and 8, emulated
 
-TILE_BYTES, SLAB, MAX_ROWS = 32768, 64, 4096        # csrc/scatter_tile.cuh
+_HEADER = (Path(sc_ref.__file__).resolve().parents[1] / "csrc" / "scatter_tile.cuh").read_text()
+
+
+def _header_int(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", _HEADER).group(1))
+
+
+TILE_BYTES, SLAB, MAX_ROWS = (_header_int(n) for n in ("kTileBytes", "kSlabCols", "kMaxTileRows"))
+SCALAR_ROWS = _header_int("kScalarTileRows")
 
 
 def tile_rows_for(nq: int) -> int:
@@ -144,12 +157,13 @@ def tile_rows_for(nq: int) -> int:
 
 
 def tile_fold(ids: np.ndarray, val: torch.Tensor, *, n_sets: int, n_local: int, seg_w: int,
-              n_out: int, semiring: str) -> torch.Tensor:
+              n_out: int, semiring: str, rows: int | None = None) -> torch.Tensor:
     """ids [S, B, p] sender rows (ascending below n_local, then n_local or
     more); val [S, B, p, Q] -> [n_out, Q] with output row i of set s at
-    s * seg_w + i, folded tile by tile as the kernels fold."""
+    s * seg_w + i, folded tile by tile as the kernels fold: tiles of
+    ``rows`` output rows (the Q-wide kernels' for Q by default)."""
     nq = val.shape[-1]
-    rows = tile_rows_for(nq)
+    rows = rows or tile_rows_for(nq)
     op = {"plus_times": torch.add, "min_plus": torch.minimum, "max_plus": torch.maximum,
           "min_src": torch.minimum}[semiring]
     ident = _common.identity(semiring, val.dtype)
@@ -174,10 +188,10 @@ def tile_fold(ids: np.ndarray, val: torch.Tensor, *, n_sets: int, n_local: int, 
     return out
 
 
-def _tile_rows_case(rng, nq: int, sets: int, senders: int):
-    """Sender rows crossing two tile edges: n_local two tiles and a bit,
-    rows empty, full, the two ends of the id domain, and random."""
-    n_local = 2 * tile_rows_for(nq) + 3
+def _tile_rows_case(rng, n_local: int, sets: int, senders: int, negative: bool = False):
+    """Sender rows crossing the tile edges below n_local: rows empty, full,
+    the two ends of the id domain, and random (``negative``: the random
+    rows start with ids below 0)."""
     per = 32 // codec.device_width(n_local)
     p = -(-min(600, n_local) // per) * per
     ids = np.full((sets, senders, p), n_local, np.int64)
@@ -191,7 +205,7 @@ def _tile_rows_case(rng, nq: int, sets: int, senders: int):
             elif kind == 3:
                 cnt = int(rng.integers(1, min(p, n_local)))
                 row = np.unique(np.r_[rng.choice(n_local, cnt, replace=False),
-                                      [0, n_local - 1]])[:p]
+                                      [0, n_local - 1], [-40, -3] if negative else []])[:p]
             else:
                 continue
             ids[s, k, :len(row)] = row
@@ -209,7 +223,7 @@ SWEEP = [("plus_times", np.float32), ("min_plus", np.float32), ("max_plus", np.f
 def test_tile_fold_equals_plain_versions(kernel, nq, semiring, dtype):
     rng = np.random.default_rng(nq * 31 + len(semiring))
     sets, senders = 3, 4
-    ids, n_local = _tile_rows_case(rng, nq, sets, senders)
+    ids, n_local = _tile_rows_case(rng, 2 * tile_rows_for(nq) + 3, sets, senders)
     shape = ids.shape + (nq,)
     x = (rng.integers(-50, 50, shape) if dtype == np.int32 else rng.random(shape)).astype(dtype)
     x[np.broadcast_to((ids >= n_local)[..., None], shape)] = _common.identity(
@@ -239,5 +253,43 @@ def test_tile_fold_covers_every_output_tile():
     columns, 8192 / Q below, at most 4096), and its rows cross them."""
     assert [tile_rows_for(q) for q in (1, 4, 5, 64, 67, 130)] == [4096, 2048, 1638, 128,
                                                                   128, 128]
-    ids, n_local = _tile_rows_case(np.random.default_rng(0), 64, 2, 4)
+    ids, n_local = _tile_rows_case(np.random.default_rng(0), 2 * tile_rows_for(64) + 3, 2, 4)
     assert n_local == 259 and (ids == n_local - 1).any() and (ids[..., 0] == 0).any()
+
+
+@pytest.mark.parametrize("semiring,dtype", SWEEP, ids=[f"{s}-{np.dtype(d).name}"
+                                                       for s, d in SWEEP])
+@pytest.mark.parametrize("senders", [4, 9])
+@pytest.mark.parametrize("tiles,extra", [(1, -1), (1, 0), (1, 1), (2, 1)],
+                         ids=["R-1", "R", "R+1", "2R+1"])
+@pytest.mark.parametrize("kernel", ["scatter_combine", "packed_scatter_combine"])
+def test_scalar_tile_fold_equals_plain_versions(kernel, tiles, extra, senders, semiring, dtype):
+    """Kernels 3 and 7: the Q = 1 fold with its own tile rows R at n_local
+    around R's edges, 4 and 9 senders; kernel 3's rows also start below 0."""
+    rng = np.random.default_rng(tiles * 1000 + extra * 10 + senders + len(semiring))
+    sets = 3
+    sparse = kernel == "scatter_combine"
+    ids, n_local = _tile_rows_case(rng, tiles * SCALAR_ROWS + extra, sets, senders,
+                                   negative=sparse)
+    x = (rng.integers(-50, 50, ids.shape) if dtype == np.int32 else rng.random(ids.shape))
+    x = x.astype(dtype)
+    x[ids >= n_local] = _common.identity(
+        semiring, torch.float32 if dtype == np.float32 else torch.int32)
+    val = torch.from_numpy(x)
+    fold = dict(n_sets=sets, n_local=n_local, semiring=semiring, rows=SCALAR_ROWS)
+    if sparse:
+        assert (ids < 0).any()
+        want = sc_ref.scatter_combine_ref(torch.from_numpy(ids.astype(np.int32)), val, n_local,
+                                          semiring=semiring)
+        got = tile_fold(ids, val[..., None], seg_w=n_local, n_out=sets * n_local, **fold)
+        assert torch.equal(got[:, 0], want.reshape(-1))
+        return
+    width = codec.device_width(n_local)
+    words = torch.from_numpy(codec.pack_uniform(ids, width).reshape(-1))
+    full = sets * (n_local + 1)
+    for n_out in (full, full - (n_local + 1) - n_local // 2, full + 700):
+        want = sc_ref.packed_scatter_combine_ref(
+            words, val.reshape(-1), n_out, set_slots=senders * ids.shape[-1], n_local=n_local,
+            width=width, semiring=semiring)
+        got = tile_fold(ids, val[..., None], seg_w=n_local + 1, n_out=n_out, **fold)
+        assert torch.equal(got[:, 0], want)

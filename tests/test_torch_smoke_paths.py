@@ -67,3 +67,75 @@ def test_pagerank_vertical_packed_delta():
     assert res.converged
     want = smoke.pagerank_ref(np, sp, EDGES, N, res.iterations)
     np.testing.assert_allclose(res.v, want, rtol=1e-4, atol=1e-12)
+
+
+def test_sparse_scatter_phase_on_cpu(monkeypatch):
+    """The smoke's kernel-3 phase on the SSSP run's compacted buffers, on the
+    CPU (the wrapper takes its plain version there), with the card's timers
+    stubbed: every comparison it makes holds, and its row gets the valid-slot
+    bound and every time."""
+    import torch
+
+    from repro_torch.core import placement, sparse_exchange
+
+    monkeypatch.setattr(smoke, "time_ms", lambda torch, fn, reps, warmup=2: (fn(), 0.5)[1])
+    monkeypatch.setattr(smoke, "profiled_calls", lambda torch, fn, cls: (fn(), 1.0, 0.25, {})[1:])
+    eng = PMVEngine(EDGES, N, b=8, strategy="vertical", backend="auto", scatter="kernel",
+                    stream="off", device="cpu")
+    spec = sssp(0)
+    res = eng.run(spec, max_iters=3, tol=-1.0)
+    matrix, _, _, _, meta = eng.prepare(spec)
+    part = meta["part"]
+    nl = part.n_local
+    v = torch.from_numpy(part.to_blocked(res.v.astype(np.float32)).copy())
+    partials = placement._planned_vertical_partials(spec, matrix["planned"], v, nl)
+    idx, val, _, _ = sparse_exchange.compact_partials(spec, partials, meta["capacity"])
+    idx_x, val_x = idx.transpose(0, 1).contiguous(), val.transpose(0, 1).contiguous()
+    rows = {"scatter_combine": {"launches": 6}}
+    gen = torch.Generator().manual_seed(0)
+    smoke.sparse_scatter_phase(torch, torch.device("cpu"), gen, N, idx_x, val_x, nl, rows)
+    row = rows["scatter_combine"]
+    n_valid = int((idx_x < nl).sum())
+    assert 0 < n_valid < idx_x.numel() and row["valid_slots"] == n_valid
+    want_ms, by = smoke.bound(n_valid * 8 + idx_x.shape[0] * nl * 4, n_valid)
+    assert row["bound_ms"] == want_ms and row["bound_by"] == by == "bytes"
+    assert row["device_launches_per_call"] == 1.0 and row["launches"] == 6
+    for key in ("ms", "plain_ms", "library_ms", "device_ms", "scatter_reduce_all_slots_ms",
+                "plus_times_ms", "plus_times_device_ms", "plus_times_library_ms"):
+        assert row[key] > 0, key
+
+
+@pytest.mark.parametrize("caught, others, nodes, want", [
+    ([20], {}, {"kernel": 1}, 1),
+    ([19] * 8, {}, {"kernel": 1}, 1),
+    ([17, 19, 18] + [16] * 5, {}, {"kernel": 1}, 1),
+    ([20], {}, {"kernel": 2}, 2),
+    ([20], {}, {"kernel": 1, "memset": 1}, 2),
+    ([20], {"other": 20}, {"kernel": 1}, "error"),
+    ([21] * 8, {}, {"kernel": 1}, "error"),
+    ([0] * 8, {}, {"kernel": 1}, "error"),
+])
+def test_profiled_calls_counts_launches_in_a_captured_graph(monkeypatch, caught, others, nodes,
+                                                            want):
+    """profiled_calls reads a class's launches per call from one call
+    captured in a CUDA graph (every node counts), so a trace that drops
+    events in every window does not fail the check; it reads the device ms
+    from the window that caught the most, and refuses a trace that shows
+    another class, more than one launch a call, or none at all."""
+    windows = iter(caught)
+
+    def breakdown(torch, run, iters):
+        n = next(windows)
+        launches = dict({"scatter_combine": n} if n else {}, **others)
+        return {"device_launches": launches, "by_kernel_ms": {"scatter_combine": n / 1000},
+                "device_ms_per_iter": n / 1000}
+
+    monkeypatch.setattr(smoke, "device_breakdown", breakdown)
+    monkeypatch.setattr(smoke, "graph_nodes", lambda torch, fn: dict(nodes))
+    if want == "error":
+        with pytest.raises(smoke.SmokeError):
+            smoke.profiled_calls(None, lambda: None, "scatter_combine")
+        return
+    per_call, dev_ms, seen = smoke.profiled_calls(None, lambda: None, "scatter_combine")
+    assert per_call == want and dev_ms == max(caught) / 1000
+    assert seen["windows_caught"] == caught and seen["graph_nodes_per_call"] == nodes

@@ -43,6 +43,25 @@ def event_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graphed(torch, fn, calls: int):
+    """A callable that replays ``calls`` back-to-back calls of ``fn``
+    captured in one CUDA graph: timing it leaves out the host's work
+    between launches, which at ~0.02 ms a kernel can be most of an eager
+    call's time.  ``fn`` must allocate and launch only (no synchronize)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph.replay
+
+
 def alternate(torch, sides, rounds: int, reps: int, label: str | None = None) -> dict:
     """{name: [ms a round]} for each (name, fn) of ``sides``, timed in
     ``rounds`` rounds where the sides take turns to go first; with a
