@@ -92,7 +92,26 @@ Phases, each printed as it ends; any failure exits non-zero:
               timed against their plain versions and ``index_add_`` on
               pre-decoded ids, and profiled: device launches and device ms
               per call (each must make exactly one launch per call).
-7. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
+7. disk    -- the out-of-core store (``repro_torch.store``): the directed edges
+              of phase 2 ingested at b = 8 into a temporary directory (removed
+              at the end) and audited (``verify_store``), then three
+              ``PMVEngine(residency='disk', backend='auto')`` solves under a
+              residency budget of two weighted block slices (below one
+              striping's shard bytes): SSSP from 0 (strategy='vertical',
+              scatter='kernel', to convergence; equal to scipy and to run 2),
+              PageRank horizontal and PageRank vertical over the packed
+              exchange (scatter='kernel'), 10 iterations each at tol 0
+              (rtol 1e-4 against a 10-iteration scipy power iteration).  The
+              launch counters are zeroed before each solve and read after:
+              ``scatter_combine`` and ``packed_scatter_combine`` must launch
+              on the disk path.  Prints per solve the store's I/O split
+              (fetch, wait, compute, overlap; the store fits in RAM, so its
+              reads come from the page cache), bytes read per iteration, the
+              host double buffer against the budget, the device double
+              buffer, and the peak device memory beside the resident run's.
+              Fails if the peak host bytes pass the budget or the prefetch
+              thread degraded.
+8. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
               the device line.
 
 Exits non-zero without a result when no CUDA device is present, or when the
@@ -1332,6 +1351,112 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
     torch.cuda.empty_cache()
 
 
+def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_resident, resident_peaks,
+               rows, failures):
+    """Phase 7 (see the module doc): ingest, audit, three disk solves.
+    ``sssp_resident`` is run 2's answer, ``resident_peaks`` the resident
+    runs' peak GiB by label."""
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.core import PMVEngine, cost_model, pagerank, sssp
+    from repro_torch.store import ingest_edges, verify_store
+
+    root = tempfile.mkdtemp(prefix="pmv_store_")
+    try:
+        t = time.perf_counter()
+        man = ingest_edges(edges, n, b, root)
+        ingest_s = time.perf_counter() - t
+        t = time.perf_counter()
+        report = verify_store(root)
+        verify_s = time.perf_counter() - t
+        if not report.ok:
+            raise SmokeError(f"disk: verify_store: {report.summary()}")
+        striping = man.total_shard_bytes("vertical")
+        # the least budget the store accepts: its double buffer of two
+        # weighted block slices (at b = 8 that is 3/8 of one striping, so a
+        # quarter of the striping could not hold it)
+        budget = 2 * cost_model.stripe_slice_bytes(b, man.e_cap, has_w=True)
+        log(f"disk store: ingest_s={ingest_s:.2f} verify_s={verify_s:.2f} "
+            f"digests={report.checked} m={man.m} e_cap={man.e_cap} "
+            f"striping_bytes={striping} budget_bytes={budget} "
+            f"(budget/striping {budget / striping:.4f}; reads from the page cache)")
+        solves = [
+            ("sssp/vertical disk", dict(strategy="vertical", scatter="kernel"), sssp(0), 100,
+             0.5, "scatter_combine", "sssp/vertical"),
+            ("pagerank/horizontal disk", dict(strategy="horizontal"), pagerank(n), 10, 0.0,
+             None, "pagerank/selective"),
+            ("pagerank/vertical packed disk",
+             dict(strategy="vertical", exchange="packed", scatter="kernel"), pagerank(n), 10,
+             0.0, "packed_scatter_combine", "pagerank/vertical packed"),
+        ]
+        for label, kw, spec, max_iters, tol, kernel, resident in solves:
+            eng = PMVEngine(None, store=root, residency="disk", backend="auto",
+                            store_budget_bytes=budget, device=dev, **kw)
+            _, _, _, _, meta = eng.prepare(spec)
+            store = meta["store"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            res = eng.run(spec, max_iters=max_iters, tol=tol)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            meta["executor"].close()
+            it = res.per_iter
+
+            def med(key, it=it):
+                return float(np.median([r[key] for r in it]))
+
+            log(f"disk {label}: exchange={meta['exchange']} scatter={meta['plan'].scatter} "
+                f"iterations={res.iterations} converged={res.converged} "
+                f"ingest_s={ingest_s:.2f} prepare_s={meta['prepare_s']:.3f} "
+                f"median_iter_s={med('wall_s'):.4f} "
+                f"store_io_s={med('store_io_s'):.4f} store_wait_s={med('store_wait_s'):.4f} "
+                f"store_compute_s={med('store_compute_s'):.4f} "
+                f"store_overlap={med('store_overlap'):.4f} "
+                f"(io split: read {med('store_read_s'):.4f} verify {med('store_verify_s'):.4f} "
+                f"weights {med('store_weights_s'):.4f} s, device copies "
+                f"{med('store_h2d_s'):.4f} s; medians per iteration; totals "
+                f"io {res.totals['store_io_s']:.3f} wait {res.totals['store_wait_s']:.3f} "
+                f"compute {res.totals['store_compute_s']:.3f} s, overlap "
+                f"{res.totals['store_overlap']:.4f}) "
+                f"bytes_read_per_iter={med('store_bytes_read'):.0f} "
+                f"blocks_fetched={med('store_blocks_fetched'):.0f} (page cache) "
+                f"peak_resident_bytes={store.peak_resident_bytes} budget_bytes={budget} "
+                f"device_buffer_bytes={store.device_buffer_bytes} peak_gib={peak:.3f} "
+                f"resident_peak_gib={resident_peaks[resident]:.3f} ({resident}) "
+                f"launches={json.dumps({k: v for k, v in counts.items() if v})}")
+            if store.prefetch_degraded:
+                failures.append(f"{label}: the prefetch thread degraded to synchronous fetches")
+            if not 0 < store.peak_resident_bytes <= budget:
+                failures.append(f"{label}: peak resident bytes {store.peak_resident_bytes} "
+                                f"outside the budget {budget}")
+            if kernel is not None:
+                if counts[kernel] == 0:
+                    raise SmokeError(f"{label}: kernel {kernel} never launched on the disk path")
+                rows[kernel]["launches"] += counts[kernel]
+                rows[kernel]["disk_launches"] = counts[kernel]
+            if spec.name == "sssp":
+                want = sssp_ref(np, sp, csgraph, edges, n, 0)
+                ok = (res.converged and np.array_equal(res.v.astype(np.float64), want)
+                      and np.array_equal(res.v, sssp_resident))
+                what = "scipy shortest_path and the resident run"
+            else:
+                want = pagerank_ref(np, sp, edges, n, res.iterations)
+                ok = res.iterations == max_iters and np.allclose(res.v, want, rtol=1e-4,
+                                                                 atol=1e-12)
+                what = f"scipy power iteration ({res.iterations} iters)"
+            log(f"check {label} vs {what} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{label} disagrees with {what}")
+            del eng, meta, store
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def packed_widths_phase(torch, np, dev, gen):
     """Both packed kernels at the four device widths: random sorted sets of
     b = 8 senders padded with the sentinel, n_local at the top of each
@@ -1455,6 +1580,7 @@ def main() -> int:
     gen.manual_seed(args.seed)
     rows: dict[str, dict] = {}
     failures: list[str] = []
+    peaks: dict[str, float] = {}
 
     def rand_v(size, dtype):
         if dtype == torch.int32:
@@ -1470,6 +1596,7 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
+        peaks[label] = peak
         walls = [1e3 * r["wall_s"] for r in res.per_iter]
         log(f"run {label}: strategy={res.strategy} backend={meta['backend']} "
             f"iterations={res.iterations} converged={res.converged} "
@@ -1546,6 +1673,7 @@ def main() -> int:
         f"-> {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("sssp disagrees with scipy")
+    sssp_v = res.v
     fp = eng.prepare(spec)[0]["planned"]
     part = meta["part"]
     nl = part.n_local
@@ -1642,6 +1770,8 @@ def main() -> int:
     packed_serve_phase(torch, np, dev, gen, edges, n, b, 3000.0, rwr_answers, rows, failures)
     del rwr_answers
     packed_widths_phase(torch, np, dev, gen)
+    # -- disk: the out-of-core store, three solves from the same edges ---------
+    disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_v, peaks, rows, failures)
 
     if failures:
         raise SmokeError("; ".join(failures))

@@ -12,7 +12,9 @@ The per-block crossovers below (``ell_block_cost`` / ``dense_block_cost``,
 ``prefer_streamed``, ``prefer_kernel_scatter``, ``prefer_packed_exchange``)
 are ratios, kept equal to the JAX package's so both packages draw the same
 plans.  They were set for the TPU and have not been recalibrated on the H100
-yet (ROADMAP).  No device rate appears in this module.
+yet (ROADMAP).  No device rate appears in this module; the one rate it
+holds is the JAX package's modeled disk read rate (``DISK_READ_BW``), an
+assumption, not a measurement.
 """
 from __future__ import annotations
 
@@ -43,6 +45,11 @@ __all__ = [
     "padded_exchange_bytes",
     "packed_exchange_bytes",
     "prefer_packed_exchange",
+    "RESIDENCY_MODES",
+    "EDGE_SLOT_BYTES",
+    "stripe_slice_bytes",
+    "disk_block_io_cost",
+    "disk_io_seconds",
 ]
 
 
@@ -250,3 +257,50 @@ def prefer_packed_exchange(b: int, capacity: int, payload_slots: int, id_bytes: 
     packed = (packed_exchange_bytes(payload_slots, nq, itemsize)
               + id_bytes / amortization_iters)
     return packed < padded
+
+
+# ---------------------------------------------------------------------------
+# Disk-residency I/O leg.  residency='disk' keeps the pre-partitioned shards
+# on disk and streams one block's slices per launch-schedule step, so every
+# non-skip block pays a read of its padded e_cap slots on top of its compute
+# tactic.  The constants are the JAX package's, so both packages plan alike.
+# ---------------------------------------------------------------------------
+
+RESIDENCY_MODES = ("device", "host", "disk")
+
+# Bytes per padded edge slot in a shard slice: int32 seg + int32 gat + f32 w.
+EDGE_SLOT_BYTES = 12
+
+# The JAX package's modeled sequential read rate of the shard files
+# (NVMe-class), used only to print a modeled time beside a plan.
+DISK_READ_BW = 2e9  # B/s
+
+# One ELL compute slot expressed in streamed disk bytes (the JAX package's
+# ratio): the planner charges each non-skip block e_cap * slot bytes / 32.
+DISK_SLOT_BYTES_EQUIV = 32.0
+
+
+def _slot_bytes(has_w: bool) -> int:
+    """Bytes per padded edge slot: EDGE_SLOT_BYTES with the f32 weight array
+    (recomputed when fetched, never stored), the int32 seg + gat pair
+    without."""
+    return EDGE_SLOT_BYTES if has_w else EDGE_SLOT_BYTES - 4
+
+
+def stripe_slice_bytes(workers: int, e_cap: int, *, has_w: bool = False) -> int:
+    """Bytes of ONE destination (or source) block's shard slice across all
+    workers: [workers, e_cap] seg + gat plus the counts; ``has_w=True`` adds
+    the recomputed f32 weights (resident bytes, the budget's measure, not
+    bytes read)."""
+    return workers * (e_cap * _slot_bytes(has_w) + 4)
+
+
+def disk_block_io_cost(e_cap: int, *, has_w: bool = False) -> float:
+    """Slot-unit cost of streaming one block's shard slice per iteration
+    (added to every non-skip tactic cost under residency='disk')."""
+    return e_cap * _slot_bytes(has_w) / DISK_SLOT_BYTES_EQUIV
+
+
+def disk_io_seconds(bytes_read: float) -> float:
+    """Modeled time for reading ``bytes_read`` shard bytes at DISK_READ_BW."""
+    return bytes_read / DISK_READ_BW

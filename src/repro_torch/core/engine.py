@@ -16,11 +16,18 @@ non-identity entries, the paper's I/O metric).
 prepare (``repro_torch.exchange``) and ships only payloads each iteration;
 ``delta_eps`` then re-sends only the rows that moved, carrying the last
 shipped payload from one iteration to the next.
+
+``store=`` runs against an ingested out-of-core block store
+(``repro_torch.store``) instead of an in-memory edge list: ``residency``
+'device' / 'host' load it back (bitwise ``partition_graph``), 'disk' never
+materializes the stripes and streams one block's shard slice at a time
+(``repro_torch.store.residency``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -30,6 +37,7 @@ from repro_torch.core import cost_model, placement, planner
 from repro_torch.core.gimv import GimvSpec
 from repro_torch.core.partition import HybridMatrix, Partition, PartitionedMatrix, partition_graph
 from repro_torch.exchange import plan as exchange_plan
+from repro_torch.faults import RetryPolicy
 from repro_torch.graph.generators import symmetrize_edges
 from repro_torch.graph.stats import compute_stats
 from repro_torch.kernels.block_gimv import has_semiring, semiring_of
@@ -153,10 +161,25 @@ class PMVEngine:
       'on' resolves to 'off' where nothing streams -- horizontal, the dense
       exchange, backend='torch' -- as in the JAX package).
     device: None (the GPU; raises without one) | 'cuda' | 'cpu'.
+    store / residency: run against an out-of-core pre-partitioned block
+      store (``repro_torch.store``) in place of an edge list.  ``store`` is
+      a store directory or Manifest (n, b and psi come from it);
+      ``residency`` picks the matrix home: 'device' loads the shards back
+      (bitwise ``partition_graph``) onto the engine's device; 'host' the
+      same, with the matrix kept in pinned host memory and copied to the
+      GPU inside each step (on the CPU the same as 'device'); 'disk' never
+      materializes the stripes: the solve walks the plan's block schedule,
+      fetching one block's shard slice at a time with double-buffered
+      prefetch, bitwise the resident backend='torch' step on the CPU
+      (vertical with the sparse or packed exchange, or horizontal; the
+      disk path plans and runs as backend 'torch', its receive tail takes
+      the scatter kernels under scatter='kernel').  ``store_budget_bytes``
+      bounds the resident slice bytes under 'disk'; ``io_retry`` (a
+      ``repro_torch.faults.RetryPolicy``) bounds every disk fetch.
 
-    The JAX package's other knobs (mesh, store / residency, exchange='hier',
-    capacity='model', payload_dtype, obs, faults, io_retry, checkpointing)
-    raise NotImplementedError.
+    The JAX package's other knobs (mesh, exchange='hier', capacity='model',
+    payload_dtype, obs, faults, checkpointing, and strategy='hybrid' with
+    residency='disk') raise NotImplementedError.
     """
 
     def __init__(
@@ -180,17 +203,20 @@ class PMVEngine:
         mesh=None,
         store=None,
         residency: str = "device",
+        store_budget_bytes: int | None = None,
         obs=None,
         faults=None,
-        io_retry=None,
+        io_retry: RetryPolicy | None = None,
         device=None,
     ):
         if mesh is not None:
             raise _not_ported("mesh", "emulation mode only")
-        if store is not None:
-            raise _not_ported("store")
-        if residency != "device":
-            raise _not_ported(f"residency={residency!r}")
+        if residency not in cost_model.RESIDENCY_MODES:
+            raise ValueError(f"residency must be one of {cost_model.RESIDENCY_MODES}, "
+                             f"got {residency!r}")
+        if residency == "disk" and strategy == "hybrid":
+            raise _not_ported("strategy='hybrid' with residency='disk'",
+                              "the θ-split hybrid disk executor, HybridDiskExecutor")
         if exchange == "hier":
             raise _not_ported(f"exchange={exchange!r}")
         if exchange not in ("sparse", "dense", "packed", "auto"):
@@ -205,8 +231,6 @@ class PMVEngine:
             raise _not_ported("obs")
         if faults is not None:
             raise _not_ported("faults")
-        if io_retry is not None:
-            raise _not_ported("io_retry")
         if backend not in BACKENDS:
             if backend in ("pallas", "xla"):
                 raise _not_ported(f"backend={backend!r}", "use 'torch' or 'auto'")
@@ -215,12 +239,42 @@ class PMVEngine:
             raise ValueError(scatter)
         if stream not in ("auto", "on", "off"):
             raise ValueError(stream)
-        if edges is None or n is None or b is None:
-            raise ValueError("PMVEngine needs (edges, n, b=)")
+        self.store = None
+        self.residency = residency
+        self.store_budget_bytes = store_budget_bytes
+        self.io_retry = io_retry
+        if store is not None:
+            from repro_torch.store import open_store
+
+            self.store = open_store(store)
+            if edges is not None:
+                raise ValueError("pass either edges or store=, not both")
+            if n is not None and int(n) != self.store.n:
+                raise ValueError(f"n={n} does not match the store's n={self.store.n}")
+            if b is not None and int(b) != self.store.b:
+                raise ValueError(f"b={b} does not match the store's b={self.store.b}")
+            if psi is not None and psi != self.store.psi:
+                raise ValueError(
+                    f"psi={psi!r} does not match the store's psi={self.store.psi!r}")
+            if symmetrize and not self.store.symmetrized:
+                raise ValueError(
+                    "symmetrize=True but the store was ingested without "
+                    "symmetrize — re-ingest with ingest_edges(symmetrize=True)")
+            if base_weights is not None:
+                raise ValueError("base_weights are not persisted by the store")
+            n, b, psi = self.store.n, self.store.b, self.store.psi
+        else:
+            if edges is None or n is None or b is None:
+                raise ValueError("PMVEngine needs (edges, n, b=) or store=")
+            if residency != "device":
+                raise ValueError(
+                    f"residency={residency!r} needs store= (an ingested "
+                    "block-store directory; see repro_torch.store.ingest_edges)")
+            if symmetrize:
+                edges = symmetrize_edges(edges)
+            edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
         self.device = resolve_device(device)
-        if symmetrize:
-            edges = symmetrize_edges(edges)
-        self.edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        self.edges = edges
         self.n = int(n)
         self.b = int(b)
         self.strategy = strategy
@@ -236,15 +290,30 @@ class PMVEngine:
 
     _PREP_CACHE_MAX = 8
 
+    @classmethod
+    def from_store(cls, store, **kwargs) -> "PMVEngine":
+        """Engine over an ingested block store (path or Manifest); n, b and
+        psi come from the manifest.  ``residency`` defaults to 'host'."""
+        kwargs.setdefault("residency", "host")
+        return cls(None, store=store, **kwargs)
+
+    def _num_edges(self) -> int:
+        return self.store.m if self.store is not None else self.edges.shape[0]
+
+    def _graph_stats(self):
+        if self.store is not None:
+            return self.store.graph_stats()
+        return compute_stats(self.edges, self.n)
+
     def resolve_strategy(self) -> tuple[str, float | None]:
-        m = self.edges.shape[0]
+        m = self._num_edges()
         if self.strategy in ("horizontal", "vertical"):
             return self.strategy, None
         if self.strategy in ("auto", "selective"):
             return cost_model.select_strategy(self.b, self.n, m), None
         if self.strategy == "hybrid":
             if self.theta == "auto":
-                theta, _ = cost_model.theta_star(self.b, self.n, compute_stats(self.edges, self.n))
+                theta, _ = cost_model.theta_star(self.b, self.n, self._graph_stats())
             else:
                 theta = float(self.theta)
             return "hybrid", theta
@@ -287,17 +356,25 @@ class PMVEngine:
     def _capacity(self, pm: PartitionedMatrix, hm: HybridMatrix | None) -> int:
         return hm.sparse_partial_cap if hm is not None else pm.partial_cap
 
-    def _put(self, a, dtype=None) -> torch.Tensor:
+    def _put(self, a, dtype=None, device=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(device=self.device, dtype=dtype or t.dtype)
+        return t.to(device=device or self.device, dtype=dtype or t.dtype)
+
+    @property
+    def _matrix_home(self) -> torch.device:
+        """Where the prepared matrix lives: the host under residency='host'
+        (pinned at the end of prepare, copied to the GPU inside each step),
+        else the engine's device."""
+        return torch.device("cpu") if self.residency == "host" else self.device
 
     def _put_stripe(self, stripes: list) -> blocks_lib.BlockEdges:
         s = blocks_lib.stack_stripes(stripes)
+        home = self._matrix_home
         return blocks_lib.BlockEdges(
-            seg_local=self._put(s.seg_local, torch.int64),
-            gat_local=self._put(s.gat_local, torch.int64),
-            w=None if s.w is None else self._put(s.w),
-            count=self._put(s.count, torch.int64))
+            seg_local=self._put(s.seg_local, torch.int64, home),
+            gat_local=self._put(s.gat_local, torch.int64, home),
+            w=None if s.w is None else self._put(s.w, device=home),
+            count=self._put(s.count, torch.int64, home))
 
     def prepare(self, spec: GimvSpec, ctx: dict | None = None):
         """Pre-partitioning (once per spec, cached): returns (matrix, v0,
@@ -319,12 +396,21 @@ class PMVEngine:
     def _prepare_static(self, spec: GimvSpec):
         t0 = time.perf_counter()
         strategy, theta = self.resolve_strategy()
-        pm, hm = partition_graph(self.edges, self.n, self.b, spec, psi=self.psi,
-                                 base_weights=self.base_weights,
-                                 theta=theta if strategy == "hybrid" else None)
+        if self.store is not None and self.residency == "disk":
+            return self._prepare_disk(spec, strategy, theta, t0)
+        if self.store is not None:
+            from repro_torch.store import load_partitioned
+
+            pm, hm = load_partitioned(self.store, spec,
+                                      theta=theta if strategy == "hybrid" else None)
+        else:
+            pm, hm = partition_graph(self.edges, self.n, self.b, spec, psi=self.psi,
+                                     base_weights=self.base_weights,
+                                     theta=theta if strategy == "hybrid" else None)
         part = pm.part
         nl = part.n_local
         backend = self._resolve_backend(spec)
+        home = self._matrix_home
         matrix: dict = {}
         if strategy == "horizontal":
             capacity = None
@@ -337,8 +423,8 @@ class PMVEngine:
         else:
             capacity = self._capacity(pm, hm)
             matrix["dense_region"] = blocks_lib.DenseRegion(
-                gather_idx=self._put(hm.dense.gather_idx, torch.int64),
-                d_count=self._put(hm.dense.d_count), d_cap=hm.dense.d_cap,
+                gather_idx=self._put(hm.dense.gather_idx, torch.int64, home),
+                d_count=self._put(hm.dense.d_count, device=home), d_cap=hm.dense.d_cap,
                 theta=hm.dense.theta)
             if backend == "torch":
                 matrix["sparse_stripe"] = self._put_stripe(hm.sparse_vertical)
@@ -349,14 +435,15 @@ class PMVEngine:
                 semiring = semiring_of(spec.combine2, spec.combine_all)
                 dm = np.stack([blocks_lib.materialize_dense_matrix(s, nl, hm.dense.d_cap, semiring)
                                for s in hm.dense_horizontal])
-                matrix["dense_matrix"] = self._put(dm.reshape(self.b * nl, -1))
+                matrix["dense_matrix"] = self._put(dm.reshape(self.b * nl, -1), device=home)
                 del dm
 
         scatter = self.scatter if has_semiring(spec.combine2, spec.combine_all) else "segment"
         stream = self._resolve_stream(strategy, backend, capacity, part)
         plan = planner.plan_execution(
             pm, hm, strategy=strategy, mode=backend, theta=theta, capacity=capacity,
-            scatter=scatter, stream=stream, interpret=self.device.type != "cuda")
+            scatter=scatter, stream=stream, interpret=self.device.type != "cuda",
+            residency=self.residency)
         if backend == "planned":
             semiring = semiring_of(spec.combine2, spec.combine_all)
             if strategy == "horizontal":
@@ -370,7 +457,7 @@ class PMVEngine:
                     s, plan.tactics_for_worker(w, layout), nl, layout=layout,
                     boundaries=plan.boundaries, semiring=semiring)
                 for w, s in enumerate(stripes)], semiring)
-            matrix[key] = placement.flatten_planned(packed, nl, self.b, self.device)
+            matrix[key] = placement.flatten_planned(packed, nl, self.b, home)
         real_mask = self._put(part.global_ids_grid() < self.n)
         exchange, xplan, delta_eps, xmeta = self._resolve_exchange(
             spec, strategy, capacity, plan,
@@ -380,12 +467,14 @@ class PMVEngine:
         cfg = StepConfig(strategy=strategy, n_local=nl, exchange=exchange,
                          capacity=capacity, backend=backend, plan=plan, xplan=xplan,
                          delta_eps=delta_eps)
+        if self.residency == "host" and self.device.type == "cuda":
+            matrix = _tree_map(lambda t: t.pin_memory(), matrix)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         meta = {
             "strategy": strategy, "theta": theta, "capacity": capacity, "part": part,
             "pm": pm, "hm": hm, "cfg": cfg, "backend": backend, "plan": plan,
-            "device": str(self.device),
+            "residency": self.residency, "device": str(self.device),
             "n_dense": int(hm.dense.d_count.sum()) if hm is not None else 0,
             "prepare_s": time.perf_counter() - t0,
             **xmeta,
@@ -420,7 +509,8 @@ class PMVEngine:
                 decision = ("auto: packed undercuts padded" if use_packed
                             else "auto: padded stream kept")
             if exchange == "packed":
-                matrix["xchg"] = {k: self._put(a) for k, a in arrays.items()}
+                matrix["xchg"] = {k: self._put(a, device=self._matrix_home)
+                                  for k, a in arrays.items()}
                 xplan = xp
         delta_reason = None
         if self.delta_eps is not None:
@@ -440,6 +530,85 @@ class PMVEngine:
             "exchange": exchange, "exchange_decision": decision,
             "delta_eps": delta_eps, "delta_reason": delta_reason,
         }
+
+    def _prepare_disk(self, spec: GimvSpec, strategy: str, theta: float | None, t0: float):
+        """residency='disk': never materialize the stripes -- plan from the
+        manifest's persisted measurements and build the schedule-driven
+        executor (repro_torch.store.residency) that streams shard slices
+        block by block with double-buffered prefetch.  As in the JAX
+        package it plans in the plain mode ('torch', the counterpart of
+        'xla'), and a ``delta_eps`` keeps the full stream."""
+        from repro_torch.store import DiskBlockStore, DiskExecutor, make_disk_step
+        from repro_torch.store import plan_from_manifest
+
+        if strategy == "vertical" and self.exchange == "dense":
+            raise ValueError(
+                "residency='disk' streams through the compact sparse or "
+                f"packed exchange; exchange={self.exchange!r} is not supported")
+        part = Partition(n=self.n, b=self.b, psi=self.psi)
+        capacity = self.store.partial_cap if strategy == "vertical" else None
+        scatter = self.scatter if has_semiring(spec.combine2, spec.combine_all) else "segment"
+        plan = plan_from_manifest(
+            self.store, strategy=strategy, mode="torch", theta=theta, capacity=capacity,
+            scatter=scatter, stream="on" if strategy == "vertical" else "off",
+            interpret=self.device.type != "cuda", residency="disk")
+        exchange, xplan, xchg, decision = self._resolve_disk_exchange(
+            spec, strategy, capacity, plan, part)
+        dstore = DiskBlockStore(self.store, strategy, spec,
+                                budget_bytes=self.store_budget_bytes, device=self.device)
+        executor = DiskExecutor(spec, part, plan, dstore, capacity=capacity,
+                                scatter=plan.scatter, retry=self.io_retry,
+                                exchange=exchange, xchg=xchg, xplan=xplan)
+        cfg = StepConfig(strategy=strategy, n_local=part.n_local, exchange=exchange,
+                         capacity=capacity, backend="torch", plan=plan, xplan=xplan)
+        real_mask = self._put(part.global_ids_grid() < self.n)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        meta = {
+            "strategy": strategy, "theta": theta, "capacity": capacity, "part": part,
+            "pm": None, "hm": None, "cfg": cfg, "backend": "torch", "plan": plan,
+            "residency": "disk", "store": dstore, "executor": executor,
+            "step": make_disk_step(spec, executor), "device": str(self.device),
+            "n_dense": 0, "prepare_s": time.perf_counter() - t0,
+            "exchange": exchange, "exchange_decision": decision,
+            "delta_eps": None,
+            "delta_reason": (None if self.delta_eps is None
+                             else "residency='disk' keeps the full stream"),
+        }
+        return dstore, real_mask, meta
+
+    def _resolve_disk_exchange(self, spec: GimvSpec, strategy: str, capacity: int | None,
+                               plan: planner.ExecutionPlan, part: Partition):
+        """Out-of-core counterpart of ``_resolve_exchange``: the per-pair
+        index sets come from the store's v2 packed index shards (decoded,
+        never the edge shards).  A forced 'packed' against a v1 store raises
+        ManifestVersionError; 'auto' then keeps the padded stream and says
+        why.  Returns (exchange, xplan, xchg device arrays, decision)."""
+        exchange = self.exchange
+        if strategy != "vertical" or capacity is None:
+            if exchange in ("packed", "auto"):
+                exchange = "sparse"
+            return exchange, None, None, "n/a"
+        if exchange not in ("packed", "auto"):
+            return exchange, None, None, "forced"
+        if not self.store.has_packed_index:
+            if exchange == "packed":
+                self.store.require_packed_index()  # raises ManifestVersionError
+            return "sparse", None, None, (
+                f"auto: store format v{self.store.version} has no packed index shards")
+        xp, arrays = exchange_plan.build_exchange(
+            self.store.packed_row_sets(), part.n_local, scatter=plan.scatter)
+        decision = "forced"
+        if exchange == "auto":
+            use_packed = cost_model.prefer_packed_exchange(
+                self.b, capacity, xp.payload_slots, xp.id_bytes, None,
+                np.dtype(spec.dtype).itemsize)
+            exchange = "packed" if use_packed else "sparse"
+            decision = ("auto: packed undercuts padded" if use_packed
+                        else "auto: padded stream kept")
+        if exchange != "packed":
+            return exchange, None, None, decision
+        return exchange, xp, {k: self._put(a) for k, a in arrays.items()}, decision
 
     # ------------------------------------------------------------------
     def run(
@@ -466,6 +635,8 @@ class PMVEngine:
         matrix, v, ctx_b, mask, meta = self.prepare(spec, ctx)
         part: Partition = meta["part"]
         cfg: StepConfig = meta["cfg"]
+        disk_step = meta.get("step")
+        host = self.residency == "host" and self.device.type == "cuda"
         if v0 is not None:
             v = self._put(part.to_blocked(np.asarray(v0, dtype=spec.dtype)))
         # delta-iteration carried state: the previously shipped packed
@@ -481,11 +652,19 @@ class PMVEngine:
         it = 0
         for it in range(max_iters):
             t0 = time.perf_counter()
-            if xstate is not None:
-                v_new, _r, stats, xstate = placement_call(spec, cfg, matrix, v, ctx_b, mask,
-                                                          xstate)
+            if disk_step is not None:
+                v_new, _r, stats = disk_step(matrix, v, ctx_b, mask)
             else:
-                v_new, _r, stats = placement_call(spec, cfg, matrix, v, ctx_b, mask)
+                # residency='host' on the GPU: the step copies the pinned
+                # matrix to the card each time
+                m = _tree_map(lambda t: t.to(self.device, non_blocking=True),
+                              matrix) if host else matrix
+                if xstate is not None:
+                    v_new, _r, stats, xstate = placement_call(spec, cfg, m, v, ctx_b, mask,
+                                                              xstate)
+                else:
+                    v_new, _r, stats = placement_call(spec, cfg, m, v, ctx_b, mask)
+                del m
             delta = spec.default_delta(v, v_new)
             # one device->host copy per iteration for every scalar the
             # iteration produced (it also waits for the iteration to finish)
@@ -531,9 +710,24 @@ class PMVEngine:
         if per_iter and "delta_sent_rows" in per_iter[0]:
             totals["delta_sent_rows"] = sum(r["delta_sent_rows"] for r in per_iter)
             totals["delta_suppressed_rows"] = sum(r["delta_suppressed_rows"] for r in per_iter)
+        totals.update(self._io_totals(per_iter))
         return PMVResult(v=v_np, iterations=it, converged=converged,
                          strategy=meta["strategy"], theta=meta["theta"],
                          capacity=meta["capacity"], per_iter=per_iter, totals=totals)
+
+    _IO_TOTAL_KEYS = ("store_bytes_read", "store_blocks_fetched", "store_blocks_skipped",
+                      "store_io_s", "store_wait_s", "store_compute_s", "store_read_s",
+                      "store_verify_s", "store_weights_s", "store_h2d_s")
+
+    @classmethod
+    def _io_totals(cls, per_iter: list[dict]) -> dict:
+        """The disk-I/O leg of ``PMVResult.totals``: the disk executor's
+        per-iteration store_* stats summed over the run, and the same keys
+        zeroed (overlap 1.0, nothing to hide) for resident runs."""
+        totals = {k: sum(r.get(k, 0.0) for r in per_iter) for k in cls._IO_TOTAL_KEYS}
+        io_s, wait_s = totals["store_io_s"], totals["store_wait_s"]
+        totals["store_overlap"] = max(0.0, 1.0 - wait_s / io_s) if io_s > 0.0 else 1.0
+        return totals
 
     def _paper_io(self, meta, rec) -> float:
         """Per-iteration I/O in vector elements, the paper's metric:
@@ -549,3 +743,18 @@ class PMVEngine:
         n_dense = meta["n_dense"]
         p_out = 1.0 - n_dense / n
         return n * p_out + b * n_dense + n + 2.0 * logical
+
+
+def _tree_map(fn, obj: Any):
+    """Apply ``fn`` to every tensor of a prepared matrix: dicts, lists and
+    tuples, and the frozen dataclasses of core.blocks / core.placement."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _tree_map(fn, x) for k, x in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_tree_map(fn, x) for x in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _tree_map(fn, getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    return obj

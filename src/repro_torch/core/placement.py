@@ -58,6 +58,9 @@ __all__ = [
     "hybrid_step",
     "block_gimv_partials",
     "gathered_gimv",
+    "single_block_partial",
+    "single_block_compact",
+    "single_block_contrib",
     "ell_gimv_call",
     "FlatBucket",
     "FlatPlanned",
@@ -138,6 +141,55 @@ def gathered_gimv(spec: GimvSpec, stripe: BlockEdges, v_blocks: torch.Tensor,
     x = _edges_x(spec, stripe, v_blocks.reshape((-1,) + tuple(v_blocks.shape[2:])), row_off)
     contribs = _segment_blocks(spec, stripe, x, n_local)
     return tree_combine(spec, [contribs[:, j] for j in range(b)])
+
+
+def _single_block(spec: GimvSpec, seg, gat, w, cnt, v_flat: torch.Tensor,
+                  row_offset: torch.Tensor, n_local: int) -> torch.Tensor:
+    """One inner block of every worker's stripe (seg / gat / w [W, E_cap],
+    cnt [W]) as a one-block slice of the stacked-stripe path: combine2 over
+    its edges reading v_flat[row_offset[w] + gat], segment-combined into
+    [W, n_local(, Q)].  Each output row folds the same edges in the same
+    order as the whole-stripe call, so the result is that call's slice."""
+    stripe = BlockEdges(seg_local=seg[:, None], gat_local=gat[:, None],
+                        w=None if w is None else w[:, None], count=cnt[:, None])
+    x = _edges_x(spec, stripe, v_flat, row_offset[:, None])
+    return _segment_blocks(spec, stripe, x, n_local)[:, 0]
+
+
+def single_block_partial(spec: GimvSpec, seg, gat, w, cnt, v_local: torch.Tensor,
+                         n_local: int) -> torch.Tensor:
+    """One destination block's vertical sub-multiplication on every worker:
+    the block's edge arrays (seg / gat / w [W, E_cap], cnt [W]) against each
+    worker's own vector v_local [W, n_local(, Q)] -> the dense partials
+    [W, n_local(, Q)], bitwise block_gimv_partials(...)[:, i].  Shared by the
+    compacting path (``single_block_compact``) and the packed exchange (which
+    gathers the partial at its static row set instead)."""
+    row_off = torch.arange(v_local.shape[0], device=v_local.device) * n_local
+    v_flat = v_local.reshape((-1,) + tuple(v_local.shape[2:]))
+    return _single_block(spec, seg, gat, w, cnt, v_flat, row_off, n_local)
+
+
+def single_block_compact(spec: GimvSpec, seg, gat, w, cnt, v_local: torch.Tensor,
+                         n_local: int, capacity: int):
+    """``single_block_partial`` compacted at once: (idx [W, cap], val
+    [W, cap(, Q)], overflow, logical), the per-block body of the out-of-core
+    vertical executor (repro_torch.store), which must stay bitwise the
+    resident step."""
+    partial = single_block_partial(spec, seg, gat, w, cnt, v_local, n_local)
+    return sparse_exchange.compact_partials(spec, partial, capacity,
+                                            batched=v_local.ndim == 3)
+
+
+def single_block_contrib(spec: GimvSpec, seg, gat, w, cnt, v_src: torch.Tensor,
+                         n_local: int) -> torch.Tensor:
+    """One source block's horizontal contribution to every worker: the
+    block's edge arrays (seg / gat / w [W, E_cap], cnt [W]) against the
+    SOURCE block's vector v_src [n_local(, Q)] -> [W, n_local(, Q)], the
+    slice of ``gathered_gimv``'s per-block contributions that its tree fold
+    combines.  The out-of-core horizontal executor streams these per source
+    block."""
+    row_off = torch.zeros(seg.shape[0], dtype=torch.int64, device=v_src.device)
+    return _single_block(spec, seg, gat, w, cnt, v_src, row_off, n_local)
 
 
 # --------------------------------------------------------------------------

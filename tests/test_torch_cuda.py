@@ -756,3 +756,139 @@ def test_cuda_ell_wide_bucket_of_short_rows(cuda_device, semiring, rows):
                       np.float32)
         if semiring == "plus_times":
             assert torch.equal(got, ell_spmv.ell_gimv_multi(c, ww, vq, semiring=semiring))
+
+
+# ---------------------------------------------------------------------------
+# The out-of-core store on the card: pinned double buffer, side-stream copies.
+# ---------------------------------------------------------------------------
+
+DISK_N, DISK_B, DISK_ITERS = 1 << 14, 8, 6
+# (name, spec maker, symmetrized store, strategy, exchange, scatter, kernel launched)
+DISK_CASES = [
+    ("sssp-vertical-sparse-kernel", lambda T: T.sssp(0), False, "vertical", "sparse", "kernel",
+     "scatter_combine"),
+    ("pagerank-vertical-packed-kernel", lambda T: T.pagerank(DISK_N), False, "vertical",
+     "packed", "kernel", "packed_scatter_combine"),
+    ("pagerank-horizontal", lambda T: T.pagerank(DISK_N), False, "horizontal", "sparse",
+     "segment", None),
+    ("cc-vertical-sparse-segment", lambda T: T.connected_components(), True, "vertical",
+     "sparse", "segment", None),
+]
+
+
+@pytest.fixture(scope="module")
+def disk_stores(tmp_path_factory):
+    """RMAT-14 (16 edges a vertex) stores, plain and symmetrized (built only
+    where the tests that read them run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernels have no CPU mode")
+    from repro_torch.graph import rmat
+    from repro_torch.store import ingest_edges
+
+    edges = rmat(14, 16 << 14, seed=1)
+    out = {"edges": edges}
+    for sym in (False, True):
+        root = str(tmp_path_factory.mktemp(f"cuda_store{int(sym)}") / "s")
+        ingest_edges(edges, DISK_N, DISK_B, root, symmetrize=sym)
+        out[sym] = root
+    return out
+
+
+def _disk_solve(eng, spec):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = eng.run(spec, max_iters=DISK_ITERS, tol=0.0)
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated()
+
+
+def _assert_same_answer(got, want, name):
+    if name.startswith("pagerank"):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DISK_CASES, ids=[c[0] for c in DISK_CASES])
+def test_cuda_disk_pipeline_matches_resident(cuda_device, disk_stores, case):
+    """residency='disk' on the card: fetched slices staged in two pinned host
+    buffers and copied on a side stream; over several iterations the result
+    equals the resident backend='torch' engine's (plus_times to rtol 1e-5:
+    the card's segment sums use atomics), the receive kernel launches on the
+    disk path under scatter='kernel', and the peak device memory stays
+    below the resident engine's."""
+    import repro_torch.core as T
+
+    name, mk, sym, strategy, exchange, scatter, kernel = case
+    kw = dict(strategy=strategy, exchange=exchange, scatter=scatter, device=cuda_device)
+    resident, peak_resident = _disk_solve(
+        T.PMVEngine(disk_stores["edges"], DISK_N, b=DISK_B, symmetrize=sym, backend="torch",
+                    **kw), mk(T))
+    eng = T.PMVEngine(None, store=disk_stores[sym], residency="disk", **kw)
+    spec = mk(T)
+    meta = eng.prepare(spec)[-1]
+    before = kernels.launch_counts()
+    disk, peak_disk = _disk_solve(eng, spec)
+    after = kernels.launch_counts()
+    _assert_same_answer(disk.v, resident.v, name)
+    if kernel is not None:
+        assert after[kernel] - before[kernel] == DISK_ITERS
+    store = meta["store"]
+    assert all(t.is_pinned() for slot in store._staging.slots for t in slot.values()
+               if t is not None)
+    assert store.device_buffer_bytes > 0 and not store.prefetch_degraded
+    assert disk.per_iter[-1]["store_blocks_fetched"] > 0
+    assert peak_disk < peak_resident, (peak_disk, peak_resident)
+
+
+@pytest.mark.cuda
+def test_cuda_disk_slow_fetch_leaves_no_torn_slice(cuda_device, disk_stores, monkeypatch):
+    """Every other fetch sleeps before it reads, so the compute runs ahead
+    of the prefetch and the two pinned buffers turn over at uneven times:
+    the answers stay those of the unslowed run (SSSP and CC exactly)."""
+    import time
+
+    import repro_torch.core as T
+    from repro_torch.store import DiskBlockStore
+
+    def solve(sym, spec):
+        eng = T.PMVEngine(None, store=disk_stores[sym], residency="disk", strategy="vertical",
+                          scatter="kernel", device=cuda_device)
+        return eng.run(spec, max_iters=DISK_ITERS, tol=0.0)
+
+    want = {name: solve(sym, mk(T)).v for name, mk, sym in (
+        ("sssp", lambda T: T.sssp(0), False), ("cc", lambda T: T.connected_components(), True))}
+    read = DiskBlockStore._read
+    calls = []
+
+    def slow_read(self, k, *args):
+        calls.append(k)
+        if len(calls) % 2:
+            time.sleep(0.02)
+        return read(self, k, *args)
+
+    monkeypatch.setattr(DiskBlockStore, "_read", slow_read)
+    np.testing.assert_array_equal(solve(False, T.sssp(0)).v, want["sssp"])
+    np.testing.assert_array_equal(solve(True, T.connected_components()).v, want["cc"])
+    assert len(calls) >= 2 * DISK_ITERS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["torch", "auto"])
+def test_cuda_host_residency_copies_pinned_stripes(cuda_device, disk_stores, backend):
+    """residency='host' keeps the prepared matrix in pinned host memory and
+    copies it to the card inside each step: the same answer as 'device'."""
+    import repro_torch.core as T
+
+    kw = dict(strategy="vertical", scatter="kernel", backend=backend, stream="off",
+              device=cuda_device)
+    spec = T.sssp(0)
+    host = T.PMVEngine.from_store(disk_stores[False], **kw)
+    matrix = host.prepare(spec)[0]
+    leaves = [matrix["stripe"].gat_local] if backend == "torch" else \
+        [bk.cols for bk in matrix["planned"].buckets]
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in leaves)
+    dev = T.PMVEngine(None, store=disk_stores[False], residency="device", **kw)
+    np.testing.assert_array_equal(host.run(spec, max_iters=DISK_ITERS, tol=0.0).v,
+                                  dev.run(T.sssp(0), max_iters=DISK_ITERS, tol=0.0).v)

@@ -139,3 +139,36 @@ def test_profiled_calls_counts_launches_in_a_captured_graph(monkeypatch, caught,
     per_call, dev_ms, seen = smoke.profiled_calls(None, lambda: None, "scatter_combine")
     assert per_call == want and dev_ms == max(caught) / 1000
     assert seen["windows_caught"] == caught and seen["graph_nodes_per_call"] == nodes
+
+
+def test_disk_phase_on_cpu(monkeypatch, tmp_path):
+    """The smoke's disk phase at scale 10 on the CPU, with the card's memory
+    calls stubbed and the launch counters faked (nothing launches here):
+    the store ingests and audits clean, the three disk solves pass their
+    checks against scipy and the resident SSSP, the budget holds, the
+    kernel rows gain their disk launches, and the store directory is gone
+    afterwards."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 1 << 30)
+    fake = dict(kernels.launch_counts(), scatter_combine=3, packed_scatter_combine=10)
+    monkeypatch.setattr(kernels, "launch_counts", lambda: dict(fake))
+    root = tmp_path / "store"
+    monkeypatch.setattr(tempfile, "mkdtemp", lambda prefix="": (root.mkdir(), str(root))[1])
+    sssp_v = PMVEngine(EDGES, N, b=8, strategy="vertical", device="cpu").run(
+        sssp(0), max_iters=100, tol=0.5).v
+    rows = {"scatter_combine": {"launches": 6}, "packed_scatter_combine": {"launches": 50}}
+    failures = []
+    peaks = {"sssp/vertical": 1.0, "pagerank/selective": 1.0, "pagerank/vertical packed": 1.0}
+    smoke.disk_phase(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, sssp_v, peaks,
+                     rows, failures)
+    assert failures == []
+    assert rows["scatter_combine"] == {"launches": 9, "disk_launches": 3}
+    assert rows["packed_scatter_combine"] == {"launches": 60, "disk_launches": 10}
+    assert not root.exists()
