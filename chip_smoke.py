@@ -93,23 +93,45 @@ Phases, each printed as it ends; any failure exits non-zero:
               pre-decoded ids, and profiled: device launches and device ms
               per call (each must make exactly one launch per call).
 7. disk    -- the out-of-core store (``repro_torch.store``): the directed edges
-              of phase 2 ingested at b = 8 into a temporary directory (removed
-              at the end) and audited (``verify_store``), then three
-              ``PMVEngine(residency='disk', backend='auto')`` solves under a
-              residency budget of two weighted block slices (below one
-              striping's shard bytes): SSSP from 0 (strategy='vertical',
-              scatter='kernel', to convergence; equal to scipy and to run 2),
-              PageRank horizontal and PageRank vertical over the packed
-              exchange (scatter='kernel'), 10 iterations each at tol 0
-              (rtol 1e-4 against a 10-iteration scipy power iteration).  The
-              launch counters are zeroed before each solve and read after:
-              ``scatter_combine`` and ``packed_scatter_combine`` must launch
-              on the disk path.  Prints per solve the store's I/O split
-              (fetch, wait, compute, overlap; the store fits in RAM, so its
-              reads come from the page cache), bytes read per iteration, the
-              host double buffer against the budget, the device double
-              buffer, and the peak device memory beside the resident run's.
-              Fails if the peak host bytes pass the budget or the prefetch
+              of phase 2 ingested at b = 8, with the θ-split shards of
+              theta=3000, into a temporary directory (its free space printed
+              first; removed at the end) and audited (``verify_store``), then
+              five ``PMVEngine(residency='disk', backend='auto')`` solves
+              under a residency budget of two weighted block slices (below
+              one striping's shard bytes; each hybrid leg holds its own):
+              SSSP from 0 (strategy='vertical', scatter='kernel', to
+              convergence; equal to scipy and to run 2), PageRank horizontal
+              and PageRank vertical over the packed exchange
+              (scatter='kernel'), 10 iterations each at tol 0 (rtol 1e-4
+              against a 10-iteration scipy power iteration), and the same
+              SSSP and PageRank with strategy='hybrid', theta=3000,
+              scatter='kernel' (the dense leg per source block, the sparse
+              leg per destination block, each off its own prefetch
+              pipeline).  Then ``PMVServer(store=..., residency='disk',
+              strategy='hybrid')`` serves the first 16 SSSP sources of phase
+              5 (one Q = 16 batch; each answer equal to phase 5's, 4 also to
+              scipy) and its first 8 RWR sources at 10 iterations (one Q = 8
+              batch; rtol 1e-4 against scipy).  The launch counters are
+              zeroed before each solve and the serve and read after:
+              ``scatter_combine`` (on both SSSP solves and the hybrid
+              PageRank), ``packed_scatter_combine`` and
+              ``scatter_combine_multi`` must launch on the disk path.
+              After each run that folds its tail with kernel 3 or 6, one
+              more sparse-leg pass over the run's answers yields the
+              (idx, val) the tail receives at that path's shapes (cap
+              80,213 on the hybrid, Q = 16 and 8 on the serve); the kernel
+              is held there against its plain version (bitwise for
+              min_plus, rtol 1e-5 for plus_times) and, bitwise, the
+              sender-order fold, and its error goes into the kernel row's
+              ``disk_checks``.
+              Prints per run the store's I/O split (fetch, wait, compute,
+              overlap; the store fits in RAM, so its reads come from the
+              page cache), bytes read per iteration over both hybrid legs,
+              each leg's host double buffer against the budget, its device
+              double buffer and its own fetch, wait and overlap, and the
+              peak device memory beside the resident run's; for the serve
+              also queries/s and the median batched-iteration wall.  Fails
+              if a leg's peak host bytes pass the budget or a prefetch
               thread degraded.
 8. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
               the device line.
@@ -569,8 +591,8 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
     4 per family against the single-query engine, the launch counters, and
     the three Q-wide kernels against their plain versions at the run's own
     shapes; then times them and profiles 3 batched iterations per family.
-    Returns the RWR answers on the host, in submission order, as (source,
-    vector, iterations)."""
+    Returns the answers on the host by family ('rwr', 'sssp'), in submission
+    order, each as (source, vector, iterations), and the serve's peak GiB."""
     from repro_torch import kernels
     from repro_torch.core import placement, sparse_exchange
     from repro_torch.kernels import block_gimv, ell_spmv, scatter_combine
@@ -901,7 +923,8 @@ def serve_phase(seed, torch, np, sp, csgraph, dev, gen, edges, n, b, theta, rows
     srv.close()
     del fams, states
     torch.cuda.empty_cache()
-    return [(r.query.source, r.vector, r.iterations) for r in by_kind["rwr"]]
+    return {kind: [(r.query.source, r.vector, r.iterations) for r in by_kind[kind]]
+            for kind in ("rwr", "sssp")}, peak
 
 
 # ---------------------------------------------------------------------------
@@ -1351,11 +1374,13 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
     torch.cuda.empty_cache()
 
 
-def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_resident, resident_peaks,
-               rows, failures):
-    """Phase 7 (see the module doc): ingest, audit, three disk solves.
-    ``sssp_resident`` is run 2's answer, ``resident_peaks`` the resident
-    runs' peak GiB by label."""
+def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, served,
+               resident_peaks, rows, failures):
+    """Phase 7 (see the module doc): ingest (with the θ-split shards of
+    ``theta``), audit, five disk solves and the disk serve.  ``sssp_resident``
+    is run 2's answer, ``served`` the resident serve's first 16 SSSP answers
+    and first 8 RWR sources, ``resident_peaks`` the resident runs' and the
+    serve's peak GiB by label."""
     import shutil
     import tempfile
 
@@ -1364,9 +1389,13 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_resident, resident
     from repro_torch.store import ingest_edges, verify_store
 
     root = tempfile.mkdtemp(prefix="pmv_store_")
+    t_phase = time.perf_counter()
     try:
+        usage = shutil.disk_usage(root)
+        log(f"disk space at {root} before the ingest: total {usage.total / 1e9:.1f} GB, "
+            f"free {usage.free / 1e9:.1f} GB")
         t = time.perf_counter()
-        man = ingest_edges(edges, n, b, root)
+        man = ingest_edges(edges, n, b, root, theta=theta)
         ingest_s = time.perf_counter() - t
         t = time.perf_counter()
         report = verify_store(root)
@@ -1376,12 +1405,15 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_resident, resident
         striping = man.total_shard_bytes("vertical")
         # the least budget the store accepts: its double buffer of two
         # weighted block slices (at b = 8 that is 3/8 of one striping, so a
-        # quarter of the striping could not hold it)
+        # quarter of the striping could not hold it); each hybrid leg fits it
         budget = 2 * cost_model.stripe_slice_bytes(b, man.e_cap, has_w=True)
-        log(f"disk store: ingest_s={ingest_s:.2f} verify_s={verify_s:.2f} "
-            f"digests={report.checked} m={man.m} e_cap={man.e_cap} "
-            f"striping_bytes={striping} budget_bytes={budget} "
-            f"(budget/striping {budget / striping:.4f}; reads from the page cache)")
+        log(f"disk store: ingest_s={ingest_s:.2f} (theta={theta}: the vertical and horizontal "
+            f"stripings plus the hybrid pair) verify_s={verify_s:.2f} "
+            f"digests={report.checked} m={man.m} e_cap={man.e_cap} hybrid={json.dumps(man.hybrid)} "
+            f"bytes: {json.dumps({s: man.total_shard_bytes(s) for s in man.stripings()})} "
+            f"budget_bytes={budget} (budget/striping {budget / striping:.4f}; "
+            "reads from the page cache)")
+        hybrid = dict(strategy="hybrid", theta=theta, scatter="kernel")
         solves = [
             ("sssp/vertical disk", dict(strategy="vertical", scatter="kernel"), sssp(0), 100,
              0.5, "scatter_combine", "sssp/vertical"),
@@ -1390,12 +1422,15 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_resident, resident
             ("pagerank/vertical packed disk",
              dict(strategy="vertical", exchange="packed", scatter="kernel"), pagerank(n), 10,
              0.0, "packed_scatter_combine", "pagerank/vertical packed"),
+            ("sssp/hybrid disk", hybrid, sssp(0), 100, 0.5, "scatter_combine", "sssp/vertical"),
+            ("pagerank/hybrid disk", hybrid, pagerank(n), 10, 0.0, "scatter_combine",
+             "pagerank/selective"),
         ]
         for label, kw, spec, max_iters, tol, kernel, resident in solves:
             eng = PMVEngine(None, store=root, residency="disk", backend="auto",
                             store_budget_bytes=budget, device=dev, **kw)
             _, _, _, _, meta = eng.prepare(spec)
-            store = meta["store"]
+            ex = meta["executor"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             kernels.reset_launch_counts()
@@ -1403,15 +1438,14 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_resident, resident
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
             peak = torch.cuda.max_memory_allocated() / 2**30
-            meta["executor"].close()
             it = res.per_iter
 
             def med(key, it=it):
                 return float(np.median([r[key] for r in it]))
 
-            log(f"disk {label}: exchange={meta['exchange']} scatter={meta['plan'].scatter} "
+            log(f"disk {label}: exchange={meta['exchange']} scatter={ex.scatter} "
                 f"iterations={res.iterations} converged={res.converged} "
-                f"ingest_s={ingest_s:.2f} prepare_s={meta['prepare_s']:.3f} "
+                f"prepare_s={meta['prepare_s']:.3f} "
                 f"median_iter_s={med('wall_s'):.4f} "
                 f"store_io_s={med('store_io_s'):.4f} store_wait_s={med('store_wait_s'):.4f} "
                 f"store_compute_s={med('store_compute_s'):.4f} "
@@ -1424,20 +1458,12 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_resident, resident
                 f"{res.totals['store_overlap']:.4f}) "
                 f"bytes_read_per_iter={med('store_bytes_read'):.0f} "
                 f"blocks_fetched={med('store_blocks_fetched'):.0f} (page cache) "
-                f"peak_resident_bytes={store.peak_resident_bytes} budget_bytes={budget} "
-                f"device_buffer_bytes={store.device_buffer_bytes} peak_gib={peak:.3f} "
+                f"{disk_legs(ex, budget)} peak_gib={peak:.3f} "
                 f"resident_peak_gib={resident_peaks[resident]:.3f} ({resident}) "
                 f"launches={json.dumps({k: v for k, v in counts.items() if v})}")
-            if store.prefetch_degraded:
-                failures.append(f"{label}: the prefetch thread degraded to synchronous fetches")
-            if not 0 < store.peak_resident_bytes <= budget:
-                failures.append(f"{label}: peak resident bytes {store.peak_resident_bytes} "
-                                f"outside the budget {budget}")
+            check_legs(label, ex, budget, failures)
             if kernel is not None:
-                if counts[kernel] == 0:
-                    raise SmokeError(f"{label}: kernel {kernel} never launched on the disk path")
-                rows[kernel]["launches"] += counts[kernel]
-                rows[kernel]["disk_launches"] = counts[kernel]
+                count_disk_launches(label, kernel, counts, rows)
             if spec.name == "sssp":
                 want = sssp_ref(np, sp, csgraph, edges, n, 0)
                 ok = (res.converged and np.array_equal(res.v.astype(np.float64), want)
@@ -1451,10 +1477,178 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_resident, resident
             log(f"check {label} vs {what} -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"{label} disagrees with {what}")
-            del eng, meta, store
+            if kernel == "scatter_combine":
+                disk_tail_check(torch, np, label, ex, res.v, rows)
+            ex.close()
+            del eng, meta, ex
             torch.cuda.empty_cache()
+        disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, served,
+                   resident_peaks, rows, failures)
+        log(f"disk phase: {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def disk_legs(ex, budget: int) -> str:
+    """Each striping's host double buffer against the budget, its device
+    double buffer, and its own fetch, wait and overlap over the executor's
+    iterations so far.  (The summed store_overlap counts the hybrid's two
+    legs' fetches, which their two threads run at once, as if they ran one
+    after the other, so it is not the share of I/O hidden behind compute.)"""
+    out = []
+    for leg in ex.legs:
+        st, run = leg.store, leg.run_stats()
+        out.append(f"{st.striping}: peak_resident_bytes={st.peak_resident_bytes} "
+                   f"budget_bytes={budget} device_buffer_bytes={st.device_buffer_bytes} "
+                   f"io_s={run.io_s:.4f} wait_s={run.wait_s:.4f} "
+                   f"overlap={run.overlap:.4f}")
+    return " ".join(out)
+
+
+def check_legs(label: str, ex, budget: int, failures: list) -> None:
+    """A disk run fails on a degraded prefetch or on a leg's peak resident
+    bytes outside the budget."""
+    for st in (leg.store for leg in ex.legs):
+        if st.prefetch_degraded:
+            failures.append(f"{label}: the {st.striping} prefetch thread degraded to "
+                            "synchronous fetches")
+        if not 0 < st.peak_resident_bytes <= budget:
+            failures.append(f"{label}: {st.striping} peak resident bytes "
+                            f"{st.peak_resident_bytes} outside the budget {budget}")
+
+
+def disk_tail_check(torch, np, label: str, ex, state, rows: dict) -> None:
+    """Kernel 3 (or 6 for a batch) at the shapes a disk path gives it, on the
+    (idx, val) its scatter tail receives: one more pass of the executor's
+    sparse leg over ``state`` (the run's answer, [n] or [n, Q]) compacts
+    them exactly as the run's iterations do, after the counted run.  The
+    kernel is held against its plain version (bitwise for the selection
+    semirings, rtol 1e-5 for plus_times) and, bitwise, against the
+    sender-order fold; the error goes into the kernel row's ``disk_checks``."""
+    from repro_torch.kernels import scatter_combine
+    from repro_torch.kernels.block_gimv import semiring_of
+
+    spec, nl = ex.spec, ex.part.n_local
+    v = torch.from_numpy(np.ascontiguousarray(ex.part.to_blocked(state))).to(ex.store.device)
+    ex._begin_iteration()
+    idx, val, _, _ = ex._compact_blocks(v)
+    del v
+    idx, val = idx.contiguous(), val.contiguous()
+    sr = semiring_of(spec.combine2, spec.combine_all)
+    multi = val.ndim == idx.ndim + 1
+    name, fn, ref = (
+        ("scatter_combine_multi", scatter_combine.scatter_combine_gimv_multi,
+         scatter_combine.scatter_combine_multi_ref) if multi else
+        ("scatter_combine", scatter_combine.scatter_combine_gimv,
+         scatter_combine.scatter_combine_ref))
+    got = fn(idx, val, nl, semiring=sr)
+    what = f"{label}: {name} {sr} on the tail's {tuple(val.shape)}"
+    err = compare(torch, got, ref(idx, val, nl, semiring=sr), sr, what)
+    check_sender_order(torch, got, sparse_rows(torch, idx, nl), val if multi else val[..., None],
+                       idx.shape[0] * nl, sr, what)
+    rows[name].setdefault("disk_checks", []).append(
+        {"path": label, "shape": list(val.shape), "semiring": sr, "max_abs_err": err})
+    log(f"kernels {label}: {name} {sr} on the tail's (idx, val) {list(val.shape)} "
+        f"n_local {nl}: matches its plain version (max |err| {err}) and is bitwise the "
+        "sender-order fold")
+    del idx, val, got
+
+
+def count_disk_launches(label: str, kernel: str, counts: dict, rows: dict) -> None:
+    if counts[kernel] == 0:
+        raise SmokeError(f"{label}: kernel {kernel} never launched on the disk path")
+    rows[kernel]["launches"] += counts[kernel]
+    rows[kernel]["disk_launches"] = rows[kernel].get("disk_launches", 0) + counts[kernel]
+
+
+def disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, served,
+               resident_peaks, rows, failures):
+    """``PMVServer(store=root, residency='disk', strategy='hybrid')`` answers
+    the resident serve's first 16 SSSP sources (one Q = 16 batch; each answer
+    equal to the resident serve's, 4 also to scipy) and its first 8 RWR
+    sources at 10 iterations (one Q = 8 batch; rtol 1e-4 against the scipy
+    power iteration); kernel 6 must launch."""
+    from repro_torch import kernels
+    from repro_torch.serving import PMVServer, Query
+
+    sssp_answers, rwr_sources = served
+    srv = PMVServer(store=root, residency="disk", strategy="hybrid", theta=theta,
+                    backend="auto", scatter="kernel", store_budget_bytes=budget, device=dev)
+    batches = [("sssp", [Query("sssp", source=int(s), tol=0.5) for s, _, _ in sssp_answers]),
+               ("rwr", [Query("rwr", source=int(s), c=0.85, max_iters=10) for s in rwr_sources])]
+    execs = {}
+    for kind, qs in batches:
+        eng, fspec = srv.engine_for(qs[0])
+        meta = eng.prepare(fspec)[-1]
+        execs[kind] = meta["executor"]
+        log(f"disk serve family {kind}: prepare_s={meta['prepare_s']:.3f} strategy="
+            f"{meta['strategy']} theta={meta['theta']} dense vertices={meta['n_dense']} "
+            f"capacity={meta['capacity']} scatter={meta['executor'].scatter}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    results, before = {}, srv.stats()
+    t_all = time.perf_counter()
+    for kind, qs in batches:
+        t = time.perf_counter()
+        results[kind] = srv.serve(qs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        st = srv.stats()
+        its = st["iterations"] - before["iterations"]
+        walls = st["iter_wall_s"][-int(its):]
+
+        def per_iter(key, st=st, its=its):
+            return (st[key] - before[key]) / its
+
+        ex = execs[kind]
+        log(f"disk serve {kind}: {len(qs)} queries in {wall:.3f} s -> {len(qs) / wall:.3f} "
+            f"queries/s; batches={st['batches'] - before['batches']} batched iterations="
+            f"{int(its)} median_iter_s={float(np.median(walls)):.4f} per batched iteration: "
+            f"store_io_s={per_iter('store_io_s'):.4f} store_wait_s={per_iter('store_wait_s'):.4f} "
+            f"store_compute_s={per_iter('store_compute_s'):.4f} (io split: read "
+            f"{per_iter('store_read_s'):.4f} verify {per_iter('store_verify_s'):.4f} weights "
+            f"{per_iter('store_weights_s'):.4f} s, device copies {per_iter('store_h2d_s'):.4f} s) "
+            f"bytes_read_per_iter={per_iter('store_bytes_read'):.0f} (page cache) "
+            f"{disk_legs(ex, budget)}")
+        check_legs(f"disk serve {kind}", ex, budget, failures)
+        before = st
+    serve_s = time.perf_counter() - t_all
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = srv.stats()
+    log(f"disk serve: {sum(len(qs) for _, qs in batches)} queries in {serve_s:.3f} s; "
+        f"store_overlap={st['store_overlap']:.4f} reasons={json.dumps(st['retirement_reasons'])} "
+        f"peak_gib={peak:.3f} resident_serve_peak_gib={resident_peaks['serve']:.3f} "
+        f"launches={json.dumps({k: v for k, v in counts.items() if v})}")
+    count_disk_launches("disk serve", "scatter_combine_multi", counts, rows)
+    bad = [r.qid for rs in results.values() for r in rs if r.reason != "completed"]
+    if bad or st["batches"] != 2:
+        failures.append(f"disk serve: {st['batches']} batches, queries not completed: {bad}")
+    got = results["sssp"]
+    ok = all(r.converged and r.iterations == it and np.array_equal(r.vector, v)
+             for r, (_, v, it) in zip(got, sssp_answers))
+    want = sssp_ref(np, sp, csgraph, edges, n, [r.query.source for r in got[:4]])
+    ok = ok and all(np.array_equal(r.vector.astype(np.float64), want[j])
+                    for j, r in enumerate(got[:4]))
+    log(f"check disk serve sssp x{len(got)} vs the resident serve's answers and iteration "
+        f"counts (x4 also scipy shortest_path) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("disk serve sssp disagrees with the resident serve or scipy")
+    got = results["rwr"]
+    want = rwr_ref(np, sp, edges, n, [r.query.source for r in got], [r.iterations for r in got])
+    vec = np.stack([r.vector for r in got], axis=1)
+    ok = all(r.iterations == 10 for r in got) and np.allclose(vec, want, rtol=1e-4, atol=1e-12)
+    rel = float(np.max(np.abs(vec - want) / np.maximum(np.abs(want), 1e-30)))
+    log(f"check disk serve rwr x{len(got)} vs scipy power iteration (10 iterations): "
+        f"max rel err {rel:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("disk serve rwr disagrees with scipy")
+    for kind, rs in results.items():
+        disk_tail_check(torch, np, f"disk serve {kind}", execs[kind],
+                        np.stack([r.vector for r in rs], axis=1), rows)
+    srv.close()
+    torch.cuda.empty_cache()
 
 
 def packed_widths_phase(torch, np, dev, gen):
@@ -1764,14 +1958,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- serve: PMVServer, hybrid theta=3000, 96 RWR + 96 SSSP queries at Q=64 ---
-    rwr_answers = serve_phase(args.seed, torch, np, sp, csgraph, dev, gen, edges, n, b, 3000.0,
-                              rows, failures)
+    answers, peaks["serve"] = serve_phase(args.seed, torch, np, sp, csgraph, dev, gen, edges, n,
+                                          b, 3000.0, rows, failures)
+    served = (answers["sssp"][:16], [s for s, _, _ in answers["rwr"][:8]])
     # -- packed serve: the same 96 RWR queries through the packed exchange -------
-    packed_serve_phase(torch, np, dev, gen, edges, n, b, 3000.0, rwr_answers, rows, failures)
-    del rwr_answers
+    packed_serve_phase(torch, np, dev, gen, edges, n, b, 3000.0, answers["rwr"], rows, failures)
+    del answers
     packed_widths_phase(torch, np, dev, gen)
-    # -- disk: the out-of-core store, three solves from the same edges ---------
-    disk_phase(torch, np, sp, csgraph, dev, edges, n, b, sssp_v, peaks, rows, failures)
+    # -- disk: the out-of-core store, five solves and a serve from the same edges --
+    disk_phase(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, sssp_v, served, peaks, rows,
+               failures)
 
     if failures:
         raise SmokeError("; ".join(failures))

@@ -171,15 +171,16 @@ class PMVEngine:
       materializes the stripes: the solve walks the plan's block schedule,
       fetching one block's shard slice at a time with double-buffered
       prefetch, bitwise the resident backend='torch' step on the CPU
-      (vertical with the sparse or packed exchange, or horizontal; the
+      (vertical with the sparse or packed exchange, horizontal, or the
+      θ-split hybrid from the shards ``ingest_edges(theta=...)`` wrote; the
       disk path plans and runs as backend 'torch', its receive tail takes
       the scatter kernels under scatter='kernel').  ``store_budget_bytes``
-      bounds the resident slice bytes under 'disk'; ``io_retry`` (a
-      ``repro_torch.faults.RetryPolicy``) bounds every disk fetch.
+      bounds the resident slice bytes of each striping read under 'disk';
+      ``io_retry`` (a ``repro_torch.faults.RetryPolicy``) bounds every
+      disk fetch.
 
     The JAX package's other knobs (mesh, exchange='hier', capacity='model',
-    payload_dtype, obs, faults, checkpointing, and strategy='hybrid' with
-    residency='disk') raise NotImplementedError.
+    payload_dtype, obs, faults, checkpointing) raise NotImplementedError.
     """
 
     def __init__(
@@ -214,9 +215,6 @@ class PMVEngine:
         if residency not in cost_model.RESIDENCY_MODES:
             raise ValueError(f"residency must be one of {cost_model.RESIDENCY_MODES}, "
                              f"got {residency!r}")
-        if residency == "disk" and strategy == "hybrid":
-            raise _not_ported("strategy='hybrid' with residency='disk'",
-                              "the θ-split hybrid disk executor, HybridDiskExecutor")
         if exchange == "hier":
             raise _not_ported(f"exchange={exchange!r}")
         if exchange not in ("sparse", "dense", "packed", "auto"):
@@ -541,6 +539,8 @@ class PMVEngine:
         from repro_torch.store import DiskBlockStore, DiskExecutor, make_disk_step
         from repro_torch.store import plan_from_manifest
 
+        if strategy == "hybrid":
+            return self._prepare_disk_hybrid(spec, theta, t0)
         if strategy == "vertical" and self.exchange == "dense":
             raise ValueError(
                 "residency='disk' streams through the compact sparse or "
@@ -576,6 +576,63 @@ class PMVEngine:
                              else "residency='disk' keeps the full stream"),
         }
         return dstore, real_mask, meta
+
+    def _prepare_disk_hybrid(self, spec: GimvSpec, theta: float | None, t0: float):
+        """strategy='hybrid' out of core, from the θ-split shards the ingest
+        persisted (``ingest_edges(..., theta=...)`` writes the sparse_vertical
+        and dense_horizontal stripings).  As in the JAX package: the schedule
+        is structural (no planner plan; both legs fold independently of the
+        launch order), the capacity covers the sparse region only, the
+        exchange is the compact sparse stream (the packed index shards
+        describe full vertical stripes, not the sparse region), and 'auto'
+        scatter resolves to 'segment'.  Each leg reads its striping through
+        its own DiskBlockStore under the same ``store_budget_bytes``."""
+        from repro_torch.store import DiskBlockStore, HybridDiskExecutor, make_disk_step
+
+        if self.exchange not in ("sparse", "auto"):
+            raise ValueError(
+                "hybrid out-of-core streams the compact sparse exchange; "
+                f"exchange={self.exchange!r} is not supported (the packed "
+                "index shards describe full vertical stripes, not the "
+                "sparse region)")
+        stored = self.store.hybrid_theta()   # raises if no θ-split shards
+        if theta is not None and float(theta) != stored:
+            raise ValueError(
+                f"theta={theta} does not match the store's θ-split shards "
+                f"(θ={stored}) — re-ingest with that θ, or pass "
+                f"theta={stored} / theta='auto'")
+        theta = stored
+        part = Partition(n=self.n, b=self.b, psi=self.psi)
+        capacity = int(self.store.hybrid["sparse_partial_cap"])
+        scatter = self.scatter if has_semiring(spec.combine2, spec.combine_all) else "segment"
+        if scatter == "auto":
+            scatter = "segment"
+        region, _slot_of = self.store.dense_region()
+        kw = dict(budget_bytes=self.store_budget_bytes, device=self.device)
+        sparse_store = DiskBlockStore(self.store, "sparse_vertical", spec, **kw)
+        dense_store = DiskBlockStore(self.store, "dense_horizontal", spec,
+                                     dense_gather_idx=region.gather_idx, **kw)
+        executor = HybridDiskExecutor(spec, part, sparse_store, dense_store, region,
+                                      capacity=capacity, scatter=scatter, retry=self.io_retry)
+        cfg = StepConfig(strategy="hybrid", n_local=part.n_local, exchange="sparse",
+                         capacity=capacity, backend="torch")
+        real_mask = self._put(part.global_ids_grid() < self.n)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        meta = {
+            "strategy": "hybrid", "theta": theta, "capacity": capacity, "part": part,
+            "pm": None, "hm": None, "cfg": cfg, "backend": "torch", "plan": None,
+            "residency": "disk", "store": sparse_store, "executor": executor,
+            "step": make_disk_step(spec, executor), "device": str(self.device),
+            "n_dense": int(np.asarray(region.d_count).sum()),
+            "prepare_s": time.perf_counter() - t0,
+            "exchange": "sparse",
+            "exchange_decision": "hybrid disk: compact sparse-region stream",
+            "delta_eps": None,
+            "delta_reason": (None if self.delta_eps is None
+                             else "residency='disk' keeps the full stream"),
+        }
+        return sparse_store, real_mask, meta
 
     def _resolve_disk_exchange(self, spec: GimvSpec, strategy: str, capacity: int | None,
                                plan: planner.ExecutionPlan, part: Partition):
@@ -636,7 +693,7 @@ class PMVEngine:
         part: Partition = meta["part"]
         cfg: StepConfig = meta["cfg"]
         disk_step = meta.get("step")
-        host = self.residency == "host" and self.device.type == "cuda"
+        step = self.on_device(lambda m, *args: placement_call(spec, cfg, m, *args))
         if v0 is not None:
             v = self._put(part.to_blocked(np.asarray(v0, dtype=spec.dtype)))
         # delta-iteration carried state: the previously shipped packed
@@ -654,17 +711,10 @@ class PMVEngine:
             t0 = time.perf_counter()
             if disk_step is not None:
                 v_new, _r, stats = disk_step(matrix, v, ctx_b, mask)
+            elif xstate is not None:
+                v_new, _r, stats, xstate = step(matrix, v, ctx_b, mask, xstate)
             else:
-                # residency='host' on the GPU: the step copies the pinned
-                # matrix to the card each time
-                m = _tree_map(lambda t: t.to(self.device, non_blocking=True),
-                              matrix) if host else matrix
-                if xstate is not None:
-                    v_new, _r, stats, xstate = placement_call(spec, cfg, m, v, ctx_b, mask,
-                                                              xstate)
-                else:
-                    v_new, _r, stats = placement_call(spec, cfg, m, v, ctx_b, mask)
-                del m
+                v_new, _r, stats = step(matrix, v, ctx_b, mask)
             delta = spec.default_delta(v, v_new)
             # one device->host copy per iteration for every scalar the
             # iteration produced (it also waits for the iteration to finish)
@@ -714,6 +764,20 @@ class PMVEngine:
         return PMVResult(v=v_np, iterations=it, converged=converged,
                          strategy=meta["strategy"], theta=meta["theta"],
                          capacity=meta["capacity"], per_iter=per_iter, totals=totals)
+
+    def on_device(self, step):
+        """``step(matrix, ...)`` reading the prepared matrix where it runs:
+        under residency='host' on the GPU the pinned matrix is copied to the
+        card inside each call (and freed when it returns); otherwise
+        ``step`` itself."""
+        if not (self.residency == "host" and self.device.type == "cuda"):
+            return step
+
+        def copied(matrix, *args):
+            return step(_tree_map(lambda t: t.to(self.device, non_blocking=True), matrix),
+                        *args)
+
+        return copied
 
     _IO_TOTAL_KEYS = ("store_bytes_read", "store_blocks_fetched", "store_blocks_skipped",
                       "store_io_s", "store_wait_s", "store_compute_s", "store_read_s",

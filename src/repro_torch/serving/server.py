@@ -21,17 +21,26 @@ are padded to fixed Q buckets (batcher.py).
 Degradation under pressure: per-query ``deadline_s`` budgets (anchored at
 submit; an expired column retires with its partial iterate), ``max_queue``
 admission control (overloaded submits are shed at once), and batch-level
-failure containment (an ``OSError`` fails THAT batch's queries with the
-error's text and the server keeps serving).  Every retirement carries a
-reason -- completed | deadline_exceeded | shed | failed -- tallied in
-``stats()['retirement_reasons']``.
+failure containment (an I/O or integrity error that survives the retry
+layer -- ``OSError``, ``ShardCorruptError``, ``FetchDeadlineError`` -- fails
+THAT batch's queries with the error's text and the server keeps serving).
+Every retirement carries a reason -- completed | deadline_exceeded | shed |
+failed -- tallied in ``stats()['retirement_reasons']``.
+
+Serving from a store: ``PMVServer(store=..., residency=...)`` builds each
+family's engine over an ingested block store (``repro_torch.store``); n, b
+and psi are the store's.  Under residency='device' / 'host' the families
+run the resident batched step on the loaded matrix; under 'disk' the
+family's disk executor walks its block schedule each batched iteration (the
+trailing query axis rides through the per-block bodies) and only the
+active-column freeze and the per-query deltas are applied here.
 
 This is the counterpart of the JAX package's ``repro.serving.server``.  Its
-knobs outside the ported slice (``store``, ``residency`` other than
-'device', ``mesh``, ``obs``, ``faults``, ``io_retry``, ``telemetry``,
-``exchange='hier'``, and what the engine itself refuses) raise
-NotImplementedError.  As in the JAX package, the server carries no
-delta-iteration state: a packed exchange ships its full payload stream.
+knobs outside the ported slice (``mesh``, ``obs``, ``faults``,
+``telemetry``, ``slack``, ``exchange='hier'``, and what the engine itself
+refuses) raise NotImplementedError.  As in the JAX package, the server
+carries no delta-iteration state: a packed exchange ships its full payload
+stream.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ import torch
 from repro_torch.core import algorithms
 from repro_torch.core.engine import PMVEngine, StepConfig, placement_call, resolve_device
 from repro_torch.core.gimv import GimvSpec
+from repro_torch.faults import FetchDeadlineError
 from repro_torch.serving.batcher import (
     DEFAULT_BUCKETS,
     RETIREMENT_REASONS,
@@ -53,6 +63,7 @@ from repro_torch.serving.batcher import (
     QueryBatcher,
     QueryResult,
 )
+from repro_torch.store.manifest import ShardCorruptError
 
 __all__ = ["PMVServer", "QueryFamily", "FAMILIES", "make_batched_step", "per_query_delta"]
 
@@ -147,10 +158,31 @@ def make_batched_step(spec: GimvSpec, cfg: StepConfig, *, delta_kind: str = "abs
 
     def step(matrix, v, ctx, mask, active):
         v_new, _r, stats = placement_call(spec, cfg, matrix, v, ctx, mask)
-        v_new = torch.where(active, v_new, v)  # broadcast over the trailing Q axis
-        return v_new, per_query_delta(v, v_new, delta_kind=delta_kind), stats
+        return _freeze(v, v_new, active, delta_kind) + (stats,)
 
     return step
+
+
+def _make_disk_batched_step(executor, *, delta_kind: str):
+    """Batched step over an out-of-core store (residency='disk'): the disk
+    executor walks its block schedule exactly as in the single-vector path
+    (the trailing query axis rides through the per-block bodies and the
+    compaction), and only the active-column freeze and the per-query deltas
+    are applied here."""
+
+    def step(matrix, v, ctx, mask, active):
+        del matrix   # the executor owns the shard access
+        v_new, _r, stats = executor.iteration(v, ctx, mask)
+        return _freeze(v, v_new, active, delta_kind) + (stats,)
+
+    return step
+
+
+def _freeze(v, v_new, active, delta_kind: str):
+    """(v_new with the inactive columns frozen, per-query deltas [Q]):
+    ``active`` broadcasts over the trailing Q axis."""
+    v_new = torch.where(active, v_new, v)
+    return v_new, per_query_delta(v, v_new, delta_kind=delta_kind)
 
 
 # ---------------------------------------------------------------------------
@@ -176,8 +208,9 @@ def _not_ported(knob: str, detail: str = "") -> NotImplementedError:
         f"PMVServer knob {knob} is not supported by repro_torch yet" + (f" ({detail})" if detail else ""))
 
 
-# per-iteration stats summed into stats()
-_SUMMED = ("gathered_elems", "exchanged_elems", "logical_elems")
+# per-iteration stats summed into stats(); the store_* keys only a disk
+# family reports (zero for a resident one)
+_SUMMED = ("gathered_elems", "exchanged_elems", "logical_elems") + PMVEngine._IO_TOTAL_KEYS
 
 
 class PMVServer:
@@ -191,10 +224,14 @@ class PMVServer:
 
     device: None (the GPU; raises without one) | 'cuda' | 'cpu', as for
     :class:`PMVEngine`.  The other engine knobs (strategy, theta, psi,
-    exchange, capacity, backend, scatter, stream, base_weights) are passed
-    to each family's engine.  ``stats()['iter_wall_s']`` holds the host
-    walls of the most recent batched iterations (each ends with the one
-    device->host copy of the iteration's deltas).
+    exchange, capacity, backend, scatter, stream, base_weights, io_retry)
+    are passed to each family's engine, and with ``store=`` also
+    ``residency`` and ``store_budget_bytes`` (without a store the server,
+    like the JAX package's, holds its edges resident and ignores them).
+    ``stats()['iter_wall_s']`` holds the host walls of the most recent
+    batched iterations (each ends with the one device->host copy of the
+    iteration's deltas); the ``store_*`` keys sum a disk family's I/O
+    accounting over its batched iterations.
     """
 
     _ITER_WALLS_KEPT = 4096
@@ -229,28 +266,40 @@ class PMVServer:
         telemetry=None,
         device=None,
     ):
-        if store is not None:
-            raise _not_ported("store")
-        if residency != "device" or store_budget_bytes is not None:
-            raise _not_ported(f"residency={residency!r} / store_budget_bytes")
         if mesh is not None:
             raise _not_ported("mesh", "emulation mode only")
         if obs:
             raise _not_ported("obs")
         if faults is not None:
             raise _not_ported("faults")
-        if io_retry is not None:
-            raise _not_ported("io_retry")
         if telemetry:
             raise _not_ported("telemetry")
         if exchange == "hier":
             raise _not_ported(f"exchange={exchange!r}")
         if slack is not None:
             raise _not_ported("slack", "it sizes capacity='model', which is not ported")
-        if edges is None or n is None or b is None:
-            raise ValueError("PMVServer needs (edges, n, b=)")
+        self.store = None
+        self.residency = residency
+        self.store_budget_bytes = store_budget_bytes
+        if store is not None:
+            # serving from an ingested block store (path or Manifest): n, b
+            # and psi are the store's
+            from repro_torch.store import open_store
+
+            self.store = open_store(store)
+            if edges is not None:
+                raise ValueError("pass either edges or store=, not both")
+            if n is not None and int(n) != self.store.n:
+                raise ValueError(f"n={n} does not match the store's n={self.store.n}")
+            if b is not None and int(b) != self.store.b:
+                raise ValueError(f"b={b} does not match the store's b={self.store.b}")
+            n, b = self.store.n, self.store.b
+            self.edges = None
+        else:
+            if edges is None or n is None or b is None:
+                raise ValueError("PMVServer needs (edges, n, b=) or store=")
+            self.edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
         self.device = resolve_device(device)
-        self.edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
         self.n = int(n)
         self.b = int(b)
         self.max_iters = int(max_iters)
@@ -258,9 +307,9 @@ class PMVServer:
             strategy=strategy, theta=theta, psi=psi, exchange=exchange,
             capacity=capacity, payload_dtype=payload_dtype, backend=backend,
             scatter=scatter, stream=stream, base_weights=base_weights,
-            device=self.device)
+            io_retry=io_retry, device=self.device)
         # the engine checks its own knobs: fail here, not at the first batch
-        PMVEngine(self.edges, self.n, b=self.b, **self._engine_kwargs)
+        self._engine(symmetrize=False)
         # admission control: queries submitted while >= max_queue are waiting
         # are shed immediately (reason='shed').  None = accept everything.
         self.max_queue = max_queue
@@ -276,8 +325,8 @@ class PMVServer:
             "overflow_fallbacks": 0, "retired": 0, "requeued": 0,
             "shed": 0, "failed_batches": 0,
             "queue_wait_s": 0.0,
-            "iterations": 0.0, "gathered_elems": 0.0, "exchanged_elems": 0.0,
-            "logical_elems": 0.0, "wall_s": 0.0,
+            "iterations": 0.0, "wall_s": 0.0,
+            **{k: 0.0 for k in _SUMMED},
         }
 
     # ------------------------------------------------------------------
@@ -343,6 +392,8 @@ class PMVServer:
         out["batch_occupancy"] = (
             self._occupancy_sum / out["batches"] if out["batches"] else 0.0)
         out["iter_wall_s"] = list(self._iter_walls)
+        io_s, wait_s = out["store_io_s"], out["store_wait_s"]
+        out["store_overlap"] = max(0.0, 1.0 - wait_s / io_s) if io_s > 0.0 else 1.0
         return out
 
     def engine_for(self, query: Query) -> tuple[PMVEngine, GimvSpec]:
@@ -357,18 +408,42 @@ class PMVServer:
 
     def close(self) -> None:
         """Drop the cached family states, and with them their device-resident
-        matrices."""
-        self._families.clear()
+        matrices and their disk executors' prefetch threads."""
+        for key in list(self._families):
+            self._drop_family(key)
+
+    def _drop_family(self, key: tuple) -> None:
+        st = self._families.pop(key, None)
+        if st is not None and st.meta.get("executor") is not None:
+            st.meta["executor"].close()
 
     # ------------------------------------------------------------------
+    def _engine(self, symmetrize: bool) -> PMVEngine:
+        """A family's engine: over the store (with its residency and budget)
+        when the server has one, else over the edge list."""
+        if self.store is not None:
+            return PMVEngine(None, store=self.store, residency=self.residency,
+                             store_budget_bytes=self.store_budget_bytes,
+                             symmetrize=symmetrize, **self._engine_kwargs)
+        return PMVEngine(self.edges, self.n, b=self.b, symmetrize=symmetrize,
+                         **self._engine_kwargs)
+
     def _family_state(self, key: tuple, sample: Query) -> _FamilyState:
         if key not in self._families:
             family = FAMILIES[sample.spec_kind]
             spec = family.make_spec(self.n, sample)
-            engine = PMVEngine(self.edges, self.n, b=self.b, symmetrize=family.symmetrize,
-                               **self._engine_kwargs)
+            if self.store is not None and family.symmetrize and not self.store.symmetrized:
+                raise ValueError(
+                    f"query family {family.kind!r} needs a symmetrized graph but the "
+                    "store was ingested without symmetrize — re-ingest with "
+                    "ingest_edges(symmetrize=True)")
+            engine = self._engine(family.symmetrize)
             matrix, _v0, _ctx, mask, meta = engine.prepare(spec)
-            step = make_batched_step(spec, meta["cfg"], delta_kind=family.delta_kind)
+            if meta["residency"] == "disk":
+                step = _make_disk_batched_step(meta["executor"], delta_kind=family.delta_kind)
+            else:
+                step = make_batched_step(spec, meta["cfg"], delta_kind=family.delta_kind)
+                step = engine.on_device(step)
             part = meta["part"]
             ids = np.minimum(part.global_ids_grid().reshape(-1), self.n)
             g = np.arange(self.n)
@@ -408,12 +483,13 @@ class PMVServer:
     def _run_batch(self, key: tuple, batch: list[Query]) -> None:
         try:
             self._run_batch_inner(key, batch)
-        except OSError as e:
-            # The batch is lost, but the SERVER is not: every unanswered query
-            # in it retires with reason='failed' and the error's text, and
-            # later batches proceed.
+        except (ShardCorruptError, OSError, FetchDeadlineError) as e:
+            # The I/O / integrity layer exhausted its retries: the batch is
+            # lost, but the SERVER is not -- every unanswered query in it
+            # retires with reason='failed' and the error's text, and later
+            # batches (other families, a restored store) proceed.
             self._stats["failed_batches"] += 1
-            self._families.pop(key, None)  # state may be half-built
+            self._drop_family(key)  # state may be half-built
             for query in batch:
                 if query.qid not in self._results:
                     self._retire_unserved(query, "failed", error=str(e))

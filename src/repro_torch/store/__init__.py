@@ -7,10 +7,12 @@ writing the same bytes.
     open_store(path)               -> Manifest
     load_partitioned(store, spec)  bitwise partition_graph reconstruction
     PMVEngine(None, store=..., residency='disk')  out-of-core execution
+                                   (vertical, horizontal, θ-split hybrid)
+    PMVServer(store=..., residency=...)           serving from a store
     verify_store(store)            audit every shard against ingest checksums
 
-Not ported yet: the θ-split hybrid disk executor (``HybridDiskExecutor``),
-``shard.py`` (split / merge of per-host stores) and ``spmd.py``.
+Not ported yet: ``shard.py`` (split / merge of per-host stores) and
+``spmd.py``.
 """
 from repro_torch.store.ingest import ingest_edges
 from repro_torch.store.manifest import (
@@ -26,6 +28,7 @@ from repro_torch.store.residency import (
     RESIDENCY_MODES,
     DiskBlockStore,
     DiskExecutor,
+    HybridDiskExecutor,
     PrefetchPipeline,
     ResidencyStats,
     make_disk_step,
@@ -44,6 +47,7 @@ __all__ = [
     "RESIDENCY_MODES",
     "DiskBlockStore",
     "DiskExecutor",
+    "HybridDiskExecutor",
     "PrefetchPipeline",
     "ResidencyStats",
     "make_disk_step",

@@ -29,8 +29,14 @@ and runs the payload-only scatter tail.  The horizontal executor streams the
 gather per SOURCE block and folds the per-block contributions with the same
 pairwise tree ``gathered_gimv`` uses, so every semiring, float plus_times
 included, is bitwise the resident reduction whatever order the schedule
-walked the blocks in.  On the card the segment sums use atomics, so
-plus_times agrees to rounding there, and the selection semirings exactly.
+walked the blocks in.  The θ-split hybrid executor runs both: the dense
+region's ``dense_horizontal`` stripes per source block against the compact
+dense slice, the sparse region's ``sparse_vertical`` stripes per
+destination block through the compact exchange, each leg off its own
+prefetch pipeline, combined sparse-first before the assign, so it is
+bitwise the resident hybrid step.  On the card the segment sums use
+atomics, so plus_times agrees to rounding there, and the selection
+semirings exactly.
 
 Robustness: every fetched slice is verified against the manifest's
 ingest-time per-row checksums (a mismatch raises a typed
@@ -40,8 +46,7 @@ worker and block row), every fetch runs under a bounded
 degrades the double buffer to synchronous fetches instead of failing the
 solve.
 
-Not ported yet: the θ-split hybrid executor (``HybridDiskExecutor``), the
-fault injector and the obs spans.
+Not ported yet: the fault injector and the obs spans.
 """
 from __future__ import annotations
 
@@ -54,16 +59,22 @@ import numpy as np
 import torch
 
 from repro_torch.core import cost_model, placement, sparse_exchange
-from repro_torch.core.gimv import GimvSpec, tree_combine
+from repro_torch.core.gimv import GimvSpec, combine_elementwise, tree_combine
 from repro_torch.core.partition import Partition
 from repro_torch.core.planner import ExecutionPlan
 from repro_torch.exchange import runtime as packed_rt
 from repro_torch.faults import DEFAULT_RETRY, RetryPolicy
 from repro_torch.store import format as fmt
-from repro_torch.store.manifest import Manifest, ShardCorruptError, open_store, row_weights
+from repro_torch.store.manifest import (
+    Manifest,
+    ShardCorruptError,
+    open_store,
+    row_weights,
+    row_weights_dense,
+)
 
-__all__ = ["RESIDENCY_MODES", "DiskBlockStore", "DiskExecutor", "PrefetchPipeline",
-           "ResidencyStats", "make_disk_step"]
+__all__ = ["RESIDENCY_MODES", "DiskBlockStore", "DiskExecutor", "DiskLeg",
+           "HybridDiskExecutor", "PrefetchPipeline", "ResidencyStats", "make_disk_step"]
 
 RESIDENCY_MODES = cost_model.RESIDENCY_MODES
 
@@ -112,8 +123,10 @@ class DiskBlockStore:
     The fetch unit is one scheduled block's slice across all b workers:
     vertical -- destination block i's rows ([b, E_cap] seg / gat + counts,
     plus the per-spec weights recomputed from the stored out-degrees);
-    horizontal -- source block jj's rows.  Only the double buffer (the slice
-    being computed and the one prefetched) is resident, so peak host bytes
+    horizontal -- source block jj's rows; the hybrid pair the same over the
+    θ-split regions (a ``dense_horizontal`` store needs the dense region's
+    ``dense_gather_idx`` to recompute its weights).  Only the double buffer
+    (the slice being computed and the one prefetched) is resident, so peak host bytes
     stay O(b * E_cap) however large the block set is; ``budget_bytes`` makes
     that bound an enforced contract.  ``device`` is where fetched slices are
     handed to the compute: on a CUDA device through two pinned host buffers
@@ -121,13 +134,14 @@ class DiskBlockStore:
     """
 
     def __init__(self, store, striping: str, spec: GimvSpec, *,
-                 budget_bytes: int | None = None, device=None):
+                 budget_bytes: int | None = None, device=None, dense_gather_idx=None):
         if striping not in fmt.STRIPINGS:
             raise ValueError(f"unknown striping {striping!r}")
-        if striping == "dense_horizontal":
-            raise NotImplementedError(
-                "dense_horizontal stripes belong to the θ-split hybrid disk "
-                "executor (HybridDiskExecutor), which repro_torch does not port yet")
+        if striping == "dense_horizontal" and dense_gather_idx is None:
+            raise ValueError(
+                "dense_horizontal stripes need the dense-region gather index "
+                "to recompute weights (pass dense_gather_idx)")
+        self.dense_gather_idx = dense_gather_idx
         self.manifest: Manifest = open_store(store)
         self.striping = striping
         self.spec = spec
@@ -187,6 +201,11 @@ class DiskBlockStore:
     def begin_iteration(self) -> None:
         self.stats = ResidencyStats()
 
+    def make_pipeline(self, schedule, retry: RetryPolicy = DEFAULT_RETRY) -> "PrefetchPipeline":
+        """The prefetch pipeline serving this store; executors always build
+        theirs through it."""
+        return PrefetchPipeline(self, schedule, retry)
+
     def _verify_rows(self, k: int, seg: np.ndarray, gat: np.ndarray) -> None:
         """Check the fetched rows against the manifest's per-row digests;
         raises ShardCorruptError naming the shard file, worker and block row
@@ -245,11 +264,19 @@ class DiskBlockStore:
         """Per-spec matrix values of the fetched rows, recomputed host-side
         exactly as partition time computes them (never stored).  Vertical
         stripings read source block = the stripe's worker id; horizontal
-        reads source block = the fetched block k."""
-        vertical = self.striping in ("vertical", "sparse_vertical")
-        np.stack([row_weights(self.spec, self.part, w if vertical else k, gat[wi], cnt[wi],
-                              self.out_deg)
-                  for wi, w in enumerate(self.workers)], out=out)
+        reads source block = the fetched block k; dense_horizontal's gather
+        column holds compact dense SLOTS, resolved to local ids through the
+        dense-region gather index first."""
+        if self.striping == "dense_horizontal":
+            rows = [row_weights_dense(self.spec, self.part, k, gat[wi], cnt[wi], self.out_deg,
+                                      self.dense_gather_idx)
+                    for wi in range(len(self.workers))]
+        else:
+            vertical = self.striping in ("vertical", "sparse_vertical")
+            rows = [row_weights(self.spec, self.part, w if vertical else k, gat[wi], cnt[wi],
+                                self.out_deg)
+                    for wi, w in enumerate(self.workers)]
+        np.stack(rows, out=out)
 
 
 class _PinnedStaging:
@@ -410,12 +437,71 @@ class PrefetchPipeline:
         self._sync = True
 
 
+def _summed(records) -> ResidencyStats:
+    """ResidencyStats summed field by field."""
+    first, *rest = records
+    return ResidencyStats(**{f.name: sum((getattr(r, f.name) for r in rest),
+                                         getattr(first, f.name))
+                             for f in dataclasses.fields(ResidencyStats)})
+
+
+@dataclasses.dataclass
+class DiskLeg:
+    """One striping a disk executor streams: its store, the blocks it walks
+    each iteration in launch order (blocks with no edge are skipped: they
+    contribute the identity without any I/O), and its prefetch pipeline,
+    made lazily by the store and kept across iterations so the tail of
+    iteration t overlaps the first fetch of t+1."""
+
+    store: DiskBlockStore
+    schedule: list
+    pipeline: PrefetchPipeline | None = None
+    # the leg's finished iterations' I/O, summed without the copies' events
+    # (see run_stats)
+    finished: ResidencyStats = dataclasses.field(default_factory=ResidencyStats)
+
+    @classmethod
+    def walking(cls, store: DiskBlockStore, by: str) -> "DiskLeg":
+        """The leg over ``store`` walking its non-empty destination blocks
+        (``by='destination'``, vertical) or source blocks (``'source'``)."""
+        nnz = store.block_nnz
+        rows = nnz if by == "destination" else nnz.T
+        return cls(store, [k for k in range(nnz.shape[0]) if rows[k].any()])
+
+    @property
+    def skipped(self) -> int:
+        return self.store.block_nnz.shape[0] - len(self.schedule)
+
+    def begin_iteration(self) -> None:
+        self.finished = dataclasses.replace(_summed([self.finished, self.store.stats]), h2d=[])
+        self.store.begin_iteration()
+        self.store.stats.blocks_skipped = self.skipped
+
+    def run_stats(self) -> ResidencyStats:
+        """The leg's I/O summed over every iteration so far, the current one
+        included (``h2d`` holds only the current iteration's copies)."""
+        return _summed([self.finished, self.store.stats])
+
+    def prefetched(self, retry: RetryPolicy):
+        """One schedule pass off the leg's persistent prefetch pipeline."""
+        if self.pipeline is None:
+            self.pipeline = self.store.make_pipeline(self.schedule, retry)
+        return self.pipeline.iteration()
+
+    def close(self) -> None:
+        if self.pipeline is not None:
+            self.pipeline.close()
+            self.pipeline = None
+
+
 class DiskExecutor:
     """Runs one prepared solve's per-iteration compute against a
     DiskBlockStore, one scheduled block at a time: vertical walks the
-    non-empty destination blocks, horizontal the non-empty source blocks."""
+    non-empty destination blocks, horizontal the non-empty source blocks.
+    ``legs`` holds the striping it streams (the hybrid executor adds a
+    second)."""
 
-    def __init__(self, spec: GimvSpec, part: Partition, plan: ExecutionPlan,
+    def __init__(self, spec: GimvSpec, part: Partition, plan: ExecutionPlan | None,
                  store: DiskBlockStore, *, capacity: int | None = None,
                  scatter: str = "segment", retry: RetryPolicy | None = None,
                  exchange: str = "sparse", xchg: dict | None = None, xplan=None):
@@ -433,45 +519,34 @@ class DiskExecutor:
             assert plan.strategy == "vertical", "packed exchange is vertical-only"
             assert xchg is not None and xplan is not None, \
                 "packed exchange needs the prepare-built index arrays and plan"
-        b = part.b
-        nnz = store.block_nnz
-        if plan.strategy == "vertical":
+        # no plan: the hybrid's sparse leg, which walks as vertical does
+        if plan is None or plan.strategy == "vertical":
             assert capacity is not None
             self.cap_eff = min(capacity, part.n_local)
-            # destination blocks with at least one edge anywhere; empty rows
-            # contribute the identity compact slice without any I/O.
-            self.schedule = [i for i in range(b) if nnz[i, :].any()]
+            self.legs = [DiskLeg.walking(store, "destination")]
         else:
-            self.schedule = [jj for jj in range(b) if nnz[:, jj].any()]
-        self.skipped = b - len(self.schedule)
-        self._pipeline: PrefetchPipeline | None = None
-
-    def _prefetched(self):
-        """One schedule pass off the executor's persistent prefetch pipeline
-        (created lazily; it survives across iterations so the tail of
-        iteration t overlaps the first fetch of t+1)."""
-        if self._pipeline is None:
-            self._pipeline = PrefetchPipeline(self.store, self.schedule, self.retry)
-        return self._pipeline.iteration()
+            self.legs = [DiskLeg.walking(store, "source")]
 
     def _begin_iteration(self) -> None:
-        self.store.begin_iteration()
-        self.store.stats.blocks_skipped = self.skipped
+        for leg in self.legs:
+            leg.begin_iteration()
 
     def close(self) -> None:
-        if self._pipeline is not None:
-            self._pipeline.close()
-            self._pipeline = None
+        for leg in self.legs:
+            leg.close()
 
-    def _blocks(self, body):
-        """Run ``body(block, seg, gat, w, cnt)`` on every scheduled block as
-        it comes off the pipeline, charging its time to compute_s.  On a CUDA
+    def _blocks(self, body, leg: DiskLeg | None = None):
+        """Run ``body(block, seg, gat, w, cnt)`` on every block of one pass
+        over ``leg`` (default: the first) as it comes off the leg's
+        pipeline, charging its time to the leg's compute_s.  On a CUDA
         device the compute stream is synchronized after each block, so
-        compute_s and wait_s split the iteration's wall time honestly."""
-        store = self.store
+        compute_s and wait_s split the iteration's wall time honestly, and a
+        block's temporaries are freed before the next block's arrive."""
+        leg = self.legs[0] if leg is None else leg
+        store = leg.store
         cuda = store.device.type == "cuda"
         out = {}
-        for k, sl in self._prefetched():
+        for k, sl in leg.prefetched(self.retry):
             t0 = time.perf_counter()
             out[k] = body(k, *_ready(sl))
             del sl
@@ -482,6 +557,28 @@ class DiskExecutor:
 
     def _full(self, shape, v) -> torch.Tensor:
         return torch.full(shape, self.spec.identity, dtype=v.dtype, device=v.device)
+
+    def _compact_blocks(self, v):
+        """The compact exchange's send side, from disk: per scheduled
+        destination block its compact slice; a skipped block's slice is pure
+        padding, exactly what compacting its zero-edge partial yields.
+        Stacked by destination block, which is the exchange's receive order:
+        (idx [b, b_w, cap], val [b, b_w, cap(, Q)], overflow, logical)."""
+        spec, n_local, cap = self.spec, self.part.n_local, self.capacity
+        b, b_w = self.part.b, v.shape[0]
+
+        def body(_i, seg, gat, w, cnt):
+            return placement.single_block_compact(spec, seg, gat, w, cnt, v, n_local, cap)
+
+        got = self._blocks(body)
+        idx_pad = torch.full((b_w, self.cap_eff), n_local, dtype=torch.int32, device=v.device)
+        val_pad = self._full((b_w, self.cap_eff) + tuple(v.shape[2:]), v)
+        idx = torch.stack([got[i][0] if i in got else idx_pad for i in range(b)])
+        val = torch.stack([got[i][1] if i in got else val_pad for i in range(b)])
+        zero = torch.zeros((), device=v.device)
+        over = sum((g[2] for g in got.values()), zero)
+        logical = sum((g[3] for g in got.values()), zero)
+        return idx, val, over, logical
 
     def _vertical_iteration_packed(self, v, ctx, mask):
         """One vertical iteration through the packed exchange: per scheduled
@@ -515,27 +612,11 @@ class DiskExecutor:
         overflow, logical)."""
         if self.exchange == "packed":
             return self._vertical_iteration_packed(v, ctx, mask)
-        spec, n_local, cap = self.spec, self.part.n_local, self.capacity
         self._begin_iteration()
-        b, b_w = self.part.b, v.shape[0]
-
-        def body(_i, seg, gat, w, cnt):
-            return placement.single_block_compact(spec, seg, gat, w, cnt, v, n_local, cap)
-
-        got = self._blocks(body)
-        # a skipped block's compact slice: pure padding, exactly what
-        # compacting its zero-edge partial yields
-        idx_pad = torch.full((b_w, self.cap_eff), n_local, dtype=torch.int32, device=v.device)
-        val_pad = self._full((b_w, self.cap_eff) + tuple(v.shape[2:]), v)
-        idx = torch.stack([got[i][0] if i in got else idx_pad for i in range(b)], dim=1)
-        val = torch.stack([got[i][1] if i in got else val_pad for i in range(b)], dim=1)
-        zero = torch.zeros((), device=v.device)
-        over = sum((g[2] for g in got.values()), zero)
-        logical = sum((g[3] for g in got.values()), zero)
-        r = sparse_exchange.scatter_partials(
-            spec, idx.transpose(0, 1).contiguous(), val.transpose(0, 1).contiguous(),
-            n_local, method=self.scatter)
-        v_new = placement.apply_assign(spec, v, r, ctx, mask)
+        idx, val, over, logical = self._compact_blocks(v)
+        r = sparse_exchange.scatter_partials(self.spec, idx, val, self.part.n_local,
+                                             method=self.scatter)
+        v_new = placement.apply_assign(self.spec, v, r, ctx, mask)
         return v_new, r, over, logical
 
     def horizontal_iteration(self, v, ctx, mask):
@@ -558,8 +639,12 @@ class DiskExecutor:
         r = tree_combine(spec, [got.get(jj, pad) for jj in range(self.part.b)])
         return placement.apply_assign(spec, v, r, ctx, mask), r
 
+    def _io_record(self) -> ResidencyStats:
+        """The current iteration's I/O record, summed over the legs."""
+        return _summed([leg.store.stats for leg in self.legs])
+
     def io_stats(self) -> dict:
-        s = self.store.stats
+        s = self._io_record()
         return {
             "store_bytes_read": float(s.bytes_read),
             "store_blocks_fetched": float(s.blocks_fetched),
@@ -574,6 +659,25 @@ class DiskExecutor:
             "store_verify_s": s.verify_s,
             "store_weights_s": s.weights_s,
             "store_h2d_s": s.h2d_s,
+        }
+
+    def _sparse_stats(self, nq: int | None, vb: int, over, logical) -> dict:
+        """The compact exchange's per-iteration stats, as the resident
+        step's ``_compact_exchange`` counts them."""
+        b = self.part.b
+        id_b, pay_b = sparse_exchange.exchange_wire_split(b, self.capacity, nq, vb)
+        return {
+            "gathered_elems": 0.0,
+            # the unclamped capacity, as the resident step counts it
+            # (compact_partials clamps the buffers)
+            "exchanged_elems": float(b * (b - 1) * self.capacity * (1 + (nq or 1))),
+            "gathered_bytes": 0.0,
+            "exchanged_bytes": sparse_exchange.exchange_wire_bytes(b, self.capacity, nq, vb),
+            # the padded stream re-ships its int32 ids EVERY iteration
+            "exchange_id_bytes": id_b,
+            "exchange_payload_bytes": pay_b,
+            "logical_elems": logical,
+            "overflow": over,
         }
 
     def iteration(self, v, ctx, mask):
@@ -599,21 +703,7 @@ class DiskExecutor:
                     "overflow": over,
                 }
             else:
-                id_b, pay_b = sparse_exchange.exchange_wire_split(b, self.capacity, nq, vb)
-                stats = {
-                    "gathered_elems": 0.0,
-                    # the unclamped capacity, as the resident vertical step
-                    # counts it (compact_partials clamps the buffers)
-                    "exchanged_elems": float(b * (b - 1) * self.capacity * (1 + (nq or 1))),
-                    "gathered_bytes": 0.0,
-                    "exchanged_bytes": sparse_exchange.exchange_wire_bytes(
-                        b, self.capacity, nq, vb),
-                    # the padded stream re-ships its int32 ids EVERY iteration
-                    "exchange_id_bytes": id_b,
-                    "exchange_payload_bytes": pay_b,
-                    "logical_elems": logical,
-                    "overflow": over,
-                }
+                stats = self._sparse_stats(nq, vb, over, logical)
         else:
             v_new, r = self.horizontal_iteration(v, ctx, mask)
             stats = {
@@ -622,6 +712,69 @@ class DiskExecutor:
                 "gathered_bytes": float(b * (b - 1) * n_local * (nq or 1) * vb),
                 "exchanged_bytes": 0.0,
             }
+        stats.update(self.io_stats())
+        return v_new, r, stats
+
+
+class HybridDiskExecutor(DiskExecutor):
+    """θ-split hybrid solve from disk (``strategy='hybrid'`` under
+    ``residency='disk'``), over the two stripings the hybrid ingest wrote.
+
+    The dense region's ``dense_horizontal`` stripes stream per SOURCE block
+    against the compact dense slice ``v_d`` (``v`` gathered at the region's
+    ``gather_idx``), their contributions keyed by block and folded in block
+    order with the pairwise tree; the sparse region's ``sparse_vertical``
+    stripes run the vertical compact path per destination block; one tail
+    scatters the sparse partials and combines them elementwise with the
+    dense leg, sparse first, before the assign -- the two legs the resident
+    ``hybrid_step`` fuses, so the result is bitwise that step's on the CPU.
+    ``legs`` is (sparse, dense), each with its own store (budget, pinned
+    slots, side stream) and prefetch pipeline; the dense leg runs first, so
+    its next-iteration prefetch overlaps the whole sparse leg.  The summed
+    ``store_io_s`` adds both legs' fetch time, which their two threads spend
+    at once, so the summed ``store_overlap`` is not the share of I/O hidden
+    behind compute; ``DiskLeg.run_stats`` gives each leg's own.  The
+    schedule is structural (no planner plan): both legs fold independently
+    of the launch order.
+    """
+
+    def __init__(self, spec: GimvSpec, part: Partition, sparse_store: DiskBlockStore,
+                 dense_store: DiskBlockStore, region, *, capacity: int,
+                 scatter: str = "segment", retry: RetryPolicy | None = None):
+        super().__init__(spec, part, None, sparse_store, capacity=capacity, scatter=scatter,
+                         retry=retry)
+        self.legs.append(DiskLeg.walking(dense_store, "source"))
+        self.region = region
+        self._gather_idx = torch.from_numpy(
+            np.asarray(region.gather_idx, dtype=np.int64)).to(sparse_store.device)
+
+    def iteration(self, v, ctx, mask):
+        """One hybrid out-of-core iteration: (v_new, r, stats) with the
+        resident hybrid step's stats keys plus the store_* I/O accounting
+        over both legs."""
+        spec, n_local, b = self.spec, self.part.n_local, self.part.b
+        nq = v.shape[-1] if v.ndim == 3 else None
+        vb = np.dtype(spec.dtype).itemsize
+        self._begin_iteration()
+        gidx = self._gather_idx if nq is None else self._gather_idx[:, :, None].expand(-1, -1, nq)
+        v_d = torch.gather(v, 1, gidx)                                 # [b, d_cap(, Q)]
+
+        def dense_body(jj, seg, gat, w, cnt):
+            return placement.single_block_contrib(spec, seg, gat, w, cnt, v_d[jj], n_local)
+
+        got = self._blocks(dense_body, self.legs[1])
+        pad = self._full(v.shape, v)
+        r_dense = tree_combine(spec, [got.get(jj, pad) for jj in range(b)])
+        del got, pad, v_d
+        idx, val, over, logical = self._compact_blocks(v)
+        r_sparse = sparse_exchange.scatter_partials(spec, idx, val, n_local,
+                                                    method=self.scatter)
+        r = combine_elementwise(spec, r_sparse, r_dense)
+        v_new = placement.apply_assign(spec, v, r, ctx, mask)
+        d_cap = self.region.d_cap
+        stats = self._sparse_stats(nq, vb, over, logical)
+        stats["gathered_elems"] = float(b * (b - 1) * d_cap * (nq or 1))
+        stats["gathered_bytes"] = float(b * (b - 1) * d_cap * (nq or 1) * vb)
         stats.update(self.io_stats())
         return v_new, r, stats
 

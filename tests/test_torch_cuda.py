@@ -763,6 +763,10 @@ def test_cuda_ell_wide_bucket_of_short_rows(cuda_device, semiring, rows):
 # ---------------------------------------------------------------------------
 
 DISK_N, DISK_B, DISK_ITERS = 1 << 14, 8, 6
+# the stores carry θ-split shards too (the vertical and horizontal stripings
+# are byte for byte those of a store ingested without theta=): 128 of the
+# 16384 vertices reach out-degree 200 and hold a third of the edges
+DISK_THETA = 200.0
 # (name, spec maker, symmetrized store, strategy, exchange, scatter, kernel launched)
 DISK_CASES = [
     ("sssp-vertical-sparse-kernel", lambda T: T.sssp(0), False, "vertical", "sparse", "kernel",
@@ -778,8 +782,8 @@ DISK_CASES = [
 
 @pytest.fixture(scope="module")
 def disk_stores(tmp_path_factory):
-    """RMAT-14 (16 edges a vertex) stores, plain and symmetrized (built only
-    where the tests that read them run)."""
+    """RMAT-14 (16 edges a vertex) stores with θ-split shards, plain and
+    symmetrized (built only where the tests that read them run)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the CUDA kernels have no CPU mode")
     from repro_torch.graph import rmat
@@ -789,7 +793,7 @@ def disk_stores(tmp_path_factory):
     out = {"edges": edges}
     for sym in (False, True):
         root = str(tmp_path_factory.mktemp(f"cuda_store{int(sym)}") / "s")
-        ingest_edges(edges, DISK_N, DISK_B, root, symmetrize=sym)
+        ingest_edges(edges, DISK_N, DISK_B, root, symmetrize=sym, theta=DISK_THETA)
         out[sym] = root
     return out
 
@@ -892,3 +896,127 @@ def test_cuda_host_residency_copies_pinned_stripes(cuda_device, disk_stores, bac
     dev = T.PMVEngine(None, store=disk_stores[False], residency="device", **kw)
     np.testing.assert_array_equal(host.run(spec, max_iters=DISK_ITERS, tol=0.0).v,
                                   dev.run(T.sssp(0), max_iters=DISK_ITERS, tol=0.0).v)
+
+
+# (name, spec maker, symmetrized store, scatter, kernel launched)
+HYBRID_DISK_CASES = [
+    ("sssp-kernel", lambda T: T.sssp(0), False, "kernel", "scatter_combine"),
+    ("pagerank-segment", lambda T: T.pagerank(DISK_N), False, "segment", None),
+    ("cc-kernel", lambda T: T.connected_components(), True, "kernel", "scatter_combine"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HYBRID_DISK_CASES, ids=[c[0] for c in HYBRID_DISK_CASES])
+def test_cuda_hybrid_disk_matches_resident(cuda_device, disk_stores, case):
+    """strategy='hybrid' under residency='disk' on the card, both legs'
+    pipelines live (each with its own pinned slots and side stream): over
+    several iterations the result equals the resident hybrid backend='torch'
+    engine's (plus_times to rtol 1e-5), kernel 3 launches once an iteration
+    under scatter='kernel', and the peak device memory stays below the
+    resident engine's."""
+    import repro_torch.core as T
+
+    name, mk, sym, scatter, kernel = case
+    kw = dict(strategy="hybrid", theta=DISK_THETA, scatter=scatter, device=cuda_device)
+    resident, peak_resident = _disk_solve(
+        T.PMVEngine(disk_stores["edges"], DISK_N, b=DISK_B, symmetrize=sym, backend="torch",
+                    **kw), mk(T))
+    eng = T.PMVEngine(None, store=disk_stores[sym], residency="disk", **kw)
+    spec = mk(T)
+    ex = eng.prepare(spec)[-1]["executor"]
+    before = kernels.launch_counts()
+    disk, peak_disk = _disk_solve(eng, spec)
+    after = kernels.launch_counts()
+    _assert_same_answer(disk.v, resident.v, name)
+    if kernel is not None:
+        assert after[kernel] - before[kernel] == DISK_ITERS
+    assert len(ex.legs) == 2 and all(leg.pipeline is not None for leg in ex.legs)
+    for store in (leg.store for leg in ex.legs):
+        assert all(t.is_pinned() for slot in store._staging.slots for t in slot.values()
+                   if t is not None)
+        assert store.device_buffer_bytes > 0 and not store.prefetch_degraded
+        assert store.stats.blocks_fetched > 0
+    rec = disk.per_iter[-1]
+    assert rec["store_blocks_fetched"] + rec["store_blocks_skipped"] == 2 * DISK_B
+    assert rec["store_h2d_s"] > 0
+    assert peak_disk < peak_resident, (peak_disk, peak_resident)
+    ex.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["sparse_vertical", "dense_horizontal"])
+def test_cuda_hybrid_disk_slow_fetch_leaves_no_torn_slice(cuda_device, disk_stores,
+                                                          monkeypatch, leg):
+    """Every other fetch of one hybrid leg sleeps before it reads, so that
+    leg's pinned buffers turn over at uneven times while the other leg runs
+    at full speed: SSSP and CC stay those of the unslowed run, exactly."""
+    import time
+
+    import repro_torch.core as T
+    from repro_torch.store import DiskBlockStore
+
+    def solve(sym, spec):
+        eng = T.PMVEngine(None, store=disk_stores[sym], residency="disk", strategy="hybrid",
+                          theta=DISK_THETA, scatter="kernel", device=cuda_device)
+        return eng.run(spec, max_iters=DISK_ITERS, tol=0.0)
+
+    want = {name: solve(sym, mk(T)).v for name, mk, sym in (
+        ("sssp", lambda T: T.sssp(0), False), ("cc", lambda T: T.connected_components(), True))}
+    read = DiskBlockStore._read
+    calls = []
+
+    def slow_read(self, k, *args):
+        if self.striping == leg:
+            calls.append(k)
+            if len(calls) % 2:
+                time.sleep(0.02)
+        return read(self, k, *args)
+
+    monkeypatch.setattr(DiskBlockStore, "_read", slow_read)
+    np.testing.assert_array_equal(solve(False, T.sssp(0)).v, want["sssp"])
+    np.testing.assert_array_equal(solve(True, T.connected_components()).v, want["cc"])
+    assert len(calls) >= 2 * DISK_ITERS
+
+
+@pytest.mark.cuda
+def test_cuda_disk_serve_matches_resident_serve(cuda_device, disk_stores):
+    """PMVServer(store=..., residency='disk', strategy='hybrid',
+    scatter='kernel') on the card: 16 SSSP queries in one Q = 16 batch
+    (kernel 6 launches) answer exactly as the resident serve does, with the
+    same iteration counts, 8 RWR queries of 10 iterations agree with the
+    resident serve's to rtol 1e-4 (the resident one sums on the ELL and dense
+    kernels), and the peak device memory stays below the resident serve's."""
+    import repro_torch.serving as TS
+
+    edges = disk_stores["edges"]
+    sources = np.flatnonzero(np.bincount(edges[:, 0], minlength=DISK_N))[:16]
+    queries = [TS.Query("sssp", source=int(s), tol=0.5) for s in sources]
+    queries += [TS.Query("rwr", source=int(s), tol=0.0, max_iters=10) for s in sources[:8]]
+    kw = dict(strategy="hybrid", theta=DISK_THETA, scatter="kernel", backend="auto",
+              stream="off", buckets=(16,), device=cuda_device)
+
+    def serve(srv):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernels.launch_counts()
+        out = srv.serve([TS.Query(q.spec_kind, source=q.source, tol=q.tol,
+                                  max_iters=q.max_iters) for q in queries])
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        srv.close()
+        return out, torch.cuda.max_memory_allocated(), \
+            after["scatter_combine_multi"] - before["scatter_combine_multi"]
+
+    resident, peak_resident, _ = serve(TS.PMVServer(edges, DISK_N, b=DISK_B, **kw))
+    disk, peak_disk, launches = serve(TS.PMVServer(store=disk_stores[False], residency="disk",
+                                                   **kw))
+    assert launches > 0
+    for got, want in zip(disk, resident):
+        assert got.reason == want.reason == "completed"
+        assert got.iterations == want.iterations
+        if got.query.spec_kind == "sssp":
+            np.testing.assert_array_equal(got.vector, want.vector)
+        else:
+            np.testing.assert_allclose(got.vector, want.vector, rtol=1e-4, atol=1e-9)
+    assert peak_disk < peak_resident, (peak_disk, peak_resident)

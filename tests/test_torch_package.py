@@ -1,7 +1,7 @@
 """Package rules of the PyTorch port: it never imports JAX or the JAX
-package, its engine and server run on the GPU unless told otherwise, and
-every knob outside the ported slice raises NotImplementedError naming the
-knob."""
+package, its engine and server run on the GPU unless told otherwise, every
+knob outside the ported slice raises NotImplementedError naming the knob,
+and the store knobs the slice takes behave as the JAX package's do."""
 import json
 import os
 import subprocess
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import repro.core as J
+import repro.serving as JS
 import repro_torch.core as T
 import repro_torch.serving as TS
 from repro.graph import erdos_renyi, rmat
@@ -64,11 +65,41 @@ def test_engine_without_device_raises_without_gpu(monkeypatch):
     assert T.PMVEngine(edges, 64, b=2, device="cpu").device.type == "cpu"
 
 
-# The engine takes store / residency / store_budget_bytes / io_retry (the
-# out-of-core store); the server does not yet.  The engine still refuses
-# the hybrid strategy out of core.
-ENGINE_ONLY = ("strategy",)
-SERVER_ONLY = ("telemetry", "store_budget_bytes", "slack", "store", "residency", "io_retry")
+# The engine and the server take the out-of-core store's knobs (store,
+# residency, store_budget_bytes, io_retry; the engine also strategy='hybrid'
+# with residency='disk').  A case whose knob is taken holds the port to
+# what the JAX package does with the same arguments: the same exception
+# class, or an answer from both (without a store the server, like the JAX
+# package's, holds its edges resident and ignores residency and the
+# budget).  STORE stands for a θ-split store of the same graph.
+STORE = "<store>"
+TAKEN = ("store", "residency", "store_budget_bytes", "io_retry", "strategy")
+
+
+@pytest.fixture(scope="module")
+def knob_store(tmp_path_factory):
+    from repro_torch.store import ingest_edges
+
+    root = str(tmp_path_factory.mktemp("knob_store") / "s")
+    ingest_edges(rmat(6, 200, seed=0), 64, 2, root, theta=4.0)
+    return root
+
+
+def _outcome(mod, qmod, cls, knob, root, **extra) -> str:
+    """Build ``cls`` (an engine or a server) with ``knob`` and answer one
+    SSSP solve or query: 'ok', or the class name of what was raised."""
+    kw = {k: root if v == STORE else v for k, v in knob.items()}
+    on_store = kw.get("store") == root
+    graph = (None,) if on_store else (rmat(6, 200, seed=0), 64)
+    try:
+        obj = cls(*graph, **({} if on_store else {"b": 2}), **kw, **extra)
+        if hasattr(obj, "serve"):
+            obj.serve([qmod.Query("sssp", source=0, tol=0.5)])
+        else:
+            obj.run(mod.sssp(0), max_iters=3, tol=0.5)
+    except Exception as e:  # noqa: BLE001 -- the class is what is compared
+        return type(e).__name__
+    return "ok"
 
 
 @pytest.mark.parametrize("knob", [
@@ -77,16 +108,29 @@ SERVER_ONLY = ("telemetry", "store_budget_bytes", "slack", "store", "residency",
     dict(payload_dtype="bfloat16"), dict(capacity="fixed"), dict(obs=True), dict(faults=object()),
     dict(io_retry=object()), dict(backend="pallas"),
     dict(telemetry=True), dict(store_budget_bytes=1 << 20), dict(slack=1.5),
-    dict(strategy="hybrid", residency="disk")])
-def test_knobs_outside_the_slice_raise(knob):
-    """PMVEngine and PMVServer each refuse the knobs they do not take yet."""
+    dict(strategy="hybrid", residency="disk"),
+    dict(store=STORE, residency="disk", store_budget_bytes=8),
+    dict(store=STORE, residency="disk", strategy="hybrid", theta=4.0),
+    dict(store=STORE, residency="disk", strategy="hybrid", theta=9.0),
+    dict(store=STORE, residency="host", strategy="hybrid", theta=4.0),
+    dict(store=STORE, residency="disk", io_retry=None, strategy="vertical", n=64, b=2),
+    dict(store=STORE, residency="disk", strategy="vertical", b=4)])
+def test_knobs_outside_the_slice_raise(knob, knob_store):
+    """PMVEngine and PMVServer each refuse the knobs they do not take yet;
+    the store knobs they take behave as the JAX package's do."""
     name = next(iter(knob))
-    if name not in SERVER_ONLY:
+    if name in TAKEN:
+        for mod, qmod, j_cls, t_cls in ((J, JS, J.PMVEngine, T.PMVEngine),
+                                        (J, JS, JS.PMVServer, TS.PMVServer)):
+            want = _outcome(mod, qmod, j_cls, knob, knob_store)
+            got = _outcome(T, TS, t_cls, knob, knob_store, device="cpu")
+            assert got == want, (t_cls.__name__, got, want)
+        return
+    if name not in ("telemetry", "slack"):
         with pytest.raises(NotImplementedError, match=name):
             T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
-    if name not in ENGINE_ONLY:
-        with pytest.raises(NotImplementedError, match=name):
-            TS.PMVServer(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
+    with pytest.raises(NotImplementedError, match=name):
+        TS.PMVServer(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
 
 
 def test_packed_exchange_and_delta_eps_are_accepted():

@@ -1,11 +1,13 @@
 """residency='disk' / 'host' of the PyTorch port on the CPU: the port's disk
 engine against the JAX package's on the same store (PageRank, RWR, SSSP,
 CC; vertical with the sparse and packed exchanges under the segment and
-kernel scatters, and horizontal), and bitwise against the port's own
-resident backend='torch' engine; the residency budget, the skipped empty
-blocks, the store_* accounting, the prefetch pipeline's downgrade and
-'host' == 'device'.  On the CPU the kernel scatter runs its plain version.
-Small graphs (n = 256, b = 8)."""
+kernel scatters, horizontal, and the θ-split hybrid from the shards of
+``ingest_edges(theta=...)``), and bitwise against the port's own resident
+backend='torch' engine; the residency budget (per leg for the hybrid), the
+skipped empty blocks, the store_* accounting, the prefetch pipeline's
+downgrade, reversed schedules, the hybrid's argument checks, the basic
+stripings unchanged by theta=, and 'host' == 'device'.  On the CPU the
+kernel scatter runs its plain version.  Small graphs (n = 256, b = 8)."""
 import numpy as np
 import pytest
 
@@ -199,7 +201,7 @@ def test_prefetch_degrades_to_synchronous_fetches(stores):
     first = eng.run(spec, max_iters=ITERS, tol=0.0)
     ex = eng.prepare(spec)[-1]["executor"]
     assert not ex.store.prefetch_degraded
-    ex._pipeline._ex.shutdown(wait=True)
+    ex.legs[0].pipeline._ex.shutdown(wait=True)
     second = eng.run(spec, max_iters=ITERS, tol=0.0)
     assert ex.store.prefetch_degraded
     np.testing.assert_array_equal(first.v, want.v)
@@ -210,7 +212,8 @@ def test_prefetch_degrades_to_synchronous_fetches(stores):
         eng = T.PMVEngine(None, store=stores[False], residency="disk", strategy=strategy,
                           device="cpu")
         ex = eng.prepare(spec)[-1]["executor"]
-        ex.schedule = list(reversed(ex.schedule))
+        leg = ex.legs[0]
+        leg.schedule = list(reversed(leg.schedule))
         rev = eng.run(spec, max_iters=ITERS, tol=0.0)
         base = T.PMVEngine(None, store=stores[False], residency="disk", strategy=strategy,
                            device="cpu").run(spec, max_iters=ITERS, tol=0.0)
@@ -237,3 +240,177 @@ def test_store_argument_checks(graph, stores):
     with pytest.raises(ValueError, match="exchange"):
         T.PMVEngine(None, store=root, residency="disk", strategy="vertical", exchange="dense",
                     device="cpu").prepare(T.pagerank(N))
+
+
+# ---------------------------------------------------------------------------
+# strategy='hybrid' out of core: the θ-split shards of ingest_edges(theta=...)
+# ---------------------------------------------------------------------------
+
+THETA = 4.0
+
+
+@pytest.fixture(scope="module")
+def hybrid_stores(graph, tmp_path_factory):
+    """Port-written θ-split stores (plain and symmetrized)."""
+    out = {}
+    for sym in (False, True):
+        root = str(tmp_path_factory.mktemp(f"hybrid_sym{int(sym)}") / "s")
+        ingest_edges(graph, N, B, root, chunk_edges=333, symmetrize=sym, theta=THETA)
+        out[sym] = root
+    return out
+
+
+def _hybrid_disk(mod, algo, root, **kw):
+    return _run(mod, algo, edges=None, store=root, residency="disk", strategy="hybrid",
+                theta=THETA, **kw)
+
+
+@pytest.mark.parametrize("scatter", ["segment", "kernel"])
+@pytest.mark.parametrize("algo", sorted(ALGOS))
+def test_hybrid_disk_matches_reference_and_resident(algo, scatter, graph, hybrid_stores):
+    """The port's hybrid disk engine equals the JAX package's on the same
+    store (selection semirings and int32 labels exactly, plus_times within
+    rtol 1e-5), is bitwise the port's resident hybrid backend='torch'
+    engine, reports the same per-iteration stats, and accounts both
+    stripings' blocks: fetched + skipped = 2 b."""
+    sym = ALGOS[algo][2]
+    r_ref = _hybrid_disk(J, algo, hybrid_stores[sym], scatter=scatter)
+    r_disk = _hybrid_disk(T, algo, hybrid_stores[sym], scatter=scatter)
+    r_res = _run(T, algo, edges=graph, n=N, b=B, symmetrize=sym, strategy="hybrid",
+                 theta=THETA, backend="torch", scatter=scatter)
+    np.testing.assert_array_equal(r_disk.v, r_res.v)
+    assert r_disk.iterations == r_res.iterations == r_ref.iterations == ITERS
+    if algo in ("pagerank", "rwr"):
+        np.testing.assert_allclose(r_disk.v, r_ref.v, rtol=1e-5, atol=1e-8)
+    else:
+        np.testing.assert_array_equal(r_disk.v, r_ref.v)
+    for rec, ref in zip(r_disk.per_iter, r_ref.per_iter):
+        for key in ("gathered_elems", "exchanged_elems", "gathered_bytes", "exchanged_bytes",
+                    "exchange_id_bytes", "exchange_payload_bytes", "logical_elems",
+                    "store_bytes_read", "store_blocks_fetched", "store_blocks_skipped"):
+            assert rec[key] == float(ref[key]), key
+        assert rec["store_blocks_fetched"] + rec["store_blocks_skipped"] == 2 * B
+        assert rec["store_bytes_read"] > 0 and rec["overflow"] == 0.0
+    assert r_disk.totals["physical_elems"] == float(r_ref.totals["physical_elems"])
+
+
+@pytest.mark.parametrize("algo", ["pagerank", "sssp"])
+def test_hybrid_disk_schedules_and_prefetch_change_no_bit(algo, hybrid_stores):
+    """Reversed or rotated schedules of both legs change no bit
+    (both legs key their blocks by index and fold in block order; a
+    rotation also catches a fold in arrival order, which a reversal of a
+    full power-of-two tree would not), and neither does a dense-leg
+    prefetch pool that refuses work (the leg degrades to inline fetches,
+    the sparse leg keeps its thread)."""
+    mk = ALGOS[algo][0]
+    base = _hybrid_disk(T, algo, hybrid_stores[False])
+    spec = mk(T)
+    for order in (lambda s: s[::-1], lambda s: s[1:] + s[:1]):
+        eng = T.PMVEngine(None, store=hybrid_stores[False], residency="disk",
+                          strategy="hybrid", theta=THETA, device="cpu")
+        ex = eng.prepare(spec)[-1]["executor"]
+        sparse, dense = ex.legs
+        assert len(sparse.schedule) > 1 and len(dense.schedule) > 1
+        sparse.schedule = order(sparse.schedule)
+        dense.schedule = order(dense.schedule)
+        np.testing.assert_array_equal(eng.run(spec, max_iters=ITERS, tol=0.0).v, base.v)
+    dense.pipeline._ex.shutdown(wait=True)
+    again = eng.run(spec, max_iters=ITERS, tol=0.0)
+    assert dense.store.prefetch_degraded and not sparse.store.prefetch_degraded
+    np.testing.assert_array_equal(again.v, base.v)
+    ex.close()
+    assert sparse.pipeline is None and dense.pipeline is None
+
+
+def test_hybrid_disk_meta_budget_and_legs(graph, hybrid_stores):
+    """meta carries the JAX package's keys (the sparse leg's store; no plan),
+    every iteration the store_* keys summed over both legs; under the
+    tightest budget both legs accept (two weighted slices of the larger
+    leg) each leg's peak resident bytes stay within it, the answer stays
+    bitwise the resident one, and one byte below a leg's double buffer
+    raises at prepare."""
+    root = hybrid_stores[False]
+    man = open_store(root)
+    legs = {s: 2 * cost_model.stripe_slice_bytes(B, man.e_cap_of(s), has_w=True)
+            for s in ("sparse_vertical", "dense_horizontal")}
+    budget = max(legs.values())
+    spec = T.pagerank(N)
+    eng = T.PMVEngine(None, store=root, residency="disk", strategy="hybrid", theta=THETA,
+                      store_budget_bytes=budget, delta_eps=0.0, device="cpu")
+    res = eng.run(spec, max_iters=ITERS, tol=0.0)
+    ref = _run(T, "pagerank", edges=graph, n=N, b=B, strategy="hybrid", theta=THETA)
+    np.testing.assert_array_equal(res.v, ref.v)
+    dstore, *_, meta = eng.prepare(spec)
+    ex = meta["executor"]
+    stores = [leg.store for leg in ex.legs]
+    assert dstore is meta["store"] is stores[0] and meta["plan"] is None
+    # each leg's run totals split the run's summed bytes
+    assert sum(leg.run_stats().bytes_read for leg in ex.legs) == res.totals["store_bytes_read"]
+    assert all(leg.run_stats().io_s > 0 for leg in ex.legs)
+    assert (meta["strategy"], meta["theta"], meta["backend"], meta["residency"]) == \
+        ("hybrid", THETA, "torch", "disk")
+    assert meta["capacity"] == man.hybrid["sparse_partial_cap"]
+    assert meta["n_dense"] == man.dense_region()[0].d_count.sum() > 0
+    assert (meta["exchange"], meta["delta_eps"]) == ("sparse", None)
+    assert meta["delta_reason"] == "residency='disk' keeps the full stream"
+    assert meta["exchange_decision"] == "hybrid disk: compact sparse-region stream"
+    for st in stores:
+        assert 0 < st.peak_resident_bytes <= budget
+        assert st.device_buffer_bytes == 0
+    assert [st.striping for st in stores] == ["sparse_vertical", "dense_horizontal"]
+    for rec in res.per_iter:
+        assert rec["store_io_s"] > 0 and 0.0 <= rec["store_overlap"] <= 1.0
+        assert rec["store_compute_s"] > 0 and rec["store_h2d_s"] == 0.0
+    bytes_per_iter = {rec["store_bytes_read"] for rec in res.per_iter}
+    assert len(bytes_per_iter) == 1
+    with pytest.raises(ValueError, match="budget"):
+        T.PMVEngine(None, store=root, residency="disk", strategy="hybrid", theta=THETA,
+                    store_budget_bytes=budget - 1, device="cpu").prepare(T.pagerank(N))
+    gather_idx = man.dense_region()[0].gather_idx
+    for striping, need in legs.items():
+        with pytest.raises(ValueError, match="budget"):
+            DiskBlockStore(root, striping, spec, budget_bytes=need - 1,
+                           dense_gather_idx=gather_idx)
+    with pytest.raises(ValueError, match="dense_gather_idx"):
+        DiskBlockStore(root, "dense_horizontal", spec)
+
+
+@pytest.mark.parametrize("case", ["theta-less store", "theta mismatch", "exchange packed",
+                                  "exchange dense"])
+def test_hybrid_disk_argument_errors(case, stores, hybrid_stores):
+    """As in the JAX package: a store without θ-split shards names the
+    re-ingest, a θ other than the store's does not match, and the hybrid
+    disk path streams only the compact sparse exchange."""
+    root, kw, msg = {
+        "theta-less store": (stores[False], dict(theta=THETA), "re-ingest"),
+        "theta mismatch": (hybrid_stores[False], dict(theta=9.0), "does not match"),
+        "exchange packed": (hybrid_stores[False], dict(theta=THETA, exchange="packed"),
+                            "exchange"),
+        "exchange dense": (hybrid_stores[False], dict(theta=THETA, exchange="dense"),
+                           "exchange"),
+    }[case]
+    for mod, extra in ((J, {}), (T, {"device": "cpu"})):
+        with pytest.raises(ValueError, match=msg):
+            mod.PMVEngine(None, store=root, residency="disk", strategy="hybrid", **kw,
+                          **extra).prepare(mod.pagerank(N))
+
+
+@pytest.mark.parametrize("sym", [False, True], ids=["plain", "symmetrized"])
+def test_theta_leaves_basic_stripings_byte_identical(sym, stores, hybrid_stores):
+    """Ingesting with theta= adds the θ-split shards and changes no byte of
+    the vertical and horizontal stripings, so one store serves the basic
+    disk solves and the hybrid ones."""
+    import filecmp
+    import os
+
+    plain, split = stores[sym], hybrid_stores[sym]
+    for striping in ("vertical", "horizontal"):
+        names = sorted(os.listdir(os.path.join(plain, striping)))
+        assert names == sorted(os.listdir(os.path.join(split, striping))) and names
+        for name in names:
+            assert filecmp.cmp(os.path.join(plain, striping, name),
+                               os.path.join(split, striping, name), shallow=False), name
+    for striping in ("sparse_vertical", "dense_horizontal"):
+        assert not os.path.exists(os.path.join(plain, striping))
+        assert os.listdir(os.path.join(split, striping))
+    assert open_store(plain).hybrid is None and open_store(split).hybrid_theta() == THETA

@@ -163,6 +163,41 @@ def test_failed_batch_keeps_server_alive(monkeypatch):
     assert st["failed_batches"] == 1 and st["retirement_reasons"]["failed"] == 1
 
 
+@pytest.mark.parametrize("error", ["shard", "deadline", "other"])
+def test_store_errors_fail_the_batch_others_propagate(monkeypatch, error):
+    """A ShardCorruptError or a FetchDeadlineError (both RuntimeErrors) that
+    survives the retries fails its batch and the server answers the next,
+    as the JAX package's server does; any other error is the server's own
+    fault and propagates."""
+    from repro_torch.faults import FetchDeadlineError
+    from repro_torch.store import ShardCorruptError
+
+    exc = {"shard": ShardCorruptError("w0.seg.npy", array="seg", worker=0, block=2),
+           "deadline": FetchDeadlineError("retry deadline 30.0s exceeded on fetch"),
+           "other": RuntimeError("not an I/O error")}[error]
+    srv = TS.PMVServer(EDGES, N, b=B, device="cpu")
+    real = PMVEngine.prepare
+    calls = []
+
+    def flaky(self, spec, ctx=None):
+        calls.append(spec.name)
+        if len(calls) == 1:
+            raise exc
+        return real(self, spec, ctx)
+
+    monkeypatch.setattr(PMVEngine, "prepare", flaky)
+    qid = srv.submit(TS.Query("sssp", source=3, tol=0.5))
+    if error == "other":
+        with pytest.raises(RuntimeError, match="not an I/O error"):
+            srv.drain()
+        return
+    r = srv.drain()[qid]
+    assert r.reason == "failed" and r.vector is None and r.error == str(exc)
+    r2 = srv.serve([TS.Query("sssp", source=3, tol=0.5)])[0]
+    assert r2.reason == "completed" and r2.converged
+    assert srv.stats()["failed_batches"] == 1
+
+
 def test_batcher_bucket_policy_and_fifo():
     qb = TS.QueryBatcher(buckets=(8, 16, 32))
     assert qb.bucket_for(3) == 8 and qb.bucket_for(9) == 16 and qb.bucket_for(64) == 32

@@ -144,31 +144,56 @@ def test_profiled_calls_counts_launches_in_a_captured_graph(monkeypatch, caught,
 def test_disk_phase_on_cpu(monkeypatch, tmp_path):
     """The smoke's disk phase at scale 10 on the CPU, with the card's memory
     calls stubbed and the launch counters faked (nothing launches here):
-    the store ingests and audits clean, the three disk solves pass their
-    checks against scipy and the resident SSSP, the budget holds, the
-    kernel rows gain their disk launches, and the store directory is gone
-    afterwards."""
+    the store ingests (with θ-split shards at a θ that leaves dense
+    vertices at this scale) and audits clean, the five disk solves (three
+    basic, SSSP and PageRank hybrid) pass their checks against scipy and
+    the resident SSSP, the disk serve's answers equal the resident serve's
+    and scipy's, every leg's budget holds, the kernel rows gain their disk
+    launches and a plain-version check on each kernel-3/6 tail's own
+    (idx, val), and the store directory is gone afterwards."""
     import tempfile
 
     import torch
 
     from repro_torch import kernels
+    from repro_torch.serving import PMVServer, Query
 
+    theta = 60.0
+    assert 0 < int((np.bincount(EDGES[:, 0], minlength=N) >= theta).sum()) < N
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 1 << 30)
-    fake = dict(kernels.launch_counts(), scatter_combine=3, packed_scatter_combine=10)
+    fake = dict(kernels.launch_counts(), scatter_combine=3, packed_scatter_combine=10,
+                scatter_combine_multi=7)
     monkeypatch.setattr(kernels, "launch_counts", lambda: dict(fake))
     root = tmp_path / "store"
     monkeypatch.setattr(tempfile, "mkdtemp", lambda prefix="": (root.mkdir(), str(root))[1])
     sssp_v = PMVEngine(EDGES, N, b=8, strategy="vertical", device="cpu").run(
         sssp(0), max_iters=100, tol=0.5).v
-    rows = {"scatter_combine": {"launches": 6}, "packed_scatter_combine": {"launches": 50}}
+    sources = np.flatnonzero(np.bincount(EDGES[:, 0], minlength=N))[:16]
+    resident = PMVServer(EDGES, N, b=8, strategy="hybrid", theta=theta, backend="auto",
+                         scatter="kernel", stream="off", device="cpu").serve(
+        [Query("sssp", source=int(s), tol=0.5) for s in sources])
+    served = ([(r.query.source, r.vector, r.iterations) for r in resident], sources[:8])
+    rows = {"scatter_combine": {"launches": 6}, "packed_scatter_combine": {"launches": 50},
+            "scatter_combine_multi": {"launches": 20}}
     failures = []
-    peaks = {"sssp/vertical": 1.0, "pagerank/selective": 1.0, "pagerank/vertical packed": 1.0}
-    smoke.disk_phase(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, sssp_v, peaks,
-                     rows, failures)
+    peaks = {"sssp/vertical": 1.0, "pagerank/selective": 1.0, "pagerank/vertical packed": 1.0,
+             "serve": 1.0}
+    smoke.disk_phase(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, theta, sssp_v,
+                     served, peaks, rows, failures)
     assert failures == []
-    assert rows["scatter_combine"] == {"launches": 9, "disk_launches": 3}
+    checks = {name: rows[name].pop("disk_checks") for name in
+              ("scatter_combine", "scatter_combine_multi")}
+    assert rows["scatter_combine"] == {"launches": 15, "disk_launches": 9}
     assert rows["packed_scatter_combine"] == {"launches": 60, "disk_launches": 10}
+    assert rows["scatter_combine_multi"] == {"launches": 27, "disk_launches": 7}
+    assert [(c["path"], c["semiring"]) for c in checks["scatter_combine"]] == [
+        ("sssp/vertical disk", "min_plus"), ("sssp/hybrid disk", "min_plus"),
+        ("pagerank/hybrid disk", "plus_times")]
+    assert [(c["path"], c["semiring"], c["shape"][0], c["shape"][-1])
+            for c in checks["scatter_combine_multi"]] == [
+        ("disk serve sssp", "min_plus", 8, 16), ("disk serve rwr", "plus_times", 8, 8)]
+    # the plain version on the CPU: the same function, so no error at all
+    assert all(c["max_abs_err"] == 0.0 for cs in checks.values() for c in cs)
     assert not root.exists()
