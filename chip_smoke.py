@@ -133,7 +133,35 @@ Phases, each printed as it ends; any failure exits non-zero:
               also queries/s and the median batched-iteration wall.  Fails
               if a leg's peak host bytes pass the budget or a prefetch
               thread degraded.
-8. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
+8. stream  -- the bucket-streamed planned executor (``stream='on'``, one
+              destination block at a time) on ``erdos_renyi(2**scale, 16 *
+              2**scale)`` at b = 64 workers, cyclic psi: a uniform sparse
+              graph at the paper's regime of many workers, where the default
+              ``stream='auto'`` streams.  Run 1: SSSP from 0,
+              ``PMVEngine(strategy='vertical', backend='auto',
+              scatter='kernel')`` with the default stream: the plan must say
+              'on' (its memory profile printed), the answer must equal scipy,
+              and ``ell_gimv`` must launch exactly the launch schedule's
+              non-empty (block, bucket) pairs each iteration, with one
+              ``scatter_combine`` launch an iteration.  Run 2: the same solve
+              with ``stream='off'``, bitwise run 1; each run's peak bytes
+              above the resident matrix and state are printed beside
+              ``memory_profile()``'s ratio, and the streamed one must be
+              lower.  Run 3: ``PMVServer(strategy='vertical',
+              backend='auto', scatter='kernel')`` serves 64 RWR queries (c
+              0.85, tol 1e-6) in one Q = 64 batch through the streamed Q-wide
+              executor: the family's plan says 'on', every query retires
+              completed and converged, 8 answers lie within rtol 1e-4 of a
+              scipy power iteration of their own iteration count,
+              ``ell_gimv_multi`` and ``scatter_combine_multi`` launch and the
+              single-vector kernels do not.  Then kernels 1 and 3 (run 1's
+              state) and 5 and 6 (the served state) are held against their
+              plain versions on every (block, bucket) view and on the
+              compacted buffers the streamed executor builds (selection
+              semirings exactly, plus_times at rtol 1e-5 and the same bits
+              twice, kernels 3 and 6 bitwise the sender-order fold); the
+              errors go into the kernel rows' ``stream_checks``.
+9. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
               the device line.
 
 Exits non-zero without a result when no CUDA device is present, or when the
@@ -1651,6 +1679,337 @@ def disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, serve
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# stream phase
+
+STREAM_B = 64
+
+
+def expected_stream_launches(plan) -> int:
+    """ELL launches of one bucket-streamed step, from the plan alone: per
+    destination block, the degree buckets that hold a row of the block on
+    some worker (``ExecutionPlan.launch_schedule``).  A bucket that the
+    stacking drops (empty on every worker and block) holds no such row."""
+    scheds = [plan.launch_schedule(j) for j in range(plan.b)]
+    total = 0
+    for i in range(plan.b):
+        used = set()
+        for sched in scheds:
+            if sched[i][0] == "ell":
+                used.update(k for k, r in enumerate(sched[i][1]) if r)
+        total += len(used)
+    return total
+
+
+def memory_profile_line(plan) -> str:
+    from repro_torch.core.planner import format_plan
+
+    return next(line.strip() for line in format_plan(plan).splitlines()
+                if "memory profile" in line)
+
+
+def stream_solve(torch, np, label, eng, spec, *, want_stream, max_iters, tol):
+    """One counted solve of the stream phase: prepare, require the plan's
+    schedule to be ``want_stream``, then run with the launch counters zeroed
+    and the peak reset just before.  The peak is read above the bytes
+    allocated after prepare (the resident matrix and state).  Returns (res,
+    matrix, meta, counts, peak step bytes above resident, resident bytes)."""
+    from repro_torch import kernels
+
+    matrix, _, _, _, meta = eng.prepare(spec)
+    if meta["plan"].stream != want_stream:
+        raise SmokeError(f"{label}: the plan resolved stream={meta['plan'].stream!r}, "
+                         f"not {want_stream!r}")
+    if meta["backend"] != "planned":
+        raise SmokeError(f"{label}: backend resolved to {meta['backend']!r}")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = eng.run(spec, max_iters=max_iters, tol=tol)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - resident
+    walls = [1e3 * r["wall_s"] for r in res.per_iter]
+    log(f"run {label}: stream={meta['plan'].stream} iterations={res.iterations} "
+        f"converged={res.converged} prepare_s={meta['prepare_s']:.2f} "
+        f"first_iter_ms={walls[0]:.3f} median_later_iter_ms={np.median(walls[1:] or walls):.3f} "
+        f"resident_bytes={resident} peak_step_bytes_above_resident={peak} "
+        f"launches={json.dumps(counts)}")
+    return res, matrix, meta, counts, peak, resident
+
+
+def count_stream_launches(label: str, expect, counts: dict, rows: dict) -> None:
+    for name in expect:
+        if counts[name] == 0:
+            raise SmokeError(f"{label}: kernel {name} never launched on the streamed path")
+    for name, c in counts.items():
+        if c:
+            row = rows.setdefault(name, {"launches": 0})
+            row["launches"] += c
+            row["stream_launches"] = row.get("stream_launches", 0) + c
+
+
+def stream_ell_holds(torch, label, fs, v_flat, semiring, rand_v, rows) -> None:
+    """Kernel 1 (v [N]) or 5 (v [N, Q]) on every (destination block, active
+    bucket) view the streamed executor launches, against its plain version
+    with the run's semiring on the run's state; on every 16th block also for
+    4 semirings + int32 min_src on random vectors; plus_times the same bits
+    twice.  The largest error goes into the row's ``stream_checks``."""
+    from repro_torch.kernels import ell_spmv
+
+    multi = v_flat.ndim == 2
+    name = "ell_gimv_multi" if multi else "ell_gimv"
+    fn = ell_spmv.ell_gimv_multi if multi else ell_spmv.ell_gimv
+    ref = ell_spmv.ell_gimv_multi_ref if multi else ell_spmv.ell_gimv_ref
+    sweep = [(sr, dt, rand_v(dt)) for sr, dt in (
+        ("plus_times", torch.float32), ("min_plus", torch.float32),
+        ("max_plus", torch.float32), ("min_src", torch.float32), ("min_src", torch.int32))]
+    err, views = 0.0, 0
+    for k, act in enumerate(fs.active):
+        for i in act:
+            bk = fs.buckets[i]
+            cols, w = bk.cols[k], None if bk.w is None else bk.w[k]
+            what = f"{label} block {k} bucket {i} {tuple(cols.shape)}"
+            got = fn(cols, w, v_flat, semiring=semiring)
+            err = max(err, compare(torch, got, ref(cols, w, v_flat, semiring=semiring),
+                                   semiring, f"{what} {semiring} run state"))
+            if semiring == "plus_times" and not torch.equal(
+                    got, fn(cols, w, v_flat, semiring=semiring)):
+                raise SmokeError(f"{what}: plus_times not the same bits twice")
+            views += 1
+            if k % 16:
+                continue
+            for sr, dt, v in sweep:
+                got = fn(cols, w, v, semiring=sr)
+                compare(torch, got, ref(cols, w, v, semiring=sr), sr, f"{what} {sr} {dt}")
+                if sr == "plus_times" and not torch.equal(got, fn(cols, w, v, semiring=sr)):
+                    raise SmokeError(f"{what}: plus_times not the same bits twice")
+    rows.setdefault(name, {"launches": 0}).setdefault("stream_checks", []).append(
+        {"path": label, "semiring": semiring, "views": views, "max_abs_err": err})
+    log(f"kernels {label}: {name} matches its plain version on all {views} (block, bucket) "
+        f"views ({semiring}, run state; max |err| {err}) and, on every 16th block, for 4 "
+        "semirings and int32; plus_times the same bits twice")
+
+
+def stream_scatter_holds(torch, label, idx, val, nl, semiring, rand_val, rows) -> None:
+    """Kernel 3 (val [S, B, cap]) or 6 (val [S, B, cap, Q]) on the compacted
+    buffers the streamed executor built, after the exchange transpose:
+    against its plain version with the run's semiring on the run's values and
+    with the other selection semiring or plus_times on random values,
+    bitwise the sender-order fold each time; plus_times the same bits twice."""
+    from repro_torch.kernels import scatter_combine
+
+    multi = val.ndim == idx.ndim + 1
+    name = "scatter_combine_multi" if multi else "scatter_combine"
+    sc = scatter_combine
+    fn, ref = ((sc.scatter_combine_gimv_multi, sc.scatter_combine_multi_ref) if multi else
+               (sc.scatter_combine_gimv, sc.scatter_combine_ref))
+    rows_x = sparse_rows(torch, idx, nl)
+    other = "plus_times" if semiring != "plus_times" else "min_plus"
+    err = 0.0
+    for sr, vv in ((semiring, val), (other, rand_val())):
+        got = fn(idx, vv, nl, semiring=sr)
+        what = f"{label}: {name} {sr} on {tuple(vv.shape)}"
+        e = compare(torch, got, ref(idx, vv, nl, semiring=sr), sr, what)
+        err = e if sr == semiring else err
+        check_sender_order(torch, got, rows_x, vv if multi else vv[..., None],
+                           idx.shape[0] * nl, sr, what)
+        if sr == "plus_times" and not torch.equal(got, fn(idx, vv, nl, semiring=sr)):
+            raise SmokeError(f"{what}: plus_times not the same bits twice")
+        del got, vv
+    rows.setdefault(name, {"launches": 0}).setdefault("stream_checks", []).append(
+        {"path": label, "shape": list(val.shape), "semiring": semiring, "max_abs_err": err})
+    log(f"kernels {label}: {name} matches its plain version on the streamed buffers "
+        f"{list(val.shape)} n_local {nl} ({semiring} max |err| {err}; {other} on random "
+        "values), bitwise the sender-order fold; plus_times the same bits twice")
+
+
+def stream_phase(torch, np, sp, csgraph, dev, gen, scale, seed, rows, failures, peaks, *,
+                 b=STREAM_B):
+    """Phase 8 (see the module doc): the bucket-streamed planned executor on
+    ``erdos_renyi(2**scale, 16 * 2**scale)`` at b workers (64), cyclic ψ."""
+    from repro_torch.core import PMVEngine, placement, sssp
+    from repro_torch.graph import erdos_renyi
+
+    t_phase = time.perf_counter()
+    n = 1 << scale
+    t = time.perf_counter()
+    edges = erdos_renyi(n, 16 * n, seed=seed)
+    log(f"stream graph: erdos_renyi n={n} edges={len(edges)} b={b} "
+        f"({time.perf_counter() - t:.1f} s)")
+    kw = dict(b=b, strategy="vertical", backend="auto", scatter="kernel", device=dev)
+    spec = sssp(0)
+
+    # -- run 1: SSSP with the default stream='auto' ---------------------------
+    eng = PMVEngine(edges, n, **kw)
+    res, matrix, meta, counts, peak_on, resident_on = stream_solve(
+        torch, np, "sssp/vertical streamed", eng, spec, want_stream="on", max_iters=100, tol=0.5)
+    plan, fs = meta["plan"], matrix["streamed"]
+    mp = plan.memory_profile()
+    log(f"stream plan: capacity={plan.capacity} n_local={plan.n_local} "
+        f"tactics={json.dumps(plan.tactic_counts())} buckets={plan.boundaries}; "
+        f"{memory_profile_line(plan)}")
+    per_step = expected_stream_launches(plan)
+    log(f"stream launches: {per_step} ELL launches a step from the launch schedule "
+        f"(the layout's {fs.launches_per_step()}), {res.iterations} iterations")
+    if fs.launches_per_step() != per_step:
+        raise SmokeError(f"stream: the layout launches {fs.launches_per_step()} ELL kernels a "
+                         f"step, the launch schedule {per_step}")
+    count_stream_launches("sssp/vertical streamed", ("ell_gimv", "scatter_combine"), counts, rows)
+    if counts["ell_gimv"] != per_step * res.iterations or \
+            counts["scatter_combine"] != res.iterations:
+        raise SmokeError(f"sssp/vertical streamed: {counts['ell_gimv']} ELL and "
+                         f"{counts['scatter_combine']} scatter launches over {res.iterations} "
+                         f"iterations, expected {per_step} and 1 an iteration")
+    want = sssp_ref(np, sp, csgraph, edges, n, 0)
+    ok = res.converged and np.array_equal(res.v.astype(np.float64), want)
+    log(f"check streamed sssp vs scipy shortest_path: reached {int(np.isfinite(want).sum())} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("streamed sssp disagrees with scipy")
+    prof = device_breakdown(torch, lambda: eng.run(spec, max_iters=3, tol=-1.0), 3)
+    log(f"profile sssp/vertical streamed: {json.dumps(prof)}")
+
+    # -- kernels 1 and 3 on the streamed run's own per-block buffers ----------------
+    part, nl = meta["part"], plan.n_local
+    v_local = torch.from_numpy(part.to_blocked(res.v.astype(np.float32)).copy()).to(dev)
+    v_prev = torch.where(torch.rand(v_local.shape, generator=gen, device=dev) < 0.5,
+                         v_local, torch.full_like(v_local, float("inf")))
+    n_src = v_prev.numel()
+
+    def rand_v(dt):
+        if dt == torch.int32:
+            return torch.randint(0, n, (n_src,), generator=gen, device=dev, dtype=torch.int32)
+        return torch.rand(n_src, generator=gen, device=dev)
+
+    stream_ell_holds(torch, "sssp streamed", fs, v_prev.reshape(-1), "min_plus", rand_v, rows)
+    idx, val, _, _ = placement._streamed_planned_compact(spec, fs, v_prev, plan.capacity)
+    idx, val = idx.transpose(0, 1).contiguous(), val.transpose(0, 1).contiguous()
+    stream_scatter_holds(torch, "sssp streamed", idx, val, nl, "min_plus",
+                         lambda: torch.rand(val.shape, generator=gen, device=dev), rows)
+    del eng, matrix, fs, idx, val, v_local, v_prev
+    torch.cuda.empty_cache()
+
+    # -- run 2: the same solve with stream='off' (the fused schedule) ----------------
+    eng = PMVEngine(edges, n, stream="off", **kw)
+    off, _, _, counts, peak_off, resident_off = stream_solve(
+        torch, np, "sssp/vertical fused", eng, spec, want_stream="off", max_iters=100, tol=0.5)
+    count_stream_launches("sssp/vertical fused", ("ell_gimv", "scatter_combine"), counts, rows)
+    ok = np.array_equal(off.v, res.v) and off.iterations == res.iterations
+    log(f"check streamed sssp bitwise the fused solve: -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("streamed sssp is not bitwise the stream='off' solve")
+    ratio = peak_off / max(peak_on, 1)
+    log(f"stream memory: peak step bytes above resident: streamed {peak_on} "
+        f"({peak_on / 2**30:.3f} GiB), fused {peak_off} ({peak_off / 2**30:.3f} GiB); "
+        f"measured ratio {ratio:.2f}x beside memory_profile() {mp['savings']:.2f}x; "
+        f"resident bytes streamed {resident_on}, fused {resident_off}")
+    peaks["sssp/vertical streamed"] = peak_on / 2**30
+    if not peak_on < peak_off:
+        failures.append(f"stream: the streamed peak {peak_on} B is not below the fused "
+                        f"{peak_off} B")
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- run 3: 64 RWR queries served in one Q = 64 batch, streamed ----------------
+    stream_serve(torch, np, sp, dev, gen, edges, n, b, seed, rows, failures, peaks)
+    log(f"stream phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def stream_serve(torch, np, sp, dev, gen, edges, n, b, seed, rows, failures, peaks) -> None:
+    """``PMVServer(strategy='vertical', backend='auto', scatter='kernel')`` on
+    the stream phase's graph: 64 RWR queries (c 0.85, tol 1e-6) in one
+    Q = 64 batch through the streamed Q-wide executor; then kernels 5 and 6
+    on the batch's own per-block buffers."""
+    from repro_torch import kernels
+    from repro_torch.core import placement
+    from repro_torch.serving import PMVServer, Query
+
+    outdeg = np.bincount(edges[:, 0], minlength=n)
+    srcs = np.random.default_rng(seed + 1).choice(np.flatnonzero(outdeg >= 1), 64, replace=False)
+    queries = [Query("rwr", source=int(s), c=0.85, tol=1e-6) for s in srcs]
+    srv = PMVServer(edges, n, b=b, strategy="vertical", backend="auto", scatter="kernel",
+                    device=dev, max_iters=200)
+    t = time.perf_counter()
+    eng, fspec = srv.engine_for(queries[0])
+    matrix, _, _, _, fmeta = eng.prepare(fspec)
+    plan = fmeta["plan"]
+    log(f"stream serve family rwr: prepare_s={fmeta['prepare_s']:.2f} (wall "
+        f"{time.perf_counter() - t:.1f} s) stream={plan.stream} capacity={plan.capacity}; "
+        f"{memory_profile_line(plan)}")
+    if plan.stream != "on" or "streamed" not in matrix:
+        raise SmokeError(f"stream serve: the family's plan resolved stream={plan.stream!r}")
+    fs = matrix["streamed"]
+    per_step = expected_stream_launches(plan)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    results = srv.serve(queries)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    peaks["stream serve"] = peak / 2**30
+    st = srv.stats()
+    walls = [1e3 * w for w in st["iter_wall_s"]]
+    iters = [r.iterations for r in results]
+    log(f"stream serve: {len(results)} queries in {serve_s:.3f} s -> "
+        f"{len(results) / serve_s:.3f} queries/s; batches={st['batches']} batched "
+        f"iterations={int(st['iterations'])} median_iter_ms={np.median(walls):.3f} "
+        f"max_iter_ms={max(walls):.3f} peak_gib={peak / 2**30:.3f} (above resident "
+        f"{(peak - resident) / 2**30:.3f}) query iterations {min(iters)}-{max(iters)} "
+        f"reasons={json.dumps(st['retirement_reasons'])} launches={json.dumps(counts)}")
+    bad = [r.qid for r in results if r.reason != "completed" or not r.converged]
+    if bad:
+        failures.append(f"stream serve: {len(bad)} queries did not retire completed and "
+                        f"converged (qids {bad[:10]})")
+    if st["batches"] != 1:
+        failures.append(f"stream serve: {st['batches']} batches, expected one Q = 64 batch")
+    count_stream_launches("stream serve", ("ell_gimv_multi", "scatter_combine_multi"), counts,
+                          rows)
+    for name in SINGLE:
+        if counts[name] != 0:
+            raise SmokeError(f"stream serve: single-vector kernel {name} launched "
+                             f"{counts[name]} times while serving")
+    if counts["ell_gimv_multi"] != per_step * int(st["iterations"]):
+        raise SmokeError(f"stream serve: {counts['ell_gimv_multi']} ELL launches over "
+                         f"{int(st['iterations'])} batched iterations, expected {per_step} "
+                         "an iteration")
+    pick = results[::8][:8]
+    want = rwr_ref(np, sp, edges, n, [r.query.source for r in pick], [r.iterations for r in pick])
+    got = np.stack([r.vector for r in pick], axis=1)
+    ok = np.allclose(got, want, rtol=1e-4, atol=1e-12)
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+    log(f"check stream serve rwr x{len(pick)} vs scipy power iteration (their own iteration "
+        f"counts): max rel err {rel:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("streamed served rwr disagrees with scipy")
+
+    # -- kernels 5 and 6 on the batch's own per-block buffers ------------------------
+    part, nl = fmeta["part"], plan.n_local
+    state = np.stack([part.to_blocked(r.vector) for r in results], axis=-1)
+    v_state = torch.from_numpy(np.ascontiguousarray(state)).to(dev)        # [b, nl, 64]
+    del state
+
+    def rand_v(dt):
+        if dt == torch.int32:
+            return torch.randint(0, n, (n, 64), generator=gen, device=dev, dtype=torch.int32)
+        return torch.rand((n, 64), generator=gen, device=dev)
+
+    stream_ell_holds(torch, "stream serve", fs, v_state.reshape(-1, 64), "plus_times", rand_v,
+                     rows)
+    idx, val, _, _ = placement._streamed_planned_compact(fspec, fs, v_state, plan.capacity)
+    idx, val = idx.transpose(0, 1).contiguous(), val.transpose(0, 1).contiguous()
+    stream_scatter_holds(torch, "stream serve", idx, val, nl, "plus_times",
+                         lambda: torch.rand(val.shape, generator=gen, device=dev), rows)
+    srv.close()
+    del srv, eng, matrix, fs, idx, val, v_state
+    torch.cuda.empty_cache()
+
+
 def packed_widths_phase(torch, np, dev, gen):
     """Both packed kernels at the four device widths: random sorted sets of
     b = 8 senders padded with the sentinel, n_local at the top of each
@@ -1968,6 +2327,9 @@ def main() -> int:
     # -- disk: the out-of-core store, five solves and a serve from the same edges --
     disk_phase(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, sssp_v, served, peaks, rows,
                failures)
+    del edges, sym
+    # -- stream: the bucket-streamed executor on a uniform sparse graph at b = 64 --
+    stream_phase(torch, np, sp, csgraph, dev, gen, args.scale, args.seed, rows, failures, peaks)
 
     if failures:
         raise SmokeError("; ".join(failures))

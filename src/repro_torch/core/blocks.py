@@ -41,6 +41,8 @@ __all__ = [
     "pack_bucketed_ell",
     "pack_planned_stripe",
     "stack_planned",
+    "pack_streamed_stripe",
+    "stack_streamed",
     "stack_stripes",
     "SEMIRING_FILL_FOLD",
 ]
@@ -107,8 +109,11 @@ def build_stripes(
     e_cap = max(int(counts2d.max()), 1)
 
     # Sort edges by (owner, inner, seg_local) so segment ids are sorted
-    # within each block.
-    order = np.lexsort((seg_local, inner, owner))
+    # within each block: one stable argsort of the composite key, the same
+    # permutation as np.lexsort((seg_local, inner, owner)) at a third of its
+    # time (the key is below b * b * (max seg_local + 1), far inside int64).
+    seg_span = int(seg_local.max()) + 1 if seg_local.size else 1
+    order = np.argsort(pair * seg_span + seg_local.astype(np.int64), kind="stable")
     seg_local = seg_local[order]
     gat_local = gat_local[order]
     ww = None if w is None else w[order]
@@ -249,6 +254,8 @@ class PlannedStripe:
     layout='merged' (horizontal): output space is the worker's result
     [n_local]; cols are pre-offset to jj * n_local + gat_local, indexing the
     flat gathered vector [b * n_local].
+    layout='streamed' (:func:`pack_streamed_stripe`): buckets keep a leading
+    destination-block axis, rows block-local; output space [b * n_local].
     """
 
     buckets: tuple   # tuple[EllBucket, ...]
@@ -413,6 +420,9 @@ def stack_planned(stripes: list[PlannedStripe], semiring: str) -> PlannedStripe:
                 for x in bs])
         out_buckets.append(EllBucket(rows=rows, cols=cols, w=w))
 
+    if layout == "vertical":
+        return PlannedStripe(buckets=tuple(out_buckets), dense=_stack_dense_blocks(stripes, fill),
+                             rows_out=stripes[0].rows_out, layout=layout)
     k_max = max((0 if s.dense is None else s.dense.index.shape[0]) for s in stripes)
     dense = None
     if k_max:
@@ -420,18 +430,128 @@ def stack_planned(stripes: list[PlannedStripe], semiring: str) -> PlannedStripe:
         for s in stripes:
             k_s = 0 if s.dense is None else s.dense.index.shape[0]
             idx = s.dense.index if k_s else np.zeros(0, np.int32)
-            if layout == "vertical":
-                nl = _dense_nl(stripes)
-                m = s.dense.matrix if k_s else np.zeros((0, nl, nl), np.float32)
-                pad = np.full((k_max - k_s, nl, nl), fill, np.float32)
-                mats.append(np.concatenate([m, pad]) if k_max - k_s else m)
-                idxs.append(_pad_to(idx, k_max, -1))
-            else:
-                nl = s.rows_out
-                m = s.dense.matrix if k_s else np.zeros((nl, 0), np.float32)
-                pad = np.full((nl, (k_max - k_s) * nl), fill, np.float32)
-                mats.append(np.concatenate([m, pad], axis=1) if k_max - k_s else m)
-                idxs.append(_pad_to(idx, k_max, 0))
+            nl = s.rows_out
+            m = s.dense.matrix if k_s else np.zeros((nl, 0), np.float32)
+            pad = np.full((nl, (k_max - k_s) * nl), fill, np.float32)
+            mats.append(np.concatenate([m, pad], axis=1) if k_max - k_s else m)
+            idxs.append(_pad_to(idx, k_max, 0))
         dense = DenseGroup(matrix=np.stack(mats), index=np.stack(idxs))
     return PlannedStripe(buckets=tuple(out_buckets), dense=dense,
                          rows_out=stripes[0].rows_out, layout=layout)
+
+
+def _stack_dense_blocks(stripes: list[PlannedStripe], fill: float) -> DenseGroup | None:
+    """Per-worker dense groups of [k, n_local, n_local] blocks ('vertical'
+    and 'streamed' layouts) -> one group with a leading worker axis, padded
+    to the max block count with identity-filled matrices at index -1."""
+    k_max = max((0 if s.dense is None else s.dense.index.shape[0]) for s in stripes)
+    if not k_max:
+        return None
+    nl = _dense_nl(stripes)
+    mats, idxs = [], []
+    for s in stripes:
+        k_s = 0 if s.dense is None else s.dense.index.shape[0]
+        m = s.dense.matrix if k_s else np.zeros((0, nl, nl), np.float32)
+        pad = np.full((k_max - k_s, nl, nl), fill, np.float32)
+        mats.append(np.concatenate([m, pad]) if k_max - k_s else m)
+        idxs.append(_pad_to(s.dense.index if k_s else np.zeros(0, np.int32), k_max, -1))
+    return DenseGroup(matrix=np.stack(mats), index=np.stack(idxs))
+
+
+def pack_streamed_stripe(
+    stripe: BlockEdges,
+    tactics: tuple[str, ...],
+    n_local: int,
+    *,
+    boundaries: tuple[int, ...],
+    semiring: str,
+) -> PlannedStripe:
+    """Bucketed-ELL slices regrouped per destination block, for the streamed
+    executor (ExecutionPlan.stream='on'; the per-block launch schedule of
+    ``ExecutionPlan.launch_schedule``).
+
+    Where ``pack_planned_stripe(layout='vertical')`` fuses all ell-tactic
+    blocks of a stripe into stripe-wide buckets over the flat [b * n_local]
+    output, this packer keeps a leading destination-block axis, so that the
+    executor runs one block's launches at a time: bucket k is rows [b, R_k]
+    (block-local destination rows, -1 = pad; R_k the max row count of
+    bucket k over the b blocks) with cols [b, R_k, boundaries[k]]
+    (worker-local sources, -1 = pad).  Dense-tactic blocks keep the
+    'vertical' DenseGroup layout (matrix [k, n_local, n_local], index [k]);
+    they run as per-block dense launches after the ELL steps.  rows_out
+    stays b * n_local; layout='streamed'."""
+    b = stripe.seg_local.shape[0]
+    counts = np.asarray(stripe.count)
+    has_w = stripe.w is not None
+    empty = np.zeros(0, np.int64)
+
+    per_block: list[tuple] = []
+    dense_mats: list[np.ndarray] = []
+    dense_index: list[int] = []
+    for k in range(b):
+        cnt = int(counts[k])
+        seg = np.asarray(stripe.seg_local[k, :cnt], dtype=np.int64)
+        gat = np.asarray(stripe.gat_local[k, :cnt], dtype=np.int64)
+        wk = np.asarray(stripe.w[k, :cnt]) if has_w else None
+        if tactics[k] == "dense" and cnt:
+            dense_mats.append(materialize_dense_block(seg, gat, wk, n_local, semiring))
+            dense_index.append(k)
+            seg, gat, wk = empty, empty, (empty.astype(np.float32) if has_w else None)
+        elif tactics[k] == "skip" or cnt == 0:
+            seg, gat, wk = empty, empty, (empty.astype(np.float32) if has_w else None)
+        per_block.append(pack_bucketed_ell(seg, gat, wk, boundaries))
+
+    out_buckets = []
+    for kk, cap_k in enumerate(boundaries):
+        bs = [pb[kk] for pb in per_block]
+        r_max = max(x.rows.shape[0] for x in bs)
+        rows = np.stack([_pad_to(x.rows, r_max, -1) for x in bs])
+        cols = np.stack([
+            np.concatenate([x.cols, np.full((r_max - x.rows.shape[0], cap_k), -1, np.int32)])
+            for x in bs])
+        w = None
+        if has_w:
+            w = np.stack([
+                np.concatenate([x.w, np.zeros((r_max - x.rows.shape[0], cap_k), np.float32)])
+                for x in bs])
+        out_buckets.append(EllBucket(rows=rows, cols=cols, w=w))
+
+    dense = None
+    if dense_mats:
+        dense = DenseGroup(matrix=np.stack(dense_mats), index=np.asarray(dense_index, np.int32))
+    return PlannedStripe(buckets=tuple(out_buckets), dense=dense, rows_out=b * n_local,
+                         layout="streamed")
+
+
+def stack_streamed(stripes: list[PlannedStripe], semiring: str, *,
+                   worker_axis: int = 0) -> PlannedStripe:
+    """b per-worker streamed stripes -> one stripe with a worker axis.
+
+    worker_axis=0 stacks the bucket arrays worker-major [b_w, b, R, D];
+    worker_axis=1 stacks them block-major [b, b_w, R, D], the emulation
+    layout (``placement.flatten_streamed`` folds the worker axis into each
+    block's rows).  Buckets pad R to the cross-worker max (rows / cols =
+    -1) and are dropped when empty on EVERY (worker, block); dense groups
+    stay worker-leading in both modes and pad like ``stack_planned``'s
+    vertical layout."""
+    assert worker_axis in (0, 1), worker_axis
+    fill, _ = SEMIRING_FILL_FOLD[semiring]
+    out_buckets = []
+    for k in range(len(stripes[0].buckets)):
+        bs = [s.buckets[k] for s in stripes]
+        r_max = max(x.rows.shape[-1] for x in bs)
+        if r_max == 0:
+            continue
+
+        def pad_rows(a, fill_value):
+            widths = [(0, 0), (0, r_max - a.shape[1])] + [(0, 0)] * (a.ndim - 2)
+            return np.pad(a, widths, constant_values=fill_value)
+
+        rows = np.stack([pad_rows(x.rows, -1) for x in bs], axis=worker_axis)
+        cols = np.stack([pad_rows(x.cols, -1) for x in bs], axis=worker_axis)
+        w = None
+        if bs[0].w is not None:
+            w = np.stack([pad_rows(x.w, 0) for x in bs], axis=worker_axis)
+        out_buckets.append(EllBucket(rows=rows, cols=cols, w=w))
+    return PlannedStripe(buckets=tuple(out_buckets), dense=_stack_dense_blocks(stripes, fill),
+                         rows_out=stripes[0].rows_out, layout="streamed")

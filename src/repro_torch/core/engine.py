@@ -79,16 +79,17 @@ def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask,
         return placement.vertical_step(
             spec, matrix.get("stripe"), v, ctx, mask, n_local=cfg.n_local,
             exchange=cfg.exchange, capacity=cfg.capacity,
-            planned=matrix.get("planned"), backend=cfg.backend, scatter=scatter,
-            xchg=matrix.get("xchg"), xplan=cfg.xplan, delta_eps=cfg.delta_eps,
-            delta_state=xstate)
+            planned=matrix.get("planned"), streamed=matrix.get("streamed"),
+            backend=cfg.backend, scatter=scatter, xchg=matrix.get("xchg"), xplan=cfg.xplan,
+            delta_eps=cfg.delta_eps, delta_state=xstate)
     if cfg.strategy == "hybrid":
         return placement.hybrid_step(
             spec, matrix.get("sparse_stripe"), matrix.get("dense_stripe"),
             matrix["dense_region"], v, ctx, mask, n_local=cfg.n_local,
             capacity=cfg.capacity, planned_sparse=matrix.get("planned_sparse"),
-            dense_matrix=matrix.get("dense_matrix"), backend=cfg.backend,
-            scatter=scatter, exchange=cfg.exchange, xchg=matrix.get("xchg"), xplan=cfg.xplan)
+            streamed_sparse=matrix.get("streamed_sparse"), dense_matrix=matrix.get("dense_matrix"),
+            backend=cfg.backend, scatter=scatter, exchange=cfg.exchange, xchg=matrix.get("xchg"),
+            xplan=cfg.xplan)
     raise ValueError(cfg.strategy)
 
 
@@ -156,10 +157,15 @@ class PMVEngine:
       recorded in meta['backend'].
     scatter: receive side of the sparse and packed exchanges -- 'segment' |
       'kernel' | 'auto' (the cost model's crossover).
-    stream: 'auto' | 'on' | 'off' (this package runs the materialized
-      schedule; a stream that resolves to 'on' raises at prepare: a forced
-      'on' resolves to 'off' where nothing streams -- horizontal, the dense
-      exchange, backend='torch' -- as in the JAX package).
+    stream: 'auto' | 'on' | 'off': the planned vertical / hybrid partial
+      schedule.  'on' runs the bucket-streamed executor (one destination
+      block at a time, each partial compacted or payload-gathered as it is
+      produced: O(n_local + b*cap) live per worker where the fused 'off'
+      schedule holds all b partials); 'auto' streams where
+      ``cost_model.prefer_streamed`` says so.  A forced 'on' resolves to
+      'off' where nothing streams (horizontal, the dense exchange,
+      backend='torch'), as in the JAX package.  meta['plan'].stream and
+      ``plan.memory_profile()`` record it.
     device: None (the GPU; raises without one) | 'cuda' | 'cpu'.
     store / residency: run against an out-of-core pre-partitioned block
       store (``repro_torch.store``) in place of an edge list.  ``store`` is
@@ -325,31 +331,23 @@ class PMVEngine:
 
     def _resolve_stream(self, strategy: str, backend: str, capacity: int | None,
                         part: Partition) -> str:
-        """Only the planned vertical/hybrid compact path has partials to
-        stream: the horizontal step never materializes partials, the dense
-        exchange ships them whole and the 'torch' backend has no streamed
-        form, so there a forced 'on' resolves to 'off', as in the JAX
-        package.  Where that package streams a forced 'on' (planned hybrid;
-        planned vertical with the sparse, packed or auto exchange) it
-        raises: the streamed executor is not ported.  'auto' asks the cost
-        model on the hybrid and sparse vertical paths (the streamed packed
-        executor is not ported either: packed vertical keeps the fused
-        schedule)."""
+        """Resolve the streaming knob as the JAX package does.  Only the
+        planned vertical/hybrid path with a compact or packed exchange has
+        partials to stream: the horizontal step never materializes partials,
+        the dense exchange ships them whole and the 'torch' backend has no
+        streamed form, so there a forced 'on' resolves to 'off'.  'auto'
+        asks the cost model's memory crossover (small b keeps the fused
+        launches)."""
         streamable = (backend == "planned" and capacity is not None and
                       (strategy == "hybrid" or
                        (strategy == "vertical" and
                         self.exchange in ("sparse", "packed", "auto"))))
-        if not streamable or self.stream == "off":
+        if not streamable:
             return "off"
-        if self.stream == "on":
-            raise _not_ported("stream='on'", f"the JAX package streams this {strategy} "
-                              f"solve (exchange={self.exchange!r}); pass stream='off'")
-        if ((strategy == "hybrid" or self.exchange == "sparse") and
-                cost_model.prefer_streamed(self.b, part.n_local, capacity)):
-            raise _not_ported(
-                "stream='auto'", f"it resolves to 'on' at b={self.b}, n_local="
-                f"{part.n_local}, capacity={capacity}; pass stream='off'")
-        return "off"
+        if self.stream == "auto":
+            return ("on" if cost_model.prefer_streamed(self.b, part.n_local, capacity)
+                    else "off")
+        return self.stream
 
     def _capacity(self, pm: PartitionedMatrix, hm: HybridMatrix | None) -> int:
         return hm.sparse_partial_cap if hm is not None else pm.partial_cap
@@ -450,12 +448,24 @@ class PMVEngine:
                 stripes, layout, key = pm.vertical, "vertical", "planned"
             else:
                 stripes, layout, key = hm.sparse_vertical, "vertical", "planned_sparse"
-            packed = blocks_lib.stack_planned([
-                blocks_lib.pack_planned_stripe(
-                    s, plan.tactics_for_worker(w, layout), nl, layout=layout,
-                    boundaries=plan.boundaries, semiring=semiring)
-                for w, s in enumerate(stripes)], semiring)
-            matrix[key] = placement.flatten_planned(packed, nl, self.b, home)
+            if stream == "on":
+                # block-major (worker_axis=1): step k of the streamed
+                # executor reads views [k] of every bucket
+                packed = blocks_lib.stack_streamed([
+                    blocks_lib.pack_streamed_stripe(
+                        s, plan.tactics_for_worker(w, layout), nl,
+                        boundaries=plan.boundaries, semiring=semiring)
+                    for w, s in enumerate(stripes)], semiring, worker_axis=1)
+                matrix[key.replace("planned", "streamed")] = placement.flatten_streamed(
+                    packed, nl, self.b, home)
+            else:
+                packed = blocks_lib.stack_planned([
+                    blocks_lib.pack_planned_stripe(
+                        s, plan.tactics_for_worker(w, layout), nl, layout=layout,
+                        boundaries=plan.boundaries, semiring=semiring)
+                    for w, s in enumerate(stripes)], semiring)
+                matrix[key] = placement.flatten_planned(packed, nl, self.b, home)
+            del packed
         real_mask = self._put(part.global_ids_grid() < self.n)
         exchange, xplan, delta_eps, xmeta = self._resolve_exchange(
             spec, strategy, capacity, plan,

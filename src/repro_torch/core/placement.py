@@ -65,6 +65,8 @@ __all__ = [
     "FlatBucket",
     "FlatPlanned",
     "flatten_planned",
+    "FlatStreamed",
+    "flatten_streamed",
     "apply_assign",
 ]
 
@@ -311,6 +313,81 @@ def flatten_planned(planned: PlannedStripe, n_local: int, n_workers: int,
                        rows_out=rows_out, n_workers=n_w, layout=planned.layout)
 
 
+@dataclasses.dataclass(frozen=True)
+class FlatStreamed:
+    """A stacked streamed PlannedStripe laid out for emulation (see
+    flatten_streamed).  Each bucket is a FlatBucket with a leading
+    destination-block axis: rows [b, W*R] into the flat partial chunk
+    [W * n_local + 1] (the last slot the drop slot), cols [b, W*R, D] into
+    v_flat [W * n_local].  ``active[k]`` lists the buckets that hold a row
+    of destination block k on some worker: step k launches only those.
+    Dense-tactic blocks: dense_matrix [W, k_max, n_local, n_local] with
+    ``dense_blocks[w]`` the destination block of each real matrix (the
+    stacking pads are left out), one dense launch per (worker, block)."""
+
+    buckets: tuple
+    active: tuple               # tuple[tuple[int, ...], ...], one entry per block
+    dense_matrix: torch.Tensor | None
+    dense_blocks: tuple         # tuple[tuple[int, ...], ...], one entry per worker
+    n_local: int
+    n_workers: int
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.active)
+
+    @property
+    def drop(self) -> int:
+        return self.n_workers * self.n_local
+
+    def launches_per_step(self) -> int:
+        """ELL launches one streamed step makes: the active buckets summed
+        over the destination blocks."""
+        return sum(len(a) for a in self.active)
+
+
+def flatten_streamed(streamed: PlannedStripe, n_local: int, n_workers: int,
+                     device) -> FlatStreamed:
+    """Stacked block-major streamed PlannedStripe (``blocks.stack_streamed``
+    with worker_axis=1: bucket rows [b, W, R], cols [b, W, R, D]) ->
+    FlatStreamed tensors on ``device``, put there once at prepare.  The
+    worker offsets are applied here: a bucket row r of worker w writes chunk
+    slot w * n_local + r (pads -> the drop slot), a col c of worker w reads
+    v_flat[w * n_local + c], so that step k takes views ``[k]`` and copies
+    nothing.  Refuses a bucket whose rows are not left-packed
+    (``check_left_packed``), the layout the ELL kernels need."""
+    assert streamed.layout == "streamed", streamed.layout
+    n_w = n_workers
+    drop = n_w * n_local
+    b = streamed.rows_out // n_local
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    buckets, valid = [], []
+    for bk in streamed.buckets:
+        rows = np.asarray(bk.rows, dtype=np.int64)              # [b, W, R]
+        rows = np.where(rows >= 0, rows + (np.arange(n_w) * n_local)[None, :, None], drop)
+        cols = np.asarray(bk.cols)
+        col_off = (np.arange(n_w, dtype=np.int32) * n_local)[None, :, None, None]
+        cols = np.where(cols >= 0, cols + col_off, np.int32(-1)).astype(np.int32)
+        d = cols.shape[-1]
+        cols_t = put(cols.reshape(b, -1, d))
+        check_left_packed(cols_t.reshape(-1, d))
+        buckets.append(FlatBucket(
+            rows=put(rows.reshape(b, -1)), cols=cols_t,
+            w=None if bk.w is None else put(np.asarray(bk.w).reshape(b, -1, d))))
+        valid.append((rows < drop).reshape(b, -1).any(axis=1))
+    active = tuple(tuple(i for i in range(len(buckets)) if valid[i][k]) for k in range(b))
+    dense_matrix, dense_blocks = None, ((),) * n_w
+    if streamed.dense is not None:
+        dense_matrix = put(np.asarray(streamed.dense.matrix))
+        dense_blocks = tuple(tuple(int(i) for i in row if i >= 0)
+                             for row in np.asarray(streamed.dense.index))
+    return FlatStreamed(buckets=tuple(buckets), active=active, dense_matrix=dense_matrix,
+                        dense_blocks=dense_blocks, n_local=n_local, n_workers=n_w)
+
+
 def _planned_out(spec: GimvSpec, fp: FlatPlanned, v_flat: torch.Tensor) -> torch.Tensor:
     """Run every ELL bucket against v_flat [N(, Q)] and place its rows in the
     flat output [drop + 1(, Q)] (identity where no bucket has the row)."""
@@ -353,6 +430,97 @@ def _planned_vertical_partials(spec: GimvSpec, fp: FlatPlanned, v_local: torch.T
     return out[:fp.drop].reshape((b_w, fp.rows_out // n_local, n_local) + tail)
 
 
+def _streamed_blocks(spec: GimvSpec, fs: FlatStreamed, v_local: torch.Tensor):
+    """The bucket-streamed schedule (plan.stream='on'): yields (k, chunk)
+    for each destination block k, chunk [b_w, n_local(, Q)] its partial on
+    every worker, or None where no ELL row feeds the block (the identity).
+    Block k runs its active buckets' ELL launches into one identity-filled
+    chunk buffer, allocated once and refilled each step, so a single
+    partial is live at a time; each chunk must be consumed before the next
+    step overwrites it.  Dense-tactic blocks are not in it (see
+    :func:`_streamed_dense`)."""
+    tail = tuple(v_local.shape[2:])
+    v_flat = v_local.reshape((-1,) + tail)
+    out = torch.empty((fs.drop + 1,) + tail, dtype=spec.torch_dtype, device=v_local.device)
+    for k, act in enumerate(fs.active):
+        if not act:
+            yield k, None
+            continue
+        out.fill_(spec.identity)
+        for i in act:
+            bk = fs.buckets[i]
+            out.index_copy_(0, bk.rows[k], ell_gimv_call(
+                spec, bk.cols[k], None if bk.w is None else bk.w[k], v_flat))
+        yield k, out[:fs.drop].reshape((fs.n_workers, fs.n_local) + tail)
+
+
+def _streamed_dense(spec: GimvSpec, fs: FlatStreamed, v_local: torch.Tensor):
+    """Dense-tactic blocks of the streamed layout: yields (worker, block,
+    r [n_local(, Q)]), one dense launch per (worker, block).  The tactics
+    are exclusive, so each overwrites rows the ELL steps left at the
+    identity."""
+    for wk, blocks in enumerate(fs.dense_blocks):
+        for t, i in enumerate(blocks):
+            yield wk, i, _dense_call(spec, fs.dense_matrix[wk, t], v_local[wk])
+
+
+def _streamed_planned_compact(spec: GimvSpec, fs: FlatStreamed, v_local: torch.Tensor,
+                              capacity: int):
+    """Streamed planned vertical compute + compaction: each destination
+    block's partial is compacted into its slot [:, k] of the [b_w, b, cap]
+    exchange buffers as soon as it is produced (the paper Alg. 2's
+    store-as-produced schedule), so live memory is O(b_w * n_local +
+    b_w * b * cap) where the fused executor holds [b_w, b, n_local].
+    Per-row compaction is independent, so the buffers equal
+    ``compact_partials`` over the fused partials.  Returns (idx, val,
+    overflow, logical) as that function does."""
+    b_w = v_local.shape[0]
+    tail = tuple(v_local.shape[2:])
+    batched = bool(tail)
+    cap = min(capacity, fs.n_local)
+    dev = v_local.device
+    idx = torch.empty((b_w, fs.n_blocks, cap), dtype=torch.int32, device=dev)
+    val = torch.empty((b_w, fs.n_blocks, cap) + tail, dtype=spec.torch_dtype, device=dev)
+    overflow = torch.zeros((), dtype=torch.float32, device=dev)
+    logical = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def put(sl, chunk):
+        nonlocal overflow, logical
+        i, v, ov, lg = sparse_exchange.compact_chunk(spec, chunk, capacity, batched=batched)
+        idx[sl], val[sl] = i, v
+        overflow, logical = overflow + ov, logical + lg
+
+    for k, chunk in _streamed_blocks(spec, fs, v_local):
+        if chunk is None:
+            idx[:, k] = fs.n_local
+            val[:, k] = spec.identity
+        else:
+            put((slice(None), k), chunk)
+    for wk, i, r_d in _streamed_dense(spec, fs, v_local):
+        put((wk, i), r_d)
+    return idx, val, overflow, logical
+
+
+def _streamed_planned_payload(spec: GimvSpec, fs: FlatStreamed, v_local: torch.Tensor,
+                              send_rows: torch.Tensor) -> torch.Tensor:
+    """Streamed planned vertical compute feeding the packed exchange: the
+    schedule of ``_streamed_planned_compact`` with each block's partial
+    gathered at its static send rows ``send_rows[:, k]`` into slot [:, k]
+    of the [b_w, b, p(, Q)] payload, in place of compaction.  Equals
+    ``gather_payload`` over the fused partials."""
+    b_w, b, p = send_rows.shape
+    tail = tuple(v_local.shape[2:])
+    payload = torch.empty((b_w, b, p) + tail, dtype=spec.torch_dtype, device=v_local.device)
+    for k, chunk in _streamed_blocks(spec, fs, v_local):
+        if chunk is None:
+            payload[:, k] = spec.identity
+        else:
+            payload[:, k] = packed_rt.gather_payload(spec, chunk, send_rows[:, k])
+    for wk, i, r_d in _streamed_dense(spec, fs, v_local):
+        payload[wk, i] = packed_rt.gather_payload(spec, r_d, send_rows[wk, i])
+    return payload
+
+
 # --------------------------------------------------------------------------
 # Placement steps: take/return the blocked vector v_local [b, n_local(, Q)]
 # and return (v_new, r, stats).  stats counts GLOBAL elements / bytes per
@@ -390,12 +558,12 @@ def horizontal_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_loca
     return v_new, r, stats
 
 
-def _compact_exchange(spec: GimvSpec, partials, capacity: int, n_local: int, scatter: str,
+def _compact_exchange(spec: GimvSpec, compacted, capacity: int, n_local: int, scatter: str,
                       nq: int | None):
-    """Compact the [b_w, b, n_local(, Q)] partials, exchange them (transpose)
-    and fold them at their owners.  Returns (r [b, n_local(, Q)], stats)."""
-    idx, val, overflow, logical = sparse_exchange.compact_partials(
-        spec, partials, capacity, batched=nq is not None)
+    """Exchange compacted partials (idx [b_w, b, cap], val [b_w, b, cap(, Q)],
+    overflow, logical) by transpose and fold them at their owners.  Returns
+    (r [b, n_local(, Q)], stats)."""
+    idx, val, overflow, logical = compacted
     r = sparse_exchange.scatter_partials(spec, _all_to_all(idx), _all_to_all(val), n_local,
                                          method=scatter)
     b = idx.shape[-2]
@@ -414,17 +582,45 @@ def _compact_exchange(spec: GimvSpec, partials, capacity: int, n_local: int, sca
     return r, stats
 
 
-def _packed_exchange(spec: GimvSpec, partials, xchg: dict, xplan, n_local: int, scatter: str,
-                     nq: int | None, *, delta_eps: float | None = None, delta_state=None):
-    """The packed exchange of the [b_w, b, n_local(, Q)] partials: gather
-    each pair's payload at its static send order, suppress unmoved rows when
-    ``delta_state`` (the previously shipped payload [b_w, b, p_dev]) is given,
-    exchange (transpose) and fold at the owners.  Returns (r [b, n_local(, Q)],
+def _compact_partials(spec: GimvSpec, v_local, n_local: int, capacity: int, *, stripe=None,
+                      planned: FlatPlanned | None = None,
+                      streamed: FlatStreamed | None = None, backend: str = "torch"):
+    """The vertical partials, through whichever executor, compacted to
+    (idx, val, overflow, logical) of static ``capacity``: the streamed
+    executor compacts block by block, the others compact all b at once."""
+    if backend == "planned" and streamed is not None:
+        return _streamed_planned_compact(spec, streamed, v_local, capacity)
+    if backend == "planned":
+        partials = _planned_vertical_partials(spec, planned, v_local, n_local)
+    else:
+        partials = block_gimv_partials(spec, stripe, v_local, n_local)
+    return sparse_exchange.compact_partials(spec, partials, capacity,
+                                            batched=v_local.ndim == 3)
+
+
+def _packed_payload(spec: GimvSpec, v_local, n_local: int, send_rows, *, stripe=None,
+                    planned: FlatPlanned | None = None, streamed: FlatStreamed | None = None,
+                    backend: str = "torch") -> torch.Tensor:
+    """The vertical partials, through whichever executor, gathered at the
+    packed send order ``send_rows`` [b_w, b, p] -> payload [b_w, b, p(, Q)]."""
+    if backend == "planned" and streamed is not None:
+        return _streamed_planned_payload(spec, streamed, v_local, send_rows)
+    if backend == "planned":
+        partials = _planned_vertical_partials(spec, planned, v_local, n_local)
+    else:
+        partials = block_gimv_partials(spec, stripe, v_local, n_local)
+    return packed_rt.gather_payload(spec, partials, send_rows)
+
+
+def _ship_packed(spec: GimvSpec, payload, xchg: dict, xplan, n_local: int, scatter: str,
+                 nq: int | None, *, delta_eps: float | None = None, delta_state=None):
+    """Ship a packed payload [b_w, b, p(, Q)]: suppress unmoved rows when
+    ``delta_state`` (the previously shipped payload) is given, exchange
+    (transpose) and fold at the owners.  Returns (r [b, n_local(, Q)],
     stats, shipped payload or None).  The ids crossed the wire once, at
     prepare: the per-iteration stats charge payloads, plus the send bitmap
     under delta iteration."""
     send_rows = xchg["send_rows"]
-    payload = packed_rt.gather_payload(spec, partials, send_rows)
     logical = packed_rt.payload_logical(spec, payload)
     itemsize = payload.element_size()
     shipped = None
@@ -459,9 +655,9 @@ def _packed_exchange(spec: GimvSpec, partials, xchg: dict, xplan, n_local: int, 
 
 def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local, real_mask,
                   *, n_local: int, exchange: str = "sparse", capacity: int | None = None,
-                  planned: FlatPlanned | None = None, backend: str = "torch",
-                  scatter: str = "segment", xchg: dict | None = None, xplan=None,
-                  delta_eps: float | None = None, delta_state=None):
+                  planned: FlatPlanned | None = None, streamed: FlatStreamed | None = None,
+                  backend: str = "torch", scatter: str = "segment", xchg: dict | None = None,
+                  xplan=None, delta_eps: float | None = None, delta_state=None):
     """Alg. 2: local column-stripe partials, exchange, combine at the owner.
 
     exchange='dense' ships the full [b, n_local] partials; 'sparse' compacts
@@ -469,15 +665,20 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
     "only non-empty v^(i,j) entries" transport; 'packed' gathers them at the
     static row sets of ``xchg`` / ``xplan`` (repro_torch.exchange).  With
     ``delta_state`` (packed only) the step also returns the new state as a
-    fourth element."""
+    fourth element.  backend='planned' runs the plan's tactics either fused
+    (``planned``: all partials at once) or bucket-streamed one destination
+    block at a time (``streamed``, plan.stream='on'; the sparse and packed
+    exchanges only -- the dense exchange ships the full partials)."""
     nq = _num_queries(v_local)
-    if backend == "planned":
-        partials = _planned_vertical_partials(spec, planned, v_local, n_local)
-    else:
-        partials = block_gimv_partials(spec, stripe, v_local, n_local)
-    b = partials.shape[1]
+    kw = dict(stripe=stripe, planned=planned, streamed=streamed, backend=backend)
     shipped = None
     if exchange == "dense":
+        assert streamed is None, "the dense exchange takes the fused layout"
+        if backend == "planned":
+            partials = _planned_vertical_partials(spec, planned, v_local, n_local)
+        else:
+            partials = block_gimv_partials(spec, stripe, v_local, n_local)
+        b = partials.shape[1]
         received = _all_to_all(partials)            # [b_dest, b_sender, n_local]
         if spec.combine_all == "sum":
             r = received.sum(dim=1, dtype=partials.dtype)
@@ -495,12 +696,15 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
         }
     elif exchange == "sparse":
         assert capacity is not None, "sparse exchange needs a static capacity"
-        r, stats = _compact_exchange(spec, partials, capacity, n_local, scatter, nq)
+        r, stats = _compact_exchange(
+            spec, _compact_partials(spec, v_local, n_local, capacity, **kw), capacity, n_local,
+            scatter, nq)
     elif exchange == "packed":
         assert xchg is not None and xplan is not None, \
             "packed exchange needs the prepare-built index arrays and plan"
-        r, stats, shipped = _packed_exchange(spec, partials, xchg, xplan, n_local, scatter,
-                                             nq, delta_eps=delta_eps, delta_state=delta_state)
+        payload = _packed_payload(spec, v_local, n_local, xchg["send_rows"], **kw)
+        r, stats, shipped = _ship_packed(spec, payload, xchg, xplan, n_local, scatter, nq,
+                                         delta_eps=delta_eps, delta_state=delta_state)
     else:
         raise NotImplementedError(f"exchange={exchange!r} is not supported yet")
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
@@ -512,16 +716,19 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
 def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
                 dense_stripe: BlockEdges | None, dense_region: DenseRegion, v_local,
                 ctx_local, real_mask, *, n_local: int, capacity: int,
-                planned_sparse: FlatPlanned | None = None, dense_matrix=None,
+                planned_sparse: FlatPlanned | None = None,
+                streamed_sparse: FlatStreamed | None = None, dense_matrix=None,
                 backend: str = "torch", scatter: str = "segment", exchange: str = "sparse",
                 xchg: dict | None = None, xplan=None):
     """Alg. 4: vertical over the sparse region + horizontal over the dense
     region, combined at the owner, then assign.  The dense sub-vector v_d
     is the compacted gather of high-out-degree entries [b, d_cap]; backend
     'planned' runs the dense region through the dense GIM-V kernel on the
-    materialized ``dense_matrix`` and the sparse region through the plan.
-    The sparse region's partials take the packed exchange when ``exchange``
-    is 'packed', else the compact one (hybrid has no dense exchange)."""
+    materialized ``dense_matrix`` and the sparse region through the plan,
+    fused (``planned_sparse``) or bucket-streamed per destination block
+    (``streamed_sparse``, plan.stream='on').  The sparse region's partials
+    take the packed exchange when ``exchange`` is 'packed', else the
+    compact one (hybrid has no dense exchange)."""
     nq = _num_queries(v_local)
     gather_idx = dense_region.gather_idx                           # [b, d_cap]
     if nq is not None:
@@ -529,16 +736,19 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
     v_d = torch.gather(v_local, 1, gather_idx)                     # [b, d_cap(, Q)]
     if backend == "planned":
         r_dense = _dense_region_gimv(spec, dense_matrix, v_d, n_local)
-        partials = _planned_vertical_partials(spec, planned_sparse, v_local, n_local)
     else:
         r_dense = gathered_gimv(spec, dense_stripe, v_d, n_local)
-        partials = block_gimv_partials(spec, sparse_stripe, v_local, n_local)
+    kw = dict(stripe=sparse_stripe, planned=planned_sparse, streamed=streamed_sparse,
+              backend=backend)
     if exchange == "packed":
         assert xchg is not None and xplan is not None, \
             "packed exchange needs the prepare-built index arrays and plan"
-        r_sparse, stats, _ = _packed_exchange(spec, partials, xchg, xplan, n_local, scatter, nq)
+        payload = _packed_payload(spec, v_local, n_local, xchg["send_rows"], **kw)
+        r_sparse, stats, _ = _ship_packed(spec, payload, xchg, xplan, n_local, scatter, nq)
     else:
-        r_sparse, stats = _compact_exchange(spec, partials, capacity, n_local, scatter, nq)
+        r_sparse, stats = _compact_exchange(
+            spec, _compact_partials(spec, v_local, n_local, capacity, **kw), capacity, n_local,
+            scatter, nq)
     r = combine_elementwise(spec, r_sparse, r_dense)
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
     b = v_local.shape[0]

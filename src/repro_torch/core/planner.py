@@ -14,9 +14,10 @@ The plan is frozen and hashable; ``blocks.pack_planned_stripe`` packs
 against it and the ``placement._planned_*`` executors run it with fused
 same-tactic launches.  It also carries the receive-side tactic of the
 sparse exchange (``scatter``: 'segment' or 'kernel') and the partial-vector
-schedule (``stream``; the resident executors run 'off' only) and where the
-matrix lives (``residency``).  Tactic tables equal the JAX package's for the
-same graph and knobs, whether measured from in-memory stripes
+schedule (``stream``: 'on' runs the bucket-streamed executor, one
+destination block at a time, see :meth:`ExecutionPlan.memory_profile`) and
+where the matrix lives (``residency``).  Tactic tables equal the JAX
+package's for the same graph and knobs, whether measured from in-memory stripes
 (:func:`plan_execution`) or rebuilt from a store manifest's persisted
 measurements (:func:`plan_from_stats`).
 """
@@ -135,6 +136,19 @@ class ExecutionPlan:
         set for its TPU; no such rate is calibrated for the H100, so none
         is given here."""
         return {"block": k, "axis": axis, "predicted_cost": self.launch_cost(k, axis=axis)}
+
+    def memory_profile(self) -> dict:
+        """Estimated live partial-buffer elements per worker of the
+        vertical/hybrid step: 'materialized' holds all b destination-block
+        partials before compaction (O(b * n_local)); 'streamed' holds one
+        partial in flight plus the fixed compact exchange buffer
+        (O(n_local + b * cap), the paper Alg. 2's profile).  'savings' is
+        their ratio; 'stream' echoes the plan's resolved schedule."""
+        cap = self.capacity if self.capacity is not None else self.n_local
+        mat = cost_model.materialized_partial_elems(self.b, self.n_local)
+        strm = cost_model.streamed_partial_elems(self.b, self.n_local, cap)
+        return {"materialized_elems": mat, "streamed_elems": strm,
+                "savings": mat / max(strm, 1), "stream": self.stream}
 
     def io_bytes_per_iter(self, *, has_w: bool = False) -> int:
         """Modeled shard bytes READ per iteration under residency='disk':
@@ -381,6 +395,13 @@ def format_plan(plan: ExecutionPlan, *, extra: dict | None = None) -> str:
         lines.append(f"  {k}={v}")
     counts = plan.tactic_counts()
     lines.append("  tactics: " + " ".join(f"{t}={counts[t]}" for t in TACTICS))
+    if plan.capacity is not None and plan.strategy != "horizontal":
+        # only the vertical/hybrid compact path materializes partials
+        mp = plan.memory_profile()
+        lines.append(
+            f"  memory profile: materialized {mp['materialized_elems']} elems"
+            f" -> streamed {mp['streamed_elems']} elems"
+            f" ({mp['savings']:.2f}x) [stream={mp['stream']}]")
     flat, planned = plan.flat_padded_slots, plan.planned_slots
     if flat:
         lines.append(

@@ -107,11 +107,14 @@ def compact_partials(spec: GimvSpec, partials: torch.Tensor, capacity: int, *,
     return idx, val, overflow, logical
 
 
-def compact_chunk(spec: GimvSpec, partial: torch.Tensor, capacity: int):
-    """Compaction of ONE destination block's partial chunk [..., n_local];
-    per-row compaction is independent, so compacting chunk by chunk gives the
-    same buffers as one :func:`compact_partials` over the stacked partials."""
-    return compact_partials(spec, partial, capacity)
+def compact_chunk(spec: GimvSpec, partial: torch.Tensor, capacity: int, *,
+                  batched: bool = False):
+    """Compaction of ONE destination block's partial chunk [..., n_local(, Q)]
+    (the streamed planned executor's per-block step); per-row compaction is
+    independent, so compacting chunk by chunk gives the same buffers as one
+    :func:`compact_partials` over the stacked partials, and the counters
+    summed over the chunks equal its counters."""
+    return compact_partials(spec, partial, capacity, batched=batched)
 
 
 def scatter_partials(spec: GimvSpec, idx: torch.Tensor, val: torch.Tensor,

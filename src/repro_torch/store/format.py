@@ -183,7 +183,7 @@ def pack_worker_stripe(
     ``inner`` is the inner block id of each edge (destination block for
     vertical stripes, source block for horizontal), seg_local/gat_local the
     local indices.  The stable lexsort by (inner, seg_local) is
-    build_stripes' global np.lexsort((seg_local, inner, owner)) restricted
+    build_stripes' global stable (owner, inner, seg_local) order restricted
     to one owner, so per-bin packing reproduces the in-memory stripe
     bitwise given the global ``e_cap``.
     """

@@ -1020,3 +1020,122 @@ def test_cuda_disk_serve_matches_resident_serve(cuda_device, disk_stores):
         else:
             np.testing.assert_allclose(got.vector, want.vector, rtol=1e-4, atol=1e-9)
     assert peak_disk < peak_resident, (peak_disk, peak_resident)
+
+
+# ---------------------------------------------------------------------------
+# The bucket-streamed planned executor (stream='on') on the card.
+# ---------------------------------------------------------------------------
+
+def _tactic_mix_edges(n=64, b=4):
+    """The tactic-mix graph of ``tests/_torch_parity.py`` (which imports the
+    JAX package, so it is repeated here): a clique over the vertices
+    congruent 0 mod b (one dense block) and a ring; skip, ell and dense
+    blocks under psi='cyclic'."""
+    ids0 = np.arange(0, n, b)
+    clique = np.array([(s, d) for s in ids0 for d in ids0])
+    ring = np.stack([np.arange(n), (np.arange(n) + 1) % n], axis=1)
+    return np.concatenate([clique, ring])
+
+
+def _step_peak(T, eng, spec):
+    """Peak device bytes of one placement step above what was allocated
+    before it (the resident matrix and the state), after a warm-up step."""
+    matrix, v, ctx, mask, meta = eng.prepare(spec)
+    T.placement_call(spec, meta["cfg"], matrix, v, ctx, mask)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = T.placement_call(spec, meta["cfg"], matrix, v, ctx, mask)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak, meta
+
+
+@pytest.mark.cuda
+def test_cuda_streamed_step_cuts_peak_bytes_4x(cuda_device):
+    """The JAX package's memory contract (tests/test_memory_profile.py) on
+    the card: PageRank, vertical, b = 32 on erdos_renyi(4096, 8192, seed=5):
+    the streamed step's peak bytes above resident are at least 4x lower
+    than the fused step's."""
+    import repro_torch.core as T
+    from repro_torch.graph import erdos_renyi
+
+    edges = erdos_renyi(4096, 8192, seed=5)
+    peaks = {}
+    for stream in ("off", "on"):
+        eng = T.PMVEngine(edges, 4096, b=32, strategy="vertical", backend="auto",
+                          stream=stream, device=cuda_device)
+        peaks[stream], meta = _step_peak(T, eng, T.pagerank(4096))
+        assert meta["plan"].stream == stream
+        del eng
+    assert meta["plan"].memory_profile()["savings"] >= 4.0
+    assert peaks["off"] >= 4 * peaks["on"] > 0, peaks
+
+
+def _max_plus_spec(T):
+    return T.GimvSpec(name="maxplus", combine2="add", combine_all="max", dtype=np.float32,
+                      assign=lambda v, r, ctx: torch.maximum(v, r),
+                      init=lambda ids, ctx: np.zeros(ids.shape, np.float32))
+
+
+# (strategy, exchange, scatter kernel that must launch: single, Q-wide)
+STREAM_PATHS = {
+    "vertical-sparse": ("vertical", "sparse", "scatter_combine", "scatter_combine_multi"),
+    "vertical-packed": ("vertical", "packed", "packed_scatter_combine",
+                        "packed_scatter_combine_multi"),
+    "hybrid-sparse": ("hybrid", "sparse", "scatter_combine", "scatter_combine_multi"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [None, 5], ids=["single", "q5"])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("path", sorted(STREAM_PATHS))
+def test_cuda_streamed_step_matches_fused(cuda_device, path, semiring, nq):
+    """One streamed step against the fused step on the card, on the
+    tactic-mix graph (skip, ell and dense blocks): the streamed step
+    launches the ELL kernel per (block, bucket), the dense kernel per dense
+    (worker, block) (kernel 2 or 4) and the path's receive fold (kernels 3,
+    6, 7 or 8); the selection semirings and int32 give the fused step's
+    bits, plus_times lies within rtol 1e-5 (the per-block ELL tables may
+    take other kernel paths)."""
+    import repro_torch.core as T
+
+    strategy, exchange, fold, fold_multi = STREAM_PATHS[path]
+    spec = {"plus_times": lambda: T.pagerank(64), "min_plus": lambda: T.sssp(0),
+            "max_plus": lambda: _max_plus_spec(T),
+            "min_src": T.connected_components}[semiring]()
+    out, launched = {}, {}
+    for stream in ("off", "on"):
+        rng = np.random.default_rng(3)
+        eng = T.PMVEngine(_tactic_mix_edges(), 64, b=4, strategy=strategy, theta=40.0,
+                          backend="auto", exchange=exchange, scatter="kernel", stream=stream,
+                          device=cuda_device)
+        matrix, _v, ctx, mask, meta = eng.prepare(spec)
+        assert meta["plan"].stream == stream and meta["plan"].tactic_counts()["dense"] > 0
+        shape = (4, meta["part"].n_local) + ((nq,) if nq else ())
+        if np.dtype(spec.dtype) == np.int32:
+            v = rng.integers(0, 64, shape).astype(np.int32)
+        else:
+            v = rng.random(shape).astype(np.float32)
+        before = kernels.launch_counts()
+        o, r, stats = T.placement_call(spec, meta["cfg"], matrix, torch.from_numpy(v).to(
+            cuda_device), ctx, mask)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        launched[stream] = {k: after[k] - before[k] for k in after}
+        out[stream] = (o.cpu(), r.cpu(), float(stats["logical_elems"]))
+    got = launched["on"]
+    multi = nq is not None
+    assert got["ell_gimv_multi" if multi else "ell_gimv"] > 0
+    assert got[fold_multi if multi else fold] == 1
+    assert got["dense_gimv_multi" if multi else "dense_gimv"] > 0
+    assert got["ell_gimv" if multi else "ell_gimv_multi"] == 0
+    for (a, b_) in zip(out["on"][:2], out["off"][:2]):
+        if semiring == "plus_times":
+            torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-7)
+        else:
+            assert torch.equal(a, b_)
+    if semiring != "plus_times":
+        assert out["on"][2] == out["off"][2]

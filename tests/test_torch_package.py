@@ -162,14 +162,18 @@ def test_checkpointing_and_query_axis_raise():
 
 
 def test_stream_auto_resolving_on_raises():
-    """b=8 with a small capacity makes the JAX package stream; the port has
-    no streamed executor yet and says so."""
+    """b=8 with a small capacity makes the JAX package's default
+    stream='auto' resolve to 'on'.  The port resolves it the same way (it
+    raised here before the streamed executor was ported) and the streamed
+    solve equals the JAX package's streamed solve."""
     edges = erdos_renyi(1024, 1500, seed=3)
-    assert J.PMVEngine(edges, 1024, b=8, strategy="vertical", backend="auto").prepare(
-        J.sssp(0))[-1]["cfg"].stream == "on"
-    with pytest.raises(NotImplementedError, match="stream"):
-        T.PMVEngine(edges, 1024, b=8, strategy="vertical", backend="auto",
-                    device="cpu").run(T.sssp(0))
+    ref = J.PMVEngine(edges, 1024, b=8, strategy="vertical", backend="auto")
+    assert ref.prepare(J.sssp(0))[-1]["cfg"].stream == "on"
+    port = T.PMVEngine(edges, 1024, b=8, strategy="vertical", backend="auto", device="cpu")
+    assert port.prepare(T.sssp(0))[-1]["plan"].stream == "on"
+    r_port, r_ref = port.run(T.sssp(0)), ref.run(J.sssp(0))
+    np.testing.assert_array_equal(r_port.v, r_ref.v)
+    assert r_port.iterations == r_ref.iterations and r_port.converged
 
 
 # (engine knobs, whether the JAX package streams the solve on a forced 'on')
@@ -187,29 +191,30 @@ FORCED_STREAM = {
 
 @pytest.mark.parametrize("case", sorted(FORCED_STREAM))
 def test_forced_stream_on(case):
-    """A forced stream='on' resolves to 'off' wherever the JAX package finds
-    nothing to stream, and then solves bit for bit as 'off' does; where that
-    package would stream it, the port (no streamed executor) raises at
-    prepare.  The server builds its engines with the same knobs."""
+    """A forced stream='on' resolves as the JAX package resolves it: to
+    'off' wherever that package finds nothing to stream, and to 'on'
+    (the streamed executor) where it streams.  Either way the engine and
+    the server answer bit for bit as stream='off' does, and as the JAX
+    package's stream='on' solve does (SSSP: exact).  The server builds its
+    engines with the same knobs."""
     knobs, streams = FORCED_STREAM[case]
     edges = rmat(7, 700, seed=5)
     ref_knobs = dict(knobs, backend={"torch": "xla"}.get(knobs["backend"], knobs["backend"]))
-    ref = J.PMVEngine(edges, 128, b=4, stream="on", **ref_knobs).prepare(J.sssp(0))[-1]
-    assert (ref["cfg"].stream == "on") == streams
+    ref = J.PMVEngine(edges, 128, b=4, stream="on", **ref_knobs)
+    assert (ref.prepare(J.sssp(0))[-1]["cfg"].stream == "on") == streams
     port = T.PMVEngine(edges, 128, b=4, stream="on", device="cpu", **knobs)
     server = TS.PMVServer(edges, 128, b=4, stream="on", device="cpu", **knobs)
-    if streams:
-        with pytest.raises(NotImplementedError, match="stream"):
-            port.run(T.sssp(0), max_iters=30, tol=0.5)
-        with pytest.raises(NotImplementedError, match="stream"):
-            server.serve([TS.Query("sssp", source=0, tol=0.5)])
-        return
-    assert port.prepare(T.sssp(0))[-1]["cfg"].plan.stream == "off"
+    matrix, *_, meta = port.prepare(T.sssp(0))
+    assert meta["cfg"].plan.stream == ("on" if streams else "off")
+    assert any(k.startswith("streamed") for k in matrix) == streams
     on = port.run(T.sssp(0), max_iters=30, tol=0.5)
     off = T.PMVEngine(edges, 128, b=4, stream="off", device="cpu", **knobs).run(
         T.sssp(0), max_iters=30, tol=0.5)
     np.testing.assert_array_equal(on.v, off.v)
     assert on.iterations == off.iterations and on.converged
+    r_ref = ref.run(J.sssp(0), max_iters=30, tol=0.5)
+    np.testing.assert_array_equal(on.v, r_ref.v)
+    assert on.iterations == r_ref.iterations
     served = server.serve([TS.Query("sssp", source=0, tol=0.5)])[0]
     np.testing.assert_array_equal(served.vector, off.v)
 

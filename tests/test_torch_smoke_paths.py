@@ -22,6 +22,7 @@ _SPEC.loader.exec_module(smoke)
 
 SCALE = 10
 N = 1 << SCALE
+STREAM_SCALE = 12
 EDGES = rmat(SCALE, 16 << SCALE, seed=0)
 
 
@@ -197,3 +198,75 @@ def test_disk_phase_on_cpu(monkeypatch, tmp_path):
     # the plain version on the CPU: the same function, so no error at all
     assert all(c["max_abs_err"] == 0.0 for cs in checks.values() for c in cs)
     assert not root.exists()
+
+
+def _count_launches_on_cpu(monkeypatch):
+    """Each kernel wrapper counts one launch per call, as it does on the card
+    (on the CPU the wrappers take their plain versions and count nothing):
+    the wrappers are swapped, where the main path looks them up, for
+    counting ones that call the original."""
+    import repro_torch.kernels.block_gimv as block_gimv
+    import repro_torch.kernels.ell_spmv as ell_spmv
+    import repro_torch.kernels.scatter_combine as scatter_combine
+    from repro_torch import kernels
+    from repro_torch.core import placement
+
+    for fn in kernels.WRAPPERS.values():
+        def counted(*args, _fn=fn, **kw):
+            _fn.launches += 1
+            return _fn(*args, **kw)
+
+        for mod in (placement, block_gimv, ell_spmv, scatter_combine):
+            if hasattr(mod, fn.__name__):
+                monkeypatch.setattr(mod, fn.__name__, counted)
+
+
+def test_stream_phase_on_cpu(monkeypatch):
+    """The smoke's stream phase (SSSP streamed under the default
+    stream='auto', the same solve fused, a Q = 64 RWR serve streamed, and
+    the kernel holds on their per-block buffers) at scale 12 and the smoke's
+    b = 64 on the CPU (the smallest scale at which the default 'auto'
+    streams: capacity 27 of n_local 64, savings 2.29x), with the card's
+    memory calls and profiler stubbed and the wrappers counting their
+    calls: the plans stream, the ELL launches equal the launch schedule's
+    count, the answers pass the smoke's checks, and the kernel rows gain
+    their launches and holds."""
+    import itertools
+
+    import torch
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    # the streamed run reads its peak first: rising peaks stand for the
+    # fused run's larger one
+    peaks_read = itertools.count(1 << 20, 1 << 20)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: next(peaks_read))
+    monkeypatch.setattr(smoke, "device_breakdown", lambda torch, run, iters: {})
+    _count_launches_on_cpu(monkeypatch)
+    rows, failures, peaks = {}, [], {}
+    gen = torch.Generator().manual_seed(0)
+    smoke.stream_phase(torch, np, sp, csgraph, torch.device("cpu"), gen, STREAM_SCALE, 0, rows,
+                       failures, peaks)
+    assert failures == []
+    for name in ("ell_gimv", "scatter_combine", "ell_gimv_multi", "scatter_combine_multi"):
+        assert rows[name]["stream_launches"] > 0, name
+        assert rows[name]["launches"] == rows[name]["stream_launches"], name
+        assert [c["max_abs_err"] for c in rows[name]["stream_checks"]] == [0.0], name
+    for name in ("dense_gimv", "packed_scatter_combine", "packed_scatter_combine_multi"):
+        assert name not in rows or "stream_launches" not in rows[name], name
+    assert set(peaks) == {"sssp/vertical streamed", "stream serve"}
+
+
+def test_expected_stream_launches_counts_the_launch_schedule():
+    """The smoke's count of a streamed step's ELL launches, from the plan
+    alone, equals what the engine's streamed layout launches a step."""
+    from repro_torch.core import PMVEngine, sssp
+    from repro_torch.graph import erdos_renyi
+
+    for b in (8, 32):
+        eng = PMVEngine(erdos_renyi(N, 16 * N, seed=0), N, b=b, strategy="vertical",
+                        backend="auto", stream="on", device="cpu")
+        matrix, *_, meta = eng.prepare(sssp(0))
+        fs = matrix["streamed"]
+        assert smoke.expected_stream_launches(meta["plan"]) == fs.launches_per_step() > b
