@@ -20,6 +20,19 @@ Phases, each printed as it ends; any failure exits non-zero:
               every kernel the run takes must have launched.  Each result is
               held against scipy (PageRank: a CSR power iteration of the same
               formula and iteration count, rtol 1e-4; SSSP and CC: exact).
+              The three engines are built with ``obs=Recorder()``
+              (``repro_torch.obs``): a "prepare phases" line per run gives
+              the seconds of each ``prepare.*`` span (partition, stripes,
+              plan, pack, device_put; stripes and pack include their
+              host-to-device copies), their sum against ``prepare_s`` and
+              the uncovered remainder; each run's Chrome trace goes through
+              a file and back and must pass ``validate_chrome_trace`` and
+              ``check_span_nesting``.  On the SSSP engine (prepare cached)
+              the solve runs again 3 times with the recorder swapped off
+              (``NULL_RECORDER``) and 3 times on, alternating: every answer
+              and delta trajectory must be bitwise the traced run's; an
+              "obs overhead" line prints both iteration medians and their
+              ratio.  Then ``eng.explain(spec, live=True)`` is printed.
 4. kernels -- after each run, the kernels it launched are called on the
               run's own inputs (every ELL bucket; the exchange buffers; the
               dense region) and held against their plain PyTorch versions
@@ -132,7 +145,17 @@ Phases, each printed as it ends; any failure exits non-zero:
               peak device memory beside the resident run's; for the serve
               also queries/s and the median batched-iteration wall.  Fails
               if a leg's peak host bytes pass the budget or a prefetch
-              thread degraded.
+              thread degraded.  The two SSSP solves and the serve are
+              traced (``obs=Recorder()``): after each, ``store.bytes_read``
+              must equal the run's ``store_bytes_read`` plus each leg's one
+              fetch in flight, the serve's ``serve.query_latency_s`` must
+              count exactly its retired queries, the trace must validate and
+              nest, and "calibration" lines print ``calibration_summary``
+              per kind (``disk_block``: a block body, predicted from the
+              plan's slot cost at the data-sheet ``SLOT_TIME_S``, none on
+              the hybrid's structural schedule; ``disk_io``: a slice read at
+              ``DISK_READ_BW``): launches, measured and predicted ms, their
+              ratio and the measured seconds per slot.
 8. stream  -- the bucket-streamed planned executor (``stream='on'``, one
               destination block at a time) on ``erdos_renyi(2**scale, 16 *
               2**scale)`` at b = 64 workers, cyclic psi: a uniform sparse
@@ -1402,6 +1425,120 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# observability (repro_torch.obs)
+# ---------------------------------------------------------------------------
+
+def prepare_phases(label: str, rec, meta: dict) -> dict:
+    """The ``prepare phases`` line of a traced solve: the seconds of each
+    ``prepare.*`` span, their sum against ``meta['prepare_s']`` and the
+    uncovered remainder (strategy / stream resolution, meta).  The spans run
+    one after another inside prepare_s, so their sum cannot exceed it."""
+    phases: dict[str, float] = {}
+    for e in rec.spans("prepare."):
+        key = e["name"][len("prepare."):]
+        phases[key] = phases.get(key, 0.0) + e["dur"]
+    total = sum(phases.values())
+    prep = meta["prepare_s"]
+    log(f"prepare phases {label}: "
+        + " ".join(f"{k}={v:.3f}" for k, v in phases.items())
+        + f" sum={total:.3f} prepare_s={prep:.3f} uncovered={prep - total:.3f} "
+        f"({100.0 * (prep - total) / prep:.2f}%)")
+    if not phases or total > prep + 1e-3:
+        raise SmokeError(f"{label}: prepare spans {phases} do not fit in prepare_s {prep}")
+    return phases
+
+
+def check_trace(label: str, rec) -> int:
+    """Write the recorder's Chrome trace to a file in the temporary
+    directory, read it back (and remove it), validate its schema and its
+    per-thread span nesting.  Returns the event count."""
+    import os
+    import tempfile
+
+    from repro_torch.obs import check_span_nesting, validate_chrome_trace
+
+    fd, path = tempfile.mkstemp(prefix="pmv_trace_", suffix=".json")
+    os.close(fd)
+    try:
+        rec.write_chrome_trace(path)
+        size = os.path.getsize(path)
+        with open(path) as f:
+            doc = json.load(f)
+    finally:
+        os.unlink(path)
+    n = validate_chrome_trace(doc)
+    check_span_nesting(doc)
+    lanes = len({(e["pid"], e["tid"]) for e in doc["traceEvents"]})
+    log(f"trace {label}: {n} spans on {lanes} lanes, {size} bytes: schema valid, spans nest")
+    return n
+
+
+def obs_overhead(torch, np, label: str, eng, spec, traced, *, max_iters, tol, reps=3) -> None:
+    """The recorder's cost on a resident solve whose prepare is cached: the
+    same solve with the recorder swapped off (``NULL_RECORDER``) and back on,
+    alternating, ``reps`` times each.  Every run's answer and deltas must be
+    bitwise the traced run's; prints the iteration medians and their ratio."""
+    from repro_torch.obs import NULL_RECORDER
+
+    rec = eng.obs
+    walls = {"on": [], "off": []}
+    try:
+        for _ in range(reps):
+            for mode in ("off", "on"):
+                eng.obs = NULL_RECORDER if mode == "off" else rec
+                res = eng.run(spec, max_iters=max_iters, tol=tol)
+                torch.cuda.synchronize()
+                if not (np.array_equal(res.v, traced.v)
+                        and np.array_equal(res.deltas, traced.deltas)):
+                    raise SmokeError(f"{label}: obs {mode} run is not bitwise the traced run")
+                walls[mode] += [r["wall_s"] for r in res.per_iter]
+    finally:
+        eng.obs = rec
+    on, off = float(np.median(walls["on"])), float(np.median(walls["off"]))
+    log(f"obs overhead {label}: median iteration on {1e3 * on:.4f} ms, off {1e3 * off:.4f} ms, "
+        f"on/off {on / off:.4f} ({len(walls['on'])} + {len(walls['off'])} iterations, "
+        f"{reps} alternating runs each); v and deltas bitwise the traced run's")
+
+
+def calibration_lines(label: str, rec) -> None:
+    """Per kind (``disk_block``: a block body out of core; ``disk_io``: a
+    shard-slice read), the launches, measured and predicted ms, their ratio
+    and the measured seconds per predicted slot."""
+    from repro_torch.obs import calibration_summary
+
+    for kind, c in calibration_summary(rec).items():
+        pred = c["predicted_s"]
+        log(f"calibration {label} {kind}: launches={c['launches']} "
+            f"measured_ms={1e3 * c['measured_s']:.3f} "
+            + (f"predicted_ms={1e3 * pred:.6f} ratio={c['ratio']:.1f} "
+               f"ratio_median={c['ratio_median']:.1f} " if pred > 0 else
+               "predicted_ms=n/a (no plan: the structural schedule) ")
+            + (f"measured_s_per_slot={c['measured_s_per_slot']:.4e} "
+               if "measured_s_per_slot" in c else "")
+            + (f"measured_bw_gb_s={c['measured_bw_bytes_per_s'] / 1e9:.3f}"
+               if "measured_bw_bytes_per_s" in c else ""))
+
+
+def check_store_counters(label: str, rec, executors, bytes_read: float) -> None:
+    """``store.bytes_read`` counts every fetch; the run's records bill a
+    slice when an iteration consumes it.  Each leg's pipeline holds one
+    fetch in flight past the last iteration (the next iteration's first
+    block): wait for it, then the counter must be the records' bytes plus
+    those."""
+    pending = 0.0
+    for ex in executors:
+        for leg in ex.legs:
+            if leg.pipeline is not None and leg.pipeline._fut is not None:
+                pending += float(leg.pipeline._fut[1].result()[0]["nbytes"])
+    got = rec.counter("store.bytes_read").value
+    ok = got == bytes_read + pending
+    log(f"check {label} store.bytes_read {got:.0f} == the run's store_bytes_read "
+        f"{bytes_read:.0f} + in-flight prefetch {pending:.0f} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeError(f"{label}: store.bytes_read {got} != {bytes_read} + {pending}")
+
+
 def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, served,
                resident_peaks, rows, failures):
     """Phase 7 (see the module doc): ingest (with the θ-split shards of
@@ -1414,6 +1551,7 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
 
     from repro_torch import kernels
     from repro_torch.core import PMVEngine, cost_model, pagerank, sssp
+    from repro_torch.obs import Recorder
     from repro_torch.store import ingest_edges, verify_store
 
     root = tempfile.mkdtemp(prefix="pmv_store_")
@@ -1455,8 +1593,11 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
              "pagerank/selective"),
         ]
         for label, kw, spec, max_iters, tol, kernel, resident in solves:
+            # the SSSP solves are traced (their answers are held to the
+            # untraced resident run's below)
+            rec = Recorder() if spec.name == "sssp" else None
             eng = PMVEngine(None, store=root, residency="disk", backend="auto",
-                            store_budget_bytes=budget, device=dev, **kw)
+                            store_budget_bytes=budget, device=dev, obs=rec, **kw)
             _, _, _, _, meta = eng.prepare(spec)
             ex = meta["executor"]
             torch.cuda.synchronize()
@@ -1505,6 +1646,11 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
             log(f"check {label} vs {what} -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"{label} disagrees with {what}")
+            if rec is not None:
+                # before the tail check, whose extra pass records too
+                check_store_counters(label, rec, [ex], res.totals["store_bytes_read"])
+                calibration_lines(label, rec)
+                check_trace(label, rec)
             if kernel == "scatter_combine":
                 disk_tail_check(torch, np, label, ex, res.v, rows)
             ex.close()
@@ -1597,11 +1743,14 @@ def disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, serve
     sources at 10 iterations (one Q = 8 batch; rtol 1e-4 against the scipy
     power iteration); kernel 6 must launch."""
     from repro_torch import kernels
+    from repro_torch.obs import Recorder
     from repro_torch.serving import PMVServer, Query
 
     sssp_answers, rwr_sources = served
+    rec = Recorder()
     srv = PMVServer(store=root, residency="disk", strategy="hybrid", theta=theta,
-                    backend="auto", scatter="kernel", store_budget_bytes=budget, device=dev)
+                    backend="auto", scatter="kernel", store_budget_bytes=budget, device=dev,
+                    obs=rec)
     batches = [("sssp", [Query("sssp", source=int(s), tol=0.5) for s, _, _ in sssp_answers]),
                ("rwr", [Query("rwr", source=int(s), c=0.85, max_iters=10) for s in rwr_sources])]
     execs = {}
@@ -1650,6 +1799,17 @@ def disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, serve
         f"peak_gib={peak:.3f} resident_serve_peak_gib={resident_peaks['serve']:.3f} "
         f"launches={json.dumps({k: v for k, v in counts.items() if v})}")
     count_disk_launches("disk serve", "scatter_combine_multi", counts, rows)
+    check_store_counters("disk serve", rec, execs.values(), st["store_bytes_read"])
+    lat = rec.histogram("serve.query_latency_s").to_dict()
+    ok = lat["count"] == st["retired"] == sum(len(qs) for _, qs in batches)
+    log(f"check disk serve serve.query_latency_s counts {lat['count']} == retired "
+        f"{st['retired']} (p50 {lat['p50']:.3f} s, p99 {lat['p99']:.3f} s) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeError(f"disk serve: latency histogram counts {lat['count']}, "
+                         f"retired {st['retired']}")
+    calibration_lines("disk serve", rec)
+    check_trace("disk serve", rec)
     bad = [r.qid for rs in results.values() for r in rs if r.reason != "completed"]
     if bad or st["batches"] != 2:
         failures.append(f"disk serve: {st['batches']} batches, queries not completed: {bad}")
@@ -2106,6 +2266,7 @@ def main() -> int:
     from repro_torch.graph import rmat, symmetrize_edges
     from repro_torch.kernels import block_gimv, ell_spmv, scatter_combine
     from repro_torch.kernels.build import build_all
+    from repro_torch.obs import Recorder
 
     warnings.filterwarnings("ignore", message="Sparse")   # the CSR yardstick's beta notes
     warnings.filterwarnings("ignore", message="index_reduce")
@@ -2195,10 +2356,14 @@ def main() -> int:
             "(run and random v) for 4 semirings and int32; plus_times the same bits twice")
 
     # -- run 1: PageRank, selective (horizontal at this density) ----------------
-    eng = PMVEngine(edges, n, b=b, strategy="selective", backend="auto", device=dev)
+    # runs 1-3 are traced: prepare by phase, one fenced span an iteration
+    eng = PMVEngine(edges, n, b=b, strategy="selective", backend="auto", device=dev,
+                    obs=Recorder())
     spec = pagerank(n)
     res, meta, _ = drive("pagerank/selective", eng, spec, max_iters=100, tol=1e-6,
                       expect=("ell_gimv",))
+    prepare_phases("pagerank/selective", eng.obs, meta)
+    check_trace("pagerank/selective", eng.obs)
     want = pagerank_ref(np, sp, edges, n, res.iterations)
     ok = np.allclose(res.v, want, rtol=1e-4, atol=1e-12)
     rel = float(np.max(np.abs(res.v - want) / np.maximum(want, 1e-30)))
@@ -2216,10 +2381,14 @@ def main() -> int:
 
     # -- run 2: SSSP, vertical with the scatter-combine kernel -----------------
     eng = PMVEngine(edges, n, b=b, strategy="vertical", backend="auto", scatter="kernel",
-                    stream="off", device=dev)
+                    stream="off", device=dev, obs=Recorder())
     spec = sssp(0)
     res, meta, _ = drive("sssp/vertical", eng, spec, max_iters=100, tol=0.5,
                       expect=("ell_gimv", "scatter_combine"))
+    prepare_phases("sssp/vertical", eng.obs, meta)
+    obs_overhead(torch, np, "sssp/vertical", eng, spec, res, max_iters=100, tol=0.5)
+    check_trace("sssp/vertical", eng.obs)
+    log("explain sssp/vertical (live=True):\n" + eng.explain(spec, live=True))
     want = sssp_ref(np, sp, csgraph, edges, n, 0)
     ok = res.converged and np.array_equal(res.v.astype(np.float64), want)
     log(f"check sssp vs scipy shortest_path: reached {int(np.isfinite(want).sum())} "
@@ -2245,10 +2414,12 @@ def main() -> int:
 
     # -- run 3: connected components, hybrid theta=3000 -------------------------
     eng = PMVEngine(sym, n, b=b, strategy="hybrid", theta=3000.0, backend="auto",
-                    stream="off", device=dev)
+                    stream="off", device=dev, obs=Recorder())
     spec = connected_components()
     res, meta, _ = drive("cc/hybrid", eng, spec, max_iters=100, tol=0.5,
                       expect=("ell_gimv", "dense_gimv"))
+    prepare_phases("cc/hybrid", eng.obs, meta)
+    check_trace("cc/hybrid", eng.obs)
     hm = meta["hm"]
     log(f"hybrid: theta={meta['theta']} dense vertices={meta['n_dense']} d_cap={hm.dense.d_cap} "
         f"dense edges={hm.dense_nnz} sparse edges={hm.sparse_nnz}")

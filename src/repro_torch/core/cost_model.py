@@ -12,9 +12,11 @@ The per-block crossovers below (``ell_block_cost`` / ``dense_block_cost``,
 ``prefer_streamed``, ``prefer_kernel_scatter``, ``prefer_packed_exchange``)
 are ratios, kept equal to the JAX package's so both packages draw the same
 plans.  They were set for the TPU and have not been recalibrated on the H100
-yet (ROADMAP).  No device rate appears in this module; the one rate it
-holds is the JAX package's modeled disk read rate (``DISK_READ_BW``), an
-assumption, not a measurement.
+yet (ROADMAP).  The planner reads no device rate.  Two rates turn slot costs
+and bytes into the modeled seconds the obs layer attaches to launch spans:
+``SLOT_TIME_S``, from the H100's data-sheet memory rate, and the JAX
+package's modeled disk read rate (``DISK_READ_BW``); both are assumptions,
+not measurements.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ __all__ = [
     "ell_block_cost",
     "dense_block_cost",
     "DENSE_SLOT_ADVANTAGE",
+    "SLOT_TIME_S",
+    "slot_seconds",
     "materialized_partial_elems",
     "streamed_partial_elems",
     "prefer_streamed",
@@ -150,6 +154,20 @@ def capacity_from_cost_model(
 # kept so the two packages plan alike; on the H100 both tactics stream from
 # device memory, so this ratio is one of the constants to recalibrate.
 DENSE_SLOT_ADVANTAGE = 8.0
+
+# Modeled wall seconds per slot unit, the JAX package's formula: one gather /
+# ELL slot streams 8 B from device memory.  Over the H100 SXM's data-sheet
+# 3.35 TB/s HBM3 that is ~2.39e-12 s: a data-sheet anchor for the card, not
+# a measurement.  It only sets ``predicted_s`` on the obs layer's launch
+# spans; the measured / predicted residuals (repro_torch.obs.report) are the
+# correction a calibration would fold back in.
+SLOT_TIME_S = 8.0 / 3.35e12
+
+
+def slot_seconds(cost_slots: float) -> float:
+    """Model time for ``cost_slots`` slot units of tactic compute (the
+    predicted_s attached to launch spans by the obs layer)."""
+    return cost_slots * SLOT_TIME_S
 
 
 def ell_block_cost(bucketed_slots: int) -> float:

@@ -22,6 +22,13 @@ shipped payload from one iteration to the next.
 'device' / 'host' load it back (bitwise ``partition_graph``), 'disk' never
 materializes the stripes and streams one block's shard slice at a time
 (``repro_torch.store.residency``).
+
+``obs=`` traces the run (``repro_torch.obs``): the prepare phases
+(``prepare.*`` spans), the plan gauges, one fenced ``pmv.iteration`` span
+per iteration with its per-iteration series, and out of core the store's
+and the disk executor's spans and counters.  Off, it is the no-op
+``NULL_RECORDER`` and the solve is bitwise what it is untraced; on, too,
+since a fence only waits for the device.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from repro_torch.faults import RetryPolicy
 from repro_torch.graph.generators import symmetrize_edges
 from repro_torch.graph.stats import compute_stats
 from repro_torch.kernels.block_gimv import has_semiring, semiring_of
+from repro_torch.obs.recorder import as_recorder
 
 __all__ = ["PMVEngine", "PMVResult", "StepConfig", "placement_call", "resolve_device"]
 
@@ -184,9 +192,12 @@ class PMVEngine:
       bounds the resident slice bytes of each striping read under 'disk';
       ``io_retry`` (a ``repro_torch.faults.RetryPolicy``) bounds every
       disk fetch.
+    obs: None / False (the zero-overhead null recorder), True (a fresh
+      ``repro_torch.obs.Recorder``), or a Recorder shared with a server or
+      another engine, so one trace covers the run.
 
     The JAX package's other knobs (mesh, exchange='hier', capacity='model',
-    payload_dtype, obs, faults, checkpointing) raise NotImplementedError.
+    payload_dtype, faults, checkpointing) raise NotImplementedError.
     """
 
     def __init__(
@@ -231,8 +242,6 @@ class PMVEngine:
             raise _not_ported("payload_dtype")
         if delta_eps is not None and not delta_eps >= 0.0:
             raise ValueError(f"delta_eps must be >= 0, got {delta_eps}")
-        if obs:
-            raise _not_ported("obs")
         if faults is not None:
             raise _not_ported("faults")
         if backend not in BACKENDS:
@@ -247,6 +256,7 @@ class PMVEngine:
         self.residency = residency
         self.store_budget_bytes = store_budget_bytes
         self.io_retry = io_retry
+        self.obs = as_recorder(obs)
         if store is not None:
             from repro_torch.store import open_store
 
@@ -394,79 +404,94 @@ class PMVEngine:
         strategy, theta = self.resolve_strategy()
         if self.store is not None and self.residency == "disk":
             return self._prepare_disk(spec, strategy, theta, t0)
-        if self.store is not None:
-            from repro_torch.store import load_partitioned
+        rec = self.obs
+        with rec.span("prepare.partition") as sp:
+            sp.set("spec", spec.name)
+            sp.set("strategy", strategy)
+            if self.store is not None:
+                from repro_torch.store import load_partitioned
 
-            pm, hm = load_partitioned(self.store, spec,
-                                      theta=theta if strategy == "hybrid" else None)
-        else:
-            pm, hm = partition_graph(self.edges, self.n, self.b, spec, psi=self.psi,
-                                     base_weights=self.base_weights,
-                                     theta=theta if strategy == "hybrid" else None)
+                pm, hm = load_partitioned(self.store, spec,
+                                          theta=theta if strategy == "hybrid" else None)
+            else:
+                pm, hm = partition_graph(self.edges, self.n, self.b, spec, psi=self.psi,
+                                         base_weights=self.base_weights,
+                                         theta=theta if strategy == "hybrid" else None)
         part = pm.part
         nl = part.n_local
         backend = self._resolve_backend(spec)
         home = self._matrix_home
         matrix: dict = {}
-        if strategy == "horizontal":
-            capacity = None
-            if backend == "torch":
-                matrix["stripe"] = self._put_stripe(pm.horizontal)
-        elif strategy == "vertical":
-            capacity = self._capacity(pm, None)
-            if backend == "torch":
-                matrix["stripe"] = self._put_stripe(pm.vertical)
-        else:
-            capacity = self._capacity(pm, hm)
-            matrix["dense_region"] = blocks_lib.DenseRegion(
-                gather_idx=self._put(hm.dense.gather_idx, torch.int64, home),
-                d_count=self._put(hm.dense.d_count, device=home), d_cap=hm.dense.d_cap,
-                theta=hm.dense.theta)
-            if backend == "torch":
-                matrix["sparse_stripe"] = self._put_stripe(hm.sparse_vertical)
-                matrix["dense_stripe"] = self._put_stripe(hm.dense_horizontal)
+        # the stripe tables and the dense region; unlike the JAX package's
+        # span, this one includes their host-to-device copies (_put uploads
+        # each table as it is built)
+        with rec.span("prepare.stripes"):
+            if strategy == "horizontal":
+                capacity = None
+                if backend == "torch":
+                    matrix["stripe"] = self._put_stripe(pm.horizontal)
+            elif strategy == "vertical":
+                capacity = self._capacity(pm, None)
+                if backend == "torch":
+                    matrix["stripe"] = self._put_stripe(pm.vertical)
             else:
-                # the dense REGION is a region-level dense tactic (§3.5):
-                # materialized once, one dense kernel launch per iteration.
-                semiring = semiring_of(spec.combine2, spec.combine_all)
-                dm = np.stack([blocks_lib.materialize_dense_matrix(s, nl, hm.dense.d_cap, semiring)
-                               for s in hm.dense_horizontal])
-                matrix["dense_matrix"] = self._put(dm.reshape(self.b * nl, -1), device=home)
-                del dm
+                capacity = self._capacity(pm, hm)
+                matrix["dense_region"] = blocks_lib.DenseRegion(
+                    gather_idx=self._put(hm.dense.gather_idx, torch.int64, home),
+                    d_count=self._put(hm.dense.d_count, device=home), d_cap=hm.dense.d_cap,
+                    theta=hm.dense.theta)
+                if backend == "torch":
+                    matrix["sparse_stripe"] = self._put_stripe(hm.sparse_vertical)
+                    matrix["dense_stripe"] = self._put_stripe(hm.dense_horizontal)
+                else:
+                    # the dense REGION is a region-level dense tactic (§3.5):
+                    # materialized once, one dense kernel launch per iteration.
+                    semiring = semiring_of(spec.combine2, spec.combine_all)
+                    dm = np.stack([blocks_lib.materialize_dense_matrix(
+                        s, nl, hm.dense.d_cap, semiring) for s in hm.dense_horizontal])
+                    matrix["dense_matrix"] = self._put(dm.reshape(self.b * nl, -1), device=home)
+                    del dm
 
         scatter = self.scatter if has_semiring(spec.combine2, spec.combine_all) else "segment"
         stream = self._resolve_stream(strategy, backend, capacity, part)
-        plan = planner.plan_execution(
-            pm, hm, strategy=strategy, mode=backend, theta=theta, capacity=capacity,
-            scatter=scatter, stream=stream, interpret=self.device.type != "cuda",
-            residency=self.residency)
-        if backend == "planned":
-            semiring = semiring_of(spec.combine2, spec.combine_all)
-            if strategy == "horizontal":
-                stripes, layout, key = pm.horizontal, "merged", "planned"
-            elif strategy == "vertical":
-                stripes, layout, key = pm.vertical, "vertical", "planned"
-            else:
-                stripes, layout, key = hm.sparse_vertical, "vertical", "planned_sparse"
-            if stream == "on":
-                # block-major (worker_axis=1): step k of the streamed
-                # executor reads views [k] of every bucket
-                packed = blocks_lib.stack_streamed([
-                    blocks_lib.pack_streamed_stripe(
-                        s, plan.tactics_for_worker(w, layout), nl,
-                        boundaries=plan.boundaries, semiring=semiring)
-                    for w, s in enumerate(stripes)], semiring, worker_axis=1)
-                matrix[key.replace("planned", "streamed")] = placement.flatten_streamed(
-                    packed, nl, self.b, home)
-            else:
-                packed = blocks_lib.stack_planned([
-                    blocks_lib.pack_planned_stripe(
-                        s, plan.tactics_for_worker(w, layout), nl, layout=layout,
-                        boundaries=plan.boundaries, semiring=semiring)
-                    for w, s in enumerate(stripes)], semiring)
-                matrix[key] = placement.flatten_planned(packed, nl, self.b, home)
-            del packed
-        real_mask = self._put(part.global_ids_grid() < self.n)
+        with rec.span("prepare.plan") as sp:
+            plan = planner.plan_execution(
+                pm, hm, strategy=strategy, mode=backend, theta=theta, capacity=capacity,
+                scatter=scatter, stream=stream, interpret=self.device.type != "cuda",
+                residency=self.residency)
+            sp.set("mode", backend)
+            sp.set("predicted_slots", plan.planned_slots)
+        self._record_plan_metrics(plan)
+        # pack, stack and flatten the planned tables; this span includes
+        # their host-to-device copies (flatten_planned / flatten_streamed
+        # upload), which the JAX package's makes at prepare.device_put
+        with rec.span("prepare.pack"):
+            if backend == "planned":
+                semiring = semiring_of(spec.combine2, spec.combine_all)
+                if strategy == "horizontal":
+                    stripes, layout, key = pm.horizontal, "merged", "planned"
+                elif strategy == "vertical":
+                    stripes, layout, key = pm.vertical, "vertical", "planned"
+                else:
+                    stripes, layout, key = hm.sparse_vertical, "vertical", "planned_sparse"
+                if stream == "on":
+                    # block-major (worker_axis=1): step k of the streamed
+                    # executor reads views [k] of every bucket
+                    packed = blocks_lib.stack_streamed([
+                        blocks_lib.pack_streamed_stripe(
+                            s, plan.tactics_for_worker(w, layout), nl,
+                            boundaries=plan.boundaries, semiring=semiring)
+                        for w, s in enumerate(stripes)], semiring, worker_axis=1)
+                    matrix[key.replace("planned", "streamed")] = placement.flatten_streamed(
+                        packed, nl, self.b, home)
+                else:
+                    packed = blocks_lib.stack_planned([
+                        blocks_lib.pack_planned_stripe(
+                            s, plan.tactics_for_worker(w, layout), nl, layout=layout,
+                            boundaries=plan.boundaries, semiring=semiring)
+                        for w, s in enumerate(stripes)], semiring)
+                    matrix[key] = placement.flatten_planned(packed, nl, self.b, home)
+                del packed
         exchange, xplan, delta_eps, xmeta = self._resolve_exchange(
             spec, strategy, capacity, plan,
             pm.vertical if strategy == "vertical" else
@@ -475,10 +500,13 @@ class PMVEngine:
         cfg = StepConfig(strategy=strategy, n_local=nl, exchange=exchange,
                          capacity=capacity, backend=backend, plan=plan, xplan=xplan,
                          delta_eps=delta_eps)
-        if self.residency == "host" and self.device.type == "cuda":
-            matrix = _tree_map(lambda t: t.pin_memory(), matrix)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        # the mask, the pinning and the wait for every queued copy
+        with rec.span("prepare.device_put"):
+            real_mask = self._put(part.global_ids_grid() < self.n)
+            if self.residency == "host" and self.device.type == "cuda":
+                matrix = _tree_map(lambda t: t.pin_memory(), matrix)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         meta = {
             "strategy": strategy, "theta": theta, "capacity": capacity, "part": part,
             "pm": pm, "hm": hm, "cfg": cfg, "backend": backend, "plan": plan,
@@ -488,6 +516,23 @@ class PMVEngine:
             **xmeta,
         }
         return matrix, real_mask, meta
+
+    def _record_plan_metrics(self, plan: planner.ExecutionPlan) -> None:
+        """Plan-shape gauges: tactic mix, padding occupancy, predicted cost
+        (prepare-time; one write per gauge, nothing on the hot path)."""
+        rec = self.obs
+        if not rec.enabled:
+            return
+        rec.gauge("plan.predicted_slots").set(plan.planned_slots)
+        if plan.capacity is not None:
+            rec.gauge("plan.capacity").set(plan.capacity)
+        for tactic, count in plan.tactic_counts().items():
+            rec.gauge(f"plan.tactic.{tactic}").set(count)
+        occ = [bp.occupancy for bp in plan.blocks if bp.nnz]
+        if occ:
+            rec.gauge("plan.mean_occupancy").set(float(np.mean(occ)))
+        if plan.residency == "disk":
+            rec.gauge("plan.io_bytes_per_iter").set(plan.io_bytes_per_iter())
 
     def _resolve_exchange(self, spec: GimvSpec, strategy: str, capacity: int | None,
                           plan: planner.ExecutionPlan, stripes, part: Partition, matrix: dict):
@@ -507,9 +552,12 @@ class PMVEngine:
             return exchange, None, None, {"exchange": exchange, "exchange_decision": "n/a"}
         itemsize = np.dtype(spec.dtype).itemsize
         if exchange in ("packed", "auto"):
-            row_sets = exchange_plan.row_sets_from_stripes(stripes, self.b)
-            xp, arrays = exchange_plan.build_exchange(row_sets, part.n_local,
-                                                      scatter=plan.scatter)
+            with self.obs.span("prepare.exchange") as sp:
+                row_sets = exchange_plan.row_sets_from_stripes(stripes, self.b)
+                xp, arrays = exchange_plan.build_exchange(row_sets, part.n_local,
+                                                          scatter=plan.scatter)
+                sp.set("p_cap", xp.p_cap)
+                sp.set("id_bytes", xp.id_bytes)
             if exchange == "auto":
                 use_packed = cost_model.prefer_packed_exchange(
                     self.b, capacity, xp.payload_slots, xp.id_bytes, None, itemsize)
@@ -558,17 +606,25 @@ class PMVEngine:
         part = Partition(n=self.n, b=self.b, psi=self.psi)
         capacity = self.store.partial_cap if strategy == "vertical" else None
         scatter = self.scatter if has_semiring(spec.combine2, spec.combine_all) else "segment"
-        plan = plan_from_manifest(
-            self.store, strategy=strategy, mode="torch", theta=theta, capacity=capacity,
-            scatter=scatter, stream="on" if strategy == "vertical" else "off",
-            interpret=self.device.type != "cuda", residency="disk")
+        rec = self.obs
+        with rec.span("prepare.plan") as sp:
+            sp.set("spec", spec.name)
+            sp.set("strategy", strategy)
+            plan = plan_from_manifest(
+                self.store, strategy=strategy, mode="torch", theta=theta, capacity=capacity,
+                scatter=scatter, stream="on" if strategy == "vertical" else "off",
+                interpret=self.device.type != "cuda", residency="disk")
+            sp.set("predicted_slots", plan.planned_slots)
+        self._record_plan_metrics(plan)
         exchange, xplan, xchg, decision = self._resolve_disk_exchange(
             spec, strategy, capacity, plan, part)
-        dstore = DiskBlockStore(self.store, strategy, spec,
-                                budget_bytes=self.store_budget_bytes, device=self.device)
-        executor = DiskExecutor(spec, part, plan, dstore, capacity=capacity,
-                                scatter=plan.scatter, retry=self.io_retry,
-                                exchange=exchange, xchg=xchg, xplan=xplan)
+        with rec.span("prepare.store"):
+            dstore = DiskBlockStore(self.store, strategy, spec,
+                                    budget_bytes=self.store_budget_bytes, device=self.device,
+                                    obs=rec)
+            executor = DiskExecutor(spec, part, plan, dstore, capacity=capacity,
+                                    scatter=plan.scatter, retry=self.io_retry, obs=rec,
+                                    exchange=exchange, xchg=xchg, xplan=xplan)
         cfg = StepConfig(strategy=strategy, n_local=part.n_local, exchange=exchange,
                          capacity=capacity, backend="torch", plan=plan, xplan=xplan)
         real_mask = self._put(part.global_ids_grid() < self.n)
@@ -618,12 +674,17 @@ class PMVEngine:
         if scatter == "auto":
             scatter = "segment"
         region, _slot_of = self.store.dense_region()
-        kw = dict(budget_bytes=self.store_budget_bytes, device=self.device)
-        sparse_store = DiskBlockStore(self.store, "sparse_vertical", spec, **kw)
-        dense_store = DiskBlockStore(self.store, "dense_horizontal", spec,
-                                     dense_gather_idx=region.gather_idx, **kw)
-        executor = HybridDiskExecutor(spec, part, sparse_store, dense_store, region,
-                                      capacity=capacity, scatter=scatter, retry=self.io_retry)
+        rec = self.obs
+        with rec.span("prepare.store") as sp:
+            sp.set("spec", spec.name)
+            sp.set("strategy", "hybrid")
+            kw = dict(budget_bytes=self.store_budget_bytes, device=self.device, obs=rec)
+            sparse_store = DiskBlockStore(self.store, "sparse_vertical", spec, **kw)
+            dense_store = DiskBlockStore(self.store, "dense_horizontal", spec,
+                                         dense_gather_idx=region.gather_idx, **kw)
+            executor = HybridDiskExecutor(spec, part, sparse_store, dense_store, region,
+                                          capacity=capacity, scatter=scatter,
+                                          retry=self.io_retry, obs=rec)
         cfg = StepConfig(strategy="hybrid", n_local=part.n_local, exchange="sparse",
                          capacity=capacity, backend="torch")
         real_mask = self._put(part.global_ids_grid() < self.n)
@@ -663,8 +724,11 @@ class PMVEngine:
                 self.store.require_packed_index()  # raises ManifestVersionError
             return "sparse", None, None, (
                 f"auto: store format v{self.store.version} has no packed index shards")
-        xp, arrays = exchange_plan.build_exchange(
-            self.store.packed_row_sets(), part.n_local, scatter=plan.scatter)
+        with self.obs.span("prepare.exchange") as sp:
+            xp, arrays = exchange_plan.build_exchange(
+                self.store.packed_row_sets(), part.n_local, scatter=plan.scatter)
+            sp.set("p_cap", xp.p_cap)
+            sp.set("id_bytes", xp.id_bytes)
         decision = "forced"
         if exchange == "auto":
             use_packed = cost_model.prefer_packed_exchange(
@@ -676,6 +740,88 @@ class PMVEngine:
         if exchange != "packed":
             return exchange, None, None, decision
         return exchange, xp, {k: self._put(a) for k, a in arrays.items()}, decision
+
+    def explain(self, spec: GimvSpec, ctx: dict | None = None, *,
+                live: bool = False, live_iters: int = 3) -> str:
+        """Human-readable report of the prepared ExecutionPlan: per-block
+        tactic, nnz, max in-degree, padding occupancy and predicted cost,
+        plus plan-level aggregates and the exchange section.  Prepares (and
+        caches) the solve as a side effect.
+
+        ``live=True`` additionally runs a short traced probe solve
+        (``live_iters`` iterations, convergence disabled) with a temporary
+        recorder swapped onto the engine (and the disk executor and store
+        when out of core) and appends measured-vs-predicted timings,
+        per-iteration wall / exchange series and I/O overlap.  The engine's,
+        executor's and store's own recorders are restored afterwards."""
+        meta = self.prepare(spec, ctx)[-1]
+        extra = {"spec": spec.name, "exchange": meta.get("exchange", self.exchange)}
+        if meta["hm"] is not None:
+            extra["dense_region_vertices"] = meta["n_dense"]
+        if meta["plan"] is None:
+            # hybrid out of core bypasses the planner: nothing tactic-shaped
+            # to format, but the report still gives the shape
+            text = ("hybrid out-of-core: structural schedule over the "
+                    "θ-split shards (sparse_vertical + dense_horizontal)\n"
+                    f"  theta={meta['theta']}  capacity={meta['capacity']}"
+                    f"  dense_region_vertices={meta['n_dense']}")
+        else:
+            text = planner.format_plan(meta["plan"], extra=extra)
+        xsec = self._format_exchange_section(spec, meta)
+        if xsec:
+            text = text + "\n" + xsec
+        if not live:
+            return text
+        from repro_torch.obs.recorder import Recorder
+        from repro_torch.obs.report import format_live_report
+
+        probe = Recorder()
+        targets = [self]
+        if meta["residency"] == "disk":
+            targets += [meta["executor"], meta["store"]]
+        saved = [(t, t.obs) for t in targets]
+        try:
+            for t in targets:
+                t.obs = probe
+            # tol=0.0 never converges: the probe runs exactly live_iters
+            self.run(spec, ctx, max_iters=live_iters, tol=0.0)
+        finally:
+            for t, o in saved:
+                t.obs = o
+        return text + "\n" + format_live_report(probe, plan=meta["plan"])
+
+    def _format_exchange_section(self, spec: GimvSpec, meta) -> str | None:
+        """The explain() exchange section (per-pair index-set sizes, packed
+        bit widths, predicted bytes/iter under both transports, and the
+        prefer_packed_exchange decision).  When the packed arrays were not
+        built (sparse / dense modes), the byte model is estimated from the
+        structural partial-nnz template so the comparison still renders."""
+        if meta["strategy"] == "horizontal" or meta["capacity"] is None:
+            return None
+        cfg = meta["cfg"]
+        xp = cfg.xplan
+        estimated = False
+        if xp is None:
+            pm, hm = meta.get("pm"), meta.get("hm")
+            if meta["strategy"] == "vertical" and pm is not None:
+                nnz = pm.partial_nnz
+            elif hm is not None:
+                nnz = hm.sparse_partial_nnz
+            else:
+                return None
+            xp = exchange_plan.summarize_row_sizes(
+                exchange_plan.row_sets_from_nnz_template(np.asarray(nnz)),
+                meta["part"].n_local)
+            estimated = True
+        sec = exchange_plan.format_exchange(
+            xp, mode=meta.get("exchange", self.exchange),
+            decision=meta.get("exchange_decision", "n/a"),
+            capacity=meta["capacity"], itemsize=np.dtype(spec.dtype).itemsize,
+            delta_eps=cfg.delta_eps, estimated=estimated)
+        reason = meta.get("delta_reason")
+        if self.delta_eps is not None and reason not in (None, "active"):
+            sec += f"\n  delta iteration      requested but OFF: {reason}"
+        return sec
 
     # ------------------------------------------------------------------
     def run(
@@ -717,27 +863,40 @@ class PMVEngine:
         per_iter: list[dict] = []
         converged = False
         it = 0
+        obs = self.obs
         for it in range(max_iters):
             t0 = time.perf_counter()
-            if disk_step is not None:
-                v_new, _r, stats = disk_step(matrix, v, ctx_b, mask)
-            elif xstate is not None:
-                v_new, _r, stats, xstate = step(matrix, v, ctx_b, mask, xstate)
-            else:
-                v_new, _r, stats = step(matrix, v, ctx_b, mask)
-            delta = spec.default_delta(v, v_new)
-            # one device->host copy per iteration for every scalar the
-            # iteration produced (it also waits for the iteration to finish)
-            keys = [k for k, x in stats.items() if isinstance(x, torch.Tensor)]
-            vals = torch.stack([delta.to(torch.float32)]
-                               + [stats[k].to(torch.float32) for k in keys]).tolist()
+            with obs.span("pmv.iteration") as sp:
+                if disk_step is not None:
+                    v_new, _r, stats = disk_step(matrix, v, ctx_b, mask)
+                elif xstate is not None:
+                    v_new, _r, stats, xstate = step(matrix, v, ctx_b, mask, xstate)
+                else:
+                    v_new, _r, stats = step(matrix, v, ctx_b, mask)
+                delta = spec.default_delta(v, v_new)
+                keys = [k for k, x in stats.items() if isinstance(x, torch.Tensor)]
+                scalars = torch.stack([delta.to(torch.float32)]
+                                      + [stats[k].to(torch.float32) for k in keys])
+                # the fence makes the span cover the device work, not just
+                # the launches.  It waits once the delta's launches are
+                # queued, so they still overlap the step on the device
+                # (fencing before them cost 8% of an SSSP iteration on the
+                # H100).  The null recorder's fence is the identity.
+                v_new = obs.fence(v_new)
+                # one device->host copy per iteration for every scalar the
+                # iteration produced (it also waits for the iteration to finish)
+                vals = scalars.tolist()
+                delta = vals[0]
+                sp.set("iteration", it)
+                sp.set("delta", delta)
             wall = time.perf_counter() - t0
             rec = {k: float(x) for k, x in stats.items() if not isinstance(x, torch.Tensor)}
             rec.update(zip(keys, vals[1:]))
-            delta = vals[0]
             rec.update(delta=delta, wall_s=wall, iteration=it)
             rec["io_elems"] = self._paper_io(meta, rec)
             per_iter.append(rec)
+            if obs.enabled:
+                self._record_iteration(obs, meta, rec, it)
             v = v_new
             if rec.get("overflow", 0.0) > 0:
                 raise RuntimeError(
@@ -774,6 +933,29 @@ class PMVEngine:
         return PMVResult(v=v_np, iterations=it, converged=converged,
                          strategy=meta["strategy"], theta=meta["theta"],
                          capacity=meta["capacity"], per_iter=per_iter, totals=totals)
+
+    @staticmethod
+    def _record_iteration(obs, meta: dict, rec: dict, it: int) -> None:
+        """The per-iteration counter and series of the JAX package's run
+        loop (the SPMD per-worker ``.w{k}`` series are not ported)."""
+        obs.counter("pmv.iterations").add(1)
+        obs.series("pmv.delta").append(rec["delta"])
+        obs.series("pmv.iter_wall_s").append(rec["wall_s"])
+        obs.series("pmv.exchanged_bytes").append(rec.get("exchanged_bytes", 0.0))
+        obs.series("pmv.gathered_bytes").append(rec.get("gathered_bytes", 0.0))
+        if "exchange_payload_bytes" in rec:
+            obs.series("pmv.exchange_payload_bytes").append(rec["exchange_payload_bytes"])
+            # the packed transport ships its ids once: the amortized leg
+            # decays 1/iters; the padded stream re-pays it whole
+            id_b = rec.get("exchange_id_bytes", 0.0)
+            obs.series("pmv.exchange_id_bytes_amortized").append(
+                id_b / (it + 1) if meta.get("exchange") == "packed" else id_b)
+        if "delta_sent_rows" in rec:
+            obs.series("pmv.delta_sent_rows").append(rec["delta_sent_rows"])
+            obs.series("pmv.delta_suppressed_rows").append(rec["delta_suppressed_rows"])
+        if "store_bytes_read" in rec:  # disk residency: per-iteration I/O
+            obs.series("pmv.io_bytes").append(rec["store_bytes_read"])
+            obs.series("pmv.io_overlap").append(rec["store_overlap"])
 
     def on_device(self, step):
         """``step(matrix, ...)`` reading the prepared matrix where it runs:

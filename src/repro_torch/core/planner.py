@@ -131,11 +131,13 @@ class ExecutionPlan:
         return sum(self.block(i, k).cost for i in range(self.b))
 
     def launch_attrs(self, k: int, *, axis: str = "dest") -> dict:
-        """Static attributes of one schedule step (see :meth:`launch_cost`).
-        The JAX package also converts the cost to seconds with a constant
-        set for its TPU; no such rate is calibrated for the H100, so none
-        is given here."""
-        return {"block": k, "axis": axis, "predicted_cost": self.launch_cost(k, axis=axis)}
+        """Static span attributes of one schedule step: its predicted slot
+        cost (see :meth:`launch_cost`) and ``predicted_s``, that cost in
+        seconds at ``cost_model.SLOT_TIME_S`` (a data-sheet anchor for the
+        H100, not a measurement)."""
+        cost = self.launch_cost(k, axis=axis)
+        return {"block": k, "axis": axis, "predicted_cost": cost,
+                "predicted_s": cost_model.slot_seconds(cost)}
 
     def memory_profile(self) -> dict:
         """Estimated live partial-buffer elements per worker of the

@@ -1,6 +1,5 @@
 """Bounded retry with exponential backoff and seeded jitter (this package's
-own copy of the JAX package's ``repro.faults.retry``, without its obs
-counters: ``obs/`` is not ported).
+own copy of the JAX package's ``repro.faults.retry``).
 
 One :class:`RetryPolicy` instance governs every fetch of one executor run:
 ``policy.call(fn)`` retries ``fn`` on *retryable* errors — transient
@@ -12,7 +11,9 @@ shard won't reappear) fail fast, as does anything non-I/O.
 
 Backoff is ``base_delay_s * 2**(attempt-1)`` capped at ``max_delay_s``, with
 multiplicative jitter drawn from a seeded RNG so a run's retry timing is
-reproducible.
+reproducible.  Every re-attempt counts ``fault.retry`` (and
+``fault.retry.<label>``) on the caller's recorder, every call that succeeds
+after one counts ``fault.recovered``.
 """
 from __future__ import annotations
 
@@ -66,16 +67,23 @@ class RetryPolicy:
         d = min(self.max_delay_s, self.base_delay_s * (2.0 ** (attempt - 1)))
         return d * (1.0 + self.jitter * float(self._rng.random()))
 
-    def call(self, fn, *, label: str = ""):
+    def call(self, fn, *, obs=None, label: str = ""):
         """Run ``fn()`` under this policy; returns its value or raises the
-        last error (typed, diagnosis preserved) once the budget is spent."""
+        last error (typed, diagnosis preserved) once the budget is spent.
+        ``obs`` (a recorder, or None) receives the retry counters."""
+        from repro_torch.obs.recorder import as_recorder
+
+        rec = as_recorder(obs)
         t0 = time.perf_counter()
         last: BaseException | None = None
         for attempt in range(1, self.max_attempts + 1):
             if attempt > 1:
+                rec.counter("fault.retry").add(1)
+                if label:
+                    rec.counter(f"fault.retry.{label}").add(1)
                 time.sleep(self._backoff(attempt - 1))
             try:
-                return fn()
+                out = fn()
             except Exception as e:  # noqa: BLE001 — classified right below
                 if not _is_retryable(e):
                     raise
@@ -85,6 +93,10 @@ class RetryPolicy:
                         f"retry deadline {self.deadline_s}s exceeded after "
                         f"{attempt} attempt(s){' on ' + label if label else ''}: "
                         f"{e}") from e
+                continue
+            if attempt > 1:
+                rec.counter("fault.recovered").add(1)
+            return out
         assert last is not None
         raise last
 

@@ -169,9 +169,12 @@ def packed_scatter_combine_gimv(words: torch.Tensor, val: torch.Tensor, n_out: i
     order give a wrong result, not an error; the wrapper does not check
     them, as that would cost more than the kernel.  The plain version
     accepts any ids.
-    Unlike the Pallas kernel, which folds the sentinel slots' values into
-    each set's drop slot, both leave the drop slot at the identity; the
-    exchange slices it off either way.
+    Second precondition, the one the Pallas kernel's callers meet too: a
+    sentinel slot carries the combineAll identity (``exchange.gather_payload``
+    writes it there, as the JAX package's gather does).  With it met every
+    output row, each set's drop slot included, is the Pallas kernel's: that
+    kernel folds the sentinel slots into the drop slot, here a sentinel
+    slot reaches no row and the drop slot keeps the identity.
     """
     _check_packed(words, val, n_out, set_slots, n_local, width, senders, semiring, 1)
     dev = val.device

@@ -35,10 +35,15 @@ family's disk executor walks its block schedule each batched iteration (the
 trailing query axis rides through the per-block bodies) and only the
 active-column freeze and the per-query deltas are applied here.
 
+Tracing: ``obs=`` (a recorder, shared with every family engine and through
+them the store) records a ``serve.batch`` span per batch, a fenced
+``serve.iteration`` span per batched step, the ``serve.*`` counters, the
+occupancy gauge and the latency, queue-wait and iteration histograms.
+
 This is the counterpart of the JAX package's ``repro.serving.server``.  Its
-knobs outside the ported slice (``mesh``, ``obs``, ``faults``,
-``telemetry``, ``slack``, ``exchange='hier'``, and what the engine itself
-refuses) raise NotImplementedError.  As in the JAX package, the server
+knobs outside the ported slice (``mesh``, ``faults``, ``telemetry``,
+``slack``, ``exchange='hier'``, and what the engine itself refuses) raise
+NotImplementedError.  As in the JAX package, the server
 carries no delta-iteration state: a packed exchange ships its full payload
 stream.
 """
@@ -56,6 +61,7 @@ from repro_torch.core import algorithms
 from repro_torch.core.engine import PMVEngine, StepConfig, placement_call, resolve_device
 from repro_torch.core.gimv import GimvSpec
 from repro_torch.faults import FetchDeadlineError
+from repro_torch.obs.recorder import as_recorder
 from repro_torch.serving.batcher import (
     DEFAULT_BUCKETS,
     RETIREMENT_REASONS,
@@ -224,8 +230,8 @@ class PMVServer:
 
     device: None (the GPU; raises without one) | 'cuda' | 'cpu', as for
     :class:`PMVEngine`.  The other engine knobs (strategy, theta, psi,
-    exchange, capacity, backend, scatter, stream, base_weights, io_retry)
-    are passed to each family's engine, and with ``store=`` also
+    exchange, capacity, backend, scatter, stream, base_weights, io_retry,
+    obs) are passed to each family's engine, and with ``store=`` also
     ``residency`` and ``store_budget_bytes`` (without a store the server,
     like the JAX package's, holds its edges resident and ignores them).
     ``stats()['iter_wall_s']`` holds the host walls of the most recent
@@ -268,8 +274,6 @@ class PMVServer:
     ):
         if mesh is not None:
             raise _not_ported("mesh", "emulation mode only")
-        if obs:
-            raise _not_ported("obs")
         if faults is not None:
             raise _not_ported("faults")
         if telemetry:
@@ -303,11 +307,14 @@ class PMVServer:
         self.n = int(n)
         self.b = int(b)
         self.max_iters = int(max_iters)
+        # obs is shared with every family engine (and through it the disk
+        # executor and store), so one recorder traces the whole serving run
+        self.obs = as_recorder(obs)
         self._engine_kwargs = dict(
             strategy=strategy, theta=theta, psi=psi, exchange=exchange,
             capacity=capacity, payload_dtype=payload_dtype, backend=backend,
             scatter=scatter, stream=stream, base_weights=base_weights,
-            io_retry=io_retry, device=self.device)
+            io_retry=io_retry, obs=self.obs, device=self.device)
         # the engine checks its own knobs: fail here, not at the first batch
         self._engine(symmetrize=False)
         # admission control: queries submitted while >= max_queue are waiting
@@ -350,6 +357,7 @@ class PMVServer:
         if self.max_queue is not None and len(self._batcher) >= self.max_queue:
             self._retire_unserved(query, "shed")
             self._stats["shed"] += 1
+            self.obs.counter("serve.shed").add(1)
             return qid
         self._batcher.add(query)
         return qid
@@ -481,25 +489,34 @@ class PMVServer:
         return flat.T.contiguous().cpu().numpy()
 
     def _run_batch(self, key: tuple, batch: list[Query]) -> None:
-        try:
-            self._run_batch_inner(key, batch)
-        except (ShardCorruptError, OSError, FetchDeadlineError) as e:
-            # The I/O / integrity layer exhausted its retries: the batch is
-            # lost, but the SERVER is not -- every unanswered query in it
-            # retires with reason='failed' and the error's text, and later
-            # batches (other families, a restored store) proceed.
-            self._stats["failed_batches"] += 1
-            self._drop_family(key)  # state may be half-built
-            for query in batch:
-                if query.qid not in self._results:
-                    self._retire_unserved(query, "failed", error=str(e))
+        obs = self.obs
+        with obs.span("serve.batch") as batch_span:
+            batch_span.set("family", str(key))
+            try:
+                self._run_batch_inner(key, batch, batch_span)
+            except (ShardCorruptError, OSError, FetchDeadlineError) as e:
+                # The I/O / integrity layer exhausted its retries: the batch
+                # is lost, but the SERVER is not -- every unanswered query in
+                # it retires with reason='failed' and the error's text, and
+                # later batches (other families, a restored store) proceed.
+                self._stats["failed_batches"] += 1
+                obs.counter("serve.failed_batches").add(1)
+                batch_span.set("failed", type(e).__name__)
+                self._drop_family(key)  # state may be half-built
+                for query in batch:
+                    if query.qid not in self._results:
+                        self._retire_unserved(query, "failed", error=str(e))
 
-    def _run_batch_inner(self, key: tuple, batch: list[Query]) -> None:
+    def _run_batch_inner(self, key: tuple, batch: list[Query], batch_span) -> None:
+        obs = self.obs
         st = self._family_state(key, batch[0])
         dev = self.device
         n_q = self._batcher.bucket_for(len(batch))
         self._stats["batches"] += 1
         self._occupancy_sum += len(batch) / n_q
+        obs.gauge("serve.batch_occupancy").set(len(batch) / n_q)
+        batch_span.set("n_q", n_q)
+        batch_span.set("queries", len(batch))
 
         slots: list[Query | None] = [batch[q_i] if q_i < len(batch) else None
                                      for q_i in range(n_q)]
@@ -522,13 +539,19 @@ class PMVServer:
 
         while active.any():
             t0 = time.perf_counter()
-            active_t = torch.from_numpy(active).to(dev)
-            v_new, deltas, stats = st.step(st.matrix, v, ctx, st.mask, active_t)
-            # one device->host copy per iteration for the per-query deltas and
-            # every scalar the iteration produced (it also waits for the step)
-            keys = [k for k, x in stats.items() if isinstance(x, torch.Tensor)]
-            host = torch.cat([deltas.to(torch.float32)]
-                             + [stats[k].to(torch.float32).reshape(1) for k in keys]).tolist()
+            with obs.span("serve.iteration") as sp:
+                active_t = torch.from_numpy(active).to(dev)
+                v_new, deltas, stats = st.step(st.matrix, v, ctx, st.mask, active_t)
+                keys = [k for k, x in stats.items() if isinstance(x, torch.Tensor)]
+                flat = torch.cat([deltas.to(torch.float32)]
+                                 + [stats[k].to(torch.float32).reshape(1) for k in keys])
+                # fenced once the copies' launches are queued (see PMVEngine.run)
+                v_new = obs.fence(v_new)
+                # one device->host copy per iteration for the per-query deltas
+                # and every scalar the iteration produced (it also waits for
+                # the step)
+                host = flat.tolist()
+                sp.set("active", int(active.sum()))
             deltas_h = np.asarray(host[:n_q])
             scalars = {k: float(x) for k, x in stats.items() if not isinstance(x, torch.Tensor)}
             scalars.update(zip(keys, host[n_q:]))
@@ -571,13 +594,22 @@ class PMVServer:
                 # caller asked for the best answer by the deadline.
                 query = slots[q_i]
                 reason = "deadline_exceeded" if expired else "completed"
+                latency = time.perf_counter() - query.t_submit
                 self._results[query.qid] = QueryResult(
                     qid=query.qid, query=query, vector=answers[j],
                     iterations=int(iters[q_i]), converged=done,
-                    latency_s=time.perf_counter() - query.t_submit, reason=reason)
+                    latency_s=latency, reason=reason)
                 self._retirement_reasons[reason] += 1
+                if expired:
+                    obs.counter("serve.deadline_exceeded").add(1)
                 self._stats["retired"] += 1
-                self._stats["queue_wait_s"] += max(0.0, starts[q_i] - query.t_submit)
+                wait = max(0.0, starts[q_i] - query.t_submit)
+                self._stats["queue_wait_s"] += wait
+                if obs.enabled:
+                    obs.counter("serve.retired").add(1)
+                    obs.histogram("serve.query_latency_s").observe(latency)
+                    obs.histogram("serve.queue_wait_s").observe(wait)
+                    obs.histogram("serve.query_iterations").observe(int(iters[q_i]))
                 # admit a waiting query of the same family into the freed slot
                 waiting = self._batcher.pop_waiting(key)
                 if waiting is not None:

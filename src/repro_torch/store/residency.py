@@ -46,7 +46,15 @@ worker and block row), every fetch runs under a bounded
 degrades the double buffer to synchronous fetches instead of failing the
 solve.
 
-Not ported yet: the fault injector and the obs spans.
+Tracing (``obs=``, shared with the engine): a ``store.fetch`` span per
+slice read (on the thread that reads it, so the prefetch thread has its own
+trace lane) with the modeled read time, a ``store.wait`` span per slice
+handed to the compute, a fenced ``launch.disk_block`` span per block body
+with the plan's predicted cost, and the ``store.*`` counters.  The executor
+and the pipeline read their recorder when they record, so one swapped in
+later (``PMVEngine.explain(live=True)``) takes effect at once.
+
+Not ported yet: the fault injector.
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ from repro_torch.core.partition import Partition
 from repro_torch.core.planner import ExecutionPlan
 from repro_torch.exchange import runtime as packed_rt
 from repro_torch.faults import DEFAULT_RETRY, RetryPolicy
+from repro_torch.obs.recorder import as_recorder
 from repro_torch.store import format as fmt
 from repro_torch.store.manifest import (
     Manifest,
@@ -130,11 +139,13 @@ class DiskBlockStore:
     stay O(b * E_cap) however large the block set is; ``budget_bytes`` makes
     that bound an enforced contract.  ``device`` is where fetched slices are
     handed to the compute: on a CUDA device through two pinned host buffers
-    (the budgeted double buffer itself) and a side stream.
+    (the budgeted double buffer itself) and a side stream.  ``obs`` (a
+    recorder, or None) receives the fetch spans and the store counters.
     """
 
     def __init__(self, store, striping: str, spec: GimvSpec, *,
-                 budget_bytes: int | None = None, device=None, dense_gather_idx=None):
+                 budget_bytes: int | None = None, device=None, dense_gather_idx=None,
+                 obs=None):
         if striping not in fmt.STRIPINGS:
             raise ValueError(f"unknown striping {striping!r}")
         if striping == "dense_horizontal" and dense_gather_idx is None:
@@ -142,6 +153,7 @@ class DiskBlockStore:
                 "dense_horizontal stripes need the dense-region gather index "
                 "to recompute weights (pass dense_gather_idx)")
         self.dense_gather_idx = dense_gather_idx
+        self.obs = as_recorder(obs)
         self.manifest: Manifest = open_store(store)
         self.striping = striping
         self.spec = spec
@@ -216,6 +228,7 @@ class DiskBlockStore:
                 expected = sums[name][k]
                 actual = fmt.checksum_array(arr, self._algo)
                 if actual != expected:
+                    self.obs.counter("store.verify_failures").add(1)
                     raise ShardCorruptError(
                         fmt.stripe_path(self.manifest.root, self.striping, w, name),
                         array=name, worker=w, block=k, expected=expected, actual=actual)
@@ -229,16 +242,26 @@ class DiskBlockStore:
         Raises :class:`ShardCorruptError` when the read bytes do not match
         the ingest-time digests, and ``OSError`` on I/O failure: both
         retryable (the caller's RetryPolicy re-fetches)."""
-        if self._staging is not None:
-            return self._staging.fetch(k)
-        b_w, e_cap = len(self.workers), self.e_cap
-        seg = np.empty((b_w, e_cap), np.int32)
-        gat = np.empty((b_w, e_cap), np.int32)
-        w = np.empty((b_w, e_cap), np.float32) if self.spec.needs_weights else None
-        read, times = self._read(k, seg, gat, w)
-        return {"seg": torch.from_numpy(seg), "gat": torch.from_numpy(gat),
-                "w": None if w is None else torch.from_numpy(w),
-                "cnt": self._cnt_t[:, k], "nbytes": read, "times": times}
+        obs = self.obs
+        with obs.span("store.fetch") as sp:
+            if self._staging is not None:
+                sl = self._staging.fetch(k)
+            else:
+                b_w, e_cap = len(self.workers), self.e_cap
+                seg = np.empty((b_w, e_cap), np.int32)
+                gat = np.empty((b_w, e_cap), np.int32)
+                w = np.empty((b_w, e_cap), np.float32) if self.spec.needs_weights else None
+                read, times = self._read(k, seg, gat, w)
+                sl = {"seg": torch.from_numpy(seg), "gat": torch.from_numpy(gat),
+                      "w": None if w is None else torch.from_numpy(w),
+                      "cnt": self._cnt_t[:, k], "nbytes": read, "times": times}
+            read = sl["nbytes"]
+            sp.set("block", k)
+            sp.set("bytes", read)
+            sp.set("predicted_s", cost_model.disk_io_seconds(read))
+        obs.counter("store.bytes_read").add(read)
+        obs.counter("store.blocks_fetched").add(1)
+        return sl
 
     def _read(self, k: int, seg: np.ndarray, gat: np.ndarray, w: np.ndarray | None):
         """Read block k's rows into the host arrays seg / gat, verify them,
@@ -375,13 +398,21 @@ class PrefetchPipeline:
         self._cursor = 0                 # next schedule position, mod len
         self._sync = False
 
+    @property
+    def obs(self):
+        """The store's recorder, read at each use (the pipeline outlives a
+        recorder swapped onto the store)."""
+        return self.store.obs
+
     def _degrade(self) -> None:
-        self._sync = True
-        self.store.prefetch_degraded = True
+        if not self._sync:
+            self._sync = True
+            self.store.prefetch_degraded = True
+            self.obs.counter("store.prefetch_degraded").add(1)
 
     def _timed_fetch(self, k: int):
         t0 = time.perf_counter()
-        sl = self.retry.call(lambda: self.store.fetch(k), label="fetch")
+        sl = self.retry.call(lambda: self.store.fetch(k), obs=self.obs, label="fetch")
         return sl, time.perf_counter() - t0
 
     def _next_block(self) -> int:
@@ -403,22 +434,25 @@ class PrefetchPipeline:
 
     def iteration(self):
         """Yield (block, slice) for ONE pass over the schedule."""
+        obs = self.obs
         for _ in range(len(self.schedule)):
             self._submit()
             t0 = time.perf_counter()
-            if self._fut is None:
-                k = self._next_block()
-                sl, io_s = self._timed_fetch(k)
-            else:
-                k, fut = self._fut
-                self._fut = None
-                try:
-                    sl, io_s = fut.result()
-                except (BrokenExecutor, CancelledError):
-                    self._degrade()
+            with obs.span("store.wait"):
+                if self._fut is None:
+                    k = self._next_block()
                     sl, io_s = self._timed_fetch(k)
+                else:
+                    k, fut = self._fut
+                    self._fut = None
+                    try:
+                        sl, io_s = fut.result()
+                    except (BrokenExecutor, CancelledError):
+                        self._degrade()
+                        sl, io_s = self._timed_fetch(k)
+            wait = time.perf_counter() - t0
             stats = self.store.stats     # the CURRENT iteration's record
-            stats.wait_s += time.perf_counter() - t0
+            stats.wait_s += wait
             stats.io_s += io_s
             stats.bytes_read += sl["nbytes"]
             stats.blocks_fetched += 1
@@ -426,6 +460,8 @@ class PrefetchPipeline:
                 setattr(stats, leg, getattr(stats, leg) + t)
             if "h2d" in sl:
                 stats.h2d.append(sl["h2d"])
+            obs.counter("store.io_s").add(io_s)
+            obs.counter("store.wait_s").add(wait)
             self._submit()               # may cross into the next iteration
             yield k, sl
 
@@ -499,13 +535,15 @@ class DiskExecutor:
     DiskBlockStore, one scheduled block at a time: vertical walks the
     non-empty destination blocks, horizontal the non-empty source blocks.
     ``legs`` holds the striping it streams (the hybrid executor adds a
-    second)."""
+    second).  ``obs`` receives one fenced ``launch.disk_block`` span per
+    block body."""
 
     def __init__(self, spec: GimvSpec, part: Partition, plan: ExecutionPlan | None,
                  store: DiskBlockStore, *, capacity: int | None = None,
                  scatter: str = "segment", retry: RetryPolicy | None = None,
-                 exchange: str = "sparse", xchg: dict | None = None, xplan=None):
+                 exchange: str = "sparse", xchg: dict | None = None, xplan=None, obs=None):
         self.spec = spec
+        self.obs = as_recorder(obs)
         self.part = part
         self.plan = plan
         self.store = store
@@ -526,6 +564,15 @@ class DiskExecutor:
             self.legs = [DiskLeg.walking(store, "destination")]
         else:
             self.legs = [DiskLeg.walking(store, "source")]
+        # static per-launch span attributes (the plan's predicted costs),
+        # built once so the hot loop never allocates them, and built with
+        # obs off too, so a recorder swapped in later still gets them; the
+        # hybrid (no plan) records its launches without attributes
+        self._launch_attrs: dict = {}
+        if plan is not None:
+            axis = "dest" if plan.strategy == "vertical" else "src"
+            self._launch_attrs = {k: plan.launch_attrs(k, axis=axis)
+                                  for k in self.legs[0].schedule}
 
     def _begin_iteration(self) -> None:
         for leg in self.legs:
@@ -545,10 +592,12 @@ class DiskExecutor:
         leg = self.legs[0] if leg is None else leg
         store = leg.store
         cuda = store.device.type == "cuda"
+        obs = self.obs
         out = {}
         for k, sl in leg.prefetched(self.retry):
             t0 = time.perf_counter()
-            out[k] = body(k, *_ready(sl))
+            with obs.span("launch.disk_block", self._launch_attrs.get(k)):
+                out[k] = obs.fence(body(k, *_ready(sl)))
             del sl
             if cuda:
                 torch.cuda.current_stream(store.device).synchronize()
@@ -740,9 +789,9 @@ class HybridDiskExecutor(DiskExecutor):
 
     def __init__(self, spec: GimvSpec, part: Partition, sparse_store: DiskBlockStore,
                  dense_store: DiskBlockStore, region, *, capacity: int,
-                 scatter: str = "segment", retry: RetryPolicy | None = None):
+                 scatter: str = "segment", retry: RetryPolicy | None = None, obs=None):
         super().__init__(spec, part, None, sparse_store, capacity=capacity, scatter=scatter,
-                         retry=retry)
+                         retry=retry, obs=obs)
         self.legs.append(DiskLeg.walking(dense_store, "source"))
         self.region = region
         self._gather_idx = torch.from_numpy(

@@ -1139,3 +1139,110 @@ def test_cuda_streamed_step_matches_fused(cuda_device, path, semiring, nq):
             assert torch.equal(a, b_)
     if semiring != "plus_times":
         assert out["on"][2] == out["off"][2]
+
+
+# ---------------------------------------------------------------------------
+# Observability (repro_torch.obs) on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_fence_makes_a_span_cover_queued_device_work(cuda_device):
+    """Recorder.fence synchronizes the devices of the tensors it is given, so
+    a span that fences covers the device work queued inside it; the null
+    recorder's fence is the identity, and a span around the same queued
+    work ends long before the device does."""
+    from repro_torch.obs import NULL_RECORDER, Recorder
+
+    x = torch.zeros(4, device=cuda_device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(200_000_000)
+    end.record()
+    end.synchronize()
+    sleep_s = start.elapsed_time(end) / 1e3
+    assert sleep_s > 0.02
+    rec = Recorder()
+    for name, fence in (("fenced", rec.fence), ("unfenced", NULL_RECORDER.fence)):
+        torch.cuda.synchronize()
+        with rec.span(name):
+            torch.cuda._sleep(200_000_000)
+            y = (x + 1, {"v": [x * 2, None]})
+            assert fence(y) is y
+        torch.cuda.synchronize()
+    dur = {e["name"]: e["dur"] for e in rec.events}
+    assert dur["fenced"] >= 0.8 * sleep_s, (dur, sleep_s)
+    assert dur["unfenced"] < 0.5 * sleep_s, (dur, sleep_s)
+    assert rec.fence(torch.ones(2)).device.type == "cpu"
+
+
+OBS_PATHS = {
+    "vertical": dict(strategy="vertical", scatter="kernel", stream="off"),
+    "stream": dict(strategy="vertical", scatter="kernel", stream="on"),
+    "packed": dict(strategy="vertical", exchange="packed", scatter="kernel"),
+    "hybrid": dict(strategy="hybrid", theta=40.0, stream="off"),
+    "horizontal": dict(strategy="horizontal"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("path", sorted(OBS_PATHS))
+def test_cuda_engine_obs_onoff_bitwise(cuda_device, path, semiring):
+    """PMVEngine(backend='auto') on the tactic-mix graph with the recorder
+    on and off: the same kernels launch and the answers and deltas are
+    bitwise equal (a fence only waits); every iteration has its span."""
+    import repro_torch.core as T
+    from repro_torch.obs import Recorder, check_span_nesting
+
+    make = {"plus_times": lambda: T.pagerank(64), "min_plus": lambda: T.sssp(0),
+            "max_plus": lambda: _max_plus_spec(T),
+            "min_src": T.connected_components}[semiring]
+    out = {}
+    for obs in (None, Recorder()):
+        eng = T.PMVEngine(_tactic_mix_edges(), 64, b=4, backend="auto", obs=obs,
+                          symmetrize=semiring == "min_src", device=cuda_device,
+                          **OBS_PATHS[path])
+        spec = make()
+        eng.prepare(spec)
+        before = kernels.launch_counts()
+        res = eng.run(spec, max_iters=6, tol=0.0)
+        after = kernels.launch_counts()
+        out[obs is None] = (res, {k: after[k] - before[k] for k in after})
+        if obs is not None:
+            assert len(obs.spans("pmv.iteration")) == 6
+            assert {e["name"] for e in obs.events} >= {"prepare.plan", "prepare.device_put"}
+            check_span_nesting(obs.to_chrome_trace())
+    (off, l_off), (on, l_on) = out[True], out[False]
+    assert l_off == l_on and sum(l_on.values()) > 0
+    np.testing.assert_array_equal(off.v, on.v)
+    np.testing.assert_array_equal(off.deltas, on.deltas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["vertical", "hybrid"])
+def test_cuda_disk_obs_onoff_bitwise(cuda_device, disk_stores, strategy):
+    """residency='disk' on the card with the recorder on: bitwise the
+    untraced run, a fenced launch.disk_block span per fetched block, and the
+    store counters bill every read (the consumed slices plus the pending
+    prefetch of each leg)."""
+    import repro_torch.core as T
+    from repro_torch.obs import Recorder, check_span_nesting
+
+    kw = dict(strategy=strategy, scatter="kernel", theta=DISK_THETA, device=cuda_device)
+    out = {}
+    for obs in (None, Recorder()):
+        eng = T.PMVEngine(None, store=disk_stores[False], residency="disk", obs=obs, **kw)
+        spec = T.sssp(0)
+        res = eng.run(spec, max_iters=DISK_ITERS, tol=0.0)
+        ex = eng.prepare(spec)[-1]["executor"]
+        pending = sum(float(leg.pipeline._fut[1].result()[0]["nbytes"])
+                      for leg in ex.legs if leg.pipeline is not None and leg.pipeline._fut)
+        out[obs is None] = res
+        ex.close()
+        if obs is not None:
+            assert len(obs.spans("launch.disk_block")) == res.totals["store_blocks_fetched"]
+            assert obs.counter("store.bytes_read").value == \
+                res.totals["store_bytes_read"] + pending
+            check_span_nesting(obs.to_chrome_trace())
+    np.testing.assert_array_equal(out[True].v, out[False].v)
+    np.testing.assert_array_equal(out[True].deltas, out[False].deltas)

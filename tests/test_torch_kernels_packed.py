@@ -11,11 +11,13 @@ sentinel slots (as ``exchange.gather_payload`` makes it).  Every width runs
 the four semirings plus int32 min_src, single-vector and Q in {5, 8}.
 Exact for the selection semirings and int32; plus_times allclose (rtol 1e-5,
 atol 1e-6): the Pallas kernel sums a one-hot product, the plain version in
-slot order.  A sentinel slot with a value other than the identity lands in
-the Pallas kernel's drop slot and nowhere in the port's (its drop slot keeps
-the identity); the rows the exchange keeps are equal either way.  Last, the
-plain packed fold equals the plain sparse fold on the compacted form of the
-same partials, bitwise for every semiring.  test_torch_cuda.py holds the
+slot order.  A sentinel slot with a value other than the identity (which
+breaks the kernels' precondition) lands in the Pallas kernel's drop slot
+and nowhere in the port's (its drop slot keeps the identity); the rows the
+exchange keeps are equal either way.  On payloads ``gather_payload`` builds,
+which meet the precondition, the whole output is equal, drop slots
+included.  Last, the plain packed fold equals the plain sparse fold on the
+compacted form of the same partials, bitwise for every semiring.  test_torch_cuda.py holds the
 Hopper kernels against these plain versions on a GPU."""
 import zlib
 
@@ -196,3 +198,50 @@ def test_packed_fold_equals_sparse_fold(nq):
                             else None),
                 p_dev=xp.p_dev, width=xp.width_dev, method=scatter)
             assert torch.equal(got, want), (scatter, name)
+
+
+@pytest.mark.parametrize("nq", [None, 5])
+def test_packed_whole_output_equals_pallas_on_exchange_payloads(nq):
+    """The whole output of both packed folds' plain versions, each set's drop
+    slot (row n_local) included, equals the Pallas kernels' (interpret mode)
+    on payloads that ``exchange.gather_payload`` builds from partials that
+    are not the identity anywhere: its sentinel slots carry the identity (as
+    the JAX package's ``exchange/runtime.py`` gather does), so the Pallas
+    kernels fold only identities into their drop slots, and the port keeps
+    its drop slots at the identity.  The packed exchange meets the kernels'
+    precondition (sentinel slots carry the identity); with it met, no output
+    row differs."""
+    b, n_local = 4, 37
+    rng = _rng("drop slot", nq)
+    support = rng.random((b, b, n_local)) < 0.3           # [src j, dst i, row]
+    row_sets = [[np.flatnonzero(support[j, i]) for j in range(b)] for i in range(b)]
+    xp, arrays = plan.build_exchange(row_sets, n_local, scatter="kernel")
+    words = arrays["recv_words"].reshape(-1)
+    n_out = b * (n_local + 1)
+    for name, (c2, call, dtype) in SPECS.items():
+        spec = GimvSpec(name=name, combine2=c2, combine_all=call, dtype=dtype,
+                        assign=lambda v, r, ctx: r, init=lambda ids, ctx: ids)
+        shape = (b, b, n_local) + (() if nq is None else (nq,))
+        x = (rng.integers(-9, 9, shape) if dtype == np.int32
+             else rng.random(shape) + 0.5).astype(dtype)
+        payload = gather_payload(spec, torch.from_numpy(x),
+                                 torch.from_numpy(arrays["send_rows"]))
+        pad = arrays["send_rows"] >= n_local
+        assert pad.any()
+        assert (payload.numpy()[pad] == spec.identity).all()
+        val = payload.transpose(0, 1).contiguous()      # [dst set, src, p(, Q)]
+        flat = val.reshape(-1) if nq is None else val.reshape(-1, nq)
+        kw = dict(set_slots=b * xp.p_dev, n_local=n_local, width=xp.width_dev, semiring=name)
+        if nq is None:
+            got = scatter_combine.packed_scatter_combine_gimv(torch.from_numpy(words), flat,
+                                                              n_out, senders=b, **kw)
+            want = jax_packed(jnp.asarray(words), jnp.asarray(flat.numpy()), n_out,
+                              interpret=True, **kw)
+        else:
+            got = scatter_combine.packed_scatter_combine_gimv_multi(
+                torch.from_numpy(words), flat, n_out, senders=b, **kw)
+            want = jax_packed_multi(jnp.asarray(words), jnp.asarray(flat.numpy()), n_out,
+                                    interpret=True, **kw)
+        _assert_match(got.numpy(), want, name, dtype)
+        drop = np.asarray(want).reshape((b, n_local + 1) + (() if nq is None else (nq,)))
+        assert (drop[:, n_local] == spec.identity).all(), name

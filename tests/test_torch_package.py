@@ -67,13 +67,13 @@ def test_engine_without_device_raises_without_gpu(monkeypatch):
 
 # The engine and the server take the out-of-core store's knobs (store,
 # residency, store_budget_bytes, io_retry; the engine also strategy='hybrid'
-# with residency='disk').  A case whose knob is taken holds the port to
+# with residency='disk') and obs.  A case whose knob is taken holds the port to
 # what the JAX package does with the same arguments: the same exception
 # class, or an answer from both (without a store the server, like the JAX
 # package's, holds its edges resident and ignores residency and the
 # budget).  STORE stands for a θ-split store of the same graph.
 STORE = "<store>"
-TAKEN = ("store", "residency", "store_budget_bytes", "io_retry", "strategy")
+TAKEN = ("store", "residency", "store_budget_bytes", "io_retry", "strategy", "obs")
 
 
 @pytest.fixture(scope="module")

@@ -270,3 +270,39 @@ def test_expected_stream_launches_counts_the_launch_schedule():
         matrix, *_, meta = eng.prepare(sssp(0))
         fs = matrix["streamed"]
         assert smoke.expected_stream_launches(meta["plan"]) == fs.launches_per_step() > b
+
+
+def test_obs_phase_on_cpu(monkeypatch, capsys):
+    """The smoke's traced SSSP run at scale 10 on the CPU: the prepare
+    phases line (the spans fit in prepare_s), the recorder's overhead runs
+    (bitwise the traced run, the recorder restored), the trace round trip,
+    explain(live=True); a failing check raises."""
+    import torch
+
+    from repro_torch.obs import Recorder
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    rec = Recorder()
+    eng = PMVEngine(EDGES, N, b=8, strategy="vertical", backend="auto", scatter="kernel",
+                    stream="off", device="cpu", obs=rec)
+    spec = sssp(0)
+    res = eng.run(spec, max_iters=100, tol=0.5)
+    meta = eng.prepare(spec)[-1]
+    phases = smoke.prepare_phases("sssp/vertical", rec, meta)
+    assert set(phases) == {"partition", "stripes", "plan", "pack", "device_put"}
+    smoke.obs_overhead(torch, np, "sssp/vertical", eng, spec, res, max_iters=100, tol=0.5)
+    assert eng.obs is rec
+    assert len(rec.spans("pmv.iteration")) == 4 * res.iterations
+    assert smoke.check_trace("sssp/vertical", rec) == len(rec.events)
+    text = eng.explain(spec, live=True)
+    assert "live (measured):" in text and eng.obs is rec
+    out = capsys.readouterr().out
+    assert "prepare phases sssp/vertical: partition=" in out
+    assert "obs overhead sssp/vertical: median iteration on" in out
+    wrong = dict(meta, prepare_s=1e-9)
+    with pytest.raises(smoke.SmokeError, match="do not fit"):
+        smoke.prepare_phases("sssp/vertical", rec, wrong)
+    bad = type(res)(**{**res.__dict__, "v": res.v + 1})
+    with pytest.raises(smoke.SmokeError, match="bitwise"):
+        smoke.obs_overhead(torch, np, "sssp/vertical", eng, spec, bad, max_iters=100, tol=0.5)
+    assert eng.obs is rec
