@@ -56,6 +56,19 @@ Phases, each printed as it ends; any failure exits non-zero:
               kernels' precondition) and prints their sum.
    Each run is also profiled for 3 more iterations (torch.profiler): device
    time per iteration by kernel, host wall per iteration, idle share.
+4b. bf16   -- after run 4 (``repro_torch.faults`` layer, the resident leg):
+              ``PMVEngine(strategy='vertical', backend='auto',
+              scatter='kernel', payload_dtype='bfloat16')`` runs PageRank 20
+              iterations at tol 0, then on the same engine 10 iterations
+              checkpointed every 5 and resumed to 20: the resumed answer
+              must be bitwise the uninterrupted one, its max relative error
+              against scipy's float64 power iteration at most 1e-2, and each
+              iteration's ``exchange_payload_bytes`` exactly half the float32
+              wire's (``exchange_wire_split`` at itemsize 2 against 4);
+              ``ell_gimv`` and ``scatter_combine`` must launch.  A
+              "checkpoint save" line times one save's legs (the 4 MiB
+              blocked v to the host, ``np.savez``, ``os.replace``) against
+              the median iteration.
 5. serve   -- ``PMVServer(strategy='hybrid', theta=3000, backend='auto',
               scatter='kernel', device='cuda')`` on the directed graph of
               phase 2 answers 96 RWR (c=0.85, tol 1e-6) and 96 SSSP (tol 0.5)
@@ -156,6 +169,27 @@ Phases, each printed as it ends; any failure exits non-zero:
               the hybrid's structural schedule; ``disk_io``: a slice read at
               ``DISK_READ_BW``): launches, measured and predicted ms, their
               ratio and the measured seconds per slot.
+              Fault tolerance, on the same store and budget: the chaos disk
+              SSSP (strategy='vertical', scatter='kernel') under a plan seeded
+              from ``--seed`` -- a corrupt seg and a corrupt gat slice,
+              TransientIO twice on one block, a 50 ms straggler, a broken
+              prefetch thread (the rest of the run fetches synchronously)
+              and a kill before iteration 3 -- checkpointed every iteration:
+              it must raise ``InjectedKill``, and the resume on the same
+              engine must be bitwise the clean disk SSSP and scipy with
+              equal iterations, every fault fired (``fault.injected.<kind>``
+              equal to ``plan.counts()``), ``store.verify_failures`` equal to
+              the corrupt count and ``store.prefetch_degraded`` 1.  The
+              overflow retry: the same solve at ``capacity='model',
+              slack=0.01`` must report ``totals['fallback'] ==
+              'structural_capacity'`` and ``pmv.fallbacks`` 1, bitwise the
+              clean answer.  After the disk serve, the chaos disk serve: the
+              first 4 SSSP sources of phase 5 at Q = 4 through the hybrid
+              disk server with ``faults=`` one corrupt gat slice and one
+              transient I/O error, bitwise phase 5's answers, both faults
+              recovered (``fault.recovered`` 2).  Kernel 3 (chaos and
+              overflow) and kernel 6 (chaos serve) launch counts join the
+              disk launches.
 8. stream  -- the bucket-streamed planned executor (``stream='on'``, one
               destination block at a time) on ``erdos_renyi(2**scale, 16 *
               2**scale)`` at b = 64 workers, cyclic psi: a uniform sparse
@@ -1540,12 +1574,14 @@ def check_store_counters(label: str, rec, executors, bytes_read: float) -> None:
 
 
 def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, served,
-               resident_peaks, rows, failures):
+               resident_peaks, rows, failures, *, seed=0, chaos_q=4):
     """Phase 7 (see the module doc): ingest (with the θ-split shards of
-    ``theta``), audit, five disk solves and the disk serve.  ``sssp_resident``
-    is run 2's answer, ``served`` the resident serve's first 16 SSSP answers
-    and first 8 RWR sources, ``resident_peaks`` the resident runs' and the
-    serve's peak GiB by label."""
+    ``theta``), audit, five disk solves, the chaos disk SSSP and the overflow
+    retry, the disk serve and the chaos disk serve (at Q = ``chaos_q``).
+    ``sssp_resident`` is run 2's answer, ``served`` the resident serve's
+    first 16 SSSP answers and first 8 RWR sources, ``resident_peaks`` the
+    resident runs' and the serve's peak GiB by label, ``seed`` the chaos
+    plans'."""
     import shutil
     import tempfile
 
@@ -1633,6 +1669,8 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
             check_legs(label, ex, budget, failures)
             if kernel is not None:
                 count_disk_launches(label, kernel, counts, rows)
+            if label == "sssp/vertical disk":
+                clean = (res.v, res.iterations, med("wall_s"))
             if spec.name == "sssp":
                 want = sssp_ref(np, sp, csgraph, edges, n, 0)
                 ok = (res.converged and np.array_equal(res.v.astype(np.float64), want)
@@ -1656,9 +1694,18 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
             ex.close()
             del eng, meta, ex
             torch.cuda.empty_cache()
+        t = time.perf_counter()
+        chaos_disk(torch, np, sp, csgraph, dev, edges, n, root, budget, seed, clean, rows,
+                   failures)
+        t_chaos = time.perf_counter() - t
         disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, served,
                    resident_peaks, rows, failures)
-        log(f"disk phase: {time.perf_counter() - t_phase:.1f} s")
+        t = time.perf_counter()
+        chaos_serve(torch, np, dev, root, theta, budget, seed, served[0], rows, failures,
+                    q=chaos_q)
+        t_chaos += time.perf_counter() - t
+        log(f"disk phase: {time.perf_counter() - t_phase:.1f} s (the chaos SSSP, the overflow "
+            f"retry and the chaos serve {t_chaos:.1f} s)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1836,6 +1883,283 @@ def disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, serve
         disk_tail_check(torch, np, f"disk serve {kind}", execs[kind],
                         np.stack([r.vector for r in rs], axis=1), rows)
     srv.close()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# fault tolerance (repro_torch.faults): chaos, overflow retry, bf16 wire
+
+
+def chaos_plan(np, faults, seed: int, blocks, *, kill_at=3):
+    """The seeded plan of the chaos disk SSSP: a corrupt ``seg`` and a corrupt
+    ``gat`` slice, two transient I/O errors on one block, a straggler, a
+    broken prefetch thread and a kill before iteration ``kill_at``, on four
+    distinct blocks drawn from ``blocks`` (each fault on a block of its
+    own, so no fetch exceeds the retry budget)."""
+    rng = np.random.default_rng(seed)
+    b_seg, b_gat, b_io, b_slow = (int(k) for k in rng.choice(list(blocks), 4, replace=False))
+    return faults.FaultPlan(events=(
+        faults.CorruptFetch(block=b_seg, array="seg"),
+        faults.CorruptFetch(block=b_gat, array="gat"),
+        faults.TransientIO(block=b_io, times=2),
+        faults.SlowFetch(block=b_slow, delay_s=0.05),
+        faults.BreakPrefetch(),
+        faults.KillAtIteration(iteration=kill_at)), seed=seed)
+
+
+def nonempty_blocks(np, root, striping: str, by: str = "destination") -> list:
+    """The blocks a disk leg walks (its schedule): the non-empty destination
+    (or source) blocks of ``striping``."""
+    from repro_torch.store import open_store
+    from repro_torch.store import format as fmt
+
+    nnz = np.asarray(open_store(root).array(fmt.nnz_array_of(striping)))
+    rows = nnz if by == "destination" else nnz.T
+    return [k for k in range(nnz.shape[0]) if rows[k].any()]
+
+
+def chaos_disk(torch, np, sp, csgraph, dev, edges, n, root, budget, seed, clean, rows,
+               failures):
+    """The chaos disk SSSP and the disk overflow retry (module doc, phase 7):
+    both on the store and budget of the disk solves, each bitwise the clean
+    ``sssp/vertical disk`` answer ``clean`` = (v, iterations, median
+    iteration s) and scipy's, kernel 3's launches counted."""
+    import shutil
+    import tempfile
+
+    from repro_torch import faults, kernels
+    from repro_torch.core import PMVEngine, sssp
+    from repro_torch.obs import Recorder
+
+    clean_v, clean_iters, clean_med = clean
+    want = sssp_ref(np, sp, csgraph, edges, n, 0)
+    kw = dict(store=root, residency="disk", strategy="vertical", scatter="kernel",
+              backend="auto", store_budget_bytes=budget, device=dev)
+    plan = chaos_plan(np, faults, seed, nonempty_blocks(np, root, "vertical"))
+    rec = Recorder()
+    eng = PMVEngine(None, faults=plan, obs=rec, **kw)
+    spec = sssp(0)
+    ex = eng.prepare(spec)[-1]["executor"]
+    ck = tempfile.mkdtemp(prefix="pmv_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            eng.run(spec, max_iters=100, tol=0.5, checkpoint_dir=ck, checkpoint_every=1)
+            killed = False
+        except faults.InjectedKill:
+            killed = True
+        t_kill = time.perf_counter() - t
+        t = time.perf_counter()
+        res = eng.run(spec, max_iters=100, tol=0.5, checkpoint_dir=ck, checkpoint_every=1,
+                      resume=True)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t
+        counts = kernels.launch_counts()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    got = {k: rec.counter(f"fault.injected.{k}").value for k in faults.FAULT_KINDS}
+    verify_failures = rec.counter("store.verify_failures").value
+    degraded = rec.counter("store.prefetch_degraded").value
+    med = float(np.median([r["wall_s"] for r in res.per_iter]))
+    log(f"chaos sssp/vertical disk: plan {[(e.kind, getattr(e, 'block', None)) for e in plan.events]} "
+        f"seed={seed}; killed={killed} after {t_kill:.3f} s, resumed at iteration "
+        f"{res.per_iter[0]['iteration']} to {res.iterations} iterations in {t_resume:.3f} s; "
+        f"median_iter_s={med:.4f} (synchronous fetches) vs the clean run's {clean_med:.4f}; "
+        f"injected={json.dumps(got)} plan.counts()={json.dumps(plan.counts())} "
+        f"retry={rec.counter('fault.retry').value:.0f} "
+        f"recovered={rec.counter('fault.recovered').value:.0f} "
+        f"verify_failures={verify_failures:.0f} prefetch_degraded={degraded:.0f} "
+        f"remaining={eng._fault_injector.remaining} "
+        f"launches={json.dumps({k: v for k, v in counts.items() if v})}")
+    corrupt = plan.counts()["corrupt_fetch"]
+    ok = (killed and res.iterations == clean_iters and np.array_equal(res.v, clean_v)
+          and np.array_equal(res.v.astype(np.float64), want)
+          and eng._fault_injector.remaining == 0 and got == plan.counts()
+          and verify_failures == corrupt and degraded == 1)
+    log(f"check chaos sssp/vertical disk: killed, resumed bitwise the clean disk answer and "
+        f"scipy's with equal iterations, every fault fired and counted, {corrupt} corrupt "
+        f"slices caught, the prefetch degraded once -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("chaos sssp/vertical disk: the resumed answer or the fault counters "
+                        "disagree")
+    count_disk_launches("chaos sssp/vertical disk", "scatter_combine", counts, rows)
+    ex.close()
+    del eng, ex
+
+    # -- the overflow retry: a model capacity far below the partials' ------
+    rec = Recorder()
+    eng = PMVEngine(None, capacity="model", slack=0.01, obs=rec, **kw)
+    spec = sssp(0)
+    meta = eng.prepare(spec)[-1]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    res = eng.run(spec, max_iters=100, tol=0.5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    fallbacks = rec.counter("pmv.fallbacks").value
+    log(f"overflow sssp/vertical disk: capacity='model' slack=0.01 -> capacity "
+        f"{meta['capacity']} (structural {meta['store'].manifest.partial_cap}); "
+        f"fallback={res.totals.get('fallback')} pmv.fallbacks={fallbacks:.0f} "
+        f"iterations={res.iterations} in {wall:.3f} s (the overflowing first iteration "
+        f"and the structural retry) "
+        f"launches={json.dumps({k: v for k, v in counts.items() if v})}")
+    ok = (res.totals.get("fallback") == "structural_capacity" and fallbacks == 1
+          and res.iterations == clean_iters and np.array_equal(res.v, clean_v))
+    log(f"check overflow sssp/vertical disk: fallback structural_capacity once, bitwise the "
+        f"clean disk answer -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("overflow sssp/vertical disk: no structural fallback or a different "
+                        "answer")
+    count_disk_launches("overflow sssp/vertical disk", "scatter_combine", counts, rows)
+    meta["executor"].close()
+    del eng, meta
+
+
+def chaos_serve(torch, np, dev, root, theta, budget, seed, sssp_answers, rows, failures, *,
+                q=4):
+    """The chaos disk serve (module doc, phase 7): the first ``q`` SSSP sources
+    of the resident serve through the hybrid disk server under one corrupt
+    slice and one transient I/O error, at Q = ``q``: bitwise the resident
+    answers, both faults recovered, kernel 6 launched."""
+    from repro_torch import faults, kernels
+    from repro_torch.obs import Recorder
+    from repro_torch.serving import PMVServer, Query
+
+    sparse = nonempty_blocks(np, root, "sparse_vertical")
+    dense = nonempty_blocks(np, root, "dense_horizontal", by="source")
+    # not the first block of either leg's schedule: the legs share the
+    # injector's fetch counts, and each leg's first block is the one its
+    # pipeline fetches while the other leg runs
+    pick = sorted((set(sparse) | set(dense)) - {sparse[0], dense[0]})
+    rng = np.random.default_rng(seed + 1)
+    b_bad, b_io = (int(k) for k in rng.choice(pick, 2, replace=False))
+    plan = faults.FaultPlan(events=(faults.CorruptFetch(block=b_bad, array="gat"),
+                                    faults.TransientIO(block=b_io)), seed=seed)
+    rec = Recorder()
+    srv = PMVServer(store=root, residency="disk", strategy="hybrid", theta=theta,
+                    backend="auto", scatter="kernel", store_budget_bytes=budget, device=dev,
+                    faults=plan, obs=rec, buckets=(q,))
+    answers = sssp_answers[:q]
+    queries = [Query("sssp", source=int(s), tol=0.5) for s, _, _ in answers]
+    eng, fspec = srv.engine_for(queries[0])
+    eng.prepare(fspec)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    got = srv.serve(queries)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    st = srv.stats()
+    inj = rec.counter("fault.injected").value
+    recovered = rec.counter("fault.recovered").value
+    log(f"chaos disk serve: {len(queries)} SSSP at Q = {q} (hybrid, theta={theta}) in "
+        f"{wall:.3f} s, batches={st['batches']} batched iterations={st['iterations']:.0f}; "
+        f"plan corrupt gat block {b_bad}, transient I/O block {b_io}: injected={inj:.0f} "
+        f"retry={rec.counter('fault.retry').value:.0f} recovered={recovered:.0f} "
+        f"verify_failures={rec.counter('store.verify_failures').value:.0f} "
+        f"launches={json.dumps({k: v for k, v in counts.items() if v})}")
+    ok = (all(r.reason == "completed" and r.iterations == it and np.array_equal(r.vector, v)
+              for r, (_, v, it) in zip(got, answers))
+          and inj == 2 and recovered == 2 and eng._fault_injector.remaining == 0)
+    log(f"check chaos disk serve: answers and iteration counts bitwise the resident serve's, "
+        f"both fetch faults recovered -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("chaos disk serve disagrees with the resident serve or lost a fault")
+    count_disk_launches("chaos disk serve", "scatter_combine_multi", counts, rows)
+    srv.close()
+
+
+def bf16_phase(torch, np, sp, dev, edges, n, b, rows, failures, *, iters=20, every=5,
+               bound=1e-2):
+    """The resident bfloat16 wire with checkpoint / resume (module doc, phase
+    4b): PageRank at tol 0 through ``payload_dtype='bfloat16'``, once
+    uninterrupted and once checkpointed every ``every`` iterations, stopped
+    at ``iters // 2`` and resumed on the same engine: the two answers
+    bitwise equal, the max relative error against scipy's float64 power
+    iteration within ``bound``, the payload bytes half the float32 wire's,
+    kernels 1 and 3 launched; then the cost of one checkpoint save."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.core import PMVEngine, pagerank, sparse_exchange
+    from repro_torch.core.engine import _ckpt_path
+
+    eng = PMVEngine(edges, n, b=b, strategy="vertical", backend="auto", scatter="kernel",
+                    payload_dtype="bfloat16", device=dev)
+    spec = pagerank(n)
+    meta = eng.prepare(spec)[-1]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    full = eng.run(spec, max_iters=iters, tol=0.0)
+    ck = tempfile.mkdtemp(prefix="pmv_ckpt_")
+    try:
+        half = eng.run(spec, max_iters=iters // 2, tol=0.0, checkpoint_dir=ck,
+                       checkpoint_every=every)
+        resumed = eng.run(spec, max_iters=iters, tol=0.0, checkpoint_dir=ck,
+                          checkpoint_every=every, resume=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        # one save's legs, as _ckpt_save makes them: the blocked v to the
+        # host, np.savez into a temp file, os.replace over the live file
+        v_dev = torch.from_numpy(meta["part"].to_blocked(full.v)).to(dev)
+        legs = {"d2h": [], "savez": [], "replace": []}
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v_host = v_dev.cpu().numpy()
+            t1 = time.perf_counter()
+            tmp = os.path.join(ck, "pmv_state.tmp.npz")
+            np.savez(tmp, v=v_host, it=iters)
+            t2 = time.perf_counter()
+            os.replace(tmp, _ckpt_path(ck))
+            t3 = time.perf_counter()
+            for k, dt in zip(legs, (t1 - t0, t2 - t1, t3 - t2)):
+                legs[k].append(dt)
+        ckpt_bytes = os.path.getsize(_ckpt_path(ck))
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    med_iter = float(np.median([r["wall_s"] for r in full.per_iter]))
+    save = {k: float(np.median(x)) for k, x in legs.items()}
+    want = pagerank_ref(np, sp, edges, n, iters)
+    rel = float(np.max(np.abs(full.v - want) / np.maximum(np.abs(want), 1e-30)))
+    l1 = float(np.abs(full.v - want).sum())
+    cap = meta["capacity"]
+    _, pay16 = sparse_exchange.exchange_wire_split(b, cap, None, 2)
+    _, pay32 = sparse_exchange.exchange_wire_split(b, cap, None, 4)
+    pays = {r["exchange_payload_bytes"] for r in full.per_iter}
+    log(f"run pagerank/vertical bf16: payload_dtype=bfloat16 exchange={meta['exchange']} "
+        f"capacity={cap} stream={meta['plan'].stream} prepare_s={meta['prepare_s']:.2f} "
+        f"iterations={full.iterations} median_iter_ms={1e3 * med_iter:.3f}; resumed from "
+        f"iteration {resumed.per_iter[0]['iteration']} ({half.iterations} run, checkpoint "
+        f"every {every}); exchange_payload_bytes per iteration {sorted(pays)} (float32 wire "
+        f"{pay32:.0f}); max rel err vs scipy float64 {rel:.3e} (bound {bound:g}), L1 {l1:.3e}; "
+        f"launches={json.dumps({k: v for k, v in counts.items() if v})}")
+    log(f"checkpoint save ({ckpt_bytes} B file of the blocked [{b}, {meta['part'].n_local}] "
+        f"float32 v): d2h {1e3 * save['d2h']:.3f} ms, np.savez {1e3 * save['savez']:.3f} ms, "
+        f"os.replace {1e3 * save['replace']:.3f} ms, total "
+        f"{1e3 * sum(save.values()):.3f} ms = {sum(save.values()) / med_iter:.4g}x the "
+        f"median iteration ({1e3 * med_iter:.3f} ms; medians of 5 saves)")
+    ok = (np.array_equal(resumed.v, full.v) and resumed.iterations == full.iterations == iters
+          and half.iterations == iters // 2 and rel <= bound and pays == {pay16}
+          and 2 * pay16 == pay32)
+    log(f"check pagerank/vertical bf16: resumed bitwise the uninterrupted run, within "
+        f"{bound:g} of scipy, payload bytes half the float32 wire's -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("pagerank/vertical bf16: resume not bitwise, error over its bound or "
+                        "payload bytes not halved")
+    for name in ("ell_gimv", "scatter_combine"):
+        if counts[name] == 0:
+            raise SmokeError(f"pagerank/vertical bf16: kernel {name} never launched")
+        rows[name]["launches"] += counts[name]
+        rows[name]["bf16_launches"] = rows[name].get("bf16_launches", 0) + counts[name]
+    del eng, meta, v_dev
     torch.cuda.empty_cache()
 
 
@@ -2244,6 +2568,7 @@ def main() -> int:
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's -Xptxas -v report")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2487,6 +2812,11 @@ def main() -> int:
     del eng, v_local
     torch.cuda.empty_cache()
 
+    # -- run 4b: PageRank over the bfloat16 wire, checkpointed and resumed -------
+    t = time.perf_counter()
+    bf16_phase(torch, np, sp, dev, edges, n, b, rows, failures)
+    log(f"bf16 phase: {time.perf_counter() - t:.1f} s")
+
     # -- serve: PMVServer, hybrid theta=3000, 96 RWR + 96 SSSP queries at Q=64 ---
     answers, peaks["serve"] = serve_phase(args.seed, torch, np, sp, csgraph, dev, gen, edges, n,
                                           b, 3000.0, rows, failures)
@@ -2497,7 +2827,7 @@ def main() -> int:
     packed_widths_phase(torch, np, dev, gen)
     # -- disk: the out-of-core store, five solves and a serve from the same edges --
     disk_phase(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, sssp_v, served, peaks, rows,
-               failures)
+               failures, seed=args.seed)
     del edges, sym
     # -- stream: the bucket-streamed executor on a uniform sparse graph at b = 64 --
     stream_phase(torch, np, sp, csgraph, dev, gen, args.scale, args.seed, rows, failures, peaks)
@@ -2509,6 +2839,7 @@ def main() -> int:
         row = rows[name]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     **row})
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(f"card: {card}")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

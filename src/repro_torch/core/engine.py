@@ -29,11 +29,23 @@ per iteration with its per-iteration series, and out of core the store's
 and the disk executor's spans and counters.  Off, it is the no-op
 ``NULL_RECORDER`` and the solve is bitwise what it is untraced; on, too,
 since a fence only waits for the device.
+
+Fault tolerance, as in the JAX package: ``run(checkpoint_dir=,
+checkpoint_every=, resume=)`` commits the blocked iterate atomically to
+``pmv_state.npz`` (the JAX package's file: ``v`` [b, n_local] in the spec's
+dtype and ``it``; either package resumes the other's); ``faults=`` (a
+``repro_torch.faults`` plan or injector) injects a kill at an iteration
+boundary and, through every disk store the engine builds, fetch faults;
+``capacity='model'`` sizes the compact exchange from the cost model and an
+overflowing run is retried once on an overflow-free configuration
+(``fallback_overrides``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import warnings
 from typing import Any
 
 import numpy as np
@@ -44,13 +56,14 @@ from repro_torch.core import cost_model, placement, planner
 from repro_torch.core.gimv import GimvSpec
 from repro_torch.core.partition import HybridMatrix, Partition, PartitionedMatrix, partition_graph
 from repro_torch.exchange import plan as exchange_plan
-from repro_torch.faults import RetryPolicy
+from repro_torch.faults import RetryPolicy, as_injector
 from repro_torch.graph.generators import symmetrize_edges
 from repro_torch.graph.stats import compute_stats
 from repro_torch.kernels.block_gimv import has_semiring, semiring_of
 from repro_torch.obs.recorder import as_recorder
 
-__all__ = ["PMVEngine", "PMVResult", "StepConfig", "placement_call", "resolve_device"]
+__all__ = ["PMVEngine", "PMVResult", "StepConfig", "placement_call", "resolve_device",
+           "CheckpointCorruptError", "CheckpointCorruptWarning"]
 
 BACKENDS = ("torch", "auto")
 
@@ -71,6 +84,20 @@ class StepConfig:
     # semiring admits suppression, see PMVEngine._resolve_exchange).
     xplan: exchange_plan.ExchangePlan | None = None
     delta_eps: float | None = None
+    # wire dtype of the exchanged values (e.g. 'bfloat16'); None ships the
+    # spec dtype.  Accumulation stays in the spec dtype.
+    payload_dtype: str | None = None
+
+
+def _wire_dtype(name: str | None) -> torch.dtype | None:
+    """The torch dtype a ``payload_dtype`` name ('bfloat16', 'float16', ...)
+    stands for; None for None."""
+    if name is None:
+        return None
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"payload_dtype {name!r} is not a dtype")
+    return dt
 
 
 def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask,
@@ -79,6 +106,7 @@ def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask,
     plus the new delta-iteration state as a fourth element when ``xstate``
     (the previously shipped packed payload) is passed."""
     scatter = cfg.plan.scatter if cfg.plan is not None else "segment"
+    wire = _wire_dtype(cfg.payload_dtype)
     if cfg.strategy == "horizontal":
         return placement.horizontal_step(
             spec, matrix.get("stripe"), v, ctx, mask, n_local=cfg.n_local,
@@ -89,7 +117,7 @@ def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask,
             exchange=cfg.exchange, capacity=cfg.capacity,
             planned=matrix.get("planned"), streamed=matrix.get("streamed"),
             backend=cfg.backend, scatter=scatter, xchg=matrix.get("xchg"), xplan=cfg.xplan,
-            delta_eps=cfg.delta_eps, delta_state=xstate)
+            delta_eps=cfg.delta_eps, delta_state=xstate, payload_dtype=wire)
     if cfg.strategy == "hybrid":
         return placement.hybrid_step(
             spec, matrix.get("sparse_stripe"), matrix.get("dense_stripe"),
@@ -97,7 +125,7 @@ def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask,
             capacity=cfg.capacity, planned_sparse=matrix.get("planned_sparse"),
             streamed_sparse=matrix.get("streamed_sparse"), dense_matrix=matrix.get("dense_matrix"),
             backend=cfg.backend, scatter=scatter, exchange=cfg.exchange, xchg=matrix.get("xchg"),
-            xplan=cfg.xplan)
+            xplan=cfg.xplan, payload_dtype=wire)
     raise ValueError(cfg.strategy)
 
 
@@ -158,7 +186,18 @@ class PMVEngine:
       change, exact).  Active only for a vertical packed solve whose
       combineAll is 'sum' over a float type; meta['delta_reason'] says why
       not otherwise.
-    capacity: 'structural' (exact max partial nnz, overflow-free).
+    capacity: 'structural' (exact max partial nnz, overflow-free) | 'model'
+      (the cost model's Eq. 4 / Eq. 8 expected partial nnz x ``slack``:
+      tighter, may overflow; an overflowing run is retried once on an
+      overflow-free configuration, ``fallback_overrides``, and
+      totals['fallback'] names it).  As in the JAX package, any value other
+      than 'structural' sizes the capacity from the model.
+    payload_dtype: wire dtype of the exchanged values (e.g. 'bfloat16'):
+      the compact and packed exchanges cast their values to it before they
+      ship (before the delta test under delta iteration) and back to the
+      spec dtype before the receive fold, so accumulation stays in the spec
+      dtype; the wire byte counts use its itemsize.  Not supported out of
+      core (ValueError, as in the JAX package).
     backend: 'torch' (plain tensor ops) | 'auto' (the per-block planner with
       the ELL / dense / scatter-combine kernels).  A spec whose
       (combine2, combineAll) pair has no kernel semiring resolves to 'torch',
@@ -195,9 +234,14 @@ class PMVEngine:
     obs: None / False (the zero-overhead null recorder), True (a fresh
       ``repro_torch.obs.Recorder``), or a Recorder shared with a server or
       another engine, so one trace covers the run.
+    faults: None, a ``repro_torch.faults.FaultPlan`` (built once into an
+      injector) or a FaultInjector shared with a server or a resumed run:
+      its consumed events stay consumed, so a kill fired by one ``run()``
+      does not fire again when the caller resumes.  Every disk store the
+      engine builds injects its fetch faults.
 
-    The JAX package's other knobs (mesh, exchange='hier', capacity='model',
-    payload_dtype, faults, checkpointing) raise NotImplementedError.
+    The JAX package's other knobs (mesh, exchange='hier', backend='pallas'
+    / 'xla') raise NotImplementedError naming the knob.
     """
 
     def __init__(
@@ -211,6 +255,7 @@ class PMVEngine:
         psi: str | None = None,
         exchange: str = "sparse",
         capacity: str = "structural",
+        slack: float = 1.5,
         payload_dtype: str | None = None,
         delta_eps: float | None = None,
         backend: str = "torch",
@@ -236,14 +281,8 @@ class PMVEngine:
             raise _not_ported(f"exchange={exchange!r}")
         if exchange not in ("sparse", "dense", "packed", "auto"):
             raise ValueError(f"unknown exchange {exchange!r}")
-        if capacity != "structural":
-            raise _not_ported(f"capacity={capacity!r}")
-        if payload_dtype is not None:
-            raise _not_ported("payload_dtype")
         if delta_eps is not None and not delta_eps >= 0.0:
             raise ValueError(f"delta_eps must be >= 0, got {delta_eps}")
-        if faults is not None:
-            raise _not_ported("faults")
         if backend not in BACKENDS:
             if backend in ("pallas", "xla"):
                 raise _not_ported(f"backend={backend!r}", "use 'torch' or 'auto'")
@@ -257,6 +296,8 @@ class PMVEngine:
         self.store_budget_bytes = store_budget_bytes
         self.io_retry = io_retry
         self.obs = as_recorder(obs)
+        # shared by every store this engine builds and by a fallback engine
+        self._fault_injector = as_injector(faults, self.obs)
         if store is not None:
             from repro_torch.store import open_store
 
@@ -295,6 +336,9 @@ class PMVEngine:
         self.theta = theta
         self.psi = psi or "cyclic"
         self.exchange = exchange
+        self.capacity_mode = capacity
+        self.slack = slack
+        self.payload_dtype = payload_dtype
         self.delta_eps = delta_eps
         self.backend = backend
         self.scatter = scatter
@@ -360,7 +404,25 @@ class PMVEngine:
         return self.stream
 
     def _capacity(self, pm: PartitionedMatrix, hm: HybridMatrix | None) -> int:
-        return hm.sparse_partial_cap if hm is not None else pm.partial_cap
+        if self.capacity_mode == "structural":
+            return hm.sparse_partial_cap if hm is not None else pm.partial_cap
+        return cost_model.capacity_from_cost_model(
+            self.b, self.n, self._num_edges(), stats=pm.stats,
+            theta=hm.theta if hm is not None else None, slack=self.slack)
+
+    def _disk_capacity(self, structural: int, theta: float | None) -> int:
+        """The out-of-core capacity: the store's structural one, or the
+        model's from the manifest's persisted graph stats."""
+        if self.capacity_mode == "structural":
+            return structural
+        return cost_model.capacity_from_cost_model(
+            self.b, self.n, self._num_edges(), stats=self.store.graph_stats(), theta=theta,
+            slack=self.slack)
+
+    def _wire_itemsize(self, spec: GimvSpec) -> int:
+        """Bytes of one exchanged value: the payload dtype's, else the spec's."""
+        wire = _wire_dtype(self.payload_dtype)
+        return wire.itemsize if wire is not None else np.dtype(spec.dtype).itemsize
 
     def _put(self, a, dtype=None, device=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -499,7 +561,7 @@ class PMVEngine:
             part, matrix)
         cfg = StepConfig(strategy=strategy, n_local=nl, exchange=exchange,
                          capacity=capacity, backend=backend, plan=plan, xplan=xplan,
-                         delta_eps=delta_eps)
+                         delta_eps=delta_eps, payload_dtype=self.payload_dtype)
         # the mask, the pinning and the wait for every queued copy
         with rec.span("prepare.device_put"):
             real_mask = self._put(part.global_ids_grid() < self.n)
@@ -550,7 +612,7 @@ class PMVEngine:
             if exchange in ("packed", "auto"):
                 exchange = "sparse"  # no partial exchange to pack
             return exchange, None, None, {"exchange": exchange, "exchange_decision": "n/a"}
-        itemsize = np.dtype(spec.dtype).itemsize
+        itemsize = self._wire_itemsize(spec)
         if exchange in ("packed", "auto"):
             with self.obs.span("prepare.exchange") as sp:
                 row_sets = exchange_plan.row_sets_from_stripes(stripes, self.b)
@@ -577,7 +639,7 @@ class PMVEngine:
             elif spec.combine_all != "sum":
                 delta_reason = (f"combineAll={spec.combine_all!r} is exact "
                                 "selection — full stream kept")
-            elif not np.issubdtype(np.dtype(spec.dtype), np.floating):
+            elif not (_wire_dtype(self.payload_dtype) or spec.torch_dtype).is_floating_point:
                 delta_reason = "integer payloads keep the full stream"
             else:
                 delta_eps = float(self.delta_eps)
@@ -603,8 +665,11 @@ class PMVEngine:
             raise ValueError(
                 "residency='disk' streams through the compact sparse or "
                 f"packed exchange; exchange={self.exchange!r} is not supported")
+        if self.payload_dtype is not None:
+            raise ValueError("payload_dtype is not supported out of core")
         part = Partition(n=self.n, b=self.b, psi=self.psi)
-        capacity = self.store.partial_cap if strategy == "vertical" else None
+        capacity = (self._disk_capacity(self.store.partial_cap, None)
+                    if strategy == "vertical" else None)
         scatter = self.scatter if has_semiring(spec.combine2, spec.combine_all) else "segment"
         rec = self.obs
         with rec.span("prepare.plan") as sp:
@@ -621,7 +686,7 @@ class PMVEngine:
         with rec.span("prepare.store"):
             dstore = DiskBlockStore(self.store, strategy, spec,
                                     budget_bytes=self.store_budget_bytes, device=self.device,
-                                    obs=rec)
+                                    obs=rec, faults=self._fault_injector)
             executor = DiskExecutor(spec, part, plan, dstore, capacity=capacity,
                                     scatter=plan.scatter, retry=self.io_retry, obs=rec,
                                     exchange=exchange, xchg=xchg, xplan=xplan)
@@ -655,6 +720,8 @@ class PMVEngine:
         its own DiskBlockStore under the same ``store_budget_bytes``."""
         from repro_torch.store import DiskBlockStore, HybridDiskExecutor, make_disk_step
 
+        if self.payload_dtype is not None:
+            raise ValueError("payload_dtype is not supported out of core")
         if self.exchange not in ("sparse", "auto"):
             raise ValueError(
                 "hybrid out-of-core streams the compact sparse exchange; "
@@ -669,7 +736,7 @@ class PMVEngine:
                 f"theta={stored} / theta='auto'")
         theta = stored
         part = Partition(n=self.n, b=self.b, psi=self.psi)
-        capacity = int(self.store.hybrid["sparse_partial_cap"])
+        capacity = self._disk_capacity(int(self.store.hybrid["sparse_partial_cap"]), theta)
         scatter = self.scatter if has_semiring(spec.combine2, spec.combine_all) else "segment"
         if scatter == "auto":
             scatter = "segment"
@@ -678,7 +745,8 @@ class PMVEngine:
         with rec.span("prepare.store") as sp:
             sp.set("spec", spec.name)
             sp.set("strategy", "hybrid")
-            kw = dict(budget_bytes=self.store_budget_bytes, device=self.device, obs=rec)
+            kw = dict(budget_bytes=self.store_budget_bytes, device=self.device, obs=rec,
+                      faults=self._fault_injector)
             sparse_store = DiskBlockStore(self.store, "sparse_vertical", spec, **kw)
             dense_store = DiskBlockStore(self.store, "dense_horizontal", spec,
                                          dense_gather_idx=region.gather_idx, **kw)
@@ -733,7 +801,7 @@ class PMVEngine:
         if exchange == "auto":
             use_packed = cost_model.prefer_packed_exchange(
                 self.b, capacity, xp.payload_slots, xp.id_bytes, None,
-                np.dtype(spec.dtype).itemsize)
+                self._wire_itemsize(spec))
             exchange = "packed" if use_packed else "sparse"
             decision = ("auto: packed undercuts padded" if use_packed
                         else "auto: padded stream kept")
@@ -783,8 +851,9 @@ class PMVEngine:
         try:
             for t in targets:
                 t.obs = probe
-            # tol=0.0 never converges: the probe runs exactly live_iters
-            self.run(spec, ctx, max_iters=live_iters, tol=0.0)
+            # tol=0.0 never converges: the probe runs exactly live_iters;
+            # no overflow fallback, so it reports the configured path
+            self.run(spec, ctx, max_iters=live_iters, tol=0.0, _allow_fallback=False)
         finally:
             for t, o in saved:
                 t.obs = o
@@ -816,7 +885,7 @@ class PMVEngine:
         sec = exchange_plan.format_exchange(
             xp, mode=meta.get("exchange", self.exchange),
             decision=meta.get("exchange_decision", "n/a"),
-            capacity=meta["capacity"], itemsize=np.dtype(spec.dtype).itemsize,
+            capacity=meta["capacity"], itemsize=self._wire_itemsize(spec),
             delta_eps=cfg.delta_eps, estimated=estimated)
         reason = meta.get("delta_reason")
         if self.delta_eps is not None and reason not in (None, "active"):
@@ -835,16 +904,33 @@ class PMVEngine:
         checkpoint_every: int = 0,
         resume: bool = False,
         v0: np.ndarray | None = None,
+        _allow_fallback: bool = True,
     ) -> PMVResult:
         """Iterate to ``tol`` or ``max_iters``.
+
+        ``checkpoint_dir`` with ``checkpoint_every`` = k commits the blocked
+        iterate after every k-th iteration (atomically: a temp file, then
+        ``os.replace``).  ``resume=True`` starts from the committed iterate
+        and iteration when the directory holds one: ``max_iters`` counts
+        from iteration 0, and ``per_iter`` holds only the iterations this
+        call ran.  A corrupt checkpoint warns (CheckpointCorruptWarning) and
+        the solve restarts from the start vector.  As in the JAX package the
+        delta-iteration state is not checkpointed: a resumed run restarts
+        it at the identity.
 
         ``v0`` (a global [n] vector) starts the solve in place of
         ``spec.init``.  The JAX package has no such argument: it exists for
         parity checks, so that a query served by ``PMVServer`` can be solved
         alone on the same prepared spec (``PMVServer.engine_for``) without a
-        second prepare, a spec's static prepare being cached per spec object."""
-        if checkpoint_dir is not None or checkpoint_every or resume:
-            raise _not_ported("checkpoint_dir / checkpoint_every / resume")
+        second prepare, a spec's static prepare being cached per spec object.
+        A checkpoint that ``resume`` loads wins over ``v0``, which then
+        starts only a solve that finds no usable checkpoint.
+
+        An overflow of a model capacity retries the run once on
+        ``fallback_overrides``' configuration (from the start vector, not
+        from a checkpoint) and records it in ``totals['fallback']`` and the
+        ``pmv.fallbacks`` / ``pmv.fallback_events.<label>`` counters; with
+        ``_allow_fallback=False``, or where no fallback exists, it raises."""
         matrix, v, ctx_b, mask, meta = self.prepare(spec, ctx)
         part: Partition = meta["part"]
         cfg: StepConfig = meta["cfg"]
@@ -853,18 +939,38 @@ class PMVEngine:
         if v0 is not None:
             v = self._put(part.to_blocked(np.asarray(v0, dtype=spec.dtype)))
         # delta-iteration carried state: the previously shipped packed
-        # payload, initialized to the combineAll identity (a suppressed row
-        # then delivers the identity, a no-op, until it first moves)
+        # payload on the wire, initialized to the combineAll identity (a
+        # suppressed row then delivers the identity, a no-op, until it first
+        # moves)
         xstate = None
         if cfg.delta_eps is not None:
             xstate = torch.full((self.b, self.b, cfg.xplan.p_dev), spec.identity,
-                                dtype=spec.torch_dtype, device=self.device)
+                                dtype=_wire_dtype(cfg.payload_dtype) or spec.torch_dtype,
+                                device=self.device)
+
+        start_iter = 0
+        if resume and checkpoint_dir and os.path.exists(_ckpt_path(checkpoint_dir)):
+            try:
+                v_np, start_iter = _ckpt_load(checkpoint_dir)
+            except CheckpointCorruptError as e:
+                # _ckpt_save commits atomically, so a corrupt file is an
+                # external fault: restart from the start vector
+                warnings.warn(f"ignoring corrupt checkpoint: {e}",
+                              CheckpointCorruptWarning, stacklevel=2)
+                start_iter = 0
+            else:
+                v = self._put(v_np)
 
         per_iter: list[dict] = []
         converged = False
-        it = 0
+        it = start_iter
         obs = self.obs
-        for it in range(max_iters):
+        for it in range(start_iter, max_iters):
+            if self._fault_injector is not None:
+                # a kill fires HERE, before any work of the iteration, so a
+                # checkpointed run dies at a clean boundary and resume=True
+                # replays from the last commit bitwise
+                self._fault_injector.on_iteration(it)
             t0 = time.perf_counter()
             with obs.span("pmv.iteration") as sp:
                 if disk_step is not None:
@@ -896,11 +1002,32 @@ class PMVEngine:
             rec["io_elems"] = self._paper_io(meta, rec)
             per_iter.append(rec)
             if obs.enabled:
-                self._record_iteration(obs, meta, rec, it)
+                self._record_iteration(obs, meta, rec, it - start_iter + 1)
             v = v_new
             if rec.get("overflow", 0.0) > 0:
+                fb = self.fallback_overrides(meta["strategy"]) if _allow_fallback else None
+                if fb is not None:
+                    label, overrides = fb
+                    obs.counter("pmv.fallbacks").add(1)
+                    obs.counter(f"pmv.fallback_events.{label}").add(1)
+                    fallback = self._fallback_engine(meta, overrides)
+                    try:
+                        result = fallback.run(
+                            spec, ctx, max_iters=max_iters, tol=tol,
+                            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+                            resume=False, v0=v0, _allow_fallback=False)
+                    finally:
+                        # out of core: stop the retry's prefetch threads
+                        for *_, m in fallback._prep_cache.values():
+                            if m.get("executor") is not None:
+                                m["executor"].close()
+                    result.totals["fallback"] = label
+                    return result
                 raise RuntimeError(
-                    f"sparse exchange overflow: capacity {meta['capacity']} too small")
+                    f"sparse exchange overflow: capacity {meta['capacity']} too small -- "
+                    "rerun with capacity='structural' or exchange='dense'")
+            if checkpoint_dir and checkpoint_every and (it + 1) % checkpoint_every == 0:
+                _ckpt_save(checkpoint_dir, v.cpu().numpy(), it + 1)
             if delta < tol:
                 converged = True
                 it += 1
@@ -935,9 +1062,10 @@ class PMVEngine:
                          capacity=meta["capacity"], per_iter=per_iter, totals=totals)
 
     @staticmethod
-    def _record_iteration(obs, meta: dict, rec: dict, it: int) -> None:
+    def _record_iteration(obs, meta: dict, rec: dict, iters_so_far: int) -> None:
         """The per-iteration counter and series of the JAX package's run
-        loop (the SPMD per-worker ``.w{k}`` series are not ported)."""
+        loop (the SPMD per-worker ``.w{k}`` series are not ported);
+        ``iters_so_far`` counts this call's iterations, this one included."""
         obs.counter("pmv.iterations").add(1)
         obs.series("pmv.delta").append(rec["delta"])
         obs.series("pmv.iter_wall_s").append(rec["wall_s"])
@@ -949,7 +1077,7 @@ class PMVEngine:
             # decays 1/iters; the padded stream re-pays it whole
             id_b = rec.get("exchange_id_bytes", 0.0)
             obs.series("pmv.exchange_id_bytes_amortized").append(
-                id_b / (it + 1) if meta.get("exchange") == "packed" else id_b)
+                id_b / iters_so_far if meta.get("exchange") == "packed" else id_b)
         if "delta_sent_rows" in rec:
             obs.series("pmv.delta_sent_rows").append(rec["delta_sent_rows"])
             obs.series("pmv.delta_suppressed_rows").append(rec["delta_suppressed_rows"])
@@ -970,6 +1098,41 @@ class PMVEngine:
                         *args)
 
         return copied
+
+    def fallback_overrides(self, strategy: str) -> tuple[str, dict] | None:
+        """Overflow recovery: the model capacity truncated a partial, so the
+        run is retried once on an overflow-free configuration -- vertical:
+        the dense exchange (out of core, where only the compact exchange
+        streams: the structural capacity); hybrid: the structural capacity
+        (its compact exchange has no dense form).  (label, engine overrides)
+        or None.  PMVServer requeues an overflowing batch with the same
+        table."""
+        if strategy == "vertical" and self.residency == "disk":
+            if self.capacity_mode != "structural":
+                return "structural_capacity", {"capacity": "structural"}
+            return None
+        if strategy == "vertical" and self.exchange != "dense":
+            return "dense", {"exchange": "dense"}
+        if strategy == "hybrid" and self.capacity_mode != "structural":
+            return "structural_capacity", {"capacity": "structural"}
+        return None
+
+    def _fallback_engine(self, meta, overrides: dict) -> "PMVEngine":
+        """An engine like this one with ``overrides`` applied, sharing its
+        recorder and fault injector."""
+        kwargs = dict(
+            strategy=meta["strategy"], theta=meta["theta"], psi=self.psi,
+            exchange=self.exchange, capacity=self.capacity_mode, slack=self.slack,
+            payload_dtype=self.payload_dtype, delta_eps=self.delta_eps, backend=self.backend,
+            scatter=self.scatter, stream=self.stream, base_weights=self.base_weights,
+            obs=self.obs, faults=self._fault_injector, io_retry=self.io_retry,
+            device=self.device)
+        kwargs.update(overrides)
+        if self.store is not None:
+            return PMVEngine(None, store=self.store, residency=self.residency,
+                             store_budget_bytes=self.store_budget_bytes, **kwargs)
+        # the edges were symmetrized in __init__ if asked
+        return PMVEngine(self.edges, self.n, b=self.b, **kwargs)
 
     _IO_TOTAL_KEYS = ("store_bytes_read", "store_blocks_fetched", "store_blocks_skipped",
                       "store_io_s", "store_wait_s", "store_compute_s", "store_read_s",
@@ -1014,3 +1177,39 @@ def _tree_map(fn, obj: Any):
         return dataclasses.replace(obj, **{f.name: _tree_map(fn, getattr(obj, f.name))
                                            for f in dataclasses.fields(obj)})
     return obj
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: the JAX package's pmv_state.npz, written and read alike.
+
+class CheckpointCorruptError(RuntimeError):
+    """The resume state on disk is unreadable (truncated, not an npz)."""
+
+
+class CheckpointCorruptWarning(UserWarning):
+    """A corrupt checkpoint was ignored: the solve restarted from its start."""
+
+
+def _ckpt_path(d: str) -> str:
+    return os.path.join(d, "pmv_state.npz")
+
+
+def _ckpt_save(d: str, v: np.ndarray, it: int) -> None:
+    """Atomic checkpoint commit: the whole npz goes to a temp file that
+    ``os.replace`` moves over the live one, so a crash mid-write leaves the
+    previous complete checkpoint or the new one, never a truncated file."""
+    os.makedirs(d, exist_ok=True)
+    tmp = os.path.join(d, "pmv_state.tmp.npz")
+    np.savez(tmp, v=v, it=it)
+    os.replace(tmp, _ckpt_path(d))
+
+
+def _ckpt_load(d: str) -> tuple[np.ndarray, int]:
+    import zipfile
+
+    path = _ckpt_path(d)
+    try:
+        with np.load(path) as z:
+            return z["v"], int(z["it"])
+    except (zipfile.BadZipFile, ValueError, EOFError, OSError, KeyError) as e:
+        raise CheckpointCorruptError(f"{path}: {e}") from e

@@ -558,16 +558,28 @@ def horizontal_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_loca
     return v_new, r, stats
 
 
+def _to_wire(val: torch.Tensor, payload_dtype):
+    """(values as they cross the wire, their itemsize): cast to
+    ``payload_dtype`` when one is set (torch rounds to nearest even, as
+    JAX's cast does)."""
+    if payload_dtype is not None:
+        val = val.to(payload_dtype)
+    return val, val.element_size()
+
+
 def _compact_exchange(spec: GimvSpec, compacted, capacity: int, n_local: int, scatter: str,
-                      nq: int | None):
+                      nq: int | None, payload_dtype=None):
     """Exchange compacted partials (idx [b_w, b, cap], val [b_w, b, cap(, Q)],
-    overflow, logical) by transpose and fold them at their owners.  Returns
+    overflow, logical) by transpose and fold them at their owners, the
+    values on the wire in ``payload_dtype`` (None: the spec dtype).  Returns
     (r [b, n_local(, Q)], stats)."""
     idx, val, overflow, logical = compacted
-    r = sparse_exchange.scatter_partials(spec, _all_to_all(idx), _all_to_all(val), n_local,
+    val, itemsize = _to_wire(val, payload_dtype)
+    # the fold runs in the spec dtype (.to is the identity without a wire cast)
+    r = sparse_exchange.scatter_partials(spec, _all_to_all(idx),
+                                         _all_to_all(val).to(spec.torch_dtype), n_local,
                                          method=scatter)
     b = idx.shape[-2]
-    itemsize = np.dtype(spec.dtype).itemsize
     id_b, pay_b = sparse_exchange.exchange_wire_split(b, capacity, nq, itemsize)
     stats = {
         "gathered_elems": 0.0,
@@ -613,16 +625,18 @@ def _packed_payload(spec: GimvSpec, v_local, n_local: int, send_rows, *, stripe=
 
 
 def _ship_packed(spec: GimvSpec, payload, xchg: dict, xplan, n_local: int, scatter: str,
-                 nq: int | None, *, delta_eps: float | None = None, delta_state=None):
-    """Ship a packed payload [b_w, b, p(, Q)]: suppress unmoved rows when
-    ``delta_state`` (the previously shipped payload) is given, exchange
-    (transpose) and fold at the owners.  Returns (r [b, n_local(, Q)],
-    stats, shipped payload or None).  The ids crossed the wire once, at
-    prepare: the per-iteration stats charge payloads, plus the send bitmap
-    under delta iteration."""
+                 nq: int | None, *, delta_eps: float | None = None, delta_state=None,
+                 payload_dtype=None):
+    """Ship a packed payload [b_w, b, p(, Q)]: cast it to the wire dtype
+    ``payload_dtype`` (None: the spec dtype) BEFORE the delta test, suppress
+    unmoved rows when ``delta_state`` (the previously shipped payload, in
+    the wire dtype) is given, exchange (transpose) and fold at the owners in
+    the spec dtype.  Returns (r [b, n_local(, Q)], stats, shipped payload or
+    None).  The ids crossed the wire once, at prepare: the per-iteration
+    stats charge payloads, plus the send bitmap under delta iteration."""
     send_rows = xchg["send_rows"]
     logical = packed_rt.payload_logical(spec, payload)
-    itemsize = payload.element_size()
+    payload, itemsize = _to_wire(payload, payload_dtype)
     shipped = None
     if delta_state is not None:
         pair_mask = packed_rt.pair_slot_mask(send_rows, n_local)
@@ -633,7 +647,7 @@ def _ship_packed(spec: GimvSpec, payload, xchg: dict, xplan, n_local: int, scatt
     else:
         payload_bytes = xplan.payload_bytes_per_iter(nq, itemsize)
     r = packed_rt.scatter_payload(
-        spec, _all_to_all(payload), n_local, recv_rows=xchg.get("recv_rows"),
+        spec, _all_to_all(payload).to(spec.torch_dtype), n_local, recv_rows=xchg.get("recv_rows"),
         recv_words=xchg.get("recv_words"), p_dev=xplan.p_dev, width=xplan.width_dev,
         method=scatter)
     b = send_rows.shape[-2]
@@ -657,7 +671,8 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
                   *, n_local: int, exchange: str = "sparse", capacity: int | None = None,
                   planned: FlatPlanned | None = None, streamed: FlatStreamed | None = None,
                   backend: str = "torch", scatter: str = "segment", xchg: dict | None = None,
-                  xplan=None, delta_eps: float | None = None, delta_state=None):
+                  xplan=None, delta_eps: float | None = None, delta_state=None,
+                  payload_dtype=None):
     """Alg. 2: local column-stripe partials, exchange, combine at the owner.
 
     exchange='dense' ships the full [b, n_local] partials; 'sparse' compacts
@@ -668,7 +683,10 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
     fourth element.  backend='planned' runs the plan's tactics either fused
     (``planned``: all partials at once) or bucket-streamed one destination
     block at a time (``streamed``, plan.stream='on'; the sparse and packed
-    exchanges only -- the dense exchange ships the full partials)."""
+    exchanges only -- the dense exchange ships the full partials).
+    ``payload_dtype`` (a torch dtype) is the wire dtype of the sparse and
+    packed exchanges' values; the dense exchange ships the spec dtype, as
+    in the JAX package."""
     nq = _num_queries(v_local)
     kw = dict(stripe=stripe, planned=planned, streamed=streamed, backend=backend)
     shipped = None
@@ -698,13 +716,14 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
         assert capacity is not None, "sparse exchange needs a static capacity"
         r, stats = _compact_exchange(
             spec, _compact_partials(spec, v_local, n_local, capacity, **kw), capacity, n_local,
-            scatter, nq)
+            scatter, nq, payload_dtype)
     elif exchange == "packed":
         assert xchg is not None and xplan is not None, \
             "packed exchange needs the prepare-built index arrays and plan"
         payload = _packed_payload(spec, v_local, n_local, xchg["send_rows"], **kw)
         r, stats, shipped = _ship_packed(spec, payload, xchg, xplan, n_local, scatter, nq,
-                                         delta_eps=delta_eps, delta_state=delta_state)
+                                         delta_eps=delta_eps, delta_state=delta_state,
+                                         payload_dtype=payload_dtype)
     else:
         raise NotImplementedError(f"exchange={exchange!r} is not supported yet")
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
@@ -719,7 +738,7 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
                 planned_sparse: FlatPlanned | None = None,
                 streamed_sparse: FlatStreamed | None = None, dense_matrix=None,
                 backend: str = "torch", scatter: str = "segment", exchange: str = "sparse",
-                xchg: dict | None = None, xplan=None):
+                xchg: dict | None = None, xplan=None, payload_dtype=None):
     """Alg. 4: vertical over the sparse region + horizontal over the dense
     region, combined at the owner, then assign.  The dense sub-vector v_d
     is the compacted gather of high-out-degree entries [b, d_cap]; backend
@@ -728,7 +747,8 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
     fused (``planned_sparse``) or bucket-streamed per destination block
     (``streamed_sparse``, plan.stream='on').  The sparse region's partials
     take the packed exchange when ``exchange`` is 'packed', else the
-    compact one (hybrid has no dense exchange)."""
+    compact one (hybrid has no dense exchange), their values on the wire in
+    ``payload_dtype`` (None: the spec dtype)."""
     nq = _num_queries(v_local)
     gather_idx = dense_region.gather_idx                           # [b, d_cap]
     if nq is not None:
@@ -744,11 +764,12 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
         assert xchg is not None and xplan is not None, \
             "packed exchange needs the prepare-built index arrays and plan"
         payload = _packed_payload(spec, v_local, n_local, xchg["send_rows"], **kw)
-        r_sparse, stats, _ = _ship_packed(spec, payload, xchg, xplan, n_local, scatter, nq)
+        r_sparse, stats, _ = _ship_packed(spec, payload, xchg, xplan, n_local, scatter, nq,
+                                          payload_dtype=payload_dtype)
     else:
         r_sparse, stats = _compact_exchange(
             spec, _compact_partials(spec, v_local, n_local, capacity, **kw), capacity, n_local,
-            scatter, nq)
+            scatter, nq, payload_dtype)
     r = combine_elementwise(spec, r_sparse, r_dense)
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
     b = v_local.shape[0]

@@ -35,17 +35,27 @@ family's disk executor walks its block schedule each batched iteration (the
 trailing query axis rides through the per-block bodies) and only the
 active-column freeze and the per-query deltas are applied here.
 
+Overflow: under ``capacity='model'`` a batched iteration can overflow the
+compact exchange.  The truncated iteration is discarded, the family is
+rebuilt on the engine's overflow-free configuration
+(``PMVEngine.fallback_overrides``) and the batch's in-flight queries are
+requeued under their qids (``stats()``: ``overflow_fallbacks``,
+``requeued``, ``fallback_events``; the ``serve.fallbacks`` counter).
+
+Faults: ``faults=`` (a ``repro_torch.faults`` plan or injector) is
+normalized once and shared by every family engine, so a plan's events fire
+once server-wide; fetch faults the retry layer absorbs never reach a query.
+
 Tracing: ``obs=`` (a recorder, shared with every family engine and through
 them the store) records a ``serve.batch`` span per batch, a fenced
 ``serve.iteration`` span per batched step, the ``serve.*`` counters, the
 occupancy gauge and the latency, queue-wait and iteration histograms.
 
 This is the counterpart of the JAX package's ``repro.serving.server``.  Its
-knobs outside the ported slice (``mesh``, ``faults``, ``telemetry``,
-``slack``, ``exchange='hier'``, and what the engine itself refuses) raise
-NotImplementedError.  As in the JAX package, the server
-carries no delta-iteration state: a packed exchange ships its full payload
-stream.
+knobs outside the ported slice (``mesh``, ``telemetry``, ``exchange='hier'``,
+and what the engine itself refuses) raise NotImplementedError naming the
+knob.  As in the JAX package, the server carries no delta-iteration state: a
+packed exchange ships its full payload stream.
 """
 from __future__ import annotations
 
@@ -60,7 +70,7 @@ import torch
 from repro_torch.core import algorithms
 from repro_torch.core.engine import PMVEngine, StepConfig, placement_call, resolve_device
 from repro_torch.core.gimv import GimvSpec
-from repro_torch.faults import FetchDeadlineError
+from repro_torch.faults import FetchDeadlineError, as_injector
 from repro_torch.obs.recorder import as_recorder
 from repro_torch.serving.batcher import (
     DEFAULT_BUCKETS,
@@ -230,8 +240,9 @@ class PMVServer:
 
     device: None (the GPU; raises without one) | 'cuda' | 'cpu', as for
     :class:`PMVEngine`.  The other engine knobs (strategy, theta, psi,
-    exchange, capacity, backend, scatter, stream, base_weights, io_retry,
-    obs) are passed to each family's engine, and with ``store=`` also
+    exchange, capacity, slack, payload_dtype, backend, scatter, stream,
+    base_weights, io_retry, obs, faults) are passed to each family's engine,
+    and with ``store=`` also
     ``residency`` and ``store_budget_bytes`` (without a store the server,
     like the JAX package's, holds its edges resident and ignores them).
     ``stats()['iter_wall_s']`` holds the host walls of the most recent
@@ -253,7 +264,7 @@ class PMVServer:
         psi: str | None = None,
         exchange: str = "sparse",
         capacity: str = "structural",
-        slack: float | None = None,
+        slack: float = 1.5,
         payload_dtype: str | None = None,
         backend: str = "torch",
         scatter: str = "auto",
@@ -274,14 +285,10 @@ class PMVServer:
     ):
         if mesh is not None:
             raise _not_ported("mesh", "emulation mode only")
-        if faults is not None:
-            raise _not_ported("faults")
         if telemetry:
             raise _not_ported("telemetry")
         if exchange == "hier":
             raise _not_ported(f"exchange={exchange!r}")
-        if slack is not None:
-            raise _not_ported("slack", "it sizes capacity='model', which is not ported")
         self.store = None
         self.residency = residency
         self.store_budget_bytes = store_budget_bytes
@@ -312,9 +319,12 @@ class PMVServer:
         self.obs = as_recorder(obs)
         self._engine_kwargs = dict(
             strategy=strategy, theta=theta, psi=psi, exchange=exchange,
-            capacity=capacity, payload_dtype=payload_dtype, backend=backend,
+            capacity=capacity, slack=slack, payload_dtype=payload_dtype, backend=backend,
             scatter=scatter, stream=stream, base_weights=base_weights,
-            io_retry=io_retry, obs=self.obs, device=self.device)
+            io_retry=io_retry, obs=self.obs, device=self.device,
+            # normalized ONCE, so every family engine shares one injector and
+            # a plan's events fire once server-wide, not once per family
+            faults=as_injector(faults, self.obs))
         # the engine checks its own knobs: fail here, not at the first batch
         self._engine(symmetrize=False)
         # admission control: queries submitted while >= max_queue are waiting
@@ -322,8 +332,10 @@ class PMVServer:
         self.max_queue = max_queue
         self._batcher = QueryBatcher(buckets)
         self._families: dict[tuple, _FamilyState] = {}
+        self._family_overrides: dict[tuple, dict] = {}  # overflow fallbacks
         self._results: dict[int, QueryResult] = {}
         self._next_qid = 0
+        self._fallback_events: list[str] = []  # fallback labels, batch order
         self._occupancy_sum = 0.0              # sum over batches of |queries|/Q
         self._retirement_reasons = {r: 0 for r in RETIREMENT_REASONS}
         self._iter_walls: collections.deque = collections.deque(maxlen=self._ITER_WALLS_KEPT)
@@ -389,13 +401,13 @@ class PMVServer:
 
     def stats(self) -> dict:
         """Serving counters: batches/queries/iterations plus the retirement
-        ledger -- ``retired`` answered columns, total ``queue_wait_s``, mean
+        ledger -- ``retired`` answered columns, ``requeued`` queries sent back
+        through the batcher by an overflow fallback, ``fallback_events`` (the
+        fallback labels, batch order), total ``queue_wait_s``, mean
         ``batch_occupancy`` (real queries / bucket capacity) and the recent
-        batched-iteration walls ``iter_wall_s``.  ``overflow_fallbacks``,
-        ``requeued`` and ``fallback_events`` stay empty: the structural
-        capacity cannot overflow, and an overflow would raise."""
+        batched-iteration walls ``iter_wall_s``."""
         out = dict(self._stats)
-        out["fallback_events"] = []
+        out["fallback_events"] = list(self._fallback_events)
         out["retirement_reasons"] = dict(self._retirement_reasons)
         out["batch_occupancy"] = (
             self._occupancy_sum / out["batches"] if out["batches"] else 0.0)
@@ -426,15 +438,16 @@ class PMVServer:
             st.meta["executor"].close()
 
     # ------------------------------------------------------------------
-    def _engine(self, symmetrize: bool) -> PMVEngine:
+    def _engine(self, symmetrize: bool, overrides: dict | None = None) -> PMVEngine:
         """A family's engine: over the store (with its residency and budget)
-        when the server has one, else over the edge list."""
+        when the server has one, else over the edge list; ``overrides`` are
+        the family's overflow fallbacks."""
+        kwargs = {**self._engine_kwargs, **(overrides or {})}
         if self.store is not None:
             return PMVEngine(None, store=self.store, residency=self.residency,
                              store_budget_bytes=self.store_budget_bytes,
-                             symmetrize=symmetrize, **self._engine_kwargs)
-        return PMVEngine(self.edges, self.n, b=self.b, symmetrize=symmetrize,
-                         **self._engine_kwargs)
+                             symmetrize=symmetrize, **kwargs)
+        return PMVEngine(self.edges, self.n, b=self.b, symmetrize=symmetrize, **kwargs)
 
     def _family_state(self, key: tuple, sample: Query) -> _FamilyState:
         if key not in self._families:
@@ -445,7 +458,7 @@ class PMVServer:
                     f"query family {family.kind!r} needs a symmetrized graph but the "
                     "store was ingested without symmetrize — re-ingest with "
                     "ingest_edges(symmetrize=True)")
-            engine = self._engine(family.symmetrize)
+            engine = self._engine(family.symmetrize, self._family_overrides.get(key))
             matrix, _v0, _ctx, mask, meta = engine.prepare(spec)
             if meta["residency"] == "disk":
                 step = _make_disk_batched_step(meta["executor"], delta_kind=family.delta_kind)
@@ -563,16 +576,33 @@ class PMVServer:
                 self._stats[k] += scalars.get(k, 0.0)
             if scalars.get("overflow", 0.0) > 0:
                 # A truncated exchange would silently corrupt EVERY in-flight
-                # column (the shared index set unions rows across queries).
-                # The JAX package rebuilds the family with an overflow-free
-                # fallback; the port has only capacity='structural', which
-                # cannot overflow, so there is no fallback to take and this
-                # raises, as the JAX package does when none exists.
-                lost = sorted(q.qid for q in slots if q is not None)
-                raise RuntimeError(
-                    "sparse exchange overflow in batched serving: capacity "
-                    f"{st.meta['capacity']} too small for the query batch; "
-                    f"unanswered qids in this batch: {lost}")
+                # column (the shared index set unions rows across queries),
+                # so the truncated iteration is discarded.  Where an
+                # overflow-free configuration exists (the engine's fallback
+                # table), the family is rebuilt with it and the batch's
+                # in-flight queries are requeued: they restart, under their
+                # qids.  The default capacity='structural' cannot overflow.
+                fb = st.engine.fallback_overrides(st.meta["strategy"])
+                if fb is None:
+                    lost = sorted(q.qid for q in slots if q is not None)
+                    raise RuntimeError(
+                        "sparse exchange overflow in batched serving: capacity "
+                        f"{st.meta['capacity']} too small for the query batch -- "
+                        "construct the server with capacity='structural' or "
+                        f"exchange='dense'; unanswered qids in this batch: {lost}")
+                label, overrides = fb
+                self._stats["overflow_fallbacks"] += 1
+                self._fallback_events.append(label)
+                obs.counter("serve.fallbacks").add(1)
+                batch_span.set("fallback", label)
+                self._family_overrides[key] = {**self._family_overrides.get(key, {}),
+                                               **overrides}
+                self._drop_family(key)  # rebuilt with the fallback on requeue
+                for query in slots:
+                    if query is not None:
+                        self._batcher.add(query)  # keeps its qid
+                        self._stats["requeued"] += 1
+                return
             iters[active] += 1
 
             # columns that retire this iteration: converged, capped or expired

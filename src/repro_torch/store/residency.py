@@ -46,6 +46,12 @@ worker and block row), every fetch runs under a bounded
 degrades the double buffer to synchronous fetches instead of failing the
 solve.
 
+Fault injection (``faults=``, a ``repro_torch.faults`` plan or injector
+shared with the engine): each fetch attempt first asks the injector for a
+transient I/O error or a straggler's sleep, a freshly read slice may get
+one seeded byte flipped before its checksums are verified, and a pipeline
+that is built while a ``BreakPrefetch`` is scheduled fetches synchronously.
+
 Tracing (``obs=``, shared with the engine): a ``store.fetch`` span per
 slice read (on the thread that reads it, so the prefetch thread has its own
 trace lane) with the modeled read time, a ``store.wait`` span per slice
@@ -53,8 +59,6 @@ handed to the compute, a fenced ``launch.disk_block`` span per block body
 with the plan's predicted cost, and the ``store.*`` counters.  The executor
 and the pipeline read their recorder when they record, so one swapped in
 later (``PMVEngine.explain(live=True)``) takes effect at once.
-
-Not ported yet: the fault injector.
 """
 from __future__ import annotations
 
@@ -71,7 +75,7 @@ from repro_torch.core.gimv import GimvSpec, combine_elementwise, tree_combine
 from repro_torch.core.partition import Partition
 from repro_torch.core.planner import ExecutionPlan
 from repro_torch.exchange import runtime as packed_rt
-from repro_torch.faults import DEFAULT_RETRY, RetryPolicy
+from repro_torch.faults import DEFAULT_RETRY, RetryPolicy, as_injector
 from repro_torch.obs.recorder import as_recorder
 from repro_torch.store import format as fmt
 from repro_torch.store.manifest import (
@@ -141,11 +145,14 @@ class DiskBlockStore:
     handed to the compute: on a CUDA device through two pinned host buffers
     (the budgeted double buffer itself) and a side stream.  ``obs`` (a
     recorder, or None) receives the fetch spans and the store counters.
+    ``faults`` (a FaultPlan or a shared FaultInjector) injects into every
+    fetch; ``fault_scope`` is the worker id a scoped fault event must name
+    to fire here (None: a single store, where unscoped events fire).
     """
 
     def __init__(self, store, striping: str, spec: GimvSpec, *,
                  budget_bytes: int | None = None, device=None, dense_gather_idx=None,
-                 obs=None):
+                 obs=None, faults=None, fault_scope: int | None = None):
         if striping not in fmt.STRIPINGS:
             raise ValueError(f"unknown striping {striping!r}")
         if striping == "dense_horizontal" and dense_gather_idx is None:
@@ -154,6 +161,8 @@ class DiskBlockStore:
                 "to recompute weights (pass dense_gather_idx)")
         self.dense_gather_idx = dense_gather_idx
         self.obs = as_recorder(obs)
+        self.faults = as_injector(faults, self.obs)
+        self.fault_scope = fault_scope
         self.manifest: Manifest = open_store(store)
         self.striping = striping
         self.spec = spec
@@ -243,6 +252,10 @@ class DiskBlockStore:
         the ingest-time digests, and ``OSError`` on I/O failure: both
         retryable (the caller's RetryPolicy re-fetches)."""
         obs = self.obs
+        if self.faults is not None:
+            # may raise InjectedIOError or sleep; outside the fetch span, as
+            # in the JAX package
+            self.faults.on_fetch(k, scope=self.fault_scope)
         with obs.span("store.fetch") as sp:
             if self._staging is not None:
                 sl = self._staging.fetch(k)
@@ -271,6 +284,10 @@ class DiskBlockStore:
         np.stack([mm[0][k] for mm in self._mm], out=seg)
         np.stack([mm[1][k] for mm in self._mm], out=gat)
         cnt = self._cnt[:, k]
+        if self.faults is not None:
+            # a scheduled byte flip, BEFORE verification: a checksummed store
+            # must catch it
+            self.faults.corrupt_slice(k, {"seg": seg, "gat": gat}, scope=self.fault_scope)
         t1 = time.perf_counter()
         if self.verify:
             self._verify_rows(k, seg, gat)
@@ -379,7 +396,8 @@ class PrefetchPipeline:
     thread or inline.  If the prefetch THREAD fails (the pool refuses a
     submit, or a future dies of executor breakage) the pipeline degrades to
     synchronous fetches instead of deadlocking or failing the solve
-    (``store.prefetch_degraded``).  Fetch errors that survive the retry
+    (``store.prefetch_degraded``); so does a pipeline built while the
+    store's injector holds a ``BreakPrefetch``.  Fetch errors that survive the retry
     budget propagate typed (ShardCorruptError / OSError /
     FetchDeadlineError).
 
@@ -397,6 +415,9 @@ class PrefetchPipeline:
         self._fut = None                 # (block, future) in flight
         self._cursor = 0                 # next schedule position, mod len
         self._sync = False
+        inj = store.faults
+        if inj is not None and inj.break_prefetch(store.fault_scope):
+            self._degrade()
 
     @property
     def obs(self):

@@ -1246,3 +1246,96 @@ def test_cuda_disk_obs_onoff_bitwise(cuda_device, disk_stores, strategy):
             check_span_nesting(obs.to_chrome_trace())
     np.testing.assert_array_equal(out[True].v, out[False].v)
     np.testing.assert_array_equal(out[True].deltas, out[False].deltas)
+
+
+# ---------------------------------------------------------------------------
+# The fault-tolerance layer on the card: chaos plans through the pinned
+# staging, checkpoint / resume, the bf16 wire, the overflow fallback.
+
+def _chaos_events(F, with_break):
+    events = (F.CorruptFetch(block=2, array="seg"), F.CorruptFetch(block=5, array="gat"),
+              F.TransientIO(block=3, times=2), F.SlowFetch(block=6, delay_s=0.02),
+              F.KillAtIteration(iteration=2))
+    return events + ((F.BreakPrefetch(),) if with_break else ())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_break", [False, True], ids=["prefetch", "sync"])
+@pytest.mark.parametrize("strategy", ["vertical", "hybrid"])
+def test_cuda_disk_chaos_resume_bitwise(cuda_device, disk_stores, strategy, with_break,
+                                        tmp_path):
+    """A recoverable plan on the card's disk path: a corrupt slice read into
+    a pinned slot fails its checksum and the retry takes the other slot
+    (after that slot's last copy completed), transient I/O errors and a
+    straggler are absorbed, and the run killed at iteration 2 and resumed on
+    the same engine is bitwise the clean card run; every fault fired."""
+    import repro_torch.core as T
+    import repro_torch.faults as F
+
+    kw = dict(strategy=strategy, scatter="kernel", theta=DISK_THETA, device=cuda_device)
+    clean = T.PMVEngine(None, store=disk_stores[False], residency="disk", **kw).run(
+        T.sssp(0), max_iters=DISK_ITERS, tol=0.0)
+    plan = F.FaultPlan(events=_chaos_events(F, with_break), seed=3)
+    eng = T.PMVEngine(None, store=disk_stores[False], residency="disk", faults=plan,
+                      io_retry=F.RetryPolicy(base_delay_s=1e-4), obs=True, **kw)
+    spec = T.sssp(0)
+    ck = str(tmp_path / "ck")
+    with pytest.raises(F.InjectedKill):
+        eng.run(spec, max_iters=DISK_ITERS, tol=0.0, checkpoint_dir=ck, checkpoint_every=1)
+    res = eng.run(spec, max_iters=DISK_ITERS, tol=0.0, checkpoint_dir=ck, checkpoint_every=1,
+                  resume=True)
+    eng.prepare(spec)[-1]["executor"].close()
+    np.testing.assert_array_equal(res.v, clean.v)
+    assert eng._fault_injector.remaining == 0
+    assert eng.obs.counter("store.verify_failures").value == 2
+    assert eng.obs.counter("fault.recovered").value == 3
+    assert eng.obs.counter("store.prefetch_degraded").value == int(with_break)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["sparse", "packed"])
+@pytest.mark.parametrize("algo", ["pagerank", "sssp"])
+def test_cuda_bf16_wire_and_resume(cuda_device, algo, exchange, tmp_path):
+    """payload_dtype='bfloat16' on the card's planned path (the kernels
+    fold the values cast back to float32): the answer equals the CPU bf16
+    run's (SSSP exactly, PageRank within rtol 1e-5), the payload bytes are
+    half the float32 wire's, and a run checkpointed, stopped and resumed
+    on the same engine is bitwise the uninterrupted one."""
+    import repro_torch.core as T
+
+    edges = _tactic_mix_edges()
+    mk = (lambda: T.pagerank(64)) if algo == "pagerank" else (lambda: T.sssp(0))
+    kw = dict(strategy="vertical", backend="auto", scatter="kernel", exchange=exchange)
+    card = T.PMVEngine(edges, 64, b=4, payload_dtype="bfloat16", device=cuda_device, **kw)
+    spec = mk()
+    full = card.run(spec, max_iters=8, tol=0.0)
+    ck = str(tmp_path / "ck")
+    card.run(spec, max_iters=4, tol=0.0, checkpoint_dir=ck, checkpoint_every=2)
+    resumed = card.run(spec, max_iters=8, tol=0.0, checkpoint_dir=ck, resume=True)
+    np.testing.assert_array_equal(resumed.v, full.v)
+    cpu = T.PMVEngine(edges, 64, b=4, payload_dtype="bfloat16", device="cpu", **kw).run(
+        mk(), max_iters=8, tol=0.0)
+    f32 = T.PMVEngine(edges, 64, b=4, device=cuda_device, **kw).run(mk(), max_iters=8, tol=0.0)
+    _assert_same_answer(full.v, cpu.v, algo)
+    assert full.per_iter[0]["exchange_payload_bytes"] * 2 == \
+        f32.per_iter[0]["exchange_payload_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,label", [("vertical", "dense"),
+                                            ("hybrid", "structural_capacity")])
+def test_cuda_model_capacity_overflow_falls_back(cuda_device, strategy, label):
+    """capacity='model' too tight on the card's planned path: the overflow
+    is counted by the compaction the kernel path runs, the engine retries on
+    its fallback and answers as the structural engine does."""
+    import repro_torch.core as T
+    from repro_torch.graph import star_graph
+
+    n = 64
+    kw = dict(strategy=strategy, theta=1e9, backend="auto", scatter="kernel",
+              device=cuda_device)
+    res = T.PMVEngine(star_graph(n), n, b=4, capacity="model", slack=0.01, **kw).run(
+        T.sssp(0), max_iters=10, tol=0.5)
+    ref = T.PMVEngine(star_graph(n), n, b=4, **kw).run(T.sssp(0), max_iters=10, tol=0.5)
+    assert res.totals["fallback"] == label
+    np.testing.assert_array_equal(res.v, ref.v)

@@ -51,7 +51,7 @@ print(json.dumps({"modules": names, "bad": bad}))
             "repro_torch.serving.batcher", "repro_torch.serving.server",
             "repro_torch.store.format", "repro_torch.store.manifest",
             "repro_torch.store.ingest", "repro_torch.store.verify",
-            "repro_torch.store.residency", "repro_torch.faults.retry",
+            "repro_torch.store.residency", "repro_torch.faults.retry", "repro_torch.faults.plan",
             "repro_torch.graph.io"} <= set(report["modules"])
 
 
@@ -67,13 +67,17 @@ def test_engine_without_device_raises_without_gpu(monkeypatch):
 
 # The engine and the server take the out-of-core store's knobs (store,
 # residency, store_budget_bytes, io_retry; the engine also strategy='hybrid'
-# with residency='disk') and obs.  A case whose knob is taken holds the port to
+# with residency='disk'), obs, and the fault-tolerance layer's knobs
+# (capacity='model' and any other non-structural capacity, which the JAX
+# package sizes from the model too; slack; payload_dtype; faults, where a
+# non-plan is a TypeError).  A case whose knob is taken holds the port to
 # what the JAX package does with the same arguments: the same exception
 # class, or an answer from both (without a store the server, like the JAX
 # package's, holds its edges resident and ignores residency and the
 # budget).  STORE stands for a θ-split store of the same graph.
 STORE = "<store>"
-TAKEN = ("store", "residency", "store_budget_bytes", "io_retry", "strategy", "obs")
+TAKEN = ("store", "residency", "store_budget_bytes", "io_retry", "strategy", "obs",
+         "capacity", "payload_dtype", "faults", "slack")
 
 
 @pytest.fixture(scope="module")
@@ -126,11 +130,43 @@ def test_knobs_outside_the_slice_raise(knob, knob_store):
             got = _outcome(T, TS, t_cls, knob, knob_store, device="cpu")
             assert got == want, (t_cls.__name__, got, want)
         return
-    if name not in ("telemetry", "slack"):
+    if name != "telemetry":
         with pytest.raises(NotImplementedError, match=name):
             T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
     with pytest.raises(NotImplementedError, match=name):
         TS.PMVServer(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
+
+
+@pytest.mark.parametrize("knob,text", [
+    (dict(mesh=object()), "mesh"), (dict(exchange="hier"), "exchange='hier'"),
+    (dict(backend="pallas"), "backend='pallas'"), (dict(backend="xla"), "backend='xla'"),
+    (dict(telemetry=True), "telemetry")])
+def test_remaining_refusals_name_their_knob(knob, text):
+    """Each knob the port still refuses raises NotImplementedError naming the
+    knob (and its value where the knob takes other values)."""
+    edges = rmat(6, 200, seed=0)
+    if "telemetry" not in knob:
+        with pytest.raises(NotImplementedError, match=text.replace("'", ".")) as ei:
+            T.PMVEngine(edges, 64, b=2, device="cpu", **knob)
+        assert text in str(ei.value)
+    with pytest.raises(NotImplementedError) as ei:
+        TS.PMVServer(edges, 64, b=2, device="cpu", **knob)
+    assert text in str(ei.value)
+
+
+@pytest.mark.parametrize("module,package", [
+    ("repro_torch.obs.profiler", "repro_torch.obs"), ("repro_torch.obs.fleet", "repro_torch.obs"),
+    ("repro_torch.obs.live", "repro_torch.obs"), ("repro_torch.store.spmd", "repro_torch.store")])
+def test_unported_modules_are_named(module, package):
+    """The JAX package's modules outside the port (the SPMD store, the obs
+    profiler, fleet and live telemetry) do not exist in it, and the package
+    that would hold each says so by name."""
+    import importlib
+
+    with pytest.raises(ModuleNotFoundError):
+        importlib.import_module(module)
+    doc = importlib.import_module(package).__doc__
+    assert "Not ported yet" in doc and module.rsplit(".", 1)[1] in doc
 
 
 def test_packed_exchange_and_delta_eps_are_accepted():
@@ -146,12 +182,18 @@ def test_packed_exchange_and_delta_eps_are_accepted():
         T.PMVEngine(edges, 64, b=2, delta_eps=-1.0, device="cpu")
 
 
-def test_checkpointing_and_query_axis_raise():
-    """Checkpointing raises; a trailing query axis is served: a one-column
-    batch [b, n_local, 1] steps exactly as the single vector does."""
+def test_checkpointing_and_query_axis_raise(tmp_path):
+    """Checkpointing is taken: a run with ``checkpoint_dir`` writes the JAX
+    package's ``pmv_state.npz`` and answers as the run without it does (it
+    raised here before checkpointing was ported).  A trailing query axis is
+    served: a one-column batch [b, n_local, 1] steps exactly as the single
+    vector does."""
     eng = T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, strategy="vertical", device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        eng.run(T.sssp(0), checkpoint_dir="ckpt")
+    ck = tmp_path / "ckpt"
+    res = eng.run(T.sssp(0), checkpoint_dir=str(ck), checkpoint_every=1)
+    np.testing.assert_array_equal(res.v, eng.run(T.sssp(0)).v)
+    with np.load(ck / "pmv_state.npz") as z:
+        assert int(z["it"]) == res.iterations and z["v"].shape == (2, 32)
     matrix, v, ctx, mask, meta = eng.prepare(T.sssp(0))
     one, r_one, _ = T.placement_call(T.sssp(0), meta["cfg"], matrix, v, ctx, mask)
     batched, r_b, stats = T.placement_call(T.sssp(0), meta["cfg"], matrix, v[..., None], ctx,

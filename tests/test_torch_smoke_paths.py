@@ -148,10 +148,14 @@ def test_disk_phase_on_cpu(monkeypatch, tmp_path):
     the store ingests (with θ-split shards at a θ that leaves dense
     vertices at this scale) and audits clean, the five disk solves (three
     basic, SSSP and PageRank hybrid) pass their checks against scipy and
-    the resident SSSP, the disk serve's answers equal the resident serve's
-    and scipy's, every leg's budget holds, the kernel rows gain their disk
-    launches and a plain-version check on each kernel-3/6 tail's own
-    (idx, val), and the store directory is gone afterwards."""
+    the resident SSSP, the chaos disk SSSP (killed and resumed under the
+    seeded plan of every fault kind) and the overflow retry are bitwise
+    the clean disk SSSP, the disk serve's answers equal the resident
+    serve's and scipy's, the chaos disk serve's equal the resident serve's
+    with both faults recovered, every leg's budget holds, the kernel rows
+    gain their disk launches (the chaos and overflow solves' kernel 3, the
+    chaos serve's kernel 6) and a plain-version check on each kernel-3/6
+    tail's own (idx, val), and the store directory is gone afterwards."""
     import tempfile
 
     import torch
@@ -168,7 +172,16 @@ def test_disk_phase_on_cpu(monkeypatch, tmp_path):
                 scatter_combine_multi=7)
     monkeypatch.setattr(kernels, "launch_counts", lambda: dict(fake))
     root = tmp_path / "store"
-    monkeypatch.setattr(tempfile, "mkdtemp", lambda prefix="": (root.mkdir(), str(root))[1])
+    made = []
+
+    def mkdtemp(prefix=""):
+        # the store's directory first, then the checkpoints'
+        d = root if not made else tmp_path / f"{prefix}{len(made)}"
+        d.mkdir()
+        made.append(d)
+        return str(d)
+
+    monkeypatch.setattr(tempfile, "mkdtemp", mkdtemp)
     sssp_v = PMVEngine(EDGES, N, b=8, strategy="vertical", device="cpu").run(
         sssp(0), max_iters=100, tol=0.5).v
     sources = np.flatnonzero(np.bincount(EDGES[:, 0], minlength=N))[:16]
@@ -186,9 +199,9 @@ def test_disk_phase_on_cpu(monkeypatch, tmp_path):
     assert failures == []
     checks = {name: rows[name].pop("disk_checks") for name in
               ("scatter_combine", "scatter_combine_multi")}
-    assert rows["scatter_combine"] == {"launches": 15, "disk_launches": 9}
+    assert rows["scatter_combine"] == {"launches": 21, "disk_launches": 15}
     assert rows["packed_scatter_combine"] == {"launches": 60, "disk_launches": 10}
-    assert rows["scatter_combine_multi"] == {"launches": 27, "disk_launches": 7}
+    assert rows["scatter_combine_multi"] == {"launches": 34, "disk_launches": 14}
     assert [(c["path"], c["semiring"]) for c in checks["scatter_combine"]] == [
         ("sssp/vertical disk", "min_plus"), ("sssp/hybrid disk", "min_plus"),
         ("pagerank/hybrid disk", "plus_times")]
@@ -198,6 +211,50 @@ def test_disk_phase_on_cpu(monkeypatch, tmp_path):
     # the plain version on the CPU: the same function, so no error at all
     assert all(c["max_abs_err"] == 0.0 for cs in checks.values() for c in cs)
     assert not root.exists()
+    assert [d.name for d in made[1:]] == ["pmv_ckpt_1"] and not any(d.exists() for d in made)
+
+
+def test_bf16_phase_on_cpu(monkeypatch, capsys):
+    """The smoke's bfloat16-wire phase at scale 10 on the CPU, with the
+    card's calls stubbed and the launch counters faked: the checkpointed and
+    resumed PageRank is bitwise the uninterrupted one, within the phase's
+    bound of scipy, its payload bytes half the float32 wire's; kernels 1
+    and 3 gain the phase's launches, and the checkpoint save's legs are
+    printed against the median iteration."""
+    import torch
+
+    from repro_torch import kernels
+
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    fake = dict(kernels.launch_counts(), ell_gimv=40, scatter_combine=5)
+    monkeypatch.setattr(kernels, "launch_counts", lambda: dict(fake))
+    rows = {"ell_gimv": {"launches": 1}, "scatter_combine": {"launches": 2}}
+    failures = []
+    smoke.bf16_phase(torch, np, sp, torch.device("cpu"), EDGES, N, 8, rows, failures)
+    assert failures == []
+    assert rows == {"ell_gimv": {"launches": 41, "bf16_launches": 40},
+                    "scatter_combine": {"launches": 7, "bf16_launches": 5}}
+    out = capsys.readouterr().out
+    assert "check pagerank/vertical bf16: " in out and out.count("-> ok") == 1
+    assert "checkpoint save (" in out and "x the median iteration" in out
+
+
+def test_bf16_phase_fails_over_its_bound(monkeypatch):
+    """The phase's error bound is live: at a bound below the bf16 wire's
+    error the phase records a failure."""
+    import torch
+
+    from repro_torch import kernels
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(kernels, "launch_counts", lambda: {"ell_gimv": 1, "scatter_combine": 1})
+    rows = {"ell_gimv": {"launches": 0}, "scatter_combine": {"launches": 0}}
+    failures = []
+    smoke.bf16_phase(torch, np, sp, torch.device("cpu"), EDGES, N, 8, rows, failures,
+                     iters=4, every=2, bound=1e-6)
+    assert len(failures) == 1 and "bf16" in failures[0]
 
 
 def _count_launches_on_cpu(monkeypatch):
