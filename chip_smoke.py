@@ -33,6 +33,21 @@ Phases, each printed as it ends; any failure exits non-zero:
               and delta trajectory must be bitwise the traced run's; an
               "obs overhead" line prints both iteration medians and their
               ratio.  Then ``eng.explain(spec, live=True)`` is printed.
+              Also on the SSSP engine, after its kernel checks:
+              ``repro_torch.obs.profile_block_launches(eng, spec,
+              repeats=3)`` packs every non-skip planned block alone and
+              launches it under ``launch.ell`` / ``launch.dense`` spans:
+              the span counts must be the plan's non-skip blocks x 3; right
+              after each block's first launch (outside the spans) it is
+              launched once more between CUDA events, and that first
+              launch's outputs must equal the plain version on the same
+              tables bucket by bucket (exact at min_plus).  Prints
+              ``calibration_summary`` per kind (measured / predicted, ratio
+              median), the per-block ratios (their spread, the largest and
+              the smallest block), the host seconds of the per-block packs,
+              the spans' and the events' ms over one pass and, on a line of
+              their own, the profiler's kernel launches (not added to the
+              main path's).
 4. kernels -- after each run, the kernels it launched are called on the
               run's own inputs (every ELL bucket; the exchange buffers; the
               dense region) and held against their plain PyTorch versions
@@ -106,7 +121,14 @@ Phases, each printed as it ends; any failure exits non-zero:
               padded stream's).  Serve: ``PMVServer(strategy='hybrid',
               theta=3000, scatter='kernel', exchange='packed')`` answers the
               96 RWR queries of phase 5 (the Q-wide packed kernel), each
-              answer and iteration count bitwise phase 5's.  Kernels, outside
+              answer and iteration count bitwise phase 5's.  This server runs
+              with ``telemetry=TelemetryConfig(latency_target_s=30,
+              serve=True, host='127.0.0.1', port=0)``: its live snapshot must
+              count 96 retirements and the SLO 96 latency events, a GET of
+              ``<url>/metrics`` must show ``pmv_serve_retired_total 96.0``,
+              ``repro_torch.cli.main(["obs", "top", url, "--count", "1"])``
+              must return 0 (its frame is printed), and ``srv.close()`` must
+              stop the exporter's thread.  Kernels, outside
               the counted runs: both ELL kernels on every bucket of the two
               packed runs, as in phases 4 and 5; both packed kernels against
               their plain versions on the runs' own buffers (4 semirings +
@@ -190,6 +212,15 @@ Phases, each printed as it ends; any failure exits non-zero:
               recovered (``fault.recovered`` 2).  Kernel 3 (chaos and
               overflow) and kernel 6 (chaos serve) launch counts join the
               disk launches.
+              Fleet and CLI, before the chaos runs: ``fleet_report`` of the
+              two traced disk SSSP solves (one worker, no straggler; skew
+              and the measured against the modeled prefetch overlap
+              printed), ``merge_traces`` of each one's recorder (schema
+              valid, spans nest), then ``repro_torch.cli.main``: ``store
+              verify`` on the store, ``obs report`` on a ``BENCH_obs.json``
+              carrying the vertical solve's fleet report, and ``obs merge``
+              over the Chrome traces of runs 1-3 (validated, one lane per
+              input), each returning 0.
 8. stream  -- the bucket-streamed planned executor (``stream='on'``, one
               destination block at a time) on ``erdos_renyi(2**scale, 16 *
               2**scale)`` at b = 64 workers, cyclic psi: a uniform sparse
@@ -1314,12 +1345,15 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
     from repro_torch.exchange import gather_payload
     from repro_torch.kernels import scatter_combine
     from repro_torch.kernels.scatter_combine.ref import packed_targets
+    from repro_torch.obs import TelemetryConfig
     from repro_torch.serving import FAMILIES, PMVServer, Query, make_batched_step
 
     queries = [Query("rwr", source=int(src), c=0.85, tol=1e-6) for src, _, _ in rwr_answers]
+    # live telemetry on, served over HTTP from an ephemeral port
     srv = PMVServer(edges, n, b=b, strategy="hybrid", theta=theta, backend="auto",
                     scatter="kernel", exchange="packed", stream="off", device=dev,
-                    max_iters=200)
+                    max_iters=200, telemetry=TelemetryConfig(latency_target_s=30.0, serve=True,
+                                                             host="127.0.0.1", port=0))
     t = time.perf_counter()
     eng, fspec = srv.engine_for(queries[0])
     matrix, _, _, fmask, fmeta = eng.prepare(fspec)
@@ -1371,6 +1405,7 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
                         "converged")
     if differ:
         failures.append(f"packed serve: {len(differ)} answers differ from the sparse serve's")
+    telemetry_checks("packed serve", srv, len(queries))
 
     # -- kernel 8 on the batched buffers ------------------------------------
     state = np.stack([part.to_blocked(r.vector) for r in results[:64]], axis=-1)
@@ -1454,7 +1489,7 @@ def packed_serve_phase(torch, np, dev, gen, edges, n, b, theta, rwr_answers, row
             deltas.tolist()
     prof = device_breakdown(torch, three, 3)
     log(f"profile packed serve rwr (3 batched iterations, Q=64): {json.dumps(prof)}")
-    srv.close()
+    telemetry_close_check("packed serve", srv)
     del matrix, v_state, ctx, eng
     torch.cuda.empty_cache()
 
@@ -1554,6 +1589,209 @@ def calibration_lines(label: str, rec) -> None:
                if "measured_bw_bytes_per_s" in c else ""))
 
 
+def profiler_phase(torch, np, label: str, eng, spec, *, repeats: int = 3) -> dict:
+    """``repro_torch.obs.profile_block_launches`` on a prepared resident
+    engine: every non-skip planned block packed alone and launched
+    ``repeats`` times under its ``launch.ell`` / ``launch.dense`` span.  The
+    span counts must be the plan's non-skip blocks times ``repeats``.  After
+    each block's first launch (outside the spans) the block is launched once
+    more between two CUDA events, then that first launch's outputs are held,
+    bucket by bucket, against the plain version on the same tables and
+    operand (exact but for plus_times).  Prints the calibration summary per
+    kind, the per-block measured / predicted ratios (their spread, and the
+    largest and the smallest block), the host seconds of the per-block
+    packs, the spans' and the events' milliseconds over one pass, and the
+    profiler's kernel launches (outside every main-path count)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import block_gimv, ell_spmv
+    from repro_torch.obs import calibration_summary, profile_block_launches
+
+    plan = eng.prepare(spec)[-1]["plan"]
+    semiring = block_gimv.semiring_of(spec.combine2, spec.combine_all)
+    held = {"launch.ell": 0, "launch.dense": 0}
+    errs, event_ms = [0.0], []
+
+    def inspect(r):
+        # timed first, right after the first launch, in the cache state the
+        # spans see (the plain versions below would evict the tables)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r["launch"]()
+        end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+        what = f"{label} profiled block ({r['attrs']['i']}, {r['attrs']['j']})"
+        if r["name"] == "launch.dense":
+            want = block_gimv.dense_gimv_ref(r["operands"], r["v"], semiring=semiring)
+            errs.append(compare(torch, r["out"], want, semiring, f"{what} dense"))
+        else:
+            for k, ((cols, w), out) in enumerate(zip(r["operands"], r["out"])):
+                want = ell_spmv.ell_gimv_ref(cols, w if spec.needs_weights else None, r["v"],
+                                             semiring=semiring)
+                errs.append(compare(torch, out, want, semiring,
+                                    f"{what} bucket {k} {tuple(cols.shape)}"))
+        held[r["name"]] += 1
+
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    t = time.perf_counter()
+    rec = profile_block_launches(eng, spec, repeats=repeats, inspect=inspect)
+    wall = time.perf_counter() - t
+    after = kernels.launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    tactics = plan.tactic_counts()
+    want = {k: tactics[k.split(".")[1]] * repeats for k in held}
+    spans = {k: len(rec.spans(k)) for k in held}
+    if spans != want or not sum(held.values()):
+        raise SmokeError(f"{label} profiler: spans {spans}, expected {want} (plan {tactics})")
+    for kind, c in calibration_summary(rec).items():
+        log(f"profile calibration {label} {kind}: launches={c['launches']} "
+            f"measured_ms={1e3 * c['measured_s']:.3f} predicted_ms={1e3 * c['predicted_s']:.4e} "
+            f"ratio={c['ratio']:.1f} ratio_median={c['ratio_median']:.1f} "
+            f"predicted_slots={c['predicted_slots']:.0f} "
+            f"measured_s_per_slot={c['measured_s_per_slot']:.4e}")
+    # block -> (predicted s, median measured s over the repeats)
+    per_block: dict = {}
+    for e in rec.spans("launch."):
+        a = e["attrs"]
+        per_block.setdefault((a["i"], a["j"]), [a["predicted_s"]]).append(e["dur"])
+    per_block = {k: (d[0], float(np.median(d[1:]))) for k, d in per_block.items()}
+    ratios = sorted(m / p for p, m in per_block.values())
+    big = max(per_block, key=lambda k: per_block[k][0])
+    small = min(per_block, key=lambda k: per_block[k][0])
+    span_ms = 1e3 * rec.total("launch.") / repeats
+
+    def us(k):
+        p, m = per_block[k]
+        return f"{k} predicted {1e6 * p:.4g} us measured {1e6 * m:.2f} us ({m / p:.1f}x)"
+
+    log(f"profiler {label}: all non-skip blocks: {held} x {repeats} repeats, spans {spans} == "
+        f"the plan's x {repeats}; every bucket's first launch == its plain version (max |err| "
+        f"{max(errs)}); per-block measured/predicted min {ratios[0]:.1f} median "
+        f"{float(np.median(ratios)):.1f} max {ratios[-1]:.1f}; largest block {us(big)}, "
+        f"smallest {us(small)}; host pack "
+        f"{rec.total('profile.pack'):.3f} s; one pass: spans {span_ms:.3f} ms, CUDA events "
+        f"{sum(event_ms):.3f} ms ({100.0 * sum(event_ms) / span_ms:.1f}% of the spans); "
+        f"phase {wall:.1f} s")
+    log(f"profiler launches {label} (outside the main path's counts): {json.dumps(launched)}")
+    return {"spans": spans, "ratios": ratios, "event_ms": sum(event_ms), "span_ms": span_ms}
+
+
+def telemetry_checks(label: str, srv, n_queries: int) -> None:
+    """The server's live telemetry after it answered ``n_queries``: the
+    snapshot's retired count and the SLO's latency events equal the
+    queries, a GET of ``<url>/metrics`` shows the retired total, and
+    ``python -m repro_torch obs top <url> --count 1`` returns 0 (its frame
+    is printed).  A failed bind or scrape raises."""
+    import urllib.request
+
+    from repro_torch import cli
+
+    tel = srv.telemetry
+    if tel is None or tel.url is None:
+        raise SmokeError(f"{label}: the telemetry exporter is not serving")
+    snap = tel.snapshot()
+    slo = srv.stats()["slo"]
+    with urllib.request.urlopen(tel.url + "/metrics", timeout=30) as resp:
+        body = resp.read().decode()
+    line = f"pmv_serve_retired_total {float(n_queries)}"
+    ok = (snap["retired"]["total_count"] == n_queries
+          and slo["latency"]["total"]["events"] == n_queries and line in body.splitlines())
+    log(f"telemetry {label}: {tel.url} retired {snap['retired']['total_count']} latency p50 "
+        f"{snap['latency']['p50']} p99 {snap['latency']['p99']} s; slo latency events "
+        f"{slo['latency']['total']['events']} bad {slo['latency']['total']['bad']} (target "
+        f"{slo['latency']['target_s']} s) burn {slo['latency']['total']['burn_rate']}; "
+        f"/metrics {len(body)} bytes with '{line}': {line in body.splitlines()} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeError(f"{label}: telemetry does not count the {n_queries} queries")
+    rc = cli.main(["obs", "top", tel.url, "--count", "1"])
+    if rc != 0:
+        raise SmokeError(f"{label}: obs top returned {rc}")
+
+
+def telemetry_close_check(label: str, srv) -> None:
+    """``srv.close()`` must stop the exporter: its thread ends, its URL is
+    gone."""
+    thread = srv.telemetry._thread
+    srv.close()
+    thread.join(30)
+    if thread.is_alive() or srv.telemetry.url is not None:
+        raise SmokeError(f"{label}: close() left the telemetry exporter running")
+    log(f"telemetry {label}: close() stopped the exporter's thread")
+
+
+def fleet_cli_phase(root: str, solves: dict, traces: dict) -> None:
+    """On the disk phase's store and runs: ``fleet_report`` of each traced
+    disk solve (one worker, no straggler; skew and the measured against the
+    modeled prefetch overlap printed), ``merge_traces`` of its recorder
+    (schema valid, spans nest), then the CLI: ``store verify`` on the store,
+    ``obs report`` on a ``BENCH_obs.json`` carrying the fleet report and
+    ``obs merge`` over the traces of ``traces`` (label -> recorder), each
+    returning 0; the merged trace must validate and nest, one lane per
+    input lane."""
+    import os
+
+    from repro_torch import cli
+    from repro_torch.obs import (bench_obs_doc, check_span_nesting, fleet_report, merge_traces,
+                                 validate_chrome_trace, write_bench_obs)
+
+    t = time.perf_counter()
+    reports = {}
+    for label, (res, rec) in solves.items():
+        rep = fleet_report(res)
+        if rep.workers != 1 or rep.stragglers:
+            raise SmokeError(f"fleet {label}: {rep.workers} workers, stragglers "
+                             f"{rep.stragglers}")
+        ov, io = rep.overlap, rep.per_worker[0]
+        log(f"fleet {label}: workers={rep.workers} iterations={len(rep.iterations)} "
+            f"stragglers={rep.straggler_workers} skew median={rep.skew['median']:.4f} "
+            f"max={rep.skew['max']:.4f}; overlap measured={ov['measured_mean']:.4f} "
+            f"predicted={ov['predicted_mean']:.4f} (measured/predicted {ov['ratio']}); "
+            f"fetch {io['io_s']:.3f} s wait {io['wait_s']:.3f} s over the run, modeled I/O "
+            f"{sum(r['predicted_io_s'] for r in rep.iterations):.3f} s")
+        doc = merge_traces(rec)
+        n = validate_chrome_trace(doc)
+        check_span_nesting(doc)
+        lanes = len({(e["pid"], e["tid"]) for e in doc["traceEvents"] if e.get("ph") == "X"})
+        log(f"fleet trace {label}: merge_traces {n} spans from {doc['otherData']['shards']} "
+            f"shard(s) on {lanes} lanes: schema valid, spans nest")
+        reports[label] = (rep, rec)
+    rc = cli.main(["store", "verify", root])
+    if rc != 0:
+        raise SmokeError(f"store verify {root} returned {rc}")
+    out_dir = os.path.join(root, "obs")      # inside the store's directory, after its audit
+    os.makedirs(out_dir)
+    label, (rep, rec) = next(iter(reports.items()))
+    bench = os.path.join(out_dir, "BENCH_obs.json")
+    write_bench_obs(bench, bench_obs_doc({label: rec}, fleet=rep.to_dict(),
+                                         extra_launches=rep.calibration_launches()))
+    rc = cli.main(["obs", "report", bench])
+    if rc != 0:
+        raise SmokeError(f"obs report {bench} returned {rc}")
+    paths, lanes_in = [], 0
+    for i, (name, trace_rec) in enumerate(traces.items()):
+        paths.append(os.path.join(out_dir, f"trace{i}.json"))
+        trace_rec.write_chrome_trace(paths[-1])
+        with open(paths[-1]) as f:
+            lanes_in += len({e["pid"] for e in json.load(f)["traceEvents"]})
+    merged = os.path.join(out_dir, "merged.json")
+    rc = cli.main(["obs", "merge", merged, *paths, "--labels", *traces])
+    if rc != 0:
+        raise SmokeError(f"obs merge returned {rc}")
+    with open(merged) as f:
+        doc = json.load(f)
+    n = validate_chrome_trace(doc)
+    check_span_nesting(doc)
+    lanes = {e["pid"] for e in doc["traceEvents"]}
+    if len(lanes) != lanes_in or doc["otherData"]["documents"] != len(traces):
+        raise SmokeError(f"obs merge: {len(lanes)} lanes from {lanes_in} input lanes")
+    log(f"cli: store verify, obs report (fleet {label}) and obs merge of {len(traces)} traces "
+        f"({n} spans, {len(lanes)} lanes; schema valid, spans nest) returned 0; "
+        f"{time.perf_counter() - t:.1f} s")
+
+
 def check_store_counters(label: str, rec, executors, bytes_read: float) -> None:
     """``store.bytes_read`` counts every fetch; the run's records bill a
     slice when an iteration consumes it.  Each leg's pipeline holds one
@@ -1574,14 +1812,15 @@ def check_store_counters(label: str, rec, executors, bytes_read: float) -> None:
 
 
 def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, served,
-               resident_peaks, rows, failures, *, seed=0, chaos_q=4):
+               resident_peaks, rows, failures, *, seed=0, chaos_q=4, traces=None):
     """Phase 7 (see the module doc): ingest (with the θ-split shards of
     ``theta``), audit, five disk solves, the chaos disk SSSP and the overflow
     retry, the disk serve and the chaos disk serve (at Q = ``chaos_q``).
     ``sssp_resident`` is run 2's answer, ``served`` the resident serve's
     first 16 SSSP answers and first 8 RWR sources, ``resident_peaks`` the
     resident runs' and the serve's peak GiB by label, ``seed`` the chaos
-    plans'."""
+    plans', ``traces`` (label -> recorder) the resident runs' recorders that
+    ``obs merge`` merges in :func:`fleet_cli_phase`."""
     import shutil
     import tempfile
 
@@ -1616,6 +1855,7 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
             f"budget_bytes={budget} (budget/striping {budget / striping:.4f}; "
             "reads from the page cache)")
         hybrid = dict(strategy="hybrid", theta=theta, scatter="kernel")
+        traced_solves = {}
         solves = [
             ("sssp/vertical disk", dict(strategy="vertical", scatter="kernel"), sssp(0), 100,
              0.5, "scatter_combine", "sssp/vertical"),
@@ -1689,11 +1929,13 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
                 check_store_counters(label, rec, [ex], res.totals["store_bytes_read"])
                 calibration_lines(label, rec)
                 check_trace(label, rec)
+                traced_solves[label] = (res, rec)
             if kernel == "scatter_combine":
                 disk_tail_check(torch, np, label, ex, res.v, rows)
             ex.close()
             del eng, meta, ex
             torch.cuda.empty_cache()
+        fleet_cli_phase(root, traced_solves, traces or {})
         t = time.perf_counter()
         chaos_disk(torch, np, sp, csgraph, dev, edges, n, root, budget, seed, clean, rows,
                    failures)
@@ -2689,6 +2931,7 @@ def main() -> int:
                       expect=("ell_gimv",))
     prepare_phases("pagerank/selective", eng.obs, meta)
     check_trace("pagerank/selective", eng.obs)
+    traces = {"pagerank/selective": eng.obs}
     want = pagerank_ref(np, sp, edges, n, res.iterations)
     ok = np.allclose(res.v, want, rtol=1e-4, atol=1e-12)
     rel = float(np.max(np.abs(res.v - want) / np.maximum(want, 1e-30)))
@@ -2713,6 +2956,7 @@ def main() -> int:
     prepare_phases("sssp/vertical", eng.obs, meta)
     obs_overhead(torch, np, "sssp/vertical", eng, spec, res, max_iters=100, tol=0.5)
     check_trace("sssp/vertical", eng.obs)
+    traces["sssp/vertical"] = eng.obs
     log("explain sssp/vertical (live=True):\n" + eng.explain(spec, live=True))
     want = sssp_ref(np, sp, csgraph, edges, n, 0)
     ok = res.converged and np.array_equal(res.v.astype(np.float64), want)
@@ -2734,7 +2978,10 @@ def main() -> int:
     idx_x, val_x = idx.transpose(0, 1).contiguous(), val.transpose(0, 1).contiguous()
     del partials
     sparse_scatter_phase(torch, dev, gen, n, idx_x, val_x, nl, rows)
-    del eng, fp, idx, val, idx_x, val_x
+    del idx, val, idx_x, val_x
+    # the per-block launch profiler on the same engine (prepare cached)
+    profiler_phase(torch, np, "sssp/vertical", eng, spec)
+    del eng, fp
     torch.cuda.empty_cache()
 
     # -- run 3: connected components, hybrid theta=3000 -------------------------
@@ -2745,6 +2992,7 @@ def main() -> int:
                       expect=("ell_gimv", "dense_gimv"))
     prepare_phases("cc/hybrid", eng.obs, meta)
     check_trace("cc/hybrid", eng.obs)
+    traces["cc/hybrid"] = eng.obs
     hm = meta["hm"]
     log(f"hybrid: theta={meta['theta']} dense vertices={meta['n_dense']} d_cap={hm.dense.d_cap} "
         f"dense edges={hm.dense_nnz} sparse edges={hm.sparse_nnz}")
@@ -2827,7 +3075,8 @@ def main() -> int:
     packed_widths_phase(torch, np, dev, gen)
     # -- disk: the out-of-core store, five solves and a serve from the same edges --
     disk_phase(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, sssp_v, served, peaks, rows,
-               failures, seed=args.seed)
+               failures, seed=args.seed, traces=traces)
+    del traces
     del edges, sym
     # -- stream: the bucket-streamed executor on a uniform sparse graph at b = 64 --
     stream_phase(torch, np, sp, csgraph, dev, gen, args.scale, args.seed, rows, failures, peaks)

@@ -54,6 +54,9 @@ __all__ = [
     "stripe_slice_bytes",
     "disk_block_io_cost",
     "disk_io_seconds",
+    "per_host_io_seconds",
+    "pipelined_iteration_seconds",
+    "predicted_overlap",
 ]
 
 
@@ -322,3 +325,28 @@ def disk_block_io_cost(e_cap: int, *, has_w: bool = False) -> float:
 def disk_io_seconds(bytes_read: float) -> float:
     """Modeled time for reading ``bytes_read`` shard bytes at DISK_READ_BW."""
     return bytes_read / DISK_READ_BW
+
+
+def per_host_io_seconds(bytes_read: float, workers: int) -> float:
+    """Modeled time for the disk leg split across ``workers`` hosts, each
+    streaming its own stripe range from its own disk at once: the critical
+    path is one host's share of ``bytes_read``.  One card is one worker."""
+    if workers <= 0:
+        raise ValueError(f"workers must be positive, got {workers}")
+    return disk_io_seconds(bytes_read / workers)
+
+
+def pipelined_iteration_seconds(io_s: float, wire_s: float, compute_s: float) -> float:
+    """Modeled wall time of one pipelined out-of-core iteration: the
+    prefetch pipeline overlaps the disk leg with exchange + compute, so the
+    iteration costs the larger of the two legs."""
+    return max(io_s, wire_s + compute_s)
+
+
+def predicted_overlap(io_s: float, wire_s: float, compute_s: float) -> float:
+    """Modeled share of the disk time the pipeline hides (the counterpart of
+    the measured ``store_overlap``): exchange + compute cover that much of
+    the I/O leg."""
+    if io_s <= 0.0:
+        return 1.0
+    return max(0.0, min(1.0, (wire_s + compute_s) / io_s))

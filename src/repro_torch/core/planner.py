@@ -122,6 +122,21 @@ class ExecutionPlan:
                 sched.append(("ell", bp.bucket_rows))
         return tuple(sched)
 
+    def block_attrs(self, i: int, j: int) -> dict:
+        """Static launch-span attributes of one sub-block: tactic, measured
+        shape, and the cost model's prediction -- what the obs profiler
+        attaches to each ``launch.ell`` / ``launch.dense`` span so the
+        predicted-vs-measured report can join without replanning.
+        ``predicted_s`` is ``predicted_cost`` at ``cost_model.SLOT_TIME_S``
+        (a data-sheet anchor for the H100, not a measurement)."""
+        bp = self.block(i, j)
+        return {
+            "i": i, "j": j, "tactic": bp.tactic, "nnz": bp.nnz,
+            "rows": bp.rows, "d_max": bp.d_max, "occupancy": bp.occupancy,
+            "predicted_cost": bp.cost,
+            "predicted_s": cost_model.slot_seconds(bp.cost),
+        }
+
     def launch_cost(self, k: int, *, axis: str = "dest") -> float:
         """Predicted slot cost of one launch-schedule step: destination
         block k across every worker stripe (axis='dest', the vertical

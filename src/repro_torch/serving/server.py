@@ -51,11 +51,19 @@ them the store) records a ``serve.batch`` span per batch, a fenced
 ``serve.iteration`` span per batched step, the ``serve.*`` counters, the
 occupancy gauge and the latency, queue-wait and iteration histograms.
 
+Live telemetry: ``telemetry=`` (True, a ``repro_torch.obs.TelemetryConfig``
+or a shared ``LiveTelemetry``) feeds rolling-window latency, queue-wait,
+iteration and throughput instruments and the SLO burn-rate tracker from the
+retirement points, and with ``config.serve`` exposes them over HTTP
+(``/metrics``, ``/metrics.json``); ``stats()['slo']`` holds the SLO
+snapshot and ``close()`` stops the exporter's thread.  It is host
+bookkeeping only: a served answer is bitwise the same with it on or off.
+
 This is the counterpart of the JAX package's ``repro.serving.server``.  Its
-knobs outside the ported slice (``mesh``, ``telemetry``, ``exchange='hier'``,
-and what the engine itself refuses) raise NotImplementedError naming the
-knob.  As in the JAX package, the server carries no delta-iteration state: a
-packed exchange ships its full payload stream.
+knobs outside the ported slice (``mesh``, ``exchange='hier'``, and what the
+engine itself refuses) raise NotImplementedError naming the knob.  As in the
+JAX package, the server carries no delta-iteration state: a packed exchange
+ships its full payload stream.
 """
 from __future__ import annotations
 
@@ -71,6 +79,7 @@ from repro_torch.core import algorithms
 from repro_torch.core.engine import PMVEngine, StepConfig, placement_call, resolve_device
 from repro_torch.core.gimv import GimvSpec
 from repro_torch.faults import FetchDeadlineError, as_injector
+from repro_torch.obs.live import as_telemetry
 from repro_torch.obs.recorder import as_recorder
 from repro_torch.serving.batcher import (
     DEFAULT_BUCKETS,
@@ -285,8 +294,6 @@ class PMVServer:
     ):
         if mesh is not None:
             raise _not_ported("mesh", "emulation mode only")
-        if telemetry:
-            raise _not_ported("telemetry")
         if exchange == "hier":
             raise _not_ported(f"exchange={exchange!r}")
         self.store = None
@@ -347,6 +354,13 @@ class PMVServer:
             "iterations": 0.0, "wall_s": 0.0,
             **{k: 0.0 for k in _SUMMED},
         }
+        # live telemetry: rolling-window latency/throughput + SLO burn rates
+        # over the retirement stream, optionally served over HTTP; last, so
+        # a refused knob above never leaves an exporter thread behind
+        self.telemetry = as_telemetry(
+            telemetry, registry=self.obs.metrics if self.obs.enabled else None)
+        if self.telemetry is not None and self.telemetry.config.serve:
+            self.telemetry.start_server()
 
     # ------------------------------------------------------------------
     def submit(self, query: Query) -> int:
@@ -372,15 +386,21 @@ class PMVServer:
             self.obs.counter("serve.shed").add(1)
             return qid
         self._batcher.add(query)
+        if self.telemetry is not None:
+            self.telemetry.record_queue_depth(len(self._batcher))
         return qid
 
     def _retire_unserved(self, query: Query, reason: str, error: str | None = None) -> None:
         """Record a result for a query whose column never (or no longer)
         iterates: shed at admission or lost to a failed batch."""
+        latency = time.perf_counter() - query.t_submit
         self._results[query.qid] = QueryResult(
             qid=query.qid, query=query, vector=None, iterations=0, converged=False,
-            latency_s=time.perf_counter() - query.t_submit, reason=reason, error=error)
+            latency_s=latency, reason=reason, error=error)
         self._retirement_reasons[reason] += 1
+        if self.telemetry is not None:
+            self.telemetry.record_retirement(
+                reason, latency, had_deadline=query.deadline_s is not None)
 
     def drain(self) -> dict[int, QueryResult]:
         """Serve every queued query to convergence; returns {qid: result}."""
@@ -414,6 +434,8 @@ class PMVServer:
         out["iter_wall_s"] = list(self._iter_walls)
         io_s, wait_s = out["store_io_s"], out["store_wait_s"]
         out["store_overlap"] = max(0.0, 1.0 - wait_s / io_s) if io_s > 0.0 else 1.0
+        if self.telemetry is not None:
+            out["slo"] = self.telemetry.slo.snapshot()
         return out
 
     def engine_for(self, query: Query) -> tuple[PMVEngine, GimvSpec]:
@@ -428,9 +450,12 @@ class PMVServer:
 
     def close(self) -> None:
         """Drop the cached family states, and with them their device-resident
-        matrices and their disk executors' prefetch threads."""
+        matrices and their disk executors' prefetch threads, and stop the
+        telemetry HTTP exporter's thread, if one was started."""
         for key in list(self._families):
             self._drop_family(key)
+        if self.telemetry is not None:
+            self.telemetry.close()
 
     def _drop_family(self, key: tuple) -> None:
         st = self._families.pop(key, None)
@@ -572,6 +597,9 @@ class PMVServer:
             self._iter_walls.append(iter_wall)
             self._stats["wall_s"] += iter_wall
             self._stats["iterations"] += 1
+            if self.telemetry is not None:
+                self.telemetry.record_iteration(iter_wall, active=int(active.sum()))
+                self.telemetry.record_queue_depth(len(self._batcher))
             for k in _SUMMED:
                 self._stats[k] += scalars.get(k, 0.0)
             if scalars.get("overflow", 0.0) > 0:
@@ -635,6 +663,10 @@ class PMVServer:
                 self._stats["retired"] += 1
                 wait = max(0.0, starts[q_i] - query.t_submit)
                 self._stats["queue_wait_s"] += wait
+                if self.telemetry is not None:
+                    self.telemetry.record_retirement(
+                        reason, latency, queue_wait_s=wait,
+                        had_deadline=query.deadline_s is not None)
                 if obs.enabled:
                     obs.counter("serve.retired").add(1)
                     obs.histogram("serve.query_latency_s").observe(latency)

@@ -5,6 +5,7 @@ import numpy as np
 
 import repro.core as J
 import repro_torch.core as T
+from _torch_graphs import tactic_mix_edges  # noqa: F401 -- re-exported
 from repro.graph import rmat
 
 # name -> (spec factory(module, n), ctx factory(module, n) | None, symmetrize,
@@ -81,15 +82,3 @@ def check_engine_case(algo, strategy, backend, scatter):
     if strategy != "horizontal":
         assert meta["plan"].scatter == scatter
     assert_results_match(r_ref, r_port, algo)
-
-
-def tactic_mix_edges(n: int = 64, b: int = 4) -> np.ndarray:
-    """A graph whose plan takes all three tactics under psi='cyclic' (a copy
-    of the JAX package's ``tests/test_planner.py::_tactic_mix_edges``): a
-    clique over the vertices congruent 0 mod b (one fully dense block) and a
-    ring, which touches only the (i, i) and (i, i+1) block pairs and leaves
-    the rest structurally empty."""
-    ids0 = np.arange(0, n, b)
-    clique = np.array([(s, d) for s in ids0 for d in ids0])
-    ring = np.stack([np.arange(n), (np.arange(n) + 1) % n], axis=1)
-    return np.concatenate([clique, ring])

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_graphs import tactic_mix_edges
 from repro_torch import kernels
 from repro_torch.kernels import block_gimv, ell_spmv, scatter_combine
 
@@ -1026,17 +1027,6 @@ def test_cuda_disk_serve_matches_resident_serve(cuda_device, disk_stores):
 # The bucket-streamed planned executor (stream='on') on the card.
 # ---------------------------------------------------------------------------
 
-def _tactic_mix_edges(n=64, b=4):
-    """The tactic-mix graph of ``tests/_torch_parity.py`` (which imports the
-    JAX package, so it is repeated here): a clique over the vertices
-    congruent 0 mod b (one dense block) and a ring; skip, ell and dense
-    blocks under psi='cyclic'."""
-    ids0 = np.arange(0, n, b)
-    clique = np.array([(s, d) for s in ids0 for d in ids0])
-    ring = np.stack([np.arange(n), (np.arange(n) + 1) % n], axis=1)
-    return np.concatenate([clique, ring])
-
-
 def _step_peak(T, eng, spec):
     """Peak device bytes of one placement step above what was allocated
     before it (the resident matrix and the state), after a warm-up step."""
@@ -1109,7 +1099,7 @@ def test_cuda_streamed_step_matches_fused(cuda_device, path, semiring, nq):
     out, launched = {}, {}
     for stream in ("off", "on"):
         rng = np.random.default_rng(3)
-        eng = T.PMVEngine(_tactic_mix_edges(), 64, b=4, strategy=strategy, theta=40.0,
+        eng = T.PMVEngine(tactic_mix_edges(), 64, b=4, strategy=strategy, theta=40.0,
                           backend="auto", exchange=exchange, scatter="kernel", stream=stream,
                           device=cuda_device)
         matrix, _v, ctx, mask, meta = eng.prepare(spec)
@@ -1199,7 +1189,7 @@ def test_cuda_engine_obs_onoff_bitwise(cuda_device, path, semiring):
             "min_src": T.connected_components}[semiring]
     out = {}
     for obs in (None, Recorder()):
-        eng = T.PMVEngine(_tactic_mix_edges(), 64, b=4, backend="auto", obs=obs,
+        eng = T.PMVEngine(tactic_mix_edges(), 64, b=4, backend="auto", obs=obs,
                           symmetrize=semiring == "min_src", device=cuda_device,
                           **OBS_PATHS[path])
         spec = make()
@@ -1303,7 +1293,7 @@ def test_cuda_bf16_wire_and_resume(cuda_device, algo, exchange, tmp_path):
     on the same engine is bitwise the uninterrupted one."""
     import repro_torch.core as T
 
-    edges = _tactic_mix_edges()
+    edges = tactic_mix_edges()
     mk = (lambda: T.pagerank(64)) if algo == "pagerank" else (lambda: T.sssp(0))
     kw = dict(strategy="vertical", backend="auto", scatter="kernel", exchange=exchange)
     card = T.PMVEngine(edges, 64, b=4, payload_dtype="bfloat16", device=cuda_device, **kw)
@@ -1339,3 +1329,93 @@ def test_cuda_model_capacity_overflow_falls_back(cuda_device, strategy, label):
     ref = T.PMVEngine(star_graph(n), n, b=4, **kw).run(T.sssp(0), max_iters=10, tol=0.5)
     assert res.totals["fallback"] == label
     np.testing.assert_array_equal(res.v, ref.v)
+
+
+# ---------------------------------------------------------------------------
+# The per-block launch profiler and live telemetry on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("strategy", ["vertical", "hybrid"])
+def test_cuda_profiler_launches_both_kernels(cuda_device, strategy, semiring):
+    """profile_block_launches on the tactic-mix graph on the card: every
+    non-skip block gets its ``launch.ell`` or ``launch.dense`` spans (both
+    kinds present), each block's first launch goes through kernels 1 and 2
+    and equals their plain versions on the same tables and operand (the
+    selection semirings and int32 exactly, plus_times within rtol 1e-5),
+    and the spans' block set is the CPU engine's."""
+    import repro_torch.core as T
+    from repro_torch.obs import calibration_summary, profile_block_launches
+
+    make = {"plus_times": lambda: T.pagerank(64), "min_plus": lambda: T.sssp(0),
+            "max_plus": lambda: _max_plus_spec(T),
+            "min_src": T.connected_components}[semiring]
+    kw = dict(strategy=strategy, theta=40.0, backend="auto", stream="off",
+              symmetrize=semiring == "min_src")
+    eng = T.PMVEngine(tactic_mix_edges(), 64, b=4, device=cuda_device, **kw)
+    spec = make()
+    dtype = np.dtype(spec.dtype)
+    checked = {"launch.ell": 0, "launch.dense": 0}
+
+    def inspect(rec):
+        assert rec["v"].is_cuda and rec["v"].dtype == spec.torch_dtype
+        if rec["name"] == "launch.dense":
+            want = block_gimv.dense_gimv_ref(rec["operands"], rec["v"], semiring=semiring)
+            _assert_match(rec["out"], want, semiring, dtype)
+        else:
+            for (cols, w), out in zip(rec["operands"], rec["out"]):
+                want = ell_spmv.ell_gimv_ref(cols, w if spec.needs_weights else None,
+                                             rec["v"], semiring=semiring)
+                _assert_match(out, want, semiring, dtype)
+        checked[rec["name"]] += 1
+
+    eng.prepare(spec)
+    before = kernels.launch_counts()
+    rec = profile_block_launches(eng, spec, repeats=2, inspect=inspect)
+    after = kernels.launch_counts()
+    assert checked["launch.ell"] > 0 and checked["launch.dense"] > 0
+    assert after["ell_gimv"] > before["ell_gimv"]
+    assert after["dense_gimv"] == before["dense_gimv"] + 3 * checked["launch.dense"]
+    cal = calibration_summary(rec)
+    assert cal["ell"]["launches"] == 2 * checked["launch.ell"]
+    assert cal["dense"]["launches"] == 2 * checked["launch.dense"]
+    assert all(c["measured_s"] > 0.0 for c in cal.values())
+    cpu = T.PMVEngine(tactic_mix_edges(), 64, b=4, device="cpu", **kw)
+    blocks = lambda r: sorted((e["name"], e["attrs"]["i"], e["attrs"]["j"])  # noqa: E731
+                              for e in r.spans("launch."))
+    assert blocks(rec) == blocks(profile_block_launches(cpu, make(), repeats=2))
+
+
+@pytest.mark.cuda
+def test_cuda_server_telemetry_scrape(cuda_device):
+    """A CUDA serve with telemetry on: the exporter answers over HTTP while
+    the server lives, the retired count and the SLO events equal the
+    queries served, the answers are bitwise the serve with telemetry off,
+    and close() stops the exporter."""
+    import urllib.request
+
+    from repro_torch.graph import rmat
+    from repro_torch.obs import TelemetryConfig
+    from repro_torch.serving import PMVServer, Query
+
+    edges = rmat(10, 8 << 10, seed=4)
+    queries = [Query("sssp", source=s, tol=0.5) for s in range(0, 24, 3)]
+    kw = dict(b=4, strategy="vertical", backend="auto", scatter="kernel", buckets=(8,),
+              device=cuda_device)
+    srv = PMVServer(edges, 1 << 10, telemetry=TelemetryConfig(latency_target_s=60.0), **kw)
+    try:
+        on = srv.serve(queries)
+        with urllib.request.urlopen(srv.telemetry.url + "/metrics", timeout=10) as resp:
+            body = resp.read().decode()
+        assert f"pmv_serve_retired_total {float(len(queries))}" in body
+        assert srv.stats()["slo"]["latency"]["total"]["events"] == len(queries)
+    finally:
+        srv.close()
+    assert srv.telemetry.url is None
+    off_srv = PMVServer(edges, 1 << 10, **kw)
+    off = off_srv.serve(queries)
+    off_srv.close()
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a.vector, b.vector)
+        assert a.iterations == b.iterations

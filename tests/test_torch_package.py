@@ -52,7 +52,8 @@ print(json.dumps({"modules": names, "bad": bad}))
             "repro_torch.store.format", "repro_torch.store.manifest",
             "repro_torch.store.ingest", "repro_torch.store.verify",
             "repro_torch.store.residency", "repro_torch.faults.retry", "repro_torch.faults.plan",
-            "repro_torch.graph.io"} <= set(report["modules"])
+            "repro_torch.graph.io", "repro_torch.obs.profiler", "repro_torch.obs.fleet",
+            "repro_torch.obs.live", "repro_torch.cli"} <= set(report["modules"])
 
 
 def test_engine_without_device_raises_without_gpu(monkeypatch):
@@ -70,14 +71,15 @@ def test_engine_without_device_raises_without_gpu(monkeypatch):
 # with residency='disk'), obs, and the fault-tolerance layer's knobs
 # (capacity='model' and any other non-structural capacity, which the JAX
 # package sizes from the model too; slack; payload_dtype; faults, where a
-# non-plan is a TypeError).  A case whose knob is taken holds the port to
+# non-plan is a TypeError), and the server's live telemetry (telemetry;
+# the engine has no such knob).  A case whose knob is taken holds the port to
 # what the JAX package does with the same arguments: the same exception
 # class, or an answer from both (without a store the server, like the JAX
 # package's, holds its edges resident and ignores residency and the
 # budget).  STORE stands for a θ-split store of the same graph.
 STORE = "<store>"
 TAKEN = ("store", "residency", "store_budget_bytes", "io_retry", "strategy", "obs",
-         "capacity", "payload_dtype", "faults", "slack")
+         "capacity", "payload_dtype", "faults", "slack", "telemetry")
 
 
 @pytest.fixture(scope="module")
@@ -91,10 +93,12 @@ def knob_store(tmp_path_factory):
 
 def _outcome(mod, qmod, cls, knob, root, **extra) -> str:
     """Build ``cls`` (an engine or a server) with ``knob`` and answer one
-    SSSP solve or query: 'ok', or the class name of what was raised."""
+    SSSP solve or query: 'ok', or the class name of what was raised.  A
+    server is closed afterwards (it stops a telemetry exporter's thread)."""
     kw = {k: root if v == STORE else v for k, v in knob.items()}
     on_store = kw.get("store") == root
     graph = (None,) if on_store else (rmat(6, 200, seed=0), 64)
+    obj = None
     try:
         obj = cls(*graph, **({} if on_store else {"b": 2}), **kw, **extra)
         if hasattr(obj, "serve"):
@@ -103,6 +107,9 @@ def _outcome(mod, qmod, cls, knob, root, **extra) -> str:
             obj.run(mod.sssp(0), max_iters=3, tol=0.5)
     except Exception as e:  # noqa: BLE001 -- the class is what is compared
         return type(e).__name__
+    finally:
+        if hasattr(obj, "serve"):
+            obj.close()
     return "ok"
 
 
@@ -130,43 +137,57 @@ def test_knobs_outside_the_slice_raise(knob, knob_store):
             got = _outcome(T, TS, t_cls, knob, knob_store, device="cpu")
             assert got == want, (t_cls.__name__, got, want)
         return
-    if name != "telemetry":
-        with pytest.raises(NotImplementedError, match=name):
-            T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
+    with pytest.raises(NotImplementedError, match=name):
+        T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
     with pytest.raises(NotImplementedError, match=name):
         TS.PMVServer(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
 
 
 @pytest.mark.parametrize("knob,text", [
     (dict(mesh=object()), "mesh"), (dict(exchange="hier"), "exchange='hier'"),
-    (dict(backend="pallas"), "backend='pallas'"), (dict(backend="xla"), "backend='xla'"),
-    (dict(telemetry=True), "telemetry")])
+    (dict(backend="pallas"), "backend='pallas'"), (dict(backend="xla"), "backend='xla'")])
 def test_remaining_refusals_name_their_knob(knob, text):
     """Each knob the port still refuses raises NotImplementedError naming the
     knob (and its value where the knob takes other values)."""
     edges = rmat(6, 200, seed=0)
-    if "telemetry" not in knob:
-        with pytest.raises(NotImplementedError, match=text.replace("'", ".")) as ei:
-            T.PMVEngine(edges, 64, b=2, device="cpu", **knob)
-        assert text in str(ei.value)
+    with pytest.raises(NotImplementedError, match=text.replace("'", ".")) as ei:
+        T.PMVEngine(edges, 64, b=2, device="cpu", **knob)
+    assert text in str(ei.value)
     with pytest.raises(NotImplementedError) as ei:
         TS.PMVServer(edges, 64, b=2, device="cpu", **knob)
     assert text in str(ei.value)
 
 
-@pytest.mark.parametrize("module,package", [
-    ("repro_torch.obs.profiler", "repro_torch.obs"), ("repro_torch.obs.fleet", "repro_torch.obs"),
-    ("repro_torch.obs.live", "repro_torch.obs"), ("repro_torch.store.spmd", "repro_torch.store")])
+@pytest.mark.parametrize("module,package", [("repro_torch.store.spmd", "repro_torch.store")])
 def test_unported_modules_are_named(module, package):
-    """The JAX package's modules outside the port (the SPMD store, the obs
-    profiler, fleet and live telemetry) do not exist in it, and the package
-    that would hold each says so by name."""
+    """The JAX package's modules outside the port (the SPMD store) do not
+    exist in it, and the package that would hold each says so by name."""
     import importlib
 
     with pytest.raises(ModuleNotFoundError):
         importlib.import_module(module)
     doc = importlib.import_module(package).__doc__
     assert "Not ported yet" in doc and module.rsplit(".", 1)[1] in doc
+
+
+@pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.obs.profiler",
+                                    "repro_torch.obs.fleet", "repro_torch.obs.live",
+                                    "repro_torch.cli"])
+def test_ported_modules_match_reference(module):
+    """The observability modules and the CLI the port took over from the JAX
+    package export the JAX package's ``__all__``, and each imports in a
+    fresh interpreter without pulling in jax or the JAX package."""
+    import importlib
+
+    reference = importlib.import_module("repro" + module[len("repro_torch"):])
+    assert importlib.import_module(module).__all__ == reference.__all__
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300, check=True)
+    assert out.stdout.strip() == "[]"
 
 
 def test_packed_exchange_and_delta_eps_are_accepted():

@@ -142,7 +142,7 @@ def test_profiled_calls_counts_launches_in_a_captured_graph(monkeypatch, caught,
     assert seen["windows_caught"] == caught and seen["graph_nodes_per_call"] == nodes
 
 
-def test_disk_phase_on_cpu(monkeypatch, tmp_path):
+def test_disk_phase_on_cpu(monkeypatch, tmp_path, capsys):
     """The smoke's disk phase at scale 10 on the CPU, with the card's memory
     calls stubbed and the launch counters faked (nothing launches here):
     the store ingests (with θ-split shards at a θ that leaves dense
@@ -155,12 +155,16 @@ def test_disk_phase_on_cpu(monkeypatch, tmp_path):
     with both faults recovered, every leg's budget holds, the kernel rows
     gain their disk launches (the chaos and overflow solves' kernel 3, the
     chaos serve's kernel 6) and a plain-version check on each kernel-3/6
-    tail's own (idx, val), and the store directory is gone afterwards."""
+    tail's own (idx, val), the fleet reports of the two traced SSSP solves
+    (one worker, no straggler) and the CLI's store verify, obs report and
+    obs merge (over two resident traces) pass, and the store directory is
+    gone afterwards."""
     import tempfile
 
     import torch
 
     from repro_torch import kernels
+    from repro_torch.obs import Recorder
     from repro_torch.serving import PMVServer, Query
 
     theta = 60.0
@@ -194,9 +198,20 @@ def test_disk_phase_on_cpu(monkeypatch, tmp_path):
     failures = []
     peaks = {"sssp/vertical": 1.0, "pagerank/selective": 1.0, "pagerank/vertical packed": 1.0,
              "serve": 1.0}
+    traces = {}
+    for label in ("pagerank/selective", "sssp/vertical"):
+        traces[label] = Recorder()
+        PMVEngine(EDGES, N, b=8, strategy="vertical", device="cpu", obs=traces[label]).run(
+            sssp(0), max_iters=2, tol=0.5)
     smoke.disk_phase(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, theta, sssp_v,
-                     served, peaks, rows, failures)
+                     served, peaks, rows, failures, traces=traces)
     assert failures == []
+    out = capsys.readouterr().out
+    for label in ("sssp/vertical disk", "sssp/hybrid disk"):
+        assert f"fleet {label}: workers=1 iterations=" in out
+        assert f"fleet trace {label}: merge_traces" in out
+    assert "fleet: 1 workers" in out                     # obs report's digest
+    assert "merged 2 trace(s)" in out and "cli: store verify, obs report" in out
     checks = {name: rows[name].pop("disk_checks") for name in
               ("scatter_combine", "scatter_combine_multi")}
     assert rows["scatter_combine"] == {"launches": 21, "disk_launches": 15}
@@ -363,3 +378,74 @@ def test_obs_phase_on_cpu(monkeypatch, capsys):
     with pytest.raises(smoke.SmokeError, match="bitwise"):
         smoke.obs_overhead(torch, np, "sssp/vertical", eng, spec, bad, max_iters=100, tol=0.5)
     assert eng.obs is rec
+
+
+class _FakeEvent:
+    """torch.cuda.Event on the CPU: records a host clock reading."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self):
+        import time
+
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return 1e3 * (end.t - self.t)
+
+
+def test_profiler_phase_on_cpu(monkeypatch, capsys):
+    """The smoke's profiler phase on a scale-10 SSSP run on the CPU (the
+    card's synchronize and events stubbed): the spans count the plan's
+    non-skip blocks three times, every bucket's first launch equals its
+    plain version, the calibration and profiler lines print; a plain
+    version that disagrees fails the phase."""
+    import torch
+
+    from repro_torch.kernels import ell_spmv
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    eng = PMVEngine(EDGES, N, b=8, strategy="vertical", backend="auto", scatter="kernel",
+                    stream="off", device="cpu")
+    spec = sssp(0)
+    plan = eng.prepare(spec)[-1]["plan"]
+    out = smoke.profiler_phase(torch, np, "sssp/vertical", eng, spec)
+    tactics = plan.tactic_counts()
+    assert out["spans"] == {"launch.ell": 3 * tactics["ell"],
+                            "launch.dense": 3 * tactics["dense"]}
+    assert len(out["ratios"]) == tactics["ell"] + tactics["dense"]
+    text = capsys.readouterr().out
+    assert "profile calibration sssp/vertical ell: launches=" in text
+    assert "profiler sssp/vertical: all non-skip blocks:" in text
+    assert "profiler launches sssp/vertical (outside the main path's counts)" in text
+    monkeypatch.setattr(ell_spmv, "ell_gimv_ref",
+                        lambda cols, w, v, semiring: torch.zeros(cols.shape[0], dtype=v.dtype))
+    with pytest.raises(smoke.SmokeError, match="disagrees with its plain version"):
+        smoke.profiler_phase(torch, np, "sssp/vertical", eng, spec, repeats=1)
+
+
+def test_telemetry_checks_on_cpu(capsys):
+    """The smoke's telemetry checks on a small CPU serve with the exporter
+    on: the retired count, the SLO events, the scrape and ``obs top`` pass;
+    a wrong query count fails; close() stops the exporter's thread."""
+    from repro_torch.obs import TelemetryConfig
+    from repro_torch.serving import PMVServer, Query
+
+    srv = PMVServer(EDGES, N, b=8, strategy="vertical", buckets=(8,), device="cpu",
+                    telemetry=TelemetryConfig(latency_target_s=30.0, host="127.0.0.1", port=0))
+    try:
+        srv.serve([Query("rwr", source=s, tol=1e-6) for s in range(6)])
+        smoke.telemetry_checks("serve", srv, 6)
+        with pytest.raises(smoke.SmokeError, match="does not count the 7 queries"):
+            smoke.telemetry_checks("serve", srv, 7)
+    finally:
+        smoke.telemetry_close_check("serve", srv)
+    out = capsys.readouterr().out
+    assert "telemetry serve: http://127.0.0.1:" in out and "-> ok" in out
+    assert "pmv serve" in out                              # obs top's frame
+    assert "close() stopped the exporter's thread" in out
