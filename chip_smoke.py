@@ -221,9 +221,36 @@ Phases, each printed as it ends; any failure exits non-zero:
               carrying the vertical solve's fleet report, and ``obs merge``
               over the Chrome traces of runs 1-3 (validated, one lane per
               input), each returning 0.
+7b. spmd   -- the SPMD path, one rank per worker through torch.distributed.
+              (a) NCCL, one rank in this process (``init_process_group(
+              'nccl', world_size=1)`` on a file store): an SSSP from 0 over a
+              size-1 DeviceMesh at b = 1 on RMAT-16, equal to scipy and
+              bitwise the emulated b = 1 engine; one rank moves no bytes, it
+              shows that NCCL takes the port's tensors.  (b) gloo, 8 ranks
+              sharing the card (NCCL refuses two ranks on one GPU), each a
+              subprocess of this script (``--spmd-rank R --spmd-dir D``)
+              that runs the kernels on the card on its own worker's rows, on
+              the graph of phase 2: the SSSP of run 2 (strategy='vertical',
+              scatter='kernel'), bitwise run 2's answer and its
+              per-iteration ``exchanged_elems``; PageRank horizontal within
+              rtol 1e-4 of scipy.  On RMAT(scale - 2) (every rank runs the
+              whole host prepare, so these two are cut to fit the time
+              limit): the SSSP through ``exchange='hier'`` on a (2, 4)
+              ('pod', 'workers') mesh, equal to scipy, its
+              ``inter_pod_elems`` the closed form P(P-1)·W·n_local and below
+              the flat sparse exchange's at the same capacity;
+              ``PMVServer(mesh=..., strategy='hybrid', theta=3000,
+              scatter='kernel')`` on the first 8 RWR sources of phase 5 (mod
+              n) in one Q = 8 batch, within rtol 1e-4 of scipy.  Each rank zeroes its launch counters before each
+              run and reads them after; the summed counts join the kernel
+              rows, and each run's kernels must launch.  Prints each rank's
+              median iteration wall and the phase's seconds: gloo stages
+              the card's tensors through host memory, so no SPMD speed
+              (NCCL, NVLink) can be read from them.
 8. stream  -- the bucket-streamed planned executor (``stream='on'``, one
-              destination block at a time) on ``erdos_renyi(2**scale, 16 *
-              2**scale)`` at b = 64 workers, cyclic psi: a uniform sparse
+              destination block at a time) on ``erdos_renyi(2**s, 16 * 2**s)``
+              with s = scale - 1 (cut from scale to fit the time limit) at
+              b = 64 workers, cyclic psi: a uniform sparse
               graph at the paper's regime of many workers, where the default
               ``stream='auto'`` streams.  Run 1: SSSP from 0,
               ``PMVEngine(strategy='vertical', backend='auto',
@@ -2801,6 +2828,319 @@ def packed_widths_phase(torch, np, dev, gen):
 
 
 # ---------------------------------------------------------------------------
+# spmd phase: one rank per worker through torch.distributed
+# ---------------------------------------------------------------------------
+
+SPMD_RANK_TIMEOUT_S = 300.0
+
+
+def spmd_nccl(torch, np, sp, csgraph, dev, seed, rows, failures, *, scale=16) -> None:
+    """Part (a) of the spmd phase: one NCCL rank in this process
+    (``init_process_group('nccl', world_size=1)`` on a file store), an SSSP
+    from 0 over a mesh of size 1 at b = 1 on RMAT(``scale``): it must equal
+    scipy and, bitwise, the emulated b = 1 engine.  One rank moves no bytes:
+    it shows that NCCL takes the port's tensors, not a transfer."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import kernels
+    from repro_torch.core import PMVEngine, sssp
+    from repro_torch.graph import rmat
+
+    n = 1 << scale
+    edges = rmat(scale, 16 << scale, seed=seed)
+    kw = dict(b=1, strategy="vertical", backend="auto", scatter="kernel", stream="off",
+              device=dev)
+    d = tempfile.mkdtemp(prefix="pmv_nccl_")
+    t = time.perf_counter()
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("workers",))
+            eng = PMVEngine(edges, n, mesh=mesh, **kw)
+            eng.prepare(sssp(0))
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            res = eng.run(sssp(0), max_iters=100, tol=0.5)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emul = PMVEngine(edges, n, **kw).run(sssp(0), max_iters=100, tol=0.5)
+    want = sssp_ref(np, sp, csgraph, edges, n, 0)
+    ok_ref = res.converged and np.array_equal(res.v.astype(np.float64), want)
+    ok_emul = np.array_equal(res.v, emul.v) and res.iterations == emul.iterations
+    walls = [1e3 * r["wall_s"] for r in res.per_iter]
+    log(f"spmd nccl W=1: sssp/vertical b=1 rmat scale {scale} over NCCL (one rank: every "
+        f"collective is local, no byte crosses a process): iterations={res.iterations} "
+        f"median_iter_ms={np.median(walls):.3f} launches={json.dumps(counts)} "
+        f"scipy {'ok' if ok_ref else 'FAIL'}, bitwise the emulated b=1 engine "
+        f"{'ok' if ok_emul else 'FAIL'} ({time.perf_counter() - t:.1f} s)")
+    if not (ok_ref and ok_emul):
+        failures.append("spmd nccl W=1 sssp disagrees with scipy or the emulated engine")
+    for name in ("ell_gimv", "scatter_combine"):
+        if counts[name] == 0:
+            raise SmokeError(f"spmd nccl: kernel {name} never launched")
+        rows.setdefault(name, {"launches": 0})["launches"] += counts[name]
+
+
+def spmd_rank(rank: int, d: str) -> int:
+    """One rank of the spmd phase's gloo part (``chip_smoke.py --spmd-rank R
+    --spmd-dir D``): the runs of ``D/payload.json`` on the shared graph
+    ``D/edges.npy`` (the hier SSSP and the serve on ``D/edges_small.npy``),
+    each between barriers with the launch counters zeroed
+    before it and read after it; results in ``D/r{R}.json`` (and rank 0's
+    vectors in ``D/*.npy``).  Leaves with ``os._exit`` after a last barrier,
+    so no rank tears its gloo group down while a peer still talks to it."""
+    import os
+    import traceback
+
+    code = 1
+    try:
+        with open(os.path.join(d, "payload.json")) as f:
+            cfg = json.load(f)
+        sys.path.insert(0, cfg["src"])
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch import kernels
+        from repro_torch.core import PMVEngine, collectives, pagerank, sssp
+        from repro_torch.serving import PMVServer, Query
+
+        torch.set_num_threads(1)
+        world, n, n_small = cfg["world"], cfg["n"], cfg["n_small"]
+        dev = collectives.rank_device(cfg["device"])
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        t0 = time.perf_counter()
+        dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                                world_size=world)
+        flat = DeviceMesh(dev.type, torch.arange(world), mesh_dim_names=("workers",))
+        pods = DeviceMesh(dev.type, torch.arange(world).reshape(2, world // 2),
+                          mesh_dim_names=("pod", "workers"))
+        edges = np.load(os.path.join(d, "edges.npy"))
+        small = np.load(os.path.join(d, "edges_small.npy"))
+        out = {"rank": rank, "device": str(dev), "up_s": time.perf_counter() - t0}
+
+        def counted(label, fn):
+            dist.barrier()
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            res = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out[label] = {"s": time.perf_counter() - t, "launches": kernels.launch_counts()}
+            return res
+
+        def solve(label, spec, max_iters, tol, graph=(edges, n), **kw):
+            eng = PMVEngine(*graph, b=world, backend="auto", device=dev, **kw)
+            res = counted(label, lambda: eng.run(spec, max_iters=max_iters, tol=tol))
+            meta = eng.prepare(spec)[-1]
+            out[label].update(
+                iterations=res.iterations, converged=res.converged,
+                prepare_s=meta["prepare_s"], exchange=meta["exchange"],
+                walls_ms=[1e3 * r["wall_s"] for r in res.per_iter],
+                stats={k: [r.get(k, 0.0) for r in res.per_iter]
+                       for k in ("exchanged_elems", "inter_pod_elems", "intra_pod_elems",
+                                 "logical_elems")})
+            if rank == 0:
+                np.save(os.path.join(d, f"{label}.npy"), res.v)
+            del eng
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+        solve("sssp_flat", sssp(0), 100, 0.5, strategy="vertical", scatter="kernel",
+              stream="off", mesh=flat)
+        solve("pagerank_horizontal", pagerank(n), 100, 1e-6, strategy="horizontal", mesh=flat)
+        solve("sssp_hier", sssp(0), 100, 0.5, graph=(small, n_small), strategy="vertical",
+              scatter="kernel", stream="off", exchange="hier", mesh=pods,
+              axis_name=("pod", "workers"))
+        srv = PMVServer(small, n_small, b=world, strategy="hybrid", theta=cfg["theta"],
+                        backend="auto", scatter="kernel", mesh=flat, device=dev)
+        try:
+            queries = [Query("rwr", source=int(s), tol=1e-6) for s in cfg["rwr_sources"]]
+            got = counted("serve_rwr", lambda: srv.serve(queries))
+            st = srv.stats()
+            fam, fspec = srv.engine_for(queries[0])
+            out["serve_rwr"]["prepare_s"] = fam.prepare(fspec)[-1]["prepare_s"]
+        finally:
+            srv.close()
+        out["serve_rwr"].update(
+            iterations=[r.iterations for r in got], reasons=[r.reason for r in got],
+            converged=[r.converged for r in got],
+            iter_walls_ms=[1e3 * w for w in st["iter_wall_s"]])
+        if rank == 0:
+            np.save(os.path.join(d, "serve_rwr.npy"), np.stack([r.vector for r in got]))
+        with open(os.path.join(d, f"r{rank}.tmp"), "w") as f:
+            json.dump(out, f)
+        os.replace(os.path.join(d, f"r{rank}.tmp"), os.path.join(d, f"r{rank}.json"))
+        dist.barrier()
+        code = 0
+    except BaseException:  # noqa: BLE001 -- reported through the rank's log and exit code
+        traceback.print_exc()
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+
+
+def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources, rows,
+              failures, *, small=None, hints=None, expect_launches=True) -> None:
+    """Part (b) of the spmd phase: ``b`` gloo ranks sharing ``dev``, each a
+    subprocess that runs the kernels on the card (``spmd_rank``): the flat
+    SSSP bitwise run 2 (``run2``: its answer and per-iteration exchanged
+    elements) and a horizontal PageRank within rtol 1e-4 of scipy on
+    ``edges``; on ``small`` ((edges, n), default the same graph) the
+    two-hop SSSP on a (2, b/2) ('pod', 'workers') mesh equal to scipy with
+    its inter-pod elements at the closed form and below the flat sparse
+    exchange's at the same capacity, and a ``PMVServer(mesh=...)`` batch of
+    8 RWR queries (``rwr_sources`` mod its n) within rtol 1e-4 of scipy.  The walls it prints cross gloo through host memory: no speed of
+    the SPMD path (NCCL, NVLink) can be read from them.  While the ranks
+    run, the scipy references are computed for the iteration counts in
+    ``hints`` ({'pagerank': k, 'rwr': [k, ...]}, the emulated runs'), and
+    again after for any count the ranks did not share."""
+    import os
+    import shutil
+    import tempfile
+
+    small_edges, n_small = small if small is not None else (edges, n)
+    rwr_sources = [int(s) % n_small for s in rwr_sources]
+    d = tempfile.mkdtemp(prefix="pmv_spmd_")
+    procs = []
+    t = time.perf_counter()
+    try:
+        np.save(os.path.join(d, "edges.npy"), edges)
+        np.save(os.path.join(d, "edges_small.npy"), small_edges)
+        with open(os.path.join(d, "payload.json"), "w") as f:
+            json.dump({"src": str(Path(__file__).resolve().parent / "src"), "world": b, "n": n,
+                       "n_small": n_small, "theta": theta, "device": str(dev),
+                       "rwr_sources": rwr_sources}, f)
+        for rank in range(b):
+            log_f = open(os.path.join(d, f"r{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--spmd-rank", str(rank),
+                 "--spmd-dir", d], stdout=log_f, stderr=subprocess.STDOUT,
+                env={**os.environ, "LOCAL_RANK": str(rank), "OMP_NUM_THREADS": "1"}), log_f))
+        deadline = time.monotonic() + SPMD_RANK_TIMEOUT_S
+        hints = hints or {}
+        pre = {}                            # the references, while the ranks run
+        if "pagerank" in hints:
+            pre["pagerank"] = (hints["pagerank"],
+                               pagerank_ref(np, sp, edges, n, hints["pagerank"]))
+        if "rwr" in hints:
+            pre["rwr"] = (list(hints["rwr"]), rwr_ref(np, sp, small_edges, n_small, rwr_sources,
+                                                      list(hints["rwr"])).T)
+        hier_want = sssp_ref(np, sp, csgraph, small_edges, n_small, 0)
+        for proc, _ in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+        bad = [r for r, (p, _) in enumerate(procs) if p.poll() != 0]
+        if bad:
+            tails = []
+            for r in bad[:3]:
+                text = Path(d, f"r{r}.log").read_text(errors="replace")
+                tails.append(f"--- rank {r} (exit {procs[r][0].poll()}) ---\n{text[-2500:]}")
+            raise SmokeError("spmd gloo ranks failed:\n" + "\n".join(tails))
+        res = [json.loads(Path(d, f"r{r}.json").read_text()) for r in range(b)]
+        vec = {k: np.load(os.path.join(d, f"{k}.npy"))
+               for k in ("sssp_flat", "pagerank_horizontal", "sssp_hier", "serve_rwr")}
+    finally:
+        for proc, log_f in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+        shutil.rmtree(d, ignore_errors=True)
+    wall = time.perf_counter() - t
+    up = [r["up_s"] for r in res]
+    where = (" (gloo stages the card's tensors through host memory; the kernels run on the "
+             "card)" if dev.type == "cuda" else "")
+    log(f"spmd gloo W={b}: {b} ranks on {res[0]['device']}{where}, group up in "
+        f"{min(up):.1f}-{max(up):.1f} s")
+
+    def line(label, what, ok, extra=""):
+        r0 = res[0][label]
+        med = [float(np.median(r[label].get("walls_ms") or r[label].get("iter_walls_ms")))
+               for r in res]
+        launches = {k: sum(r[label]["launches"][k] for r in res) for k in r0["launches"]}
+        prep = [r[label].get("prepare_s", 0.0) for r in res]
+        log(f"spmd run {label} W={b}: {what}; seconds {r0['s']:.1f}, prepare_s per rank "
+            f"{min(prep):.2f}-{max(prep):.2f}, median iteration ms per rank "
+            f"[{', '.join(f'{m:.2f}' for m in med)}], launches (all ranks)={json.dumps(launches)}"
+            f"{extra} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"spmd {label} failed its check")
+        return launches
+
+    same = all(r["sssp_flat"]["stats"] == res[0]["sssp_flat"]["stats"] for r in res)
+    flat = res[0]["sssp_flat"]
+    ok = (flat["converged"] and np.array_equal(vec["sssp_flat"], run2["v"])
+          and flat["stats"]["exchanged_elems"] == run2["exchanged_elems"] and same)
+    counts = {"sssp_flat": line("sssp_flat", f"iterations={flat['iterations']}, bitwise run 2 "
+                                f"and its exchanged_elems {run2['exchanged_elems'][-1]:.0f}", ok)}
+    pr = res[0]["pagerank_horizontal"]
+    its, want = pre.get("pagerank", (None, None))
+    if its != pr["iterations"]:
+        want = pagerank_ref(np, sp, edges, n, pr["iterations"])
+    rel = float(np.max(np.abs(vec["pagerank_horizontal"] - want) / np.maximum(want, 1e-30)))
+    ok = np.allclose(vec["pagerank_horizontal"], want, rtol=1e-4, atol=1e-12)
+    counts["pagerank_horizontal"] = line(
+        "pagerank_horizontal", f"iterations={pr['iterations']}, scipy max rel err {rel:.3e}", ok)
+    hier = res[0]["sssp_hier"]
+    w_in = b // 2
+    closed = 2.0 * (2 - 1) * w_in * -(-n_small // b)
+    inter, intra = hier["stats"]["inter_pod_elems"][-1], hier["stats"]["intra_pod_elems"][-1]
+    # the flat sparse exchange at the same capacity: b(b-1) rows of cap
+    # (idx, val) slots, where intra = P^2 W(W-1) cap 2
+    flat_same = b * (b - 1) * intra / (2 ** 2 * w_in * (w_in - 1))
+    ok = (hier["converged"] and hier["exchange"] == "hier"
+          and np.array_equal(vec["sssp_hier"].astype(np.float64), hier_want)
+          and all(x == closed for x in hier["stats"]["inter_pod_elems"])
+          and inter < flat_same)
+    counts["sssp_hier"] = line(
+        "sssp_hier", f"rmat n={n_small}, (2, {w_in}) mesh, iterations={hier['iterations']}, "
+        f"scipy; inter_pod_elems {inter:.0f} (closed form {closed:.0f}) < the flat sparse "
+        f"exchange's {flat_same:.0f} at the same capacity; intra_pod_elems {intra:.0f}", ok)
+    sv = res[0]["serve_rwr"]
+    its, want = pre.get("rwr", (None, None))
+    if its != sv["iterations"]:
+        want = rwr_ref(np, sp, small_edges, n_small, rwr_sources, sv["iterations"]).T
+    rel = float(np.max(np.abs(vec["serve_rwr"] - want) / np.maximum(np.abs(want), 1e-30)
+                       * (np.abs(want) > 1e-12)))
+    ok = (all(r == "completed" for r in sv["reasons"]) and all(sv["converged"])
+          and np.allclose(vec["serve_rwr"], want, rtol=1e-4, atol=1e-12))
+    counts["serve_rwr"] = line(
+        "serve_rwr", f"rmat n={n_small}, PMVServer(mesh=) hybrid theta={theta}, "
+        f"{len(rwr_sources)} RWR at Q = "
+        f"{len(rwr_sources)}, iterations {min(sv['iterations'])}-{max(sv['iterations'])}, "
+        f"scipy max rel err {rel:.3e}", ok)
+    expect = {"sssp_flat": ("ell_gimv", "scatter_combine"), "pagerank_horizontal": ("ell_gimv",),
+              "sssp_hier": ("ell_gimv", "scatter_combine"),
+              "serve_rwr": ("ell_gimv_multi", "dense_gimv_multi", "scatter_combine_multi")}
+    if expect_launches:
+        for label, names in expect.items():
+            for name in names:
+                if counts[label][name] == 0:
+                    raise SmokeError(f"spmd {label}: kernel {name} never launched on the path")
+    for label in expect:
+        for name, c in counts[label].items():
+            if c:
+                rows.setdefault(name, {"launches": 0})["launches"] += c
+    log(f"spmd gloo phase: {wall:.1f} s for {b} ranks and 4 runs, the checks "
+        f"{time.perf_counter() - t - wall:.1f} s after")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2809,7 +3149,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's -Xptxas -v report")
+    ap.add_argument("--spmd-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--spmd-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.spmd_rank is not None:          # one rank of the spmd phase (spmd_gloo)
+        return spmd_rank(args.spmd_rank, args.spmd_dir)
     t_start = time.perf_counter()
 
     import torch
@@ -2929,6 +3273,7 @@ def main() -> int:
     spec = pagerank(n)
     res, meta, _ = drive("pagerank/selective", eng, spec, max_iters=100, tol=1e-6,
                       expect=("ell_gimv",))
+    pagerank_iters = res.iterations
     prepare_phases("pagerank/selective", eng.obs, meta)
     check_trace("pagerank/selective", eng.obs)
     traces = {"pagerank/selective": eng.obs}
@@ -2965,6 +3310,8 @@ def main() -> int:
     if not ok:
         failures.append("sssp disagrees with scipy")
     sssp_v = res.v
+    run2 = {"v": res.v, "want": want,
+            "exchanged_elems": [r["exchanged_elems"] for r in res.per_iter]}
     fp = eng.prepare(spec)[0]["planned"]
     part = meta["part"]
     nl = part.n_local
@@ -3069,6 +3416,7 @@ def main() -> int:
     answers, peaks["serve"] = serve_phase(args.seed, torch, np, sp, csgraph, dev, gen, edges, n,
                                           b, 3000.0, rows, failures)
     served = (answers["sssp"][:16], [s for s, _, _ in answers["rwr"][:8]])
+    spmd_hints = {"pagerank": pagerank_iters}
     # -- packed serve: the same 96 RWR queries through the packed exchange -------
     packed_serve_phase(torch, np, dev, gen, edges, n, b, 3000.0, answers["rwr"], rows, failures)
     del answers
@@ -3077,9 +3425,21 @@ def main() -> int:
     disk_phase(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, sssp_v, served, peaks, rows,
                failures, seed=args.seed, traces=traces)
     del traces
+    # -- spmd: one rank per worker, NCCL at W = 1, then 8 gloo ranks on the card;
+    # the hier SSSP and the serve on RMAT(scale - 2), which keeps the smoke
+    # inside its time limit (every rank runs the whole host prepare) --
+    t = time.perf_counter()
+    spmd_nccl(torch, np, sp, csgraph, dev, args.seed, rows, failures)
+    small = (rmat(args.scale - 2, 16 << (args.scale - 2), seed=args.seed), 1 << (args.scale - 2))
+    spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, run2, served[1], rows, failures,
+              small=small, hints=spmd_hints)
+    log(f"spmd phase: {time.perf_counter() - t:.1f} s (card: {card})")
+    del run2
     del edges, sym
-    # -- stream: the bucket-streamed executor on a uniform sparse graph at b = 64 --
-    stream_phase(torch, np, sp, csgraph, dev, gen, args.scale, args.seed, rows, failures, peaks)
+    # -- stream: the bucket-streamed executor on a uniform sparse graph at b = 64,
+    # at scale - 1 to keep the smoke inside its time limit --
+    stream_phase(torch, np, sp, csgraph, dev, gen, args.scale - 1, args.seed, rows, failures,
+                 peaks)
 
     if failures:
         raise SmokeError("; ".join(failures))

@@ -1,9 +1,22 @@
 """PMVEngine: pre-partition once, iterate M (x) v to convergence (paper §3.1).
 
-Emulation mode only: all b workers' shards live on one device with an
-explicit leading worker axis (placement.py).  The engine runs on the GPU
-unless the caller passes ``device='cpu'``, where every kernel wrapper takes
-its plain PyTorch version.
+Two modes, as in the JAX package:
+
+- emulation (``mesh=None``): all b workers' shards live on one device with
+  an explicit leading worker axis (placement.py);
+- SPMD (``mesh=`` a ``torch.distributed.device_mesh.DeviceMesh``): one
+  process (rank) per worker, started as under ``torchrun``.  Every rank
+  builds the same engine and calls ``run`` collectively; each runs the same
+  deterministic host prepare, keeps its own worker's rows of the matrix, the
+  vector, the context and the mask (a leading worker axis of length 1), and
+  the exchanges cross the process boundaries through ``core/collectives.py``
+  (NCCL on GPUs, gloo on the CPU).  The convergence delta and the counted
+  stats are summed over the workers, so every rank reports the same
+  iterations and the whole vector.
+
+The engine runs on the GPU unless the caller passes ``device='cpu'``, where
+every kernel wrapper takes its plain PyTorch version; under a mesh a rank's
+GPU is ``cuda:{LOCAL_RANK % device_count()}``.
 
 Per iteration the engine reports *physical* communicated elements (the
 static buffers an exchange would move) and *logical* elements (value-level
@@ -52,7 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import blocks as blocks_lib
-from repro_torch.core import cost_model, placement, planner
+from repro_torch.core import collectives, cost_model, placement, planner
 from repro_torch.core.gimv import GimvSpec
 from repro_torch.core.partition import HybridMatrix, Partition, PartitionedMatrix, partition_graph
 from repro_torch.exchange import plan as exchange_plan
@@ -101,23 +114,25 @@ def _wire_dtype(name: str | None) -> torch.dtype | None:
 
 
 def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask,
-                   xstate=None):
+                   xstate=None, *, axis=None):
     """Dispatch one placement step for ``cfg.strategy`` -> (v_new, r, stats),
     plus the new delta-iteration state as a fourth element when ``xstate``
-    (the previously shipped packed payload) is passed."""
+    (the previously shipped packed payload) is passed.  ``axis`` (a
+    ``collectives.WorkerAxis``) runs the step as this rank's worker of an
+    SPMD solve; None, as the emulated one of every worker."""
     scatter = cfg.plan.scatter if cfg.plan is not None else "segment"
     wire = _wire_dtype(cfg.payload_dtype)
     if cfg.strategy == "horizontal":
         return placement.horizontal_step(
             spec, matrix.get("stripe"), v, ctx, mask, n_local=cfg.n_local,
-            planned=matrix.get("planned"), backend=cfg.backend)
+            planned=matrix.get("planned"), backend=cfg.backend, axis=axis)
     if cfg.strategy == "vertical":
         return placement.vertical_step(
             spec, matrix.get("stripe"), v, ctx, mask, n_local=cfg.n_local,
             exchange=cfg.exchange, capacity=cfg.capacity,
             planned=matrix.get("planned"), streamed=matrix.get("streamed"),
             backend=cfg.backend, scatter=scatter, xchg=matrix.get("xchg"), xplan=cfg.xplan,
-            delta_eps=cfg.delta_eps, delta_state=xstate, payload_dtype=wire)
+            delta_eps=cfg.delta_eps, delta_state=xstate, payload_dtype=wire, axis=axis)
     if cfg.strategy == "hybrid":
         return placement.hybrid_step(
             spec, matrix.get("sparse_stripe"), matrix.get("dense_stripe"),
@@ -125,7 +140,7 @@ def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask,
             capacity=cfg.capacity, planned_sparse=matrix.get("planned_sparse"),
             streamed_sparse=matrix.get("streamed_sparse"), dense_matrix=matrix.get("dense_matrix"),
             backend=cfg.backend, scatter=scatter, exchange=cfg.exchange, xchg=matrix.get("xchg"),
-            xplan=cfg.xplan, payload_dtype=wire)
+            xplan=cfg.xplan, payload_dtype=wire, axis=axis)
     raise ValueError(cfg.strategy)
 
 
@@ -177,6 +192,10 @@ class PMVEngine:
     exchange: 'sparse' (compacted) | 'dense' (full partials) | 'packed'
       (repro_torch.exchange: per-(src, dst) row sets derived once at
       prepare, ids shipped once, each iteration ships payloads only) |
+      'hier' (the vertical placement's two-hop exchange: compacted partials
+      folded within each pod, then the combined rows across the pods; needs
+      a mesh and a tuple ``axis_name`` (pod, *inner) of at least two dims,
+      else ValueError; the hybrid's sparse region keeps the compact one) |
       'auto' (packed when ``cost_model.prefer_packed_exchange`` says its
       amortized bytes undercut the padded stream's, else sparse).  The
       horizontal placement exchanges no partials: 'packed' / 'auto' resolve
@@ -239,9 +258,18 @@ class PMVEngine:
       its consumed events stay consumed, so a kill fired by one ``run()``
       does not fire again when the caller resumes.  Every disk store the
       engine builds injects its fetch faults.
+    mesh / axis_name: SPMD, one rank per worker (module doc).  ``mesh`` is
+      a ``DeviceMesh`` with named dims, built after ``init_process_group``;
+      ``axis_name`` names its worker dims (a name, or a tuple such as
+      ('pod', 'workers')), and a rank owns the worker whose index is its
+      row-major coordinate over them.  ``b`` must equal their size
+      (ValueError naming both); a mesh dim outside ``axis_name`` raises
+      NotImplementedError, as do residency 'host' and 'disk' under a mesh.
+      A checkpoint is gathered and written by worker 0 and read by every
+      rank.
 
-    The JAX package's other knobs (mesh, exchange='hier', backend='pallas'
-    / 'xla') raise NotImplementedError naming the knob.
+    The JAX package's other knobs (backend='pallas' / 'xla') raise
+    NotImplementedError naming the knob.
     """
 
     def __init__(
@@ -264,6 +292,7 @@ class PMVEngine:
         symmetrize: bool = False,
         base_weights: np.ndarray | None = None,
         mesh=None,
+        axis_name="workers",
         store=None,
         residency: str = "device",
         store_budget_bytes: int | None = None,
@@ -272,14 +301,10 @@ class PMVEngine:
         io_retry: RetryPolicy | None = None,
         device=None,
     ):
-        if mesh is not None:
-            raise _not_ported("mesh", "emulation mode only")
         if residency not in cost_model.RESIDENCY_MODES:
             raise ValueError(f"residency must be one of {cost_model.RESIDENCY_MODES}, "
                              f"got {residency!r}")
-        if exchange == "hier":
-            raise _not_ported(f"exchange={exchange!r}")
-        if exchange not in ("sparse", "dense", "packed", "auto"):
+        if exchange not in ("sparse", "dense", "packed", "hier", "auto"):
             raise ValueError(f"unknown exchange {exchange!r}")
         if delta_eps is not None and not delta_eps >= 0.0:
             raise ValueError(f"delta_eps must be >= 0, got {delta_eps}")
@@ -328,7 +353,25 @@ class PMVEngine:
             if symmetrize:
                 edges = symmetrize_edges(edges)
             edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-        self.device = resolve_device(device)
+        self.mesh, self.axis_name = mesh, axis_name
+        self.axis = None
+        if mesh is not None:
+            if residency == "host":
+                raise NotImplementedError(
+                    "residency='host' under SPMD needs per-host shard serving; use "
+                    "residency='device' with a mesh")
+            if residency == "disk":
+                raise NotImplementedError(
+                    "residency='disk' under a mesh needs the per-worker disk groups "
+                    "(SpmdDiskGroup), which repro_torch does not have yet")
+            self.axis = collectives.worker_axis(mesh, axis_name)
+            if self.axis.size != int(b):
+                raise ValueError(f"b={int(b)} does not match the size {self.axis.size} of the "
+                                 f"mesh dims {self.axis.names}: one rank runs one worker")
+        if exchange == "hier":
+            collectives.hier_groups(self.axis)
+        self.device = (resolve_device(device) if self.axis is None
+                       else collectives.rank_device(resolve_device(device)))
         self.edges = edges
         self.n = int(n)
         self.b = int(b)
@@ -386,16 +429,16 @@ class PMVEngine:
     def _resolve_stream(self, strategy: str, backend: str, capacity: int | None,
                         part: Partition) -> str:
         """Resolve the streaming knob as the JAX package does.  Only the
-        planned vertical/hybrid path with a compact or packed exchange has
-        partials to stream: the horizontal step never materializes partials,
-        the dense exchange ships them whole and the 'torch' backend has no
-        streamed form, so there a forced 'on' resolves to 'off'.  'auto'
-        asks the cost model's memory crossover (small b keeps the fused
-        launches)."""
+        planned vertical/hybrid path with a compact, two-hop or packed
+        exchange has partials to stream: the horizontal step never
+        materializes partials, the dense exchange ships them whole and the
+        'torch' backend has no streamed form, so there a forced 'on'
+        resolves to 'off'.  'auto' asks the cost model's memory crossover
+        (small b keeps the fused launches)."""
         streamable = (backend == "planned" and capacity is not None and
                       (strategy == "hybrid" or
                        (strategy == "vertical" and
-                        self.exchange in ("sparse", "packed", "auto"))))
+                        self.exchange in ("sparse", "hier", "packed", "auto"))))
         if not streamable:
             return "off"
         if self.stream == "auto":
@@ -435,8 +478,17 @@ class PMVEngine:
         else the engine's device."""
         return torch.device("cpu") if self.residency == "host" else self.device
 
+    def own_rows(self, per_worker):
+        """The entries of a per-worker sequence (a list, a range, or the rows
+        of a per-worker array) this process holds: all b in emulation, its
+        worker's one (a leading axis of length 1) under a mesh."""
+        if self.axis is None:
+            return per_worker
+        w = self.axis.index
+        return per_worker[w:w + 1]
+
     def _put_stripe(self, stripes: list) -> blocks_lib.BlockEdges:
-        s = blocks_lib.stack_stripes(stripes)
+        s = blocks_lib.stack_stripes(self.own_rows(stripes))
         home = self._matrix_home
         return blocks_lib.BlockEdges(
             seg_local=self._put(s.seg_local, torch.int64, home),
@@ -458,8 +510,9 @@ class PMVEngine:
         ids = part.global_ids_grid()
         ctx = ctx or {}
         v0 = spec.init(ids.reshape(-1), ctx).reshape(ids.shape).astype(spec.dtype)
-        ctx_blocked = {k: self._put(part.to_blocked(np.asarray(x))) for k, x in ctx.items()}
-        return matrix, self._put(v0), ctx_blocked, real_mask, meta
+        ctx_blocked = {k: self._put(self.own_rows(part.to_blocked(np.asarray(x))))
+                       for k, x in ctx.items()}
+        return matrix, self._put(self.own_rows(v0)), ctx_blocked, real_mask, meta
 
     def _prepare_static(self, spec: GimvSpec):
         t0 = time.perf_counter()
@@ -499,9 +552,9 @@ class PMVEngine:
             else:
                 capacity = self._capacity(pm, hm)
                 matrix["dense_region"] = blocks_lib.DenseRegion(
-                    gather_idx=self._put(hm.dense.gather_idx, torch.int64, home),
-                    d_count=self._put(hm.dense.d_count, device=home), d_cap=hm.dense.d_cap,
-                    theta=hm.dense.theta)
+                    gather_idx=self._put(self.own_rows(hm.dense.gather_idx), torch.int64, home),
+                    d_count=self._put(self.own_rows(hm.dense.d_count), device=home),
+                    d_cap=hm.dense.d_cap, theta=hm.dense.theta)
                 if backend == "torch":
                     matrix["sparse_stripe"] = self._put_stripe(hm.sparse_vertical)
                     matrix["dense_stripe"] = self._put_stripe(hm.dense_horizontal)
@@ -509,9 +562,11 @@ class PMVEngine:
                     # the dense REGION is a region-level dense tactic (§3.5):
                     # materialized once, one dense kernel launch per iteration.
                     semiring = semiring_of(spec.combine2, spec.combine_all)
-                    dm = np.stack([blocks_lib.materialize_dense_matrix(
-                        s, nl, hm.dense.d_cap, semiring) for s in hm.dense_horizontal])
-                    matrix["dense_matrix"] = self._put(dm.reshape(self.b * nl, -1), device=home)
+                    dm = np.stack([blocks_lib.materialize_dense_matrix(s, nl, hm.dense.d_cap,
+                                                                       semiring)
+                                   for s in self.own_rows(hm.dense_horizontal)])
+                    matrix["dense_matrix"] = self._put(dm.reshape(dm.shape[0] * nl, -1),
+                                                       device=home)
                     del dm
 
         scatter = self.scatter if has_semiring(spec.combine2, spec.combine_all) else "segment"
@@ -524,9 +579,11 @@ class PMVEngine:
             sp.set("mode", backend)
             sp.set("predicted_slots", plan.planned_slots)
         self._record_plan_metrics(plan)
-        # pack, stack and flatten the planned tables; this span includes
-        # their host-to-device copies (flatten_planned / flatten_streamed
-        # upload), which the JAX package's makes at prepare.device_put
+        # pack, stack and flatten the planned tables (under a mesh only this
+        # rank's worker's); this span includes their host-to-device copies
+        # (flatten_planned / flatten_streamed upload), which the JAX
+        # package's makes at prepare.device_put
+        workers = self.own_rows(range(self.b))
         with rec.span("prepare.pack"):
             if backend == "planned":
                 semiring = semiring_of(spec.combine2, spec.combine_all)
@@ -541,18 +598,18 @@ class PMVEngine:
                     # executor reads views [k] of every bucket
                     packed = blocks_lib.stack_streamed([
                         blocks_lib.pack_streamed_stripe(
-                            s, plan.tactics_for_worker(w, layout), nl,
+                            stripes[w], plan.tactics_for_worker(w, layout), nl,
                             boundaries=plan.boundaries, semiring=semiring)
-                        for w, s in enumerate(stripes)], semiring, worker_axis=1)
+                        for w in workers], semiring, worker_axis=1)
                     matrix[key.replace("planned", "streamed")] = placement.flatten_streamed(
-                        packed, nl, self.b, home)
+                        packed, nl, len(workers), home)
                 else:
                     packed = blocks_lib.stack_planned([
                         blocks_lib.pack_planned_stripe(
-                            s, plan.tactics_for_worker(w, layout), nl, layout=layout,
+                            stripes[w], plan.tactics_for_worker(w, layout), nl, layout=layout,
                             boundaries=plan.boundaries, semiring=semiring)
-                        for w, s in enumerate(stripes)], semiring)
-                    matrix[key] = placement.flatten_planned(packed, nl, self.b, home)
+                        for w in workers], semiring)
+                    matrix[key] = placement.flatten_planned(packed, nl, len(workers), home)
                 del packed
         exchange, xplan, delta_eps, xmeta = self._resolve_exchange(
             spec, strategy, capacity, plan,
@@ -564,7 +621,7 @@ class PMVEngine:
                          delta_eps=delta_eps, payload_dtype=self.payload_dtype)
         # the mask, the pinning and the wait for every queued copy
         with rec.span("prepare.device_put"):
-            real_mask = self._put(part.global_ids_grid() < self.n)
+            real_mask = self._put(self.own_rows(part.global_ids_grid() < self.n))
             if self.residency == "host" and self.device.type == "cuda":
                 matrix = _tree_map(lambda t: t.pin_memory(), matrix)
             if self.device.type == "cuda":
@@ -627,7 +684,7 @@ class PMVEngine:
                 decision = ("auto: packed undercuts padded" if use_packed
                             else "auto: padded stream kept")
             if exchange == "packed":
-                matrix["xchg"] = {k: self._put(a, device=self._matrix_home)
+                matrix["xchg"] = {k: self._put(self.own_rows(a), device=self._matrix_home)
                                   for k, a in arrays.items()}
                 xplan = xp
         delta_reason = None
@@ -930,21 +987,29 @@ class PMVEngine:
         ``fallback_overrides``' configuration (from the start vector, not
         from a checkpoint) and records it in ``totals['fallback']`` and the
         ``pmv.fallbacks`` / ``pmv.fallback_events.<label>`` counters; with
-        ``_allow_fallback=False``, or where no fallback exists, it raises."""
+        ``_allow_fallback=False``, or where no fallback exists, it raises.
+
+        Under a mesh every rank calls ``run`` with the same arguments; each
+        returns the whole vector and the same per-iteration stats (the
+        delta and the counts summed over the workers).  A checkpoint is
+        gathered onto every rank, written by worker 0 alone, and waited for
+        by every rank before the solve goes on."""
         matrix, v, ctx_b, mask, meta = self.prepare(spec, ctx)
         part: Partition = meta["part"]
         cfg: StepConfig = meta["cfg"]
         disk_step = meta.get("step")
-        step = self.on_device(lambda m, *args: placement_call(spec, cfg, m, *args))
+        axis = self.axis
+        step = self.on_device(lambda m, *args: placement_call(spec, cfg, m, *args, axis=axis))
         if v0 is not None:
-            v = self._put(part.to_blocked(np.asarray(v0, dtype=spec.dtype)))
+            v = self._put(self.own_rows(part.to_blocked(np.asarray(v0, dtype=spec.dtype))))
         # delta-iteration carried state: the previously shipped packed
         # payload on the wire, initialized to the combineAll identity (a
         # suppressed row then delivers the identity, a no-op, until it first
         # moves)
         xstate = None
         if cfg.delta_eps is not None:
-            xstate = torch.full((self.b, self.b, cfg.xplan.p_dev), spec.identity,
+            xstate = torch.full((len(self.own_rows(range(self.b))), self.b, cfg.xplan.p_dev),
+                                spec.identity,
                                 dtype=_wire_dtype(cfg.payload_dtype) or spec.torch_dtype,
                                 device=self.device)
 
@@ -959,7 +1024,7 @@ class PMVEngine:
                               CheckpointCorruptWarning, stacklevel=2)
                 start_iter = 0
             else:
-                v = self._put(v_np)
+                v = self._put(self.own_rows(v_np))
 
         per_iter: list[dict] = []
         converged = False
@@ -979,7 +1044,7 @@ class PMVEngine:
                     v_new, _r, stats, xstate = step(matrix, v, ctx_b, mask, xstate)
                 else:
                     v_new, _r, stats = step(matrix, v, ctx_b, mask)
-                delta = spec.default_delta(v, v_new)
+                delta = collectives.psum(spec.default_delta(v, v_new), axis)
                 keys = [k for k, x in stats.items() if isinstance(x, torch.Tensor)]
                 scalars = torch.stack([delta.to(torch.float32)]
                                       + [stats[k].to(torch.float32) for k in keys])
@@ -1027,7 +1092,10 @@ class PMVEngine:
                     f"sparse exchange overflow: capacity {meta['capacity']} too small -- "
                     "rerun with capacity='structural' or exchange='dense'")
             if checkpoint_dir and checkpoint_every and (it + 1) % checkpoint_every == 0:
-                _ckpt_save(checkpoint_dir, v.cpu().numpy(), it + 1)
+                v_all = collectives.all_gather(v, axis).cpu().numpy()
+                if collectives.axis_index(axis) == 0:
+                    _ckpt_save(checkpoint_dir, v_all, it + 1)
+                collectives.barrier(axis)
             if delta < tol:
                 converged = True
                 it += 1
@@ -1035,7 +1103,7 @@ class PMVEngine:
         else:
             it = max_iters
 
-        v_np = part.from_blocked(v.cpu().numpy())
+        v_np = part.from_blocked(collectives.all_gather(v, axis).cpu().numpy())
         totals = {
             "physical_elems": sum(r.get("gathered_elems", 0.0) + r.get("exchanged_elems", 0.0)
                                   for r in per_iter),
@@ -1064,7 +1132,8 @@ class PMVEngine:
     @staticmethod
     def _record_iteration(obs, meta: dict, rec: dict, iters_so_far: int) -> None:
         """The per-iteration counter and series of the JAX package's run
-        loop (the SPMD per-worker ``.w{k}`` series are not ported);
+        loop (the out-of-core SPMD per-worker ``.w{k}`` series are not
+        ported);
         ``iters_so_far`` counts this call's iterations, this one included."""
         obs.counter("pmv.iterations").add(1)
         obs.series("pmv.delta").append(rec["delta"])
@@ -1126,7 +1195,7 @@ class PMVEngine:
             payload_dtype=self.payload_dtype, delta_eps=self.delta_eps, backend=self.backend,
             scatter=self.scatter, stream=self.stream, base_weights=self.base_weights,
             obs=self.obs, faults=self._fault_injector, io_retry=self.io_retry,
-            device=self.device)
+            mesh=self.mesh, axis_name=self.axis_name, device=self.device)
         kwargs.update(overrides)
         if self.store is not None:
             return PMVEngine(None, store=self.store, residency=self.residency,

@@ -1,16 +1,20 @@
-"""PMV placement strategies (paper §3.2-3.5) in emulation mode.
+"""PMV placement strategies (paper §3.2-3.5).
 
-All b workers run on one device: every per-worker array carries an explicit
-leading worker axis.  The all-gather of the horizontal placement is a
-broadcast (every worker reads the one blocked vector [b, n_local]) and the
-all-to-all of the vertical placement a transpose of the first two axes.
+Every per-worker array carries a leading worker axis.  In emulation (no
+worker ``axis``) it holds all b workers on one device: the all-gather of the
+horizontal placement is the blocked vector itself and the all-to-all of the
+vertical placement a transpose of the first two axes.  Under a worker axis
+(``collectives.WorkerAxis``, one rank per worker) it has length 1 on each
+rank and the same bodies run, with the collectives of ``core/collectives.py``
+moving the bytes between the ranks.
 
 - PMV_horizontal (Alg. 1): gather the whole vector, compute the local stripe.
 - PMV_vertical   (Alg. 2): local column-stripe partials v^(i,j), exchanged
   dense ([b, n_local]), compacted to (idx, val) pairs (sparse_exchange.py),
-  or packed: gathered at the static per-pair row sets that prepare derived
+  packed: gathered at the static per-pair row sets that prepare derived
   once, so only payloads move (repro_torch.exchange; with optional delta
-  iteration).
+  iteration), or through the two-hop ``hierarchical_exchange`` of a
+  (pod, *inner) axis.
 - PMV_hybrid     (Alg. 4): the sparse region runs vertically with the compact
   or the packed exchange; the small dense sub-vector v_d is gathered
   (horizontal).
@@ -44,7 +48,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import sparse_exchange
+from repro_torch.core import collectives, sparse_exchange
 from repro_torch.core.blocks import BlockEdges, DenseRegion, PlannedStripe
 from repro_torch.core.gimv import (GimvSpec, combine2, combine_elementwise,
                                    segment_combine, tree_combine)
@@ -68,12 +72,8 @@ __all__ = [
     "FlatStreamed",
     "flatten_streamed",
     "apply_assign",
+    "hierarchical_exchange",
 ]
-
-
-def _all_to_all(x: torch.Tensor) -> torch.Tensor:
-    """[b_sender, b_dest, .] -> [b_dest, b_sender, .]."""
-    return x.transpose(0, 1).contiguous()
 
 
 def _ident(spec: GimvSpec, device) -> torch.Tensor:
@@ -398,18 +398,18 @@ def _planned_out(spec: GimvSpec, fp: FlatPlanned, v_flat: torch.Tensor) -> torch
     return out
 
 
-def _planned_merged_gimv(spec: GimvSpec, fp: FlatPlanned, v_local: torch.Tensor,
+def _planned_merged_gimv(spec: GimvSpec, fp: FlatPlanned, v_all: torch.Tensor,
                          n_local: int) -> torch.Tensor:
     """Planned horizontal compute: per-bucket ELL launches against the flat
-    gathered vector (which in emulation is v_local itself) plus one dense
-    launch per worker.  Returns r [b_w, n_local(, Q)]."""
-    b_w = v_local.shape[0]
-    tail = tuple(v_local.shape[2:])
-    out = _planned_out(spec, fp, v_local.reshape((-1,) + tail))
+    gathered vector v_all [b, n_local(, Q)] plus one dense launch per
+    worker.  Returns r [b_w, n_local(, Q)] for the fp.n_workers workers."""
+    b_w = fp.n_workers
+    tail = tuple(v_all.shape[2:])
+    out = _planned_out(spec, fp, v_all.reshape((-1,) + tail))
     r_all = out[:fp.drop].reshape((b_w, n_local) + tail)
     if fp.dense_matrix is not None:
         r_ds = [_dense_call(spec, fp.dense_matrix[wk],
-                            v_local[fp.dense_index[wk]].reshape((-1,) + tail))
+                            v_all[fp.dense_index[wk]].reshape((-1,) + tail))
                 for wk in range(b_w)]
         r_all = combine_elementwise(spec, r_all, torch.stack(r_ds))
     return r_all
@@ -465,7 +465,7 @@ def _streamed_dense(spec: GimvSpec, fs: FlatStreamed, v_local: torch.Tensor):
 
 
 def _streamed_planned_compact(spec: GimvSpec, fs: FlatStreamed, v_local: torch.Tensor,
-                              capacity: int):
+                              capacity: int, axis=None):
     """Streamed planned vertical compute + compaction: each destination
     block's partial is compacted into its slot [:, k] of the [b_w, b, cap]
     exchange buffers as soon as it is produced (the paper Alg. 2's
@@ -473,7 +473,8 @@ def _streamed_planned_compact(spec: GimvSpec, fs: FlatStreamed, v_local: torch.T
     b_w * b * cap) where the fused executor holds [b_w, b, n_local].
     Per-row compaction is independent, so the buffers equal
     ``compact_partials`` over the fused partials.  Returns (idx, val,
-    overflow, logical) as that function does."""
+    overflow, logical) as that function does, the counters summed over the
+    worker ``axis``."""
     b_w = v_local.shape[0]
     tail = tuple(v_local.shape[2:])
     batched = bool(tail)
@@ -498,7 +499,7 @@ def _streamed_planned_compact(spec: GimvSpec, fs: FlatStreamed, v_local: torch.T
             put((slice(None), k), chunk)
     for wk, i, r_d in _streamed_dense(spec, fs, v_local):
         put((wk, i), r_d)
-    return idx, val, overflow, logical
+    return idx, val, collectives.psum(overflow, axis), collectives.psum(logical, axis)
 
 
 def _streamed_planned_payload(spec: GimvSpec, fs: FlatStreamed, v_local: torch.Tensor,
@@ -539,15 +540,16 @@ def apply_assign(spec: GimvSpec, v_local, r_local, ctx_local, real_mask):
 
 def horizontal_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
                     real_mask, *, n_local: int, planned: FlatPlanned | None = None,
-                    backend: str = "torch"):
+                    backend: str = "torch", axis=None):
     """Alg. 1: gather the whole vector, compute the row stripe locally."""
     nq = _num_queries(v_local)
+    v_all = collectives.all_gather(v_local, axis)              # [b, n_local(, Q)]
     if backend == "planned":
-        r = _planned_merged_gimv(spec, planned, v_local, n_local)
+        r = _planned_merged_gimv(spec, planned, v_all, n_local)
     else:
-        r = gathered_gimv(spec, stripe, v_local, n_local)
+        r = gathered_gimv(spec, stripe, v_all, n_local)
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
-    b = v_local.shape[0]
+    b = v_all.shape[0]
     vb = np.dtype(spec.dtype).itemsize
     stats = {
         "gathered_elems": float(b * (b - 1) * n_local * (nq or 1)),
@@ -568,17 +570,17 @@ def _to_wire(val: torch.Tensor, payload_dtype):
 
 
 def _compact_exchange(spec: GimvSpec, compacted, capacity: int, n_local: int, scatter: str,
-                      nq: int | None, payload_dtype=None):
+                      nq: int | None, payload_dtype=None, axis=None):
     """Exchange compacted partials (idx [b_w, b, cap], val [b_w, b, cap(, Q)],
-    overflow, logical) by transpose and fold them at their owners, the
-    values on the wire in ``payload_dtype`` (None: the spec dtype).  Returns
-    (r [b, n_local(, Q)], stats)."""
+    overflow, logical) all-to-all and fold them at their owners, the values
+    on the wire in ``payload_dtype`` (None: the spec dtype).  Returns
+    (r [b_w, n_local(, Q)], stats)."""
     idx, val, overflow, logical = compacted
     val, itemsize = _to_wire(val, payload_dtype)
     # the fold runs in the spec dtype (.to is the identity without a wire cast)
-    r = sparse_exchange.scatter_partials(spec, _all_to_all(idx),
-                                         _all_to_all(val).to(spec.torch_dtype), n_local,
-                                         method=scatter)
+    r = sparse_exchange.scatter_partials(spec, collectives.all_to_all(idx, axis),
+                                         collectives.all_to_all(val, axis).to(spec.torch_dtype),
+                                         n_local, method=scatter)
     b = idx.shape[-2]
     id_b, pay_b = sparse_exchange.exchange_wire_split(b, capacity, nq, itemsize)
     stats = {
@@ -596,17 +598,18 @@ def _compact_exchange(spec: GimvSpec, compacted, capacity: int, n_local: int, sc
 
 def _compact_partials(spec: GimvSpec, v_local, n_local: int, capacity: int, *, stripe=None,
                       planned: FlatPlanned | None = None,
-                      streamed: FlatStreamed | None = None, backend: str = "torch"):
+                      streamed: FlatStreamed | None = None, backend: str = "torch", axis=None):
     """The vertical partials, through whichever executor, compacted to
-    (idx, val, overflow, logical) of static ``capacity``: the streamed
-    executor compacts block by block, the others compact all b at once."""
+    (idx, val, overflow, logical) of static ``capacity``, the counters
+    summed over the worker ``axis``: the streamed executor compacts block by
+    block, the others compact all b at once."""
     if backend == "planned" and streamed is not None:
-        return _streamed_planned_compact(spec, streamed, v_local, capacity)
+        return _streamed_planned_compact(spec, streamed, v_local, capacity, axis)
     if backend == "planned":
         partials = _planned_vertical_partials(spec, planned, v_local, n_local)
     else:
         partials = block_gimv_partials(spec, stripe, v_local, n_local)
-    return sparse_exchange.compact_partials(spec, partials, capacity,
+    return sparse_exchange.compact_partials(spec, partials, capacity, axis,
                                             batched=v_local.ndim == 3)
 
 
@@ -626,28 +629,29 @@ def _packed_payload(spec: GimvSpec, v_local, n_local: int, send_rows, *, stripe=
 
 def _ship_packed(spec: GimvSpec, payload, xchg: dict, xplan, n_local: int, scatter: str,
                  nq: int | None, *, delta_eps: float | None = None, delta_state=None,
-                 payload_dtype=None):
+                 payload_dtype=None, axis=None):
     """Ship a packed payload [b_w, b, p(, Q)]: cast it to the wire dtype
     ``payload_dtype`` (None: the spec dtype) BEFORE the delta test, suppress
     unmoved rows when ``delta_state`` (the previously shipped payload, in
-    the wire dtype) is given, exchange (transpose) and fold at the owners in
-    the spec dtype.  Returns (r [b, n_local(, Q)], stats, shipped payload or
-    None).  The ids crossed the wire once, at prepare: the per-iteration
+    the wire dtype) is given, exchange all-to-all and fold at the owners in
+    the spec dtype.  Returns (r [b_w, n_local(, Q)], stats, shipped payload
+    or None).  The ids crossed the wire once, at prepare: the per-iteration
     stats charge payloads, plus the send bitmap under delta iteration."""
     send_rows = xchg["send_rows"]
-    logical = packed_rt.payload_logical(spec, payload)
+    logical = packed_rt.payload_logical(spec, payload, axis)
     payload, itemsize = _to_wire(payload, payload_dtype)
     shipped = None
     if delta_state is not None:
-        pair_mask = packed_rt.pair_slot_mask(send_rows, n_local)
+        pair_mask = packed_rt.pair_slot_mask(send_rows, n_local, axis)
         payload, sent, suppressed = packed_rt.delta_update(
-            spec, payload, delta_state, delta_eps or 0.0, pair_mask)
+            spec, payload, delta_state, delta_eps or 0.0, pair_mask, axis)
         shipped = payload
         payload_bytes = sent * float((nq or 1) * itemsize) + float(xplan.bitmap_bytes)
     else:
         payload_bytes = xplan.payload_bytes_per_iter(nq, itemsize)
     r = packed_rt.scatter_payload(
-        spec, _all_to_all(payload).to(spec.torch_dtype), n_local, recv_rows=xchg.get("recv_rows"),
+        spec, collectives.all_to_all(payload, axis).to(spec.torch_dtype), n_local,
+        recv_rows=xchg.get("recv_rows"),
         recv_words=xchg.get("recv_words"), p_dev=xplan.p_dev, width=xplan.width_dev,
         method=scatter)
     b = send_rows.shape[-2]
@@ -667,26 +671,76 @@ def _ship_packed(spec: GimvSpec, payload, xchg: dict, xplan, n_local: int, scatt
     return r, stats, shipped
 
 
+def hierarchical_exchange(spec: GimvSpec, idx, val, n_local: int, axis, *,
+                          scatter: str = "segment"):
+    """Two-hop exchange of compacted partials on a (pod, *inner) worker axis.
+
+    Partial rows are ordered by global destination worker g = p * W + w.
+    Hop 1, over the inner dims: worker w collects its pod's W partials for
+    every destination pod and folds them (the receive-side ``scatter``
+    tactic) into one [P, n_local] tensor, so overlapping destinations are
+    combined before the slow hop.  Hop 2, over the pod dim: the combined
+    rows go all-to-all across the pods, then the final combine.  A trailing
+    query axis on ``val`` ([1, b, cap, Q], one index set per row) rides
+    through both hops.  idx / val are this rank's [1, b, cap(, Q)] (values in
+    their wire dtype); returns (r [1, n_local(, Q)], stats), the stats the
+    closed forms of the GLOBAL elements per iteration."""
+    groups = collectives.hier_groups(axis)
+    n_pods, w_size = groups.n_pods, groups.w_size
+    cap = idx.shape[-1]
+    tail = tuple(val.shape[3:])
+    nq = tail[0] if tail else None
+    # hop 1: row w' of each pod's [W, cap] goes to inner worker w', which
+    # receives [W_src, P, cap] and folds the W senders of each pod set
+    def hop1(x):                                   # [P, W_dest, cap(, Q)] -> [P, W_src, ...]
+        x = x[0].reshape((n_pods, w_size, cap) + tuple(x.shape[3:])).transpose(0, 1)
+        return collectives.all_to_all_rows(x, groups.inner).transpose(0, 1)
+
+    idx_r, val_r = hop1(idx), hop1(val)
+    per_pod = sparse_exchange.scatter_partials(
+        spec, idx_r.contiguous(), val_r.to(spec.torch_dtype).contiguous(), n_local,
+        method=scatter)                                               # [P, n_local(, Q)]
+    # hop 2: the combined rows across the pods, then the final combine
+    received = collectives.all_to_all_rows(per_pod, groups.pod)
+    r = _combine_received(spec, received, 0)
+    stats = {
+        "intra_pod_elems": float(n_pods) ** 2 * w_size * (w_size - 1) * cap * (1 + (nq or 1)),
+        "inter_pod_elems": float(n_pods) * (n_pods - 1) * w_size * n_local * (nq or 1),
+    }
+    return r[None], stats
+
+
+def _combine_received(spec: GimvSpec, received: torch.Tensor, dim: int) -> torch.Tensor:
+    """combineAll of received dense partials along ``dim``."""
+    if spec.combine_all == "sum":
+        return received.sum(dim=dim, dtype=received.dtype)
+    if spec.combine_all == "min":
+        return received.amin(dim=dim)
+    return received.amax(dim=dim)
+
+
 def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local, real_mask,
                   *, n_local: int, exchange: str = "sparse", capacity: int | None = None,
                   planned: FlatPlanned | None = None, streamed: FlatStreamed | None = None,
                   backend: str = "torch", scatter: str = "segment", xchg: dict | None = None,
                   xplan=None, delta_eps: float | None = None, delta_state=None,
-                  payload_dtype=None):
+                  payload_dtype=None, axis=None):
     """Alg. 2: local column-stripe partials, exchange, combine at the owner.
 
     exchange='dense' ships the full [b, n_local] partials; 'sparse' compacts
     them to (idx, val) pairs of static ``capacity`` first -- the paper's
     "only non-empty v^(i,j) entries" transport; 'packed' gathers them at the
-    static row sets of ``xchg`` / ``xplan`` (repro_torch.exchange).  With
+    static row sets of ``xchg`` / ``xplan`` (repro_torch.exchange); 'hier'
+    compacts as 'sparse' does, then takes the two-hop
+    :func:`hierarchical_exchange` of a (pod, *inner) worker ``axis``.  With
     ``delta_state`` (packed only) the step also returns the new state as a
     fourth element.  backend='planned' runs the plan's tactics either fused
     (``planned``: all partials at once) or bucket-streamed one destination
-    block at a time (``streamed``, plan.stream='on'; the sparse and packed
-    exchanges only -- the dense exchange ships the full partials).
-    ``payload_dtype`` (a torch dtype) is the wire dtype of the sparse and
-    packed exchanges' values; the dense exchange ships the spec dtype, as
-    in the JAX package."""
+    block at a time (``streamed``, plan.stream='on'; the sparse, packed and
+    hier exchanges only -- the dense exchange ships the full partials).
+    ``payload_dtype`` (a torch dtype) is the wire dtype of the sparse,
+    packed and hier exchanges' values; the dense exchange ships the spec
+    dtype, as in the JAX package."""
     nq = _num_queries(v_local)
     kw = dict(stripe=stripe, planned=planned, streamed=streamed, backend=backend)
     shipped = None
@@ -697,35 +751,50 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
         else:
             partials = block_gimv_partials(spec, stripe, v_local, n_local)
         b = partials.shape[1]
-        received = _all_to_all(partials)            # [b_dest, b_sender, n_local]
-        if spec.combine_all == "sum":
-            r = received.sum(dim=1, dtype=partials.dtype)
-        elif spec.combine_all == "min":
-            r = received.amin(dim=1)
-        else:
-            r = received.amax(dim=1)
+        # [b_dest, b_sender, n_local(, Q)]
+        r = _combine_received(spec, collectives.all_to_all(partials, axis), 1)
         stats = {
             "gathered_elems": 0.0,
             "exchanged_elems": float(b * (b - 1) * n_local * (nq or 1)),
             "gathered_bytes": 0.0,
             "exchanged_bytes": float(b * (b - 1) * n_local * (nq or 1)
                                      * partials.element_size()),
-            "logical_elems": sparse_exchange.count_non_identity(spec, partials),
+            "logical_elems": collectives.psum(
+                (partials != spec.identity).sum(), axis).to(torch.float32),
         }
     elif exchange == "sparse":
         assert capacity is not None, "sparse exchange needs a static capacity"
         r, stats = _compact_exchange(
-            spec, _compact_partials(spec, v_local, n_local, capacity, **kw), capacity, n_local,
-            scatter, nq, payload_dtype)
+            spec, _compact_partials(spec, v_local, n_local, capacity, axis=axis, **kw),
+            capacity, n_local, scatter, nq, payload_dtype, axis)
+    elif exchange == "hier":
+        assert capacity is not None, "the hier exchange needs a static capacity"
+        idx, val, overflow, logical = _compact_partials(spec, v_local, n_local, capacity,
+                                                        axis=axis, **kw)
+        val, itemsize = _to_wire(val, payload_dtype)
+        r, hstats = hierarchical_exchange(spec, idx, val, n_local, axis, scatter=scatter)
+        # wire bytes: the intra slots ship an int32 index plus the payload
+        # values, the inter hop the combined partials in the spec dtype
+        intra_slots = hstats["intra_pod_elems"] / (1.0 + (nq or 1))
+        stats = {
+            "gathered_elems": 0.0,
+            "exchanged_elems": hstats["intra_pod_elems"] + hstats["inter_pod_elems"],
+            **hstats,
+            "gathered_bytes": 0.0,
+            "exchanged_bytes": (intra_slots * (4.0 + (nq or 1) * itemsize)
+                                + hstats["inter_pod_elems"] * np.dtype(spec.dtype).itemsize),
+            "logical_elems": logical,
+            "overflow": overflow,
+        }
     elif exchange == "packed":
         assert xchg is not None and xplan is not None, \
             "packed exchange needs the prepare-built index arrays and plan"
         payload = _packed_payload(spec, v_local, n_local, xchg["send_rows"], **kw)
         r, stats, shipped = _ship_packed(spec, payload, xchg, xplan, n_local, scatter, nq,
                                          delta_eps=delta_eps, delta_state=delta_state,
-                                         payload_dtype=payload_dtype)
+                                         payload_dtype=payload_dtype, axis=axis)
     else:
-        raise NotImplementedError(f"exchange={exchange!r} is not supported yet")
+        raise ValueError(f"unknown exchange {exchange!r}")
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
     if delta_state is not None:
         return v_new, r, stats, shipped
@@ -738,22 +807,23 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
                 planned_sparse: FlatPlanned | None = None,
                 streamed_sparse: FlatStreamed | None = None, dense_matrix=None,
                 backend: str = "torch", scatter: str = "segment", exchange: str = "sparse",
-                xchg: dict | None = None, xplan=None, payload_dtype=None):
+                xchg: dict | None = None, xplan=None, payload_dtype=None, axis=None):
     """Alg. 4: vertical over the sparse region + horizontal over the dense
     region, combined at the owner, then assign.  The dense sub-vector v_d
-    is the compacted gather of high-out-degree entries [b, d_cap]; backend
-    'planned' runs the dense region through the dense GIM-V kernel on the
-    materialized ``dense_matrix`` and the sparse region through the plan,
-    fused (``planned_sparse``) or bucket-streamed per destination block
-    (``streamed_sparse``, plan.stream='on').  The sparse region's partials
-    take the packed exchange when ``exchange`` is 'packed', else the
-    compact one (hybrid has no dense exchange), their values on the wire in
+    is the compacted gather of high-out-degree entries [b_w, d_cap],
+    all-gathered to [b, d_cap]; backend 'planned' runs the dense region
+    through the dense GIM-V kernel on the materialized ``dense_matrix`` and
+    the sparse region through the plan, fused (``planned_sparse``) or
+    bucket-streamed per destination block (``streamed_sparse``,
+    plan.stream='on').  The sparse region's partials take the packed
+    exchange when ``exchange`` is 'packed', else the compact one (hybrid has
+    no dense or two-hop exchange), their values on the wire in
     ``payload_dtype`` (None: the spec dtype)."""
     nq = _num_queries(v_local)
-    gather_idx = dense_region.gather_idx                           # [b, d_cap]
+    gather_idx = dense_region.gather_idx                           # [b_w, d_cap]
     if nq is not None:
         gather_idx = gather_idx[:, :, None].expand(-1, -1, nq)
-    v_d = torch.gather(v_local, 1, gather_idx)                     # [b, d_cap(, Q)]
+    v_d = collectives.all_gather(torch.gather(v_local, 1, gather_idx), axis)  # [b, d_cap(, Q)]
     if backend == "planned":
         r_dense = _dense_region_gimv(spec, dense_matrix, v_d, n_local)
     else:
@@ -765,14 +835,14 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
             "packed exchange needs the prepare-built index arrays and plan"
         payload = _packed_payload(spec, v_local, n_local, xchg["send_rows"], **kw)
         r_sparse, stats, _ = _ship_packed(spec, payload, xchg, xplan, n_local, scatter, nq,
-                                          payload_dtype=payload_dtype)
+                                          payload_dtype=payload_dtype, axis=axis)
     else:
         r_sparse, stats = _compact_exchange(
-            spec, _compact_partials(spec, v_local, n_local, capacity, **kw), capacity, n_local,
-            scatter, nq, payload_dtype)
+            spec, _compact_partials(spec, v_local, n_local, capacity, axis=axis, **kw),
+            capacity, n_local, scatter, nq, payload_dtype, axis)
     r = combine_elementwise(spec, r_sparse, r_dense)
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
-    b = v_local.shape[0]
+    b = v_d.shape[0]
     d_cap = dense_region.d_cap
     stats["gathered_elems"] = float(b * (b - 1) * d_cap * (nq or 1))
     stats["gathered_bytes"] = float(b * (b - 1) * d_cap * (nq or 1)

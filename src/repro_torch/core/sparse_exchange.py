@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.gimv import GimvSpec, segment_combine
 
 __all__ = ["compact_partials", "compact_chunk", "scatter_partials",
@@ -67,13 +68,14 @@ def _compact_idx_scan(valid: torch.Tensor, capacity: int, n_local: int) -> torch
     return out.reshape(rows, capacity + 1)[:, :capacity].reshape(lead + (capacity,))
 
 
-def compact_partials(spec: GimvSpec, partials: torch.Tensor, capacity: int, *,
+def compact_partials(spec: GimvSpec, partials: torch.Tensor, capacity: int, axis=None, *,
                      batched: bool = False):
     """[..., b, n_local] -> idx [..., b, cap] int32, val [..., b, cap].
 
     idx == n_local marks padding; entries equal to the combineAll identity
     are dropped (they are no-ops under combineAll).  Returns (idx, val,
-    overflow_rows, logical_elems), the counters as float32 scalars.
+    overflow_rows, logical_elems), the counters as float32 scalars summed
+    over the worker ``axis`` (a ``collectives.WorkerAxis``) when one is given.
 
     batched=True: partials carry a trailing query axis [..., n_local, Q] and
     each partial row keeps ONE index set shared by its Q columns: an entry is
@@ -102,8 +104,8 @@ def compact_partials(spec: GimvSpec, partials: torch.Tensor, capacity: int, *,
         val = torch.where(taken, torch.gather(partials, -1, safe), fill)
     counts = valid.sum(dim=-1)
     # exact integer counts, reported as float32 (no float copy of the masks)
-    overflow = (counts > capacity).sum().to(torch.float32)
-    logical = valid_q.sum().to(torch.float32)
+    overflow = collectives.psum((counts > capacity).sum(), axis).to(torch.float32)
+    logical = collectives.psum(valid_q.sum(), axis).to(torch.float32)
     return idx, val, overflow, logical
 
 
@@ -113,7 +115,8 @@ def compact_chunk(spec: GimvSpec, partial: torch.Tensor, capacity: int, *,
     (the streamed planned executor's per-block step); per-row compaction is
     independent, so compacting chunk by chunk gives the same buffers as one
     :func:`compact_partials` over the stacked partials, and the counters
-    summed over the chunks equal its counters."""
+    summed over the chunks equal its counters.  They are this rank's: the
+    caller reduces the sums over the worker axis."""
     return compact_partials(spec, partial, capacity, batched=batched)
 
 

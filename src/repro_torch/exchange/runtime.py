@@ -1,5 +1,8 @@
 """Device-side primitives of the packed exchange (send gather, receive
-scatter, delta suppression), in emulation: the b workers are a leading axis.
+scatter, delta suppression).  The workers are a leading axis: all b of them
+in emulation, this rank's one under a worker ``axis``
+(``repro_torch.core.collectives.WorkerAxis``), where the counts are summed
+over the axis.
 
 The sender gathers its partials at the static per-pair row order
 (``send_rows``) -- no per-iteration compaction, no overflow (the index sets
@@ -9,9 +12,6 @@ the mirrored ``recv_rows`` (method 'segment'), or decodes the bit-packed
 Delta iteration keeps the previously-sent payload as carried state and
 re-sends only rows whose value moved beyond eps; for eps=0 the "stale" rows
 are bitwise the current ones, so the receive is exact.
-
-``axis_name`` is kept for the JAX package's signatures: only ``None``
-(emulation) is supported.
 """
 from __future__ import annotations
 
@@ -19,17 +19,12 @@ import math
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.gimv import GimvSpec
-from repro_torch.core.sparse_exchange import count_non_identity, scatter_partials
+from repro_torch.core.sparse_exchange import scatter_partials
 
 __all__ = ["gather_payload", "scatter_payload", "payload_logical", "delta_update",
            "pair_slot_mask"]
-
-
-def _emulation_only(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "repro_torch.exchange runs in emulation only (axis_name=None)")
 
 
 def gather_payload(spec: GimvSpec, partials: torch.Tensor,
@@ -53,12 +48,11 @@ def gather_payload(spec: GimvSpec, partials: torch.Tensor,
     return val.masked_fill_(pad.reshape(-1, 1), ident).reshape(send_rows.shape + (nq,))
 
 
-def payload_logical(spec: GimvSpec, payload: torch.Tensor, axis_name=None) -> torch.Tensor:
+def payload_logical(spec: GimvSpec, payload: torch.Tensor, axis=None) -> torch.Tensor:
     """Value-level non-identity count of a payload -- equal to the sparse
     path's ``logical_elems``, because the structural row sets cover exactly
     the slots a value-compacted exchange could ship."""
-    _emulation_only(axis_name)
-    return count_non_identity(spec, payload)
+    return collectives.psum((payload != spec.identity).sum(), axis).to(torch.float32)
 
 
 def scatter_payload(spec: GimvSpec, val: torch.Tensor, n_local: int, *,
@@ -97,21 +91,22 @@ def scatter_payload(spec: GimvSpec, val: torch.Tensor, n_local: int, *,
     return scatter_partials(spec, recv_rows, val, n_local, method=method)
 
 
-def pair_slot_mask(send_rows: torch.Tensor, n_local: int, axis_name=None) -> torch.Tensor:
+def pair_slot_mask(send_rows: torch.Tensor, n_local: int, axis=None) -> torch.Tensor:
     """Bool [b_w, b, p]: slots that count toward wire accounting -- valid
     (non-sentinel) rows of OFF-DIAGONAL pairs (the diagonal partial never
     crosses the interconnect; both the padded formula and the packed byte
-    model are b(b-1) quantities)."""
-    _emulation_only(axis_name)
+    model are b(b-1) quantities).  The leading rows are the workers from
+    this rank's index on (0 in emulation)."""
     valid = send_rows < n_local
     b_w, b = send_rows.shape[0], send_rows.shape[-2]
     dev = send_rows.device
-    off = torch.arange(b_w, device=dev)[:, None] != torch.arange(b, device=dev)[None, :]
+    src = torch.arange(b_w, device=dev) + collectives.axis_index(axis)
+    off = src[:, None] != torch.arange(b, device=dev)[None, :]
     return valid & off[..., None]
 
 
 def delta_update(spec: GimvSpec, payload: torch.Tensor, prev: torch.Tensor, eps: float,
-                 pair_mask: torch.Tensor, axis_name=None):
+                 pair_mask: torch.Tensor, axis=None):
     """Suppress rows whose payload moved <= eps since the last send.
 
     Returns (shipped, sent_rows, suppressed_rows), the counts float32 scalar
@@ -122,7 +117,6 @@ def delta_update(spec: GimvSpec, payload: torch.Tensor, prev: torch.Tensor, eps:
     test.  A trailing query axis re-sends a row when ANY query moved (one
     shared send mask per row keeps the id-free wire order intact).
     """
-    _emulation_only(axis_name)
     batched = payload.ndim == pair_mask.ndim + 1
     if eps == 0.0:
         changed = payload != prev
@@ -131,6 +125,6 @@ def delta_update(spec: GimvSpec, payload: torch.Tensor, prev: torch.Tensor, eps:
     if batched:
         changed = changed.any(dim=-1)
     shipped = torch.where(changed[..., None] if batched else changed, payload, prev)
-    sent = (changed & pair_mask).sum().to(torch.float32)
-    total = pair_mask.sum().to(torch.float32)
+    sent = collectives.psum((changed & pair_mask).sum(), axis).to(torch.float32)
+    total = collectives.psum(pair_mask.sum(), axis).to(torch.float32)
     return shipped, sent, total - sent

@@ -59,11 +59,17 @@ retirement points, and with ``config.serve`` exposes them over HTTP
 snapshot and ``close()`` stops the exporter's thread.  It is host
 bookkeeping only: a served answer is bitwise the same with it on or off.
 
-This is the counterpart of the JAX package's ``repro.serving.server``.  Its
-knobs outside the ported slice (``mesh``, ``exchange='hier'``, and what the
-engine itself refuses) raise NotImplementedError naming the knob.  As in the
-JAX package, the server carries no delta-iteration state: a packed exchange
-ships its full payload stream.
+SPMD: ``mesh=`` / ``axis_name=`` run each family's engine with one rank
+per worker (``PMVEngine``'s module doc).  Every rank builds the same server
+and submits the same queries in the same order; each holds its worker's
+rows of the batch, the per-query deltas are summed over the workers, and a
+query's deadline expires on every rank when it expires on one, so every
+rank retires and admits the same columns and returns the same answers.
+
+This is the counterpart of the JAX package's ``repro.serving.server``.  The
+knobs the engine refuses raise as they do there.  As in the JAX package,
+the server carries no delta-iteration state: a packed exchange ships its
+full payload stream.
 """
 from __future__ import annotations
 
@@ -75,7 +81,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core import algorithms
+from repro_torch.core import algorithms, collectives
 from repro_torch.core.engine import PMVEngine, StepConfig, placement_call, resolve_device
 from repro_torch.core.gimv import GimvSpec
 from repro_torch.faults import FetchDeadlineError, as_injector
@@ -172,18 +178,24 @@ def per_query_delta(v: torch.Tensor, v_new: torch.Tensor, *, delta_kind: str) ->
     return torch.sum(torch.abs(v_new - v), dim=dims)
 
 
-def make_batched_step(spec: GimvSpec, cfg: StepConfig, *, delta_kind: str = "abs"):
+def make_batched_step(spec: GimvSpec, cfg: StepConfig, mesh=None, axis_name="workers", *,
+                      delta_kind: str = "abs"):
     """Build step(matrix, v, ctx, mask, active) -> (v_new, deltas [Q], stats).
 
-    v/ctx carry a trailing query axis ([b, n_local, Q]).  ``active`` [Q]
-    (a bool tensor on v's device) freezes retired / padded columns: their v
-    entries pass through unchanged, so a column can sit retired while the
-    rest of the batch keeps iterating.
+    v/ctx carry a trailing query axis ([b, n_local, Q] in emulation; under a
+    ``mesh`` this rank's worker's [1, n_local, Q], with the matrix and mask
+    of an engine built on the same mesh).  ``active`` [Q] (a bool tensor on
+    v's device) freezes retired / padded columns: their v entries pass
+    through unchanged, so a column can sit retired while the rest of the
+    batch keeps iterating.  Under a mesh the deltas are summed over the
+    workers, so every rank sees the whole batch's.
     """
+    axis = None if mesh is None else collectives.worker_axis(mesh, axis_name)
 
     def step(matrix, v, ctx, mask, active):
-        v_new, _r, stats = placement_call(spec, cfg, matrix, v, ctx, mask)
-        return _freeze(v, v_new, active, delta_kind) + (stats,)
+        v_new, _r, stats = placement_call(spec, cfg, matrix, v, ctx, mask, axis=axis)
+        v_new, deltas = _freeze(v, v_new, active, delta_kind)
+        return v_new, collectives.psum(deltas, axis), stats
 
     return step
 
@@ -224,13 +236,8 @@ class _FamilyState:
     mask: torch.Tensor
     part: object
     meta: dict
-    blocked_ids: torch.Tensor   # [b * n_local] global id of each blocked slot, n for padding
+    blocked_ids: torch.Tensor   # [b_w * n_local] global id of each held slot, n for padding
     global_pos: torch.Tensor    # [n] blocked slot of each global id
-
-
-def _not_ported(knob: str, detail: str = "") -> NotImplementedError:
-    return NotImplementedError(
-        f"PMVServer knob {knob} is not supported by repro_torch yet" + (f" ({detail})" if detail else ""))
 
 
 # per-iteration stats summed into stats(); the store_* keys only a disk
@@ -250,7 +257,8 @@ class PMVServer:
     device: None (the GPU; raises without one) | 'cuda' | 'cpu', as for
     :class:`PMVEngine`.  The other engine knobs (strategy, theta, psi,
     exchange, capacity, slack, payload_dtype, backend, scatter, stream,
-    base_weights, io_retry, obs, faults) are passed to each family's engine,
+    base_weights, mesh, axis_name, io_retry, obs, faults) are passed to each
+    family's engine,
     and with ``store=`` also
     ``residency`` and ``store_budget_bytes`` (without a store the server,
     like the JAX package's, holds its edges resident and ignores them).
@@ -282,6 +290,7 @@ class PMVServer:
         buckets: tuple[int, ...] = DEFAULT_BUCKETS,
         max_iters: int = 200,
         mesh=None,
+        axis_name="workers",
         store=None,
         residency: str = "device",
         store_budget_bytes: int | None = None,
@@ -292,10 +301,6 @@ class PMVServer:
         telemetry=None,
         device=None,
     ):
-        if mesh is not None:
-            raise _not_ported("mesh", "emulation mode only")
-        if exchange == "hier":
-            raise _not_ported(f"exchange={exchange!r}")
         self.store = None
         self.residency = residency
         self.store_budget_bytes = store_budget_bytes
@@ -317,7 +322,7 @@ class PMVServer:
             if edges is None or n is None or b is None:
                 raise ValueError("PMVServer needs (edges, n, b=) or store=")
             self.edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-        self.device = resolve_device(device)
+        self.mesh, self.axis_name = mesh, axis_name
         self.n = int(n)
         self.b = int(b)
         self.max_iters = int(max_iters)
@@ -328,12 +333,15 @@ class PMVServer:
             strategy=strategy, theta=theta, psi=psi, exchange=exchange,
             capacity=capacity, slack=slack, payload_dtype=payload_dtype, backend=backend,
             scatter=scatter, stream=stream, base_weights=base_weights,
-            io_retry=io_retry, obs=self.obs, device=self.device,
+            io_retry=io_retry, obs=self.obs, mesh=mesh, axis_name=axis_name,
+            device=resolve_device(device),
             # normalized ONCE, so every family engine shares one injector and
             # a plan's events fire once server-wide, not once per family
             faults=as_injector(faults, self.obs))
         # the engine checks its own knobs: fail here, not at the first batch
-        self._engine(symmetrize=False)
+        probe = self._engine(symmetrize=False)
+        self.axis = probe.axis
+        self.device = self._engine_kwargs["device"] = probe.device
         # admission control: queries submitted while >= max_queue are waiting
         # are shed immediately (reason='shed').  None = accept everything.
         self.max_queue = max_queue
@@ -488,10 +496,11 @@ class PMVServer:
             if meta["residency"] == "disk":
                 step = _make_disk_batched_step(meta["executor"], delta_kind=family.delta_kind)
             else:
-                step = make_batched_step(spec, meta["cfg"], delta_kind=family.delta_kind)
+                step = make_batched_step(spec, meta["cfg"], self.mesh, self.axis_name,
+                                         delta_kind=family.delta_kind)
                 step = engine.on_device(step)
             part = meta["part"]
-            ids = np.minimum(part.global_ids_grid().reshape(-1), self.n)
+            ids = np.minimum(engine.own_rows(part.global_ids_grid()).reshape(-1), self.n)
             g = np.arange(self.n)
             pos = part.block_of(g) * part.n_local + part.local_of(g)
             self._families[key] = _FamilyState(
@@ -511,18 +520,21 @@ class PMVServer:
         return fam.init_column(self.n, query), fam.ctx_columns(self.n, query)
 
     def _blocked(self, st: _FamilyState, cols: list[np.ndarray]) -> torch.Tensor:
-        """Global columns [n] -> the blocked batch [b, n_local, k] on the device.
-        The columns go over stacked whole and one gather on the device blocks
-        them (padding slots get 0, as Partition.to_blocked gives them): a
-        host write of each column into [b, n_local, Q] would touch a new
-        cache line per element."""
+        """Global columns [n] -> the held rows of the blocked batch
+        [b_w, n_local, k] on the device (all b in emulation, this rank's
+        worker's one under a mesh).  The columns go over stacked whole and
+        one gather on the device blocks them (padding slots get 0, as
+        Partition.to_blocked gives them): a host write of each column into
+        [b, n_local, Q] would touch a new cache line per element."""
         x = torch.from_numpy(np.stack(cols)).to(self.device)               # [k, n]
         x = torch.cat([x, x.new_zeros((x.shape[0], 1))], dim=1)            # column n: 0
-        return x[:, st.blocked_ids].T.reshape(self.b, st.part.n_local, -1).contiguous()
+        return x[:, st.blocked_ids].T.reshape(-1, st.part.n_local, len(cols)).contiguous()
 
     def _global(self, st: _FamilyState, v: torch.Tensor, slots: list[int]) -> np.ndarray:
-        """Columns ``slots`` of the blocked batch -> [len(slots), n] on the host."""
-        cols = v.index_select(2, torch.tensor(slots, device=self.device))  # [b, n_local, r]
+        """Columns ``slots`` of the blocked batch -> [len(slots), n] on the
+        host (gathered from every worker under a mesh)."""
+        cols = v.index_select(2, torch.tensor(slots, device=self.device))  # [b_w, n_local, r]
+        cols = collectives.all_gather(cols, self.axis)                      # [b, n_local, r]
         flat = cols.reshape(-1, len(slots)).index_select(0, st.global_pos)  # [n, r]
         return flat.T.contiguous().cpu().numpy()
 
@@ -635,10 +647,16 @@ class PMVServer:
 
             # columns that retire this iteration: converged, capped or expired
             now = time.perf_counter()
+            expired_q = now > dls
+            if self.axis is not None and np.isfinite(dls).any():
+                # the ranks' clocks differ: a deadline expires on every rank
+                # when it expires on one, so all retire the same columns
+                flags = torch.from_numpy(expired_q.astype(np.int64)).to(dev)
+                expired_q = collectives.psum(flags, self.axis).cpu().numpy() > 0
             retiring = []
             for q_i in np.nonzero(active)[0]:
                 done = bool(deltas_h[q_i] < tols[q_i])
-                expired = not done and now > dls[q_i]
+                expired = not done and bool(expired_q[q_i])
                 if done or expired or iters[q_i] >= caps[q_i]:
                     retiring.append((int(q_i), done, expired))
             if not retiring:

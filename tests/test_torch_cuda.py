@@ -1419,3 +1419,39 @@ def test_cuda_server_telemetry_scrape(cuda_device):
     for a, b in zip(on, off):
         np.testing.assert_array_equal(a.vector, b.vector)
         assert a.iterations == b.iterations
+
+
+@pytest.mark.cuda
+def test_cuda_spmd_two_gloo_ranks_equal_emulation(cuda_device):
+    """Two gloo ranks sharing cuda:0 (``tests/_torch_spmd.py``), each running
+    the kernels on the card on its own worker's rows and gloo moving the
+    card's tensors: PMVEngine(mesh=...) at b = 2 equals the emulated b = 2
+    engine on the card (SSSP and CC bitwise, PageRank within rtol 1e-5) on
+    horizontal, vertical (sparse, packed) and hybrid."""
+    import _torch_spmd as S
+    from repro_torch.core import PMVEngine, connected_components, pagerank, sssp
+
+    n = 64
+    edges = tactic_mix_edges(n, 2)
+    cases = [("sssp", "vertical", "sparse"), ("sssp", "vertical", "packed"),
+             ("sssp", "hybrid", "sparse"), ("pagerank", "horizontal", "sparse"),
+             ("pagerank", "vertical", "sparse"), ("cc", "hybrid", "sparse")]
+    run = {"sssp": dict(max_iters=100, tol=0.5), "cc": dict(max_iters=100, tol=0.5),
+           "pagerank": dict(max_iters=20, tol=0.0)}
+    ranks = S.run("engine_cases", 2, dict(
+        mesh=((2,), ("workers",)), axis_name="workers", edges=edges, n=n, b=2, device="cuda",
+        cases=[dict(algo=a, run=run[a], strategy=st, exchange=ex, theta=40.0, backend="auto",
+                    scatter="kernel") for a, st, ex in cases]), timeout=300)
+    specs = {"sssp": lambda: sssp(0), "pagerank": lambda: pagerank(n),
+             "cc": connected_components}
+    for i, (algo, strategy, exchange) in enumerate(cases):
+        want = PMVEngine(edges, n, b=2, strategy=strategy, exchange=exchange, theta=40.0,
+                         backend="auto", scatter="kernel", symmetrize=algo == "cc",
+                         device=cuda_device).run(specs[algo](), **run[algo])
+        for r in ranks:
+            got = r[i]["v"]
+            if algo == "pagerank":
+                np.testing.assert_allclose(got, want.v, rtol=1e-5, atol=1e-8)
+            else:
+                np.testing.assert_array_equal(got, want.v)
+                assert r[i]["iterations"] == want.iterations

@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port: it never imports JAX or the JAX
 package, its engine and server run on the GPU unless told otherwise, every
 knob outside the ported slice raises NotImplementedError naming the knob,
-and the store knobs the slice takes behave as the JAX package's do."""
+the SPMD knobs name what they need when it is missing, and the store knobs
+the slice takes behave as the JAX package's do."""
 import json
 import os
 import subprocess
@@ -80,6 +81,8 @@ def test_engine_without_device_raises_without_gpu(monkeypatch):
 STORE = "<store>"
 TAKEN = ("store", "residency", "store_budget_bytes", "io_retry", "strategy", "obs",
          "capacity", "payload_dtype", "faults", "slack", "telemetry")
+# the SPMD knobs, without the process group and DeviceMesh they need
+SPMD_TAKEN = {"mesh": (TypeError, "DeviceMesh"), "exchange": (ValueError, "tuple axis_name")}
 
 
 @pytest.fixture(scope="module")
@@ -128,8 +131,17 @@ def _outcome(mod, qmod, cls, knob, root, **extra) -> str:
     dict(store=STORE, residency="disk", strategy="vertical", b=4)])
 def test_knobs_outside_the_slice_raise(knob, knob_store):
     """PMVEngine and PMVServer each refuse the knobs they do not take yet;
-    the store knobs they take behave as the JAX package's do."""
+    the store knobs they take behave as the JAX package's do.  The SPMD
+    knobs are taken (tests/test_torch_spmd.py): a mesh that is not a
+    DeviceMesh is a TypeError, exchange='hier' without one a ValueError."""
     name = next(iter(knob))
+    if name in SPMD_TAKEN:
+        exc, text = SPMD_TAKEN[name]
+        with pytest.raises(exc, match=text):
+            T.PMVEngine(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
+        with pytest.raises(exc, match=text):
+            TS.PMVServer(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
+        return
     if name in TAKEN:
         for mod, qmod, j_cls, t_cls in ((J, JS, J.PMVEngine, T.PMVEngine),
                                         (J, JS, JS.PMVServer, TS.PMVServer)):
@@ -143,17 +155,21 @@ def test_knobs_outside_the_slice_raise(knob, knob_store):
         TS.PMVServer(rmat(6, 200, seed=0), 64, b=2, device="cpu", **knob)
 
 
-@pytest.mark.parametrize("knob,text", [
-    (dict(mesh=object()), "mesh"), (dict(exchange="hier"), "exchange='hier'"),
-    (dict(backend="pallas"), "backend='pallas'"), (dict(backend="xla"), "backend='xla'")])
-def test_remaining_refusals_name_their_knob(knob, text):
+@pytest.mark.parametrize("knob,exc,text", [
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
+    (dict(exchange="hier"), ValueError, "tuple axis_name"),
+    (dict(backend="pallas"), NotImplementedError, "backend='pallas'"),
+    (dict(backend="xla"), NotImplementedError, "backend='xla'")])
+def test_remaining_refusals_name_their_knob(knob, exc, text):
     """Each knob the port still refuses raises NotImplementedError naming the
-    knob (and its value where the knob takes other values)."""
+    knob (and its value where the knob takes other values); the SPMD knobs,
+    taken now, name what they need when it is missing: a DeviceMesh, and
+    for 'hier' a mesh with a tuple axis_name."""
     edges = rmat(6, 200, seed=0)
-    with pytest.raises(NotImplementedError, match=text.replace("'", ".")) as ei:
+    with pytest.raises(exc, match=text.replace("'", ".")) as ei:
         T.PMVEngine(edges, 64, b=2, device="cpu", **knob)
     assert text in str(ei.value)
-    with pytest.raises(NotImplementedError) as ei:
+    with pytest.raises(exc) as ei:
         TS.PMVServer(edges, 64, b=2, device="cpu", **knob)
     assert text in str(ei.value)
 

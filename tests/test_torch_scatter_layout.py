@@ -46,8 +46,8 @@ def compacted(monkeypatch):
     seen = []
     real = sparse_exchange.compact_partials
 
-    def record(spec, partials, capacity, *, batched=False):
-        out = real(spec, partials, capacity, batched=batched)
+    def record(spec, partials, capacity, axis=None, *, batched=False):
+        out = real(spec, partials, capacity, axis, batched=batched)
         seen.append((spec, partials, out[0], out[1], batched))
         return out
     monkeypatch.setattr(sparse_exchange, "compact_partials", record)

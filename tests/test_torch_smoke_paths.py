@@ -449,3 +449,29 @@ def test_telemetry_checks_on_cpu(capsys):
     assert "telemetry serve: http://127.0.0.1:" in out and "-> ok" in out
     assert "pmv serve" in out                              # obs top's frame
     assert "close() stopped the exporter's thread" in out
+
+
+def test_spmd_gloo_phase_on_cpu(capsys):
+    """The smoke's spmd phase, part (b), rehearsed on the CPU at scale 10:
+    8 gloo ranks (subprocesses of chip_smoke.py --spmd-rank) run the flat
+    SSSP (bitwise the emulated run 2 and its exchanged elements) and the
+    horizontal PageRank, then on the smaller graph the two-hop SSSP on
+    (2, 4) and the RWR serve, against the smoke's scipy references
+    (nothing launches on the CPU, so the launch checks are off)."""
+    import torch
+
+    eng = PMVEngine(EDGES, N, b=8, strategy="vertical", backend="auto", scatter="kernel",
+                    stream="off", device="cpu")
+    res = eng.run(sssp(0), max_iters=100, tol=0.5)
+    run2 = {"v": res.v, "want": smoke.sssp_ref(np, sp, csgraph, EDGES, N, 0),
+            "exchanged_elems": [r["exchanged_elems"] for r in res.per_iter]}
+    rows, failures = {}, []
+    small = (rmat(SCALE - 1, 16 << (SCALE - 1), seed=0), N // 2)
+    smoke.spmd_gloo(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, 40.0, run2,
+                    [3, 17, 100, 200, 300, 400, 500, 600], rows, failures, small=small,
+                    hints={"pagerank": 52}, expect_launches=False)
+    out = capsys.readouterr().out
+    assert failures == [], (failures, out)
+    for label in ("sssp_flat", "pagerank_horizontal", "sssp_hier", "serve_rwr"):
+        assert f"spmd run {label} W=8" in out and "-> ok" in out
+    assert "spmd gloo phase:" in out
