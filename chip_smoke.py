@@ -143,7 +143,8 @@ Phases, each printed as it ends; any failure exits non-zero:
 7. disk    -- the out-of-core store (``repro_torch.store``): the directed edges
               of phase 2 ingested at b = 8, with the θ-split shards of
               theta=3000, into a temporary directory (its free space printed
-              first; removed at the end) and audited (``verify_store``), then
+              first; removed after phase 7b, which reads it too) and audited
+              (``verify_store``), then
               five ``PMVEngine(residency='disk', backend='auto')`` solves
               under a residency budget of two weighted block slices (below
               one striping's shard bytes; each hybrid leg holds its own):
@@ -232,19 +233,38 @@ Phases, each printed as it ends; any failure exits non-zero:
               that runs the kernels on the card on its own worker's rows, on
               the graph of phase 2: the SSSP of run 2 (strategy='vertical',
               scatter='kernel'), bitwise run 2's answer and its
-              per-iteration ``exchanged_elems``; PageRank horizontal within
-              rtol 1e-4 of scipy.  On RMAT(scale - 2) (every rank runs the
-              whole host prepare, so these two are cut to fit the time
-              limit): the SSSP through ``exchange='hier'`` on a (2, 4)
+              per-iteration ``exchanged_elems``.  On RMAT(scale - 2) (every
+              rank runs the whole host prepare, so these three are cut to
+              fit the time limit): PageRank horizontal within rtol 1e-4 of
+              scipy; the SSSP through ``exchange='hier'`` on a (2, 4)
               ('pod', 'workers') mesh, equal to scipy, its
               ``inter_pod_elems`` the closed form P(P-1)·W·n_local and below
               the flat sparse exchange's at the same capacity;
               ``PMVServer(mesh=..., strategy='hybrid', theta=3000,
               scatter='kernel')`` on the first 8 RWR sources of phase 5 (mod
-              n) in one Q = 8 batch, within rtol 1e-4 of scipy.  Each rank zeroes its launch counters before each
-              run and reads them after; the summed counts join the kernel
-              rows, and each run's kernels must launch.  Prints each rank's
-              median iteration wall and the phase's seconds: gloo stages
+              n) in one Q = 8 batch, within rtol 1e-4 of scipy.  Then out
+              of core over phase 7's store, each rank opening only its
+              shard view under a per-worker budget of two of its weighted
+              slices: SSSP (vertical, scatter='kernel'; bitwise phase 7's
+              disk SSSP and scipy, its bytes per iteration and their sum
+              over the workers equal to phase 7's, every rank's peak within
+              its budget), PageRank hybrid (theta=3000) and vertical packed
+              (10 iterations; within rtol 1e-5 of phase 7's runs, whose
+              per-block float sums are atomics on the card, and 1e-4 of
+              scipy), the SSSP again under BreakPrefetch(worker=1) and a
+              SlowFetch on worker 2 (bitwise; only rank 1 degraded;
+              ``fleet_report`` names worker 2 the straggler) and
+              ``PMVServer(store=, residency='disk', mesh=)`` on phase 7's 8
+              RWR queries (within rtol 1e-5 of its answers); after each,
+              the kernel its tail folds with (3, 7 or 6) is held against
+              its plain version on every rank's own tail input; and, in
+              part (a)'s NCCL group, the disk SSSP with one rank holding
+              all 8 workers' rows, bitwise phase 7's.  Each rank zeroes its
+              launch counters before each run and reads them after; the
+              summed counts join the kernel rows, and each run's kernels
+              must launch.  Prints each rank's median iteration wall (and
+              out of core its own fetch, wait, overlap, bytes and peak
+              against the budget) and the phase's seconds: gloo stages
               the card's tensors through host memory, so no SPMD speed
               (NCCL, NVLink) can be read from them.
 8. stream  -- the bucket-streamed planned executor (``stream='on'``, one
@@ -286,6 +306,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1839,7 +1860,7 @@ def check_store_counters(label: str, rec, executors, bytes_read: float) -> None:
 
 
 def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, served,
-               resident_peaks, rows, failures, *, seed=0, chaos_q=4, traces=None):
+               resident_peaks, rows, failures, *, seed=0, chaos_q=4, traces=None) -> dict:
     """Phase 7 (see the module doc): ingest (with the θ-split shards of
     ``theta``), audit, five disk solves, the chaos disk SSSP and the overflow
     retry, the disk serve and the chaos disk serve (at Q = ``chaos_q``).
@@ -1847,7 +1868,13 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
     first 16 SSSP answers and first 8 RWR sources, ``resident_peaks`` the
     resident runs' and the serve's peak GiB by label, ``seed`` the chaos
     plans', ``traces`` (label -> recorder) the resident runs' recorders that
-    ``obs merge`` merges in :func:`fleet_cli_phase`."""
+    ``obs merge`` merges in :func:`fleet_cli_phase`.
+
+    Returns what the spmd phase holds its disk runs to: the store's
+    ``root`` (kept; the caller removes it), its ``e_cap``, the budget, the
+    single-process results of the solves by label (``PMVResult``) and the
+    disk serve's RWR answers ``rwr`` ((vector, iterations) each) of the
+    sources ``rwr_sources``.  On an error the store is removed here."""
     import shutil
     import tempfile
 
@@ -1858,6 +1885,7 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
 
     root = tempfile.mkdtemp(prefix="pmv_store_")
     t_phase = time.perf_counter()
+    out = {"root": root, "solves": {}}
     try:
         usage = shutil.disk_usage(root)
         log(f"disk space at {root} before the ingest: total {usage.total / 1e9:.1f} GB, "
@@ -1875,6 +1903,7 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
         # weighted block slices (at b = 8 that is 3/8 of one striping, so a
         # quarter of the striping could not hold it); each hybrid leg fits it
         budget = 2 * cost_model.stripe_slice_bytes(b, man.e_cap, has_w=True)
+        out.update(e_cap=man.e_cap, budget=budget)
         log(f"disk store: ingest_s={ingest_s:.2f} (theta={theta}: the vertical and horizontal "
             f"stripings plus the hybrid pair) verify_s={verify_s:.2f} "
             f"digests={report.checked} m={man.m} e_cap={man.e_cap} hybrid={json.dumps(man.hybrid)} "
@@ -1938,6 +1967,7 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
                 count_disk_launches(label, kernel, counts, rows)
             if label == "sssp/vertical disk":
                 clean = (res.v, res.iterations, med("wall_s"))
+            out["solves"][label] = res
             if spec.name == "sssp":
                 want = sssp_ref(np, sp, csgraph, edges, n, 0)
                 ok = (res.converged and np.array_equal(res.v.astype(np.float64), want)
@@ -1967,16 +1997,19 @@ def disk_phase(torch, np, sp, csgraph, dev, edges, n, b, theta, sssp_resident, s
         chaos_disk(torch, np, sp, csgraph, dev, edges, n, root, budget, seed, clean, rows,
                    failures)
         t_chaos = time.perf_counter() - t
-        disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, served,
-                   resident_peaks, rows, failures)
+        out["rwr"] = disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget,
+                                served, resident_peaks, rows, failures)
+        out["rwr_sources"] = [int(s) for s in served[1]]
         t = time.perf_counter()
         chaos_serve(torch, np, dev, root, theta, budget, seed, served[0], rows, failures,
                     q=chaos_q)
         t_chaos += time.perf_counter() - t
         log(f"disk phase: {time.perf_counter() - t_phase:.1f} s (the chaos SSSP, the overflow "
             f"retry and the chaos serve {t_chaos:.1f} s)")
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
+    return out
 
 
 def disk_legs(ex, budget: int) -> str:
@@ -2014,14 +2047,19 @@ def disk_tail_check(torch, np, label: str, ex, state, rows: dict) -> None:
     them exactly as the run's iterations do, after the counted run.  The
     kernel is held against its plain version (bitwise for the selection
     semirings, rtol 1e-5 for plus_times) and, bitwise, against the
-    sender-order fold; the error goes into the kernel row's ``disk_checks``."""
+    sender-order fold; the error goes into the kernel row's ``disk_checks``.
+    On a rank of an SPMD solve (``ex.axis``; collective) the pass runs on the
+    rank's workers' rows and the exchange brings it its destinations' rows,
+    as the run's tails received them.  Returns the error."""
     from repro_torch.kernels import scatter_combine
     from repro_torch.kernels.block_gimv import semiring_of
 
     spec, nl = ex.spec, ex.part.n_local
-    v = torch.from_numpy(np.ascontiguousarray(ex.part.to_blocked(state))).to(ex.store.device)
+    v = torch.from_numpy(np.ascontiguousarray(own_rows(ex, ex.part.to_blocked(state)))).to(
+        ex.store.device)
     ex._begin_iteration()
     idx, val, _, _ = ex._compact_blocks(v)
+    idx, val = ex._to_owners(idx), ex._to_owners(val)
     del v
     idx, val = idx.contiguous(), val.contiguous()
     sr = semiring_of(spec.combine2, spec.combine_all)
@@ -2042,6 +2080,15 @@ def disk_tail_check(torch, np, label: str, ex, state, rows: dict) -> None:
         f"n_local {nl}: matches its plain version (max |err| {err}) and is bitwise the "
         "sender-order fold")
     del idx, val, got
+    return err
+
+
+def own_rows(ex, blocked):
+    """The rows of a blocked [b, ...] array a disk executor's rank holds:
+    all b without a worker axis, else its contiguous b / W."""
+    from repro_torch.core import collectives
+
+    return blocked[collectives.own_slice(ex.axis, ex.part.b)]
 
 
 def count_disk_launches(label: str, kernel: str, counts: dict, rows: dict) -> None:
@@ -2057,7 +2104,8 @@ def disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, serve
     the resident serve's first 16 SSSP sources (one Q = 16 batch; each answer
     equal to the resident serve's, 4 also to scipy) and its first 8 RWR
     sources at 10 iterations (one Q = 8 batch; rtol 1e-4 against the scipy
-    power iteration); kernel 6 must launch."""
+    power iteration); kernel 6 must launch.  Returns the RWR answers,
+    (vector, iterations) each."""
     from repro_torch import kernels
     from repro_torch.obs import Recorder
     from repro_torch.serving import PMVServer, Query
@@ -2153,6 +2201,7 @@ def disk_serve(torch, np, sp, csgraph, dev, edges, n, root, theta, budget, serve
                         np.stack([r.vector for r in rs], axis=1), rows)
     srv.close()
     torch.cuda.empty_cache()
+    return [(r.vector, r.iterations) for r in results["rwr"]]
 
 
 # ---------------------------------------------------------------------------
@@ -2831,15 +2880,20 @@ def packed_widths_phase(torch, np, dev, gen):
 # spmd phase: one rank per worker through torch.distributed
 # ---------------------------------------------------------------------------
 
-SPMD_RANK_TIMEOUT_S = 300.0
+SPMD_RANK_TIMEOUT_S = 420.0
 
 
-def spmd_nccl(torch, np, sp, csgraph, dev, seed, rows, failures, *, scale=16) -> None:
+def spmd_nccl(torch, np, sp, csgraph, dev, seed, rows, failures, *, scale=16,
+              disk=None) -> None:
     """Part (a) of the spmd phase: one NCCL rank in this process
     (``init_process_group('nccl', world_size=1)`` on a file store), an SSSP
     from 0 over a mesh of size 1 at b = 1 on RMAT(``scale``): it must equal
     scipy and, bitwise, the emulated b = 1 engine.  One rank moves no bytes:
-    it shows that NCCL takes the port's tensors, not a transfer."""
+    it shows that NCCL takes the port's tensors, not a transfer.  With
+    ``disk`` (what ``disk_phase`` returns), in the same group: the vertical
+    disk SSSP over its store with the one rank holding all b = 8 workers
+    (b / W = 8 rows a rank), bitwise the disk phase's, its bytes per
+    iteration equal."""
     import shutil
     import tempfile
 
@@ -2862,12 +2916,15 @@ def spmd_nccl(torch, np, sp, csgraph, dev, seed, rows, failures, *, scale=16) ->
         try:
             mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("workers",))
             eng = PMVEngine(edges, n, mesh=mesh, **kw)
-            eng.prepare(sssp(0))
+            spec = sssp(0)
+            eng.prepare(spec)
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
-            res = eng.run(sssp(0), max_iters=100, tol=0.5)
+            res = eng.run(spec, max_iters=100, tol=0.5)
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
+            if disk is not None:
+                spmd_nccl_disk(torch, np, dev, mesh, disk, rows, failures)
         finally:
             dist.destroy_process_group()
     finally:
@@ -2890,11 +2947,199 @@ def spmd_nccl(torch, np, sp, csgraph, dev, seed, rows, failures, *, scale=16) ->
         rows.setdefault(name, {"launches": 0})["launches"] += counts[name]
 
 
+def spmd_nccl_disk(torch, np, dev, mesh, disk, rows, failures) -> None:
+    """The disk SSSP of :func:`spmd_nccl` (W = 1 over NCCL, b = 8 rows on the
+    rank), at the disk phase's budget."""
+    from repro_torch import kernels
+    from repro_torch.core import PMVEngine, sssp
+
+    t = time.perf_counter()
+    eng = PMVEngine(None, store=disk["root"], residency="disk", strategy="vertical",
+                    scatter="kernel", backend="auto", store_budget_bytes=disk["budget"],
+                    mesh=mesh, device=dev)
+    spec = sssp(0)
+    meta = eng.prepare(spec)[-1]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = eng.run(spec, max_iters=100, tol=0.5)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    meta["executor"].close()
+    single = disk["solves"]["sssp/vertical disk"]
+    got_bytes = [r["store_bytes_read"] for r in res.per_iter]
+    ok = (res.converged and np.array_equal(res.v, single.v)
+          and res.iterations == single.iterations
+          and got_bytes == [r["store_bytes_read"] for r in single.per_iter]
+          and all(len(r["store_worker_io_s"]) == 1 for r in res.per_iter))
+    walls = [r["wall_s"] for r in res.per_iter]
+    log(f"spmd disk nccl W=1: sssp/vertical disk, one NCCL rank holding b=8 workers' rows "
+        f"(b_w=8): iterations={res.iterations} prepare_s={meta['prepare_s']:.3f} "
+        f"median_iter_s={np.median(walls):.4f} "
+        f"store_io_s={np.median([r['store_io_s'] for r in res.per_iter]):.4f} "
+        f"store_wait_s={np.median([r['store_wait_s'] for r in res.per_iter]):.4f} "
+        f"bytes_read_per_iter={got_bytes[0]:.0f} peak_resident_bytes="
+        f"{meta['store'].peak_resident_bytes}/{disk['budget']} "
+        f"launches={json.dumps({k: c for k, c in counts.items() if c})}: bitwise the disk "
+        f"phase's SSSP with its bytes per iteration -> {'ok' if ok else 'FAIL'} "
+        f"({time.perf_counter() - t:.1f} s)")
+    if not ok:
+        failures.append("spmd disk nccl W=1 sssp disagrees with the disk phase's")
+    if counts["scatter_combine"] == 0:
+        raise SmokeError("spmd disk nccl: kernel scatter_combine never launched")
+    row = rows.setdefault("scatter_combine", {"launches": 0})
+    row["launches"] += counts["scatter_combine"]
+    row["spmd_disk_launches"] = row.get("spmd_disk_launches", 0) + counts["scatter_combine"]
+
+
+def packed_disk_tail_check(torch, np, label: str, ex, state, rows: dict) -> float:
+    """Kernel 7 at the shapes the packed disk tail gives it: one more pass
+    of the executor over ``state`` (the run's answer) yields the payload its
+    tail receives (on a rank of an SPMD solve, its destinations' rows after
+    the exchange; collective), and the kernel is held there against its
+    plain version; the error goes into the kernel row's ``disk_checks``."""
+    from repro_torch.kernels import scatter_combine
+    from repro_torch.kernels.block_gimv import semiring_of
+
+    spec, nl, xp = ex.spec, ex.part.n_local, ex.xplan
+    v = torch.from_numpy(np.ascontiguousarray(own_rows(ex, ex.part.to_blocked(state)))).to(
+        ex.store.device)
+    ex._begin_iteration()
+    val, _ = ex._packed_blocks(v)
+    del v
+    b_w, b = val.shape[:2]
+    words, flat = ex.xchg["recv_words"].reshape(-1), val.reshape(-1).contiguous()
+    kw = dict(set_slots=b * xp.p_dev, n_local=nl, width=xp.width_dev)
+    sr = semiring_of(spec.combine2, spec.combine_all)
+    n_out = b_w * (nl + 1)
+    err = compare(torch, scatter_combine.packed_scatter_combine_gimv(words, flat, n_out,
+                                                                     semiring=sr, senders=b, **kw),
+                  scatter_combine.packed_scatter_combine_ref(words, flat, n_out, semiring=sr,
+                                                             **kw),
+                  sr, f"{label}: packed_scatter_combine on the tail's payload")
+    rows["packed_scatter_combine"].setdefault("disk_checks", []).append(
+        {"path": label, "shape": list(val.shape), "semiring": sr, "max_abs_err": err})
+    log(f"kernels {label}: packed_scatter_combine {sr} on the tail's payload "
+        f"{list(val.shape)} n_local {nl}: matches its plain version (max |err| {err})")
+    return err
+
+
+def disk_record(np, res, meta) -> dict:
+    """What the spmd phase prints of a rank's disk run: its prepare, its
+    iteration walls, the W workers' per-iteration I/O lists, the fleet's
+    bytes per iteration, and this rank's own stores' peak resident bytes
+    against their budget (by striping)."""
+    it = res.per_iter
+    return {
+        "iterations": res.iterations, "converged": res.converged,
+        "prepare_s": meta["prepare_s"], "walls_ms": [1e3 * r["wall_s"] for r in it],
+        "bytes_read": [r["store_bytes_read"] for r in it],
+        "worker": {k: [r[f"store_worker_{k}"] for r in it]
+                   for k in ("io_s", "wait_s", "overlap", "bytes_read",
+                             "prefetch_degraded")},
+        "peak": {leg.store.striping: [leg.store.local.peak_resident_bytes,
+                                      leg.store.budget_bytes]
+                 for leg in meta["executor"].legs},
+    }
+
+
+def spmd_disk_runs(rank: int, d: str, cfg: dict, dev, mesh, out: dict, counted) -> None:
+    """The out-of-core runs of one gloo rank (``spmd_rank``) over the disk
+    phase's store, each rank reading its own shard view under the
+    per-worker budget ``cfg['disk']['budget']``: the vertical SSSP, the
+    hybrid and the packed PageRank, the chaos SSSP (worker 1's prefetch
+    thread broken, worker 2's first non-empty block slowed by 3x the
+    longest per-worker fetch of an iteration of the clean SSSP, at least
+    0.3 s, so that its fetch passes the fleet report's 2x-the-median flag
+    on any host) and the hybrid RWR serve; each prepared first, then run between barriers with the
+    launch counters zeroed (``counted``).  After each, the kernel its tail
+    folds with (3, 7 or 6) is held against its plain version on that tail's
+    own input (one more pass; collective).  Results join ``out``; rank 0
+    saves the vectors in ``d``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.core import PMVEngine, pagerank, sssp
+    from repro_torch.obs import Recorder, fleet_report
+    from repro_torch.serving import PMVServer, Query
+
+    disk = cfg["disk"]
+    kw = dict(store=disk["root"], residency="disk", backend="auto",
+              store_budget_bytes=disk["budget"], mesh=mesh, device=dev)
+    checks = {k: {} for k in ("scatter_combine", "scatter_combine_multi",
+                              "packed_scatter_combine")}
+    tails = {}
+
+    def solve(label, spec, max_iters, tol, tail, **ekw):
+        eng = PMVEngine(None, **kw, **ekw)
+        meta = eng.prepare(spec)[-1]
+        res = counted(label, lambda: eng.run(spec, max_iters=max_iters, tol=tol))
+        out[label].update(disk_record(np, res, meta))
+        ex = meta["executor"]
+        tails[label] = tail(torch, np, f"spmd {label}", ex, res.v, checks)
+        if rank == 0:
+            np.save(os.path.join(d, f"{label}.npy"), res.v)
+        ex.close()
+        return eng, res
+
+    solve("sssp_disk", sssp(0), 100, 0.5, disk_tail_check, strategy="vertical",
+          scatter="kernel")
+    n = disk["n"]
+    solve("pagerank_hybrid_disk", pagerank(n), 10, 0.0, disk_tail_check, strategy="hybrid",
+          theta=cfg["theta"], scatter="kernel")
+    solve("pagerank_packed_disk", pagerank(n), 10, 0.0, packed_disk_tail_check,
+          strategy="vertical", exchange="packed", scatter="kernel")
+    # every rank holds the same gathered lists, so all take the same delay
+    delay = round(max(0.3, 3 * max(max(it) for it in out["sssp_disk"]["worker"]["io_s"])), 3)
+    plan = faults.FaultPlan(events=(
+        faults.BreakPrefetch(worker=1),
+        faults.SlowFetch(block=disk["chaos_block"], delay_s=delay, worker=2)))
+    rec = Recorder()
+    _, res = solve("sssp_disk_chaos", sssp(0), 100, 0.5, disk_tail_check, strategy="vertical",
+                   scatter="kernel", faults=plan, obs=rec)
+    rep = fleet_report(res)
+    out["sssp_disk_chaos"].update(
+        delay_s=delay, degraded=rec.counter("store.prefetch_degraded").value,
+        straggler_workers=rep.straggler_workers,
+        causes=[x["cause"] for x in rep.stragglers], skew_max=rep.skew["max"],
+        fleet=rep.format())
+    srv = PMVServer(store=disk["root"], residency="disk", mesh=mesh, strategy="hybrid",
+                    theta=cfg["theta"], backend="auto", scatter="kernel",
+                    store_budget_bytes=disk["budget"], device=dev)
+    try:
+        queries = [Query("rwr", source=int(s), c=0.85, max_iters=10)
+                   for s in disk["rwr_sources"]]
+        fam, fspec = srv.engine_for(queries[0])
+        meta = fam.prepare(fspec)[-1]
+        got = counted("serve_rwr_disk", lambda: srv.serve(queries))
+        st = srv.stats()
+        vec = np.stack([r.vector for r in got], axis=1)
+        out["serve_rwr_disk"].update(
+            prepare_s=meta["prepare_s"], iter_walls_ms=[1e3 * w for w in st["iter_wall_s"]],
+            iterations=[r.iterations for r in got], reasons=[r.reason for r in got],
+            bytes_read=[st["store_bytes_read"]],
+            peak={leg.store.striping: [leg.store.local.peak_resident_bytes,
+                                       leg.store.budget_bytes]
+                  for leg in meta["executor"].legs})
+        tails["serve_rwr_disk"] = disk_tail_check(torch, np, "spmd serve_rwr_disk",
+                                                  meta["executor"], vec, checks)
+        if rank == 0:
+            np.save(os.path.join(d, "serve_rwr_disk.npy"), vec.T)
+    finally:
+        srv.close()
+    out["disk_tails"] = tails
+    out["disk_checks"] = {k: x.get("disk_checks", []) for k, x in checks.items()}
+
+
 def spmd_rank(rank: int, d: str) -> int:
     """One rank of the spmd phase's gloo part (``chip_smoke.py --spmd-rank R
     --spmd-dir D``): the runs of ``D/payload.json`` on the shared graph
-    ``D/edges.npy`` (the hier SSSP and the serve on ``D/edges_small.npy``),
-    each between barriers with the launch counters zeroed
+    ``D/edges.npy`` (PageRank, the hier SSSP and the serve on
+    ``D/edges_small.npy``),
+    then the out-of-core runs over the disk phase's store
+    (``spmd_disk_runs``), each between barriers with the launch counters zeroed
     before it and read after it; results in ``D/r{R}.json`` (and rank 0's
     vectors in ``D/*.npy``).  Leaves with ``os._exit`` after a last barrier,
     so no rank tears its gloo group down while a peer still talks to it."""
@@ -2959,7 +3204,8 @@ def spmd_rank(rank: int, d: str) -> int:
 
         solve("sssp_flat", sssp(0), 100, 0.5, strategy="vertical", scatter="kernel",
               stream="off", mesh=flat)
-        solve("pagerank_horizontal", pagerank(n), 100, 1e-6, strategy="horizontal", mesh=flat)
+        solve("pagerank_horizontal", pagerank(n_small), 100, 1e-6, graph=(small, n_small),
+              strategy="horizontal", mesh=flat)
         solve("sssp_hier", sssp(0), 100, 0.5, graph=(small, n_small), strategy="vertical",
               scatter="kernel", stream="off", exchange="hier", mesh=pods,
               axis_name=("pod", "workers"))
@@ -2979,6 +3225,8 @@ def spmd_rank(rank: int, d: str) -> int:
             iter_walls_ms=[1e3 * w for w in st["iter_wall_s"]])
         if rank == 0:
             np.save(os.path.join(d, "serve_rwr.npy"), np.stack([r.vector for r in got]))
+        if cfg.get("disk") is not None:
+            spmd_disk_runs(rank, d, cfg, dev, flat, out, counted)
         with open(os.path.join(d, f"r{rank}.tmp"), "w") as f:
             json.dump(out, f)
         os.replace(os.path.join(d, f"r{rank}.tmp"), os.path.join(d, f"r{rank}.json"))
@@ -2993,24 +3241,35 @@ def spmd_rank(rank: int, d: str) -> int:
 
 
 def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources, rows,
-              failures, *, small=None, hints=None, expect_launches=True) -> None:
+              failures, *, small=None, hints=None, expect_launches=True, disk=None) -> None:
     """Part (b) of the spmd phase: ``b`` gloo ranks sharing ``dev``, each a
     subprocess that runs the kernels on the card (``spmd_rank``): the flat
     SSSP bitwise run 2 (``run2``: its answer and per-iteration exchanged
-    elements) and a horizontal PageRank within rtol 1e-4 of scipy on
-    ``edges``; on ``small`` ((edges, n), default the same graph) the
-    two-hop SSSP on a (2, b/2) ('pod', 'workers') mesh equal to scipy with
-    its inter-pod elements at the closed form and below the flat sparse
+    elements) on ``edges``; on ``small`` ((edges, n), default the same
+    graph) a horizontal PageRank within rtol 1e-4 of scipy, the two-hop
+    SSSP on a (2, b/2) ('pod', 'workers') mesh equal to scipy with its
+    inter-pod elements at the closed form and below the flat sparse
     exchange's at the same capacity, and a ``PMVServer(mesh=...)`` batch of
-    8 RWR queries (``rwr_sources`` mod its n) within rtol 1e-4 of scipy.  The walls it prints cross gloo through host memory: no speed of
-    the SPMD path (NCCL, NVLink) can be read from them.  While the ranks
+    8 RWR queries (``rwr_sources`` mod its n) within rtol 1e-4 of scipy.
+    The walls it prints cross gloo through host memory: no speed of the
+    SPMD path (NCCL, NVLink) can be read from them.  While the ranks
     run, the scipy references are computed for the iteration counts in
     ``hints`` ({'pagerank': k, 'rwr': [k, ...]}, the emulated runs'), and
-    again after for any count the ranks did not share."""
+    again after for any count the ranks did not share.  With ``disk`` (what
+    ``disk_phase`` returns) the ranks then run the out-of-core runs over its
+    store (``spmd_disk_runs``), held by :func:`spmd_disk_checks`."""
     import os
     import shutil
     import tempfile
 
+    from repro_torch.core import cost_model
+
+    spmd_disk = None
+    if disk is not None:
+        # the least the per-worker store accepts: two of its weighted slices
+        spmd_disk = {"root": disk["root"], "n": n, "rwr_sources": disk["rwr_sources"],
+                     "budget": 2 * cost_model.stripe_slice_bytes(1, disk["e_cap"], has_w=True),
+                     "chaos_block": nonempty_blocks(np, disk["root"], "vertical")[0]}
     small_edges, n_small = small if small is not None else (edges, n)
     rwr_sources = [int(s) % n_small for s in rwr_sources]
     d = tempfile.mkdtemp(prefix="pmv_spmd_")
@@ -3022,7 +3281,7 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
         with open(os.path.join(d, "payload.json"), "w") as f:
             json.dump({"src": str(Path(__file__).resolve().parent / "src"), "world": b, "n": n,
                        "n_small": n_small, "theta": theta, "device": str(dev),
-                       "rwr_sources": rwr_sources}, f)
+                       "rwr_sources": rwr_sources, "disk": spmd_disk}, f)
         for rank in range(b):
             log_f = open(os.path.join(d, f"r{rank}.log"), "w")
             procs.append((subprocess.Popen(
@@ -3034,11 +3293,16 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
         pre = {}                            # the references, while the ranks run
         if "pagerank" in hints:
             pre["pagerank"] = (hints["pagerank"],
-                               pagerank_ref(np, sp, edges, n, hints["pagerank"]))
+                               pagerank_ref(np, sp, small_edges, n_small, hints["pagerank"]))
         if "rwr" in hints:
             pre["rwr"] = (list(hints["rwr"]), rwr_ref(np, sp, small_edges, n_small, rwr_sources,
                                                       list(hints["rwr"])).T)
         hier_want = sssp_ref(np, sp, csgraph, small_edges, n_small, 0)
+        if disk is not None:
+            disk_want = {"sssp": sssp_ref(np, sp, csgraph, edges, n, 0),
+                         "pagerank": pagerank_ref(np, sp, edges, n, 10),
+                         "rwr": rwr_ref(np, sp, edges, n, disk["rwr_sources"],
+                                        [it for _, it in disk["rwr"]]).T}
         for proc, _ in procs:
             try:
                 proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -3053,7 +3317,8 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
             raise SmokeError("spmd gloo ranks failed:\n" + "\n".join(tails))
         res = [json.loads(Path(d, f"r{r}.json").read_text()) for r in range(b)]
         vec = {k: np.load(os.path.join(d, f"{k}.npy"))
-               for k in ("sssp_flat", "pagerank_horizontal", "sssp_hier", "serve_rwr")}
+               for k in ("sssp_flat", "pagerank_horizontal", "sssp_hier", "serve_rwr")
+               + (SPMD_DISK_RUNS if disk is not None else ())}
     finally:
         for proc, log_f in procs:
             if proc.poll() is None:
@@ -3091,11 +3356,12 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
     pr = res[0]["pagerank_horizontal"]
     its, want = pre.get("pagerank", (None, None))
     if its != pr["iterations"]:
-        want = pagerank_ref(np, sp, edges, n, pr["iterations"])
+        want = pagerank_ref(np, sp, small_edges, n_small, pr["iterations"])
     rel = float(np.max(np.abs(vec["pagerank_horizontal"] - want) / np.maximum(want, 1e-30)))
     ok = np.allclose(vec["pagerank_horizontal"], want, rtol=1e-4, atol=1e-12)
     counts["pagerank_horizontal"] = line(
-        "pagerank_horizontal", f"iterations={pr['iterations']}, scipy max rel err {rel:.3e}", ok)
+        "pagerank_horizontal", f"rmat n={n_small}, iterations={pr['iterations']}, scipy max "
+        f"rel err {rel:.3e}", ok)
     hier = res[0]["sssp_hier"]
     w_in = b // 2
     closed = 2.0 * (2 - 1) * w_in * -(-n_small // b)
@@ -3136,8 +3402,141 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
         for name, c in counts[label].items():
             if c:
                 rows.setdefault(name, {"launches": 0})["launches"] += c
-    log(f"spmd gloo phase: {wall:.1f} s for {b} ranks and 4 runs, the checks "
+    if disk is not None:
+        spmd_disk_checks(np, b, res, vec, disk, spmd_disk, disk_want, rows, failures,
+                         expect_launches=expect_launches)
+    log(f"spmd gloo phase: {wall:.1f} s for {b} ranks and "
+        f"{4 + (len(SPMD_DISK_RUNS) if disk is not None else 0)} runs, the checks "
         f"{time.perf_counter() - t - wall:.1f} s after")
+
+
+# the out-of-core runs of the spmd phase, and the kernel each tail folds with
+SPMD_DISK_RUNS = ("sssp_disk", "pagerank_hybrid_disk", "pagerank_packed_disk",
+                  "sssp_disk_chaos", "serve_rwr_disk")
+SPMD_DISK_KERNELS = {"sssp_disk": "scatter_combine", "pagerank_hybrid_disk": "scatter_combine",
+                     "pagerank_packed_disk": "packed_scatter_combine",
+                     "sssp_disk_chaos": "scatter_combine",
+                     "serve_rwr_disk": "scatter_combine_multi"}
+
+
+def spmd_disk_checks(np, b, res, vec, disk, spmd_disk, want, rows, failures, *,
+                     expect_launches=True) -> None:
+    """Hold the gloo ranks' out-of-core runs (``spmd_disk_runs``) to the
+    disk phase's single-process runs (``disk``) and to scipy's answers
+    ``want`` ('sssp', 'pagerank' at 10 iterations, 'rwr' [queries, n] at
+    the disk serve's iterations): the SSSP and the chaos SSSP
+    bitwise its vertical disk SSSP (and scipy), the SSSP's bytes per
+    iteration and their sum over the workers equal to its, every rank's
+    peak resident bytes within the per-worker budget (``spmd_disk``, the
+    ranks' payload); the chaos run's
+    prefetch degraded on rank 1 alone and ``fleet_report`` naming worker 2
+    the straggler; the two PageRanks and the RWR serve bitwise the disk
+    phase's where the card's float atomics allow, else within rtol 1e-5 of
+    them, and within rtol 1e-4 of scipy.  Prints a "spmd disk" line per run
+    (per rank: prepare, median iteration, the rank's own fetch, wait,
+    overlap and bytes per iteration, peak against the budget; the launches
+    summed over the ranks) and joins the launches and the tails' kernel
+    checks to the kernel rows."""
+    solves, budget = disk["solves"], spmd_disk["budget"]
+    single = solves["sssp/vertical disk"]
+
+    def med(xs):
+        return float(np.median(xs)) if len(xs) else 0.0
+
+    def per_rank(label):
+        """Each rank's prepare, median iteration and its own I/O medians."""
+        parts = []
+        for w, r in enumerate(res):
+            x = r[label]
+            walls = x.get("walls_ms") or x.get("iter_walls_ms")
+            own = ""
+            if "worker" in x:
+                io = {k: med([it[w] for it in x["worker"][k]])
+                      for k in ("io_s", "wait_s", "overlap", "bytes_read")}
+                own = (f" io {io['io_s']:.4f} s wait {io['wait_s']:.4f} s overlap "
+                       f"{io['overlap']:.3f} bytes/iter {io['bytes_read']:.0f}")
+            peak = " ".join(f"{st} {p}/{cap}" for st, (p, cap) in x["peak"].items())
+            parts.append(f"r{w}: prepare {x['prepare_s']:.2f} s median iter {med(walls):.1f} ms"
+                         f"{own} peak {peak}")
+        return "; ".join(parts)
+
+    def launches(label):
+        return {k: sum(r[label]["launches"][k] for r in res) for k in res[0][label]["launches"]}
+
+    def line(label, what, ok):
+        counts = launches(label)
+        log(f"spmd disk {label} W={b}: {what}; seconds {res[0][label]['s']:.1f}; "
+            f"per rank (prepare, median iteration, the rank's own median fetch, wait, "
+            f"overlap and bytes per iteration, peak resident bytes/budget by striping) "
+            f"[{per_rank(label)}]; launches (all ranks)="
+            f"{json.dumps({k: c for k, c in counts.items() if c})} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"spmd disk {label} failed its check")
+        kernel = SPMD_DISK_KERNELS[label]
+        if expect_launches and counts[kernel] == 0:
+            raise SmokeError(f"spmd disk {label}: kernel {kernel} never launched on the path")
+        for name, c in counts.items():
+            if c:
+                row = rows.setdefault(name, {"launches": 0})
+                row["launches"] += c
+                row["spmd_disk_launches"] = row.get("spmd_disk_launches", 0) + c
+
+    def in_budget(label):
+        return all(0 < p <= cap == budget for r in res for p, cap in r[label]["peak"].values())
+
+    def near(label, want, scipy_want):
+        got = vec[label]
+        rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+                           * (np.abs(want) > 1e-12)))
+        ok = (np.array_equal(got, want) or np.allclose(got, want, rtol=1e-5, atol=1e-12)) \
+            and np.allclose(got, scipy_want, rtol=1e-4, atol=1e-12)
+        return ok, (f"bitwise the disk phase's single-process run: {np.array_equal(got, want)}, "
+                    f"max rel err {rel:.3e}")
+
+    x = res[0]["sssp_disk"]
+    worker_sum = [sum(it) for it in x["worker"]["bytes_read"]]
+    want_bytes = [r["store_bytes_read"] for r in single.per_iter]
+    same = all(r["sssp_disk"]["bytes_read"] == x["bytes_read"] for r in res)
+    ok = (x["converged"] and np.array_equal(vec["sssp_disk"], single.v)
+          and np.array_equal(vec["sssp_disk"].astype(np.float64), want["sssp"])
+          and x["bytes_read"] == want_bytes == worker_sum and same and in_budget("sssp_disk"))
+    line("sssp_disk", f"vertical, scatter='kernel', per-worker budget {budget} B, iterations "
+         f"{x['iterations']}; bitwise the disk phase's SSSP and scipy; bytes per iteration "
+         f"{x['bytes_read'][0]:.0f} (summed over the {b} workers {worker_sum[0]:.0f}) equal to "
+         "the single-process run's", ok)
+    for label, ref_label in (("pagerank_hybrid_disk", "pagerank/hybrid disk"),
+                             ("pagerank_packed_disk", "pagerank/vertical packed disk")):
+        ok, what = near(label, solves[ref_label].v, want["pagerank"])
+        ok = ok and res[0][label]["iterations"] == 10 and in_budget(label)
+        line(label, f"{ref_label} on {b} ranks, 10 iterations; {what}", ok)
+    x = res[0]["sssp_disk_chaos"]
+    degraded = [r["sssp_disk_chaos"]["degraded"] for r in res]
+    stragglers = [r["sssp_disk_chaos"]["straggler_workers"] for r in res]
+    deg_lists = x["worker"]["prefetch_degraded"]
+    ok = (np.array_equal(vec["sssp_disk_chaos"], vec["sssp_disk"])
+          and x["iterations"] == res[0]["sssp_disk"]["iterations"]
+          and degraded == [0] + [1] + [0] * (b - 2)
+          and all(d_ == [0.0, 1.0] + [0.0] * (b - 2) for d_ in deg_lists)
+          and all(st == [2] for st in stragglers)
+          and all(c == "slow_fetch" for c in x["causes"]))
+    line("sssp_disk_chaos", f"BreakPrefetch(worker=1), SlowFetch(block="
+         f"{spmd_disk['chaos_block']}, delay_s={x['delay_s']}, worker=2): bitwise sssp_disk; store.prefetch_degraded per rank "
+         f"{degraded}; straggler_workers per rank {stragglers}, causes {x['causes']}, skew max "
+         f"{x['skew_max']:.2f}", ok)
+    log("spmd disk fleet (rank 0):\n" + x["fleet"])
+    x = res[0]["serve_rwr_disk"]
+    ok, what = near("serve_rwr_disk", np.stack([v for v, _ in disk["rwr"]]), want["rwr"])
+    ok = (ok and all(r == "completed" for r in x["reasons"])
+          and x["iterations"] == [it for _, it in disk["rwr"]] and in_budget("serve_rwr_disk"))
+    line("serve_rwr_disk", f"PMVServer(store=, residency='disk', mesh=) hybrid, "
+         f"{len(x['iterations'])} RWR at Q = {len(x['iterations'])}, iterations "
+         f"{x['iterations']}; {what}", ok)
+    for r_name, checks in res[0]["disk_checks"].items():
+        for c in checks:
+            rows[r_name].setdefault("disk_checks", []).append(dict(c, ranks=b))
+    errs = {label: max(r["disk_tails"][label] for r in res) for label in res[0]["disk_tails"]}
+    log(f"spmd disk kernels: each tail's kernel against its plain version on every rank's "
+        f"own tail input, max |err| by run {json.dumps(errs)}")
 
 
 # ---------------------------------------------------------------------------
@@ -3273,7 +3672,6 @@ def main() -> int:
     spec = pagerank(n)
     res, meta, _ = drive("pagerank/selective", eng, spec, max_iters=100, tol=1e-6,
                       expect=("ell_gimv",))
-    pagerank_iters = res.iterations
     prepare_phases("pagerank/selective", eng.obs, meta)
     check_trace("pagerank/selective", eng.obs)
     traces = {"pagerank/selective": eng.obs}
@@ -3416,25 +3814,29 @@ def main() -> int:
     answers, peaks["serve"] = serve_phase(args.seed, torch, np, sp, csgraph, dev, gen, edges, n,
                                           b, 3000.0, rows, failures)
     served = (answers["sssp"][:16], [s for s, _, _ in answers["rwr"][:8]])
-    spmd_hints = {"pagerank": pagerank_iters}
     # -- packed serve: the same 96 RWR queries through the packed exchange -------
     packed_serve_phase(torch, np, dev, gen, edges, n, b, 3000.0, answers["rwr"], rows, failures)
     del answers
     packed_widths_phase(torch, np, dev, gen)
     # -- disk: the out-of-core store, five solves and a serve from the same edges --
-    disk_phase(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, sssp_v, served, peaks, rows,
-               failures, seed=args.seed, traces=traces)
+    disk = disk_phase(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, sssp_v, served, peaks,
+                      rows, failures, seed=args.seed, traces=traces)
     del traces
     # -- spmd: one rank per worker, NCCL at W = 1, then 8 gloo ranks on the card;
-    # the hier SSSP and the serve on RMAT(scale - 2), which keeps the smoke
-    # inside its time limit (every rank runs the whole host prepare) --
+    # PageRank, the hier SSSP and the serve on RMAT(scale - 2), which keeps the
+    # smoke inside its time limit (every rank runs the whole host prepare); then
+    # the out-of-core runs over the disk phase's store, removed after them --
     t = time.perf_counter()
-    spmd_nccl(torch, np, sp, csgraph, dev, args.seed, rows, failures)
-    small = (rmat(args.scale - 2, 16 << (args.scale - 2), seed=args.seed), 1 << (args.scale - 2))
-    spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, run2, served[1], rows, failures,
-              small=small, hints=spmd_hints)
+    try:
+        spmd_nccl(torch, np, sp, csgraph, dev, args.seed, rows, failures, disk=disk)
+        small = (rmat(args.scale - 2, 16 << (args.scale - 2), seed=args.seed),
+                 1 << (args.scale - 2))
+        spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, run2, served[1], rows,
+                  failures, small=small, disk=disk)
+    finally:
+        shutil.rmtree(disk["root"], ignore_errors=True)
     log(f"spmd phase: {time.perf_counter() - t:.1f} s (card: {card})")
-    del run2
+    del run2, disk
     del edges, sym
     # -- stream: the bucket-streamed executor on a uniform sparse graph at b = 64,
     # at scale - 1 to keep the smoke inside its time limit --

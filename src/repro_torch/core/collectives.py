@@ -5,8 +5,13 @@ inline inside ``shard_map``.  Every placement keeps its leading worker axis:
 in emulation (``axis=None``) it holds all b workers and each helper is the
 leading-axis operation it always was (``all_to_all`` a transpose,
 ``all_gather`` the blocked vector itself, ``psum`` the identity); under a
-:class:`WorkerAxis` it has length 1 on each rank, and the helpers move the
-bytes between the ranks through ``torch.distributed``.
+:class:`WorkerAxis` it holds the rank's own workers, and the helpers move the
+bytes between the ranks through ``torch.distributed``.  The resident path
+runs one worker a rank (W = b, a leading axis of length 1); the out-of-core
+path lets each rank own a contiguous range of b_w = b / W workers (rank w
+holds workers [w * b_w, (w + 1) * b_w), the stripe files of its
+``Manifest.worker_shard_view(w, W)``), and ``all_gather`` / ``all_to_all``
+take any b_w.
 
 A rank owns the worker whose index is its row-major coordinate over the
 ``axis_name`` dims of a ``torch.distributed.device_mesh.DeviceMesh``: the
@@ -23,7 +28,8 @@ import os
 import torch
 
 __all__ = ["WorkerAxis", "HierGroups", "worker_axis", "hier_groups", "rank_device",
-           "axis_index", "all_gather", "all_to_all", "all_to_all_rows", "psum", "barrier"]
+           "axis_index", "own_slice", "all_gather", "all_to_all", "all_to_all_rows", "psum",
+           "barrier"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +150,16 @@ def axis_index(axis: WorkerAxis | None) -> int:
     return 0 if axis is None else axis.index
 
 
+def own_slice(axis: WorkerAxis | None, b: int) -> slice:
+    """The rows of a per-worker [b, ...] array this rank holds: every row in
+    emulation, rank w's contiguous [w * b_w, (w + 1) * b_w) under an axis
+    (b_w = b / W)."""
+    if axis is None:
+        return slice(None)
+    b_w = b // axis.size
+    return slice(axis.index * b_w, (axis.index + 1) * b_w)
+
+
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """A contiguous tensor's storage as uint8 rows: the collectives only move
     bytes, and every backend takes uint8 (not every one takes bfloat16)."""
@@ -153,15 +169,16 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, axis: WorkerAxis | None) -> torch.Tensor:
-    """Per-worker [1, ...] -> [b, ...], worker j's row at j, on every
-    worker.  Emulation: ``x`` itself, the blocked [b, ...] tensor every
-    worker reads."""
+    """A rank's workers' rows [b_w, ...] -> [b, ...] (b = W * b_w), worker
+    j's row at j, on every rank.  Emulation: ``x`` itself, the blocked
+    [b, ...] tensor every worker reads."""
     import torch.distributed as dist
 
     if axis is None:
         return x
     x = x.contiguous()
-    out = torch.empty((axis.size,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out = torch.empty((axis.size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
     # all_gather_into_tensor, under the name newer releases give it
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(_bytes(out), _bytes(x), group=axis.group)
@@ -181,11 +198,20 @@ def all_to_all_rows(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_to_all(x: torch.Tensor, axis: WorkerAxis | None) -> torch.Tensor:
     """[b_sender, b_dest, ...] -> [b_dest, b_sender, ...]: emulation
-    transposes the two leading axes; under an axis, x [1, b, ...] sends its
-    row j to worker j and returns [1, b, ...] with row j from worker j."""
+    transposes the two leading axes.  Under an axis a rank holds its senders'
+    rows x [b_w, b, ...] and gets back its destinations' rows [b_w, b, ...]
+    (every sender in worker order), the rows of the emulated transpose it
+    owns: x[:, j] goes to destination j's rank.  One ``all_to_all_single``
+    carries the [b_w, b_w, ...] chunk of each pair of ranks; at b_w = 1
+    that is x[0]'s row j to rank j."""
     if axis is None:
         return x.transpose(0, 1).contiguous()
-    return all_to_all_rows(x[0], axis.group)[None]
+    b_w, rest = x.shape[0], tuple(x.shape[2:])
+    # [b_w(s), W, b_w(d), ...] -> [W, b_w(s), b_w(d), ...]: rank r's chunk contiguous
+    send = x.reshape((b_w, axis.size, b_w) + rest).transpose(0, 1)
+    got = all_to_all_rows(send, axis.group)        # [W (sending rank), b_w(s), b_w(d), ...]
+    return got.permute((2, 0, 1) + tuple(range(3, got.ndim))).reshape(
+        (b_w, axis.size * b_w) + rest)
 
 
 def psum(x: torch.Tensor, axis: WorkerAxis | None) -> torch.Tensor:

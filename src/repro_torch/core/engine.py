@@ -12,7 +12,10 @@ Two modes, as in the JAX package:
   the exchanges cross the process boundaries through ``core/collectives.py``
   (NCCL on GPUs, gloo on the CPU).  The convergence delta and the counted
   stats are summed over the workers, so every rank reports the same
-  iterations and the whole vector.
+  iterations and the whole vector.  Out of core (``residency='disk'``) a
+  rank may own several workers: any mesh size W that divides b, each rank
+  reading the b / W stripe files of its own shard view of the store
+  (``repro_torch.store.SpmdDiskGroup``).
 
 The engine runs on the GPU unless the caller passes ``device='cpu'``, where
 every kernel wrapper takes its plain PyTorch version; under a mesh a rank's
@@ -263,10 +266,15 @@ class PMVEngine:
       ``axis_name`` names its worker dims (a name, or a tuple such as
       ('pod', 'workers')), and a rank owns the worker whose index is its
       row-major coordinate over them.  ``b`` must equal their size
-      (ValueError naming both); a mesh dim outside ``axis_name`` raises
-      NotImplementedError, as do residency 'host' and 'disk' under a mesh.
-      A checkpoint is gathered and written by worker 0 and read by every
-      rank.
+      (ValueError naming both), except under residency='disk', where their
+      size W must divide b (ValueError otherwise) and a rank runs the
+      contiguous range of b / W workers whose stripe files its
+      ``SpmdDiskGroup`` shard view owns, under its own
+      ``store_budget_bytes`` and prefetch thread; each iteration record
+      then carries the ``store_worker_*`` lists of the W workers.  A mesh
+      dim outside ``axis_name`` raises NotImplementedError, as does
+      residency='host' under a mesh.  A checkpoint is gathered and written
+      by worker 0 and read by every rank.
 
     The JAX package's other knobs (backend='pallas' / 'xla') raise
     NotImplementedError naming the knob.
@@ -360,12 +368,13 @@ class PMVEngine:
                 raise NotImplementedError(
                     "residency='host' under SPMD needs per-host shard serving; use "
                     "residency='device' with a mesh")
-            if residency == "disk":
-                raise NotImplementedError(
-                    "residency='disk' under a mesh needs the per-worker disk groups "
-                    "(SpmdDiskGroup), which repro_torch does not have yet")
             self.axis = collectives.worker_axis(mesh, axis_name)
-            if self.axis.size != int(b):
+            if residency == "disk":
+                if int(b) % self.axis.size != 0:
+                    raise ValueError(
+                        f"mesh size {self.axis.size} must divide b={int(b)} so each "
+                        "worker owns a whole stripe range")
+            elif self.axis.size != int(b):
                 raise ValueError(f"b={int(b)} does not match the size {self.axis.size} of the "
                                  f"mesh dims {self.axis.names}: one rank runs one worker")
         if exchange == "hier":
@@ -481,11 +490,11 @@ class PMVEngine:
     def own_rows(self, per_worker):
         """The entries of a per-worker sequence (a list, a range, or the rows
         of a per-worker array) this process holds: all b in emulation, its
-        worker's one (a leading axis of length 1) under a mesh."""
+        workers' under a mesh: the contiguous range [w * b_w, (w + 1) * b_w)
+        of rank w, b_w = b / W (one row on the resident path, where W = b)."""
         if self.axis is None:
             return per_worker
-        w = self.axis.index
-        return per_worker[w:w + 1]
+        return per_worker[collectives.own_slice(self.axis, self.b)]
 
     def _put_stripe(self, stripes: list) -> blocks_lib.BlockEdges:
         s = blocks_lib.stack_stripes(self.own_rows(stripes))
@@ -713,8 +722,7 @@ class PMVEngine:
         block by block with double-buffered prefetch.  As in the JAX
         package it plans in the plain mode ('torch', the counterpart of
         'xla'), and a ``delta_eps`` keeps the full stream."""
-        from repro_torch.store import DiskBlockStore, DiskExecutor, make_disk_step
-        from repro_torch.store import plan_from_manifest
+        from repro_torch.store import DiskExecutor, make_disk_step, plan_from_manifest
 
         if strategy == "hybrid":
             return self._prepare_disk_hybrid(spec, theta, t0)
@@ -741,15 +749,13 @@ class PMVEngine:
         exchange, xplan, xchg, decision = self._resolve_disk_exchange(
             spec, strategy, capacity, plan, part)
         with rec.span("prepare.store"):
-            dstore = DiskBlockStore(self.store, strategy, spec,
-                                    budget_bytes=self.store_budget_bytes, device=self.device,
-                                    obs=rec, faults=self._fault_injector)
+            dstore = self._disk_store(strategy, spec)
             executor = DiskExecutor(spec, part, plan, dstore, capacity=capacity,
                                     scatter=plan.scatter, retry=self.io_retry, obs=rec,
-                                    exchange=exchange, xchg=xchg, xplan=xplan)
+                                    exchange=exchange, xchg=xchg, xplan=xplan, axis=self.axis)
         cfg = StepConfig(strategy=strategy, n_local=part.n_local, exchange=exchange,
                          capacity=capacity, backend="torch", plan=plan, xplan=xplan)
-        real_mask = self._put(part.global_ids_grid() < self.n)
+        real_mask = self._put(self.own_rows(part.global_ids_grid() < self.n))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         meta = {
@@ -775,7 +781,7 @@ class PMVEngine:
         describe full vertical stripes, not the sparse region), and 'auto'
         scatter resolves to 'segment'.  Each leg reads its striping through
         its own DiskBlockStore under the same ``store_budget_bytes``."""
-        from repro_torch.store import DiskBlockStore, HybridDiskExecutor, make_disk_step
+        from repro_torch.store import HybridDiskExecutor, make_disk_step
 
         if self.payload_dtype is not None:
             raise ValueError("payload_dtype is not supported out of core")
@@ -802,17 +808,15 @@ class PMVEngine:
         with rec.span("prepare.store") as sp:
             sp.set("spec", spec.name)
             sp.set("strategy", "hybrid")
-            kw = dict(budget_bytes=self.store_budget_bytes, device=self.device, obs=rec,
-                      faults=self._fault_injector)
-            sparse_store = DiskBlockStore(self.store, "sparse_vertical", spec, **kw)
-            dense_store = DiskBlockStore(self.store, "dense_horizontal", spec,
-                                         dense_gather_idx=region.gather_idx, **kw)
+            sparse_store = self._disk_store("sparse_vertical", spec)
+            dense_store = self._disk_store("dense_horizontal", spec,
+                                           dense_gather_idx=region.gather_idx)
             executor = HybridDiskExecutor(spec, part, sparse_store, dense_store, region,
                                           capacity=capacity, scatter=scatter,
-                                          retry=self.io_retry, obs=rec)
+                                          retry=self.io_retry, obs=rec, axis=self.axis)
         cfg = StepConfig(strategy="hybrid", n_local=part.n_local, exchange="sparse",
                          capacity=capacity, backend="torch")
-        real_mask = self._put(part.global_ids_grid() < self.n)
+        real_mask = self._put(self.own_rows(part.global_ids_grid() < self.n))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         meta = {
@@ -829,6 +833,19 @@ class PMVEngine:
                              else "residency='disk' keeps the full stream"),
         }
         return sparse_store, real_mask, meta
+
+    def _disk_store(self, striping: str, spec: GimvSpec, *, dense_gather_idx=None):
+        """The block store serving one striping of this solve: one
+        DiskBlockStore in emulation, this rank's ``SpmdDiskGroup`` under a
+        mesh (its shard view of the store, its own ``store_budget_bytes``
+        and prefetch thread), as the JAX package's ``_disk_store``."""
+        from repro_torch.store import DiskBlockStore, SpmdDiskGroup
+
+        kw = dict(budget_bytes=self.store_budget_bytes, device=self.device, obs=self.obs,
+                  faults=self._fault_injector, dense_gather_idx=dense_gather_idx)
+        if self.mesh is None:
+            return DiskBlockStore(self.store, striping, spec, **kw)
+        return SpmdDiskGroup.build(self.store, striping, spec, self.mesh, self.axis_name, **kw)
 
     def _resolve_disk_exchange(self, spec: GimvSpec, strategy: str, capacity: int | None,
                                plan: planner.ExecutionPlan, part: Partition):
@@ -864,7 +881,7 @@ class PMVEngine:
                         else "auto: padded stream kept")
         if exchange != "packed":
             return exchange, None, None, decision
-        return exchange, xp, {k: self._put(a) for k, a in arrays.items()}, decision
+        return exchange, xp, {k: self._put(self.own_rows(a)) for k, a in arrays.items()}, decision
 
     def explain(self, spec: GimvSpec, ctx: dict | None = None, *,
                 live: bool = False, live_iters: int = 3) -> str:
@@ -1061,7 +1078,10 @@ class PMVEngine:
                 sp.set("iteration", it)
                 sp.set("delta", delta)
             wall = time.perf_counter() - t0
-            rec = {k: float(x) for k, x in stats.items() if not isinstance(x, torch.Tensor)}
+            # the store_worker_* lists of an SPMD disk run are per worker;
+            # everything else is a scalar
+            rec = {k: [float(e) for e in x] if isinstance(x, list) else float(x)
+                   for k, x in stats.items() if not isinstance(x, torch.Tensor)}
             rec.update(zip(keys, vals[1:]))
             rec.update(delta=delta, wall_s=wall, iteration=it)
             rec["io_elems"] = self._paper_io(meta, rec)
@@ -1132,9 +1152,8 @@ class PMVEngine:
     @staticmethod
     def _record_iteration(obs, meta: dict, rec: dict, iters_so_far: int) -> None:
         """The per-iteration counter and series of the JAX package's run
-        loop (the out-of-core SPMD per-worker ``.w{k}`` series are not
-        ported);
-        ``iters_so_far`` counts this call's iterations, this one included."""
+        loop; ``iters_so_far`` counts this call's iterations, this one
+        included."""
         obs.counter("pmv.iterations").add(1)
         obs.series("pmv.delta").append(rec["delta"])
         obs.series("pmv.iter_wall_s").append(rec["wall_s"])
@@ -1153,6 +1172,14 @@ class PMVEngine:
         if "store_bytes_read" in rec:  # disk residency: per-iteration I/O
             obs.series("pmv.io_bytes").append(rec["store_bytes_read"])
             obs.series("pmv.io_overlap").append(rec["store_overlap"])
+            # SPMD disk: each worker's fetch wait, overlap and fetch seconds
+            # (the fleet report's straggler feed)
+            for wk, (ws, ov) in enumerate(zip(rec.get("store_worker_wait_s", ()),
+                                              rec.get("store_worker_overlap", ()))):
+                obs.series(f"pmv.io_wait_s.w{wk}").append(ws)
+                obs.series(f"pmv.io_overlap.w{wk}").append(ov)
+            for wk, io_w in enumerate(rec.get("store_worker_io_s", ())):
+                obs.series(f"pmv.io_s.w{wk}").append(io_w)
 
     def on_device(self, step):
         """``step(matrix, ...)`` reading the prepared matrix where it runs:

@@ -1,6 +1,6 @@
 """Device-side primitives of the packed exchange (send gather, receive
 scatter, delta suppression).  The workers are a leading axis: all b of them
-in emulation, this rank's one under a worker ``axis``
+in emulation, this rank's under a worker ``axis``
 (``repro_torch.core.collectives.WorkerAxis``), where the counts are summed
 over the axis.
 
@@ -96,11 +96,11 @@ def pair_slot_mask(send_rows: torch.Tensor, n_local: int, axis=None) -> torch.Te
     (non-sentinel) rows of OFF-DIAGONAL pairs (the diagonal partial never
     crosses the interconnect; both the padded formula and the packed byte
     model are b(b-1) quantities).  The leading rows are the workers from
-    this rank's index on (0 in emulation)."""
+    rank's first worker on (0 in emulation)."""
     valid = send_rows < n_local
     b_w, b = send_rows.shape[0], send_rows.shape[-2]
     dev = send_rows.device
-    src = torch.arange(b_w, device=dev) + collectives.axis_index(axis)
+    src = torch.arange(b_w, device=dev) + collectives.axis_index(axis) * b_w
     off = src[:, None] != torch.arange(b, device=dev)[None, :]
     return valid & off[..., None]
 

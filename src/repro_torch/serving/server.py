@@ -60,11 +60,13 @@ snapshot and ``close()`` stops the exporter's thread.  It is host
 bookkeeping only: a served answer is bitwise the same with it on or off.
 
 SPMD: ``mesh=`` / ``axis_name=`` run each family's engine with one rank
-per worker (``PMVEngine``'s module doc).  Every rank builds the same server
-and submits the same queries in the same order; each holds its worker's
-rows of the batch, the per-query deltas are summed over the workers, and a
-query's deadline expires on every rank when it expires on one, so every
-rank retires and admits the same columns and returns the same answers.
+per worker (``PMVEngine``'s module doc); from a store under
+residency='disk' a rank serves the workers of its own shard view.  Every
+rank builds the same server and submits the same queries in the same
+order; each holds its workers' rows of the batch, the per-query deltas are
+summed over the workers, and a query's deadline expires on every rank when
+it expires on one, so every rank retires and admits the same columns and
+returns the same answers.
 
 This is the counterpart of the JAX package's ``repro.serving.server``.  The
 knobs the engine refuses raise as they do there.  As in the JAX package,
@@ -205,12 +207,15 @@ def _make_disk_batched_step(executor, *, delta_kind: str):
     executor walks its block schedule exactly as in the single-vector path
     (the trailing query axis rides through the per-block bodies and the
     compaction), and only the active-column freeze and the per-query deltas
-    are applied here."""
+    are applied here.  Under a mesh (the executor's worker ``axis``) the
+    deltas are summed over the workers, as ``make_batched_step`` sums
+    them."""
 
     def step(matrix, v, ctx, mask, active):
         del matrix   # the executor owns the shard access
         v_new, _r, stats = executor.iteration(v, ctx, mask)
-        return _freeze(v, v_new, active, delta_kind) + (stats,)
+        v_new, deltas = _freeze(v, v_new, active, delta_kind)
+        return v_new, collectives.psum(deltas, executor.axis), stats
 
     return step
 
@@ -603,7 +608,9 @@ class PMVServer:
                 host = flat.tolist()
                 sp.set("active", int(active.sum()))
             deltas_h = np.asarray(host[:n_q])
-            scalars = {k: float(x) for k, x in stats.items() if not isinstance(x, torch.Tensor)}
+            # (an SPMD disk family's store_worker_* lists are left out)
+            scalars = {k: float(x) for k, x in stats.items()
+                       if not isinstance(x, (torch.Tensor, list))}
             scalars.update(zip(keys, host[n_q:]))
             iter_wall = time.perf_counter() - t0
             self._iter_walls.append(iter_wall)

@@ -9,10 +9,11 @@ writing the same bytes.
     PMVEngine(None, store=..., residency='disk')  out-of-core execution
                                    (vertical, horizontal, θ-split hybrid)
     PMVServer(store=..., residency=...)           serving from a store
+    PMVEngine(None, store=..., residency='disk', mesh=...)  out of core
+                                   across W ranks, each on its own shard view
+                                   (SpmdDiskGroup)
+    split_store / merge_stores     physical per-host shards and back
     verify_store(store)            audit every shard against ingest checksums
-
-Not ported yet: ``shard.py`` (split / merge of per-host stores) and
-``spmd.py``.
 """
 from repro_torch.store.ingest import ingest_edges
 from repro_torch.store.manifest import (
@@ -33,6 +34,8 @@ from repro_torch.store.residency import (
     ResidencyStats,
     make_disk_step,
 )
+from repro_torch.store.shard import merge_stores, split_store
+from repro_torch.store.spmd import SpmdDiskGroup, SpmdPrefetchPipeline
 from repro_torch.store.verify import VerifyReport, verify_store
 
 __all__ = [
@@ -51,6 +54,10 @@ __all__ = [
     "PrefetchPipeline",
     "ResidencyStats",
     "make_disk_step",
+    "SpmdDiskGroup",
+    "SpmdPrefetchPipeline",
+    "split_store",
+    "merge_stores",
     "VerifyReport",
     "verify_store",
 ]

@@ -38,6 +38,11 @@ bitwise the resident hybrid step.  On the card the segment sums use
 atomics, so plus_times agrees to rounding there, and the selection
 semirings exactly.
 
+SPMD (``mesh=``): each rank runs these executors on its own workers' rows
+(``axis=``), its store the ``repro_torch.store.SpmdDiskGroup`` over its
+shard view of the store; the tails cross the ranks (module doc of
+``repro_torch.store.spmd``).
+
 Robustness: every fetched slice is verified against the manifest's
 ingest-time per-row checksums (a mismatch raises a typed
 :class:`~repro_torch.store.manifest.ShardCorruptError` naming the file,
@@ -70,7 +75,7 @@ from concurrent.futures import BrokenExecutor, CancelledError, ThreadPoolExecuto
 import numpy as np
 import torch
 
-from repro_torch.core import cost_model, placement, sparse_exchange
+from repro_torch.core import collectives, cost_model, placement, sparse_exchange
 from repro_torch.core.gimv import GimvSpec, combine_elementwise, tree_combine
 from repro_torch.core.partition import Partition
 from repro_torch.core.planner import ExecutionPlan
@@ -109,6 +114,9 @@ class ResidencyStats:
     weights_s: float = 0.0
     # CUDA (start, end) event pairs of the slices' host-to-device copies
     h2d: list = dataclasses.field(default_factory=list)
+    # copy seconds already read off their events (an SPMD group's: the
+    # events stay on their ranks)
+    h2d_timed_s: float = 0.0
 
     @property
     def overlap(self) -> float:
@@ -122,7 +130,7 @@ class ResidencyStats:
     def h2d_s(self) -> float:
         """Device time of the slices' host-to-device copies (waits for any
         copy still in flight)."""
-        total = 0.0
+        total = self.h2d_timed_s
         for start, end in self.h2d:
             end.synchronize()
             total += start.elapsed_time(end) / 1e3
@@ -148,11 +156,16 @@ class DiskBlockStore:
     ``faults`` (a FaultPlan or a shared FaultInjector) injects into every
     fetch; ``fault_scope`` is the worker id a scoped fault event must name
     to fire here (None: a single store, where unscoped events fire).
+    ``verify`` None checks every fetch against the manifest's digests when
+    it has them; True requires them, False skips the checks.  A per-host
+    shard view (``Manifest.worker_shard_view``) opens only the stripe files
+    of the workers it owns, and its slices hold their rows alone.
     """
 
     def __init__(self, store, striping: str, spec: GimvSpec, *,
                  budget_bytes: int | None = None, device=None, dense_gather_idx=None,
-                 obs=None, faults=None, fault_scope: int | None = None):
+                 obs=None, faults=None, fault_scope: int | None = None,
+                 verify: bool | None = None):
         if striping not in fmt.STRIPINGS:
             raise ValueError(f"unknown striping {striping!r}")
         if striping == "dense_horizontal" and dense_gather_idx is None:
@@ -170,9 +183,15 @@ class DiskBlockStore:
         self.device = torch.device("cpu") if device is None else torch.device(device)
         b = self.manifest.b
         self.workers = list(self.manifest.owned_workers(default=range(b)))
-        # fetches are verified whenever the manifest carries digests
-        # (pre-checksum stores keep working, unverified)
-        self.verify = self.manifest.checksums is not None
+        # verify=None: fetches are verified whenever the manifest carries
+        # digests (pre-checksum stores keep working, unverified)
+        if verify is None:
+            verify = self.manifest.checksums is not None
+        if verify and self.manifest.checksums is None:
+            raise ValueError(
+                "verify=True but the store has no checksums — re-ingest it "
+                "(repro_torch.store.ingest_edges digests every shard)")
+        self.verify = verify
         self._sums = ([self.manifest.stripe_checksums(striping, w) for w in self.workers]
                       if self.verify else None)
         self._algo = self.manifest.checksum_algorithm
@@ -557,13 +576,23 @@ class DiskExecutor:
     non-empty destination blocks, horizontal the non-empty source blocks.
     ``legs`` holds the striping it streams (the hybrid executor adds a
     second).  ``obs`` receives one fenced ``launch.disk_block`` span per
-    block body."""
+    block body.
+
+    ``axis`` (a ``collectives.WorkerAxis``) runs the executor as one rank of
+    an SPMD solve: ``store`` is then the rank's ``SpmdDiskGroup``, v and the
+    slices hold the rank's b_w workers' rows, and the tails cross the ranks
+    (the compact or packed exchange all-to-all, the horizontal v and the
+    dense region's v_d gathered, the counts summed); None, the emulated
+    solve of all b workers, where each of those is the leading-axis
+    operation it always was."""
 
     def __init__(self, spec: GimvSpec, part: Partition, plan: ExecutionPlan | None,
                  store: DiskBlockStore, *, capacity: int | None = None,
                  scatter: str = "segment", retry: RetryPolicy | None = None,
-                 exchange: str = "sparse", xchg: dict | None = None, xplan=None, obs=None):
+                 exchange: str = "sparse", xchg: dict | None = None, xplan=None, obs=None,
+                 axis=None):
         self.spec = spec
+        self.axis = axis
         self.obs = as_recorder(obs)
         self.part = part
         self.plan = plan
@@ -632,8 +661,9 @@ class DiskExecutor:
         """The compact exchange's send side, from disk: per scheduled
         destination block its compact slice; a skipped block's slice is pure
         padding, exactly what compacting its zero-edge partial yields.
-        Stacked by destination block, which is the exchange's receive order:
-        (idx [b, b_w, cap], val [b, b_w, cap(, Q)], overflow, logical)."""
+        Stacked by destination block, which is the exchange's receive order
+        in emulation: (idx [b, b_w, cap], val [b, b_w, cap(, Q)], overflow,
+        logical), the counts summed over the worker axis."""
         spec, n_local, cap = self.spec, self.part.n_local, self.capacity
         b, b_w = self.part.b, v.shape[0]
 
@@ -648,15 +678,26 @@ class DiskExecutor:
         zero = torch.zeros((), device=v.device)
         over = sum((g[2] for g in got.values()), zero)
         logical = sum((g[3] for g in got.values()), zero)
-        return idx, val, over, logical
+        return idx, val, collectives.psum(over, self.axis), collectives.psum(logical, self.axis)
 
-    def _vertical_iteration_packed(self, v, ctx, mask):
-        """One vertical iteration through the packed exchange: per scheduled
-        destination block, partials gathered at the static send order (no
-        (idx, val) compaction), then the payload-only scatter tail."""
+    def _to_owners(self, x):
+        """A compact exchange buffer stacked by destination ([b, b_w, ...],
+        ``_compact_blocks``) -> the rank's destinations' rows from every
+        sender [b_w, b, ...], the scatter's input.  Emulation: ``x``, which
+        is already in receive order."""
+        if self.axis is None:
+            return x
+        return collectives.all_to_all(x.transpose(0, 1), self.axis)
+
+    def _packed_blocks(self, v):
+        """The packed exchange's send side, from disk, and the exchange: per
+        scheduled destination block its partial gathered at the static send
+        order (no (idx, val) compaction; a skipped block's payload is the
+        identity), stacked [b_w, b, p(, Q)] and sent all-to-all.  Returns
+        (the rank's received payload [b_w, b, p(, Q)], logical), the count
+        summed over the worker axis."""
         spec, n_local = self.spec, self.part.n_local
         send_rows = self.xchg["send_rows"]
-        self._begin_iteration()
         b, b_w = self.part.b, v.shape[0]
 
         def body(i, seg, gat, w, cnt):
@@ -668,11 +709,18 @@ class DiskExecutor:
         pad = self._full((b_w, self.xplan.p_dev) + tuple(v.shape[2:]), v)
         val = torch.stack([got[i][0] if i in got else pad for i in range(b)], dim=1)
         logical = sum((lg for _, lg in got.values()), torch.zeros((), device=v.device))
+        return collectives.all_to_all(val, self.axis), collectives.psum(logical, self.axis)
+
+    def _vertical_iteration_packed(self, v, ctx, mask):
+        """One vertical iteration through the packed exchange: the payloads
+        from disk (``_packed_blocks``), then the payload-only scatter tail."""
+        self._begin_iteration()
+        val, logical = self._packed_blocks(v)
         r = packed_rt.scatter_payload(
-            spec, val.transpose(0, 1).contiguous(), n_local,
+            self.spec, val, self.part.n_local,
             recv_rows=self.xchg.get("recv_rows"), recv_words=self.xchg.get("recv_words"),
             p_dev=self.xplan.p_dev, width=self.xplan.width_dev, method=self.scatter)
-        v_new = placement.apply_assign(spec, v, r, ctx, mask)
+        v_new = placement.apply_assign(self.spec, v, r, ctx, mask)
         # payload slots are structurally sized: overflow is impossible
         return v_new, r, torch.zeros((), device=v.device), logical
 
@@ -684,7 +732,8 @@ class DiskExecutor:
             return self._vertical_iteration_packed(v, ctx, mask)
         self._begin_iteration()
         idx, val, over, logical = self._compact_blocks(v)
-        r = sparse_exchange.scatter_partials(self.spec, idx, val, self.part.n_local,
+        r = sparse_exchange.scatter_partials(self.spec, self._to_owners(idx),
+                                             self._to_owners(val), self.part.n_local,
                                              method=self.scatter)
         v_new = placement.apply_assign(self.spec, v, r, ctx, mask)
         return v_new, r, over, logical
@@ -700,9 +749,10 @@ class DiskExecutor:
         Returns (v_new, r)."""
         spec, n_local = self.spec, self.part.n_local
         self._begin_iteration()
+        v_all = collectives.all_gather(v, self.axis)        # [b, n_local(, Q)]
 
         def body(jj, seg, gat, w, cnt):
-            return placement.single_block_contrib(spec, seg, gat, w, cnt, v[jj], n_local)
+            return placement.single_block_contrib(spec, seg, gat, w, cnt, v_all[jj], n_local)
 
         got = self._blocks(body)
         pad = self._full(v.shape, v)
@@ -714,8 +764,12 @@ class DiskExecutor:
         return _summed([leg.store.stats for leg in self.legs])
 
     def io_stats(self) -> dict:
+        # under an axis, first each leg's fleet figures (one gather a leg):
+        # the record below then reads the W workers' aggregates
+        worker = ([leg.store.worker_io_stats() for leg in self.legs]
+                  if self.axis is not None else [])
         s = self._io_record()
-        return {
+        out = {
             "store_bytes_read": float(s.bytes_read),
             "store_blocks_fetched": float(s.blocks_fetched),
             "store_blocks_skipped": float(s.blocks_skipped),
@@ -730,6 +784,9 @@ class DiskExecutor:
             "store_weights_s": s.weights_s,
             "store_h2d_s": s.h2d_s,
         }
+        if worker:
+            out.update(_worker_io_sum(worker))
+        return out
 
     def _sparse_stats(self, nq: int | None, vb: int, over, logical) -> dict:
         """The compact exchange's per-iteration stats, as the resident
@@ -810,13 +867,16 @@ class HybridDiskExecutor(DiskExecutor):
 
     def __init__(self, spec: GimvSpec, part: Partition, sparse_store: DiskBlockStore,
                  dense_store: DiskBlockStore, region, *, capacity: int,
-                 scatter: str = "segment", retry: RetryPolicy | None = None, obs=None):
+                 scatter: str = "segment", retry: RetryPolicy | None = None, obs=None,
+                 axis=None):
         super().__init__(spec, part, None, sparse_store, capacity=capacity, scatter=scatter,
-                         retry=retry, obs=obs)
+                         retry=retry, obs=obs, axis=axis)
         self.legs.append(DiskLeg.walking(dense_store, "source"))
         self.region = region
-        self._gather_idx = torch.from_numpy(
-            np.asarray(region.gather_idx, dtype=np.int64)).to(sparse_store.device)
+        # [b_w, d_cap]: the rank's workers' rows
+        gather_idx = np.asarray(region.gather_idx, dtype=np.int64)[
+            collectives.own_slice(axis, part.b)]
+        self._gather_idx = torch.from_numpy(gather_idx).to(sparse_store.device)
 
     def iteration(self, v, ctx, mask):
         """One hybrid out-of-core iteration: (v_new, r, stats) with the
@@ -827,7 +887,7 @@ class HybridDiskExecutor(DiskExecutor):
         vb = np.dtype(spec.dtype).itemsize
         self._begin_iteration()
         gidx = self._gather_idx if nq is None else self._gather_idx[:, :, None].expand(-1, -1, nq)
-        v_d = torch.gather(v, 1, gidx)                                 # [b, d_cap(, Q)]
+        v_d = collectives.all_gather(torch.gather(v, 1, gidx), self.axis)   # [b, d_cap(, Q)]
 
         def dense_body(jj, seg, gat, w, cnt):
             return placement.single_block_contrib(spec, seg, gat, w, cnt, v_d[jj], n_local)
@@ -837,7 +897,8 @@ class HybridDiskExecutor(DiskExecutor):
         r_dense = tree_combine(spec, [got.get(jj, pad) for jj in range(b)])
         del got, pad, v_d
         idx, val, over, logical = self._compact_blocks(v)
-        r_sparse = sparse_exchange.scatter_partials(spec, idx, val, n_local,
+        r_sparse = sparse_exchange.scatter_partials(spec, self._to_owners(idx),
+                                                    self._to_owners(val), n_local,
                                                     method=self.scatter)
         r = combine_elementwise(spec, r_sparse, r_dense)
         v_new = placement.apply_assign(spec, v, r, ctx, mask)
@@ -847,6 +908,28 @@ class HybridDiskExecutor(DiskExecutor):
         stats["gathered_bytes"] = float(b * (b - 1) * d_cap * (nq or 1) * vb)
         stats.update(self.io_stats())
         return v_new, r, stats
+
+
+def _worker_io_sum(legs: list[dict]) -> dict:
+    """The ``store_worker_*`` lists of an executor's legs, summed worker by
+    worker (the degraded flag: any leg's), each overlap from the summed
+    fetch and wait seconds, as the JAX package's hybrid executor sums its
+    two legs'."""
+    def total(key):
+        return [float(sum(xs)) for xs in zip(*(leg[key] for leg in legs))]
+
+    io, wait = total("store_worker_io_s"), total("store_worker_wait_s")
+    return {
+        "store_worker_bytes_read": total("store_worker_bytes_read"),
+        "store_worker_io_s": io,
+        "store_worker_wait_s": wait,
+        "store_worker_overlap": [1.0 if i <= 0.0 else max(0.0, 1.0 - w / i)
+                                 for w, i in zip(wait, io)],
+        "store_worker_blocks_fetched": total("store_worker_blocks_fetched"),
+        "store_worker_prefetch_degraded": [
+            float(max(xs)) for xs in zip(*(leg["store_worker_prefetch_degraded"]
+                                            for leg in legs))],
+    }
 
 
 def make_disk_step(spec: GimvSpec, executor: DiskExecutor):

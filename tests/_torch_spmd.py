@@ -288,5 +288,163 @@ def refusals(payload) -> dict:
     return out
 
 
+def _fault_plan(events):
+    """A FaultPlan from ``events``: (event class name, its keyword args)."""
+    from repro_torch import faults as F
+
+    if not events:
+        return None
+    return F.FaultPlan(events=tuple(getattr(F, kind)(**kw) for kind, kw in events), seed=0)
+
+
+def _disk_engine(case: dict, meshes: dict, device: str):
+    """``PMVEngine(None, store=..., residency='disk', mesh=...)`` of a disk
+    case (engine knobs plus 'store', 'mesh', and 'faults' as
+    :func:`_fault_plan` takes them)."""
+    import repro_torch.core as T
+
+    kw = dict(case)
+    shape = kw.pop("mesh")
+    if shape not in meshes:
+        meshes[shape] = make_mesh(*shape)
+    plan = _fault_plan(kw.pop("faults", ()))
+    return T.PMVEngine(None, residency="disk", mesh=meshes[shape], device=device, faults=plan,
+                       **kw)
+
+
+def _rank_io(meta) -> dict:
+    """This rank's own worker stores, leg by leg: (peak resident bytes,
+    budget, prefetch degraded)."""
+    return {leg.store.striping: (leg.store.local.peak_resident_bytes, leg.store.budget_bytes,
+                                 leg.store.local.prefetch_degraded)
+            for leg in meta["executor"].legs}
+
+
+def disk_cases(payload) -> list:
+    """Each case of ``payload['cases']`` ({'engine': disk engine knobs, see
+    :func:`_disk_engine`; 'algo'; 'run'; 'extras': names}) through the SPMD
+    disk engine; returns one ``_result`` each, plus this rank's
+    ``_rank_io``.  Extras: 'obs' (the store.prefetch_degraded count and the
+    pmv.io_*.w{k} series of this rank's recorder), 'trace' (the merged
+    fleet trace, validated here), 'fleet' (``fleet_report`` of the result),
+    'checkpoint' (the case's engine killed by its plan, resumed from
+    ``payload['dir']/<case index>``; the result is the resumed run's).  A
+    case with 'raises' returns the exception its engine's construction or
+    prepare raises."""
+    from repro_torch.obs import (check_span_nesting, fleet_report, merge_traces,
+                                 validate_chrome_trace)
+    from repro_torch.store import open_store
+
+    meshes = {}
+    device = payload.get("device", "cpu")
+    out = []
+    for ci, case in enumerate(payload["cases"]):
+        extras = set(case.get("extras", ()))
+        n = open_store(case["engine"]["store"]).n
+        spec, ctx, _ = _algo(case["algo"], n)
+        if case.get("raises"):
+            try:
+                _disk_engine(case["engine"], meshes, device).prepare(spec, ctx)
+            except Exception as e:  # noqa: BLE001 -- the class is what is compared
+                out.append((type(e).__name__, str(e)))
+            else:
+                out.append(("ok", ""))
+            continue
+        eng = _disk_engine(case["engine"], meshes, device)
+        meta = eng.prepare(spec, ctx)[-1]
+        try:
+            if "checkpoint" in extras:
+                from repro_torch.faults import InjectedKill
+
+                d = os.path.join(payload["dir"], str(ci))
+                kw = dict(checkpoint_dir=d, checkpoint_every=1, **case["run"])
+                try:
+                    eng.run(spec, ctx, **kw)
+                    killed = False
+                except InjectedKill:
+                    killed = True
+                r = eng.run(spec, ctx, resume=True, **kw)
+            else:
+                r = eng.run(spec, ctx, **case["run"])
+            res = _result(r)
+            res["io"] = _rank_io(meta)
+            if "checkpoint" in extras:
+                res["killed"] = killed
+            if "obs" in extras:
+                res["degraded"] = eng.obs.counter("store.prefetch_degraded").value
+                res["series"] = {d["name"]: d["values"] for d in eng.obs.metrics.to_dicts()
+                                 if d["name"].startswith("pmv.io_")}
+            if "trace" in extras:
+                doc = merge_traces(meta["store"].fleet_recorder())
+                validate_chrome_trace(doc)
+                check_span_nesting(doc)
+                res["trace"] = doc
+            if "fleet" in extras:
+                rep = fleet_report(r)
+                res["fleet"] = {"workers": rep.workers, "iterations": len(rep.iterations),
+                                "straggler_workers": rep.straggler_workers,
+                                "causes": [x["cause"] for x in rep.stragglers],
+                                "skew": rep.skew,
+                                "kinds": sorted({x["kind"]
+                                                 for x in rep.calibration_launches()}),
+                                "text": rep.format()}
+            out.append(res)
+        finally:
+            meta["executor"].close()
+    return out
+
+
+def disk_serve(payload) -> list:
+    """``PMVServer(store=..., residency='disk', mesh=...).serve`` of
+    ``payload['queries']`` ((kind, source, tol, max_iters) tuples); returns
+    each answer's vector, iterations, convergence and reason."""
+    from repro_torch.serving import PMVServer, Query
+
+    mesh = make_mesh(*payload["mesh"])
+    srv = PMVServer(store=payload["store"], residency="disk", mesh=mesh,
+                    device=payload.get("device", "cpu"), **payload["server"])
+    try:
+        res = srv.serve([Query(k, source=s, tol=t, max_iters=m)
+                         for k, s, t, m in payload["queries"]])
+    finally:
+        srv.close()
+    return [(r.vector, r.iterations, r.converged, r.reason) for r in res]
+
+
+def collectives_rows(payload) -> dict:
+    """``all_gather`` and ``all_to_all`` of this rank's rows at each b_w of
+    ``payload['b_ws']``, on [b, b, k] arrays every rank draws from the same
+    seed (b = W * b_w); at b_w = 1 also the resident path's single-row
+    exchange (``all_to_all_rows`` of row 0).  Returns this rank's results by
+    b_w."""
+    import torch
+
+    from repro_torch.core import collectives
+
+    mesh = make_mesh(*payload["mesh"])
+    axis = collectives.worker_axis(mesh, "workers")
+    out = {}
+    for b_w in payload["b_ws"]:
+        b = axis.size * b_w
+        x = np.random.default_rng(b_w).standard_normal((b, b, 3)).astype(np.float32)
+        mine = torch.from_numpy(x[axis.index * b_w:(axis.index + 1) * b_w].copy())
+        got = {"all_to_all": collectives.all_to_all(mine, axis).numpy(),
+               "all_gather": collectives.all_gather(mine, axis).numpy()}
+        if b_w == 1:
+            got["rows"] = collectives.all_to_all_rows(mine[0], axis.group)[None].numpy()
+        out[b_w] = got
+    return out
+
+
+def disk_group(payload) -> dict:
+    """One mesh size's disk cases (:func:`disk_cases`) and, when the payload
+    has one, its serve (:func:`disk_serve` of ``payload['serve']``)."""
+    out = {"cases": disk_cases(payload)}
+    if "serve" in payload:
+        out["serve"] = disk_serve(payload["serve"])
+    return out
+
+
 TASKS = {"engine_cases": engine_cases, "batched_hier": batched_hier, "serve": serve,
-         "checkpoint": checkpoint, "refusals": refusals}
+         "checkpoint": checkpoint, "refusals": refusals, "disk_cases": disk_cases,
+         "disk_group": disk_group, "collectives_rows": collectives_rows}

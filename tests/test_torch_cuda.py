@@ -1455,3 +1455,46 @@ def test_cuda_spmd_two_gloo_ranks_equal_emulation(cuda_device):
             else:
                 np.testing.assert_array_equal(got, want.v)
                 assert r[i]["iterations"] == want.iterations
+
+
+@pytest.mark.cuda
+def test_cuda_spmd_disk_two_gloo_ranks_equal_single_process(cuda_device, tmp_path):
+    """Two gloo ranks sharing cuda:0, each reading its own shard view of a
+    store (two of its b = 4 workers a rank) into its own pinned slots:
+    PMVEngine(store=..., residency='disk', mesh=...) with scatter='kernel'
+    is bitwise the single-process disk run on the card for SSSP (vertical
+    sparse and packed, hybrid), and PageRank horizontal agrees within rtol
+    1e-5 (its segment sums are float atomics on the card)."""
+    import _torch_spmd as S
+    from repro_torch.core import PMVEngine, pagerank, sssp
+    from repro_torch.graph import rmat
+    from repro_torch.store import ingest_edges
+
+    n, b = 1 << 10, 4
+    root = str(tmp_path / "store")
+    ingest_edges(rmat(10, 8 << 10, seed=4), n, b, root, theta=20.0)
+    cases = [("sssp", dict(strategy="vertical")), ("sssp", dict(strategy="vertical",
+                                                               exchange="packed")),
+             ("sssp", dict(strategy="hybrid", theta=20.0)),
+             ("pagerank", dict(strategy="horizontal"))]
+    run = {"sssp": dict(max_iters=100, tol=0.5), "pagerank": dict(max_iters=10, tol=0.0)}
+    ranks = S.run("disk_cases", 2, dict(device="cuda", cases=[
+        dict(engine=dict(kw, store=root, backend="auto", scatter="kernel",
+                         mesh=((2,), ("workers",))), algo=a, run=run[a]) for a, kw in cases]),
+        timeout=300)
+    specs = {"sssp": lambda: sssp(0), "pagerank": lambda: pagerank(n)}
+    for i, (algo, kw) in enumerate(cases):
+        eng = PMVEngine(None, store=root, residency="disk", backend="auto", scatter="kernel",
+                        device=cuda_device, **kw)
+        want = eng.run(specs[algo](), **run[algo])
+        eng.prepare(specs[algo]())[-1]["executor"].close()
+        for r in ranks:
+            got = r[i]["v"]
+            if algo == "pagerank":
+                np.testing.assert_allclose(got, want.v, rtol=1e-5, atol=1e-9)
+            else:
+                np.testing.assert_array_equal(got, want.v)
+                assert r[i]["iterations"] == want.iterations
+            assert [x["store_bytes_read"] for x in r[i]["per_iter"]] == [
+                x["store_bytes_read"] for x in want.per_iter]
+            assert all(len(x["store_worker_io_s"]) == 2 for x in r[i]["per_iter"])

@@ -52,7 +52,8 @@ print(json.dumps({"modules": names, "bad": bad}))
             "repro_torch.serving.batcher", "repro_torch.serving.server",
             "repro_torch.store.format", "repro_torch.store.manifest",
             "repro_torch.store.ingest", "repro_torch.store.verify",
-            "repro_torch.store.residency", "repro_torch.faults.retry", "repro_torch.faults.plan",
+            "repro_torch.store.residency", "repro_torch.store.spmd",
+            "repro_torch.store.shard", "repro_torch.faults.retry", "repro_torch.faults.plan",
             "repro_torch.graph.io", "repro_torch.obs.profiler", "repro_torch.obs.fleet",
             "repro_torch.obs.live", "repro_torch.cli"} <= set(report["modules"])
 
@@ -132,8 +133,9 @@ def _outcome(mod, qmod, cls, knob, root, **extra) -> str:
 def test_knobs_outside_the_slice_raise(knob, knob_store):
     """PMVEngine and PMVServer each refuse the knobs they do not take yet;
     the store knobs they take behave as the JAX package's do.  The SPMD
-    knobs are taken (tests/test_torch_spmd.py): a mesh that is not a
-    DeviceMesh is a TypeError, exchange='hier' without one a ValueError."""
+    knobs are taken, under residency='disk' too (tests/test_torch_spmd.py,
+    tests/test_torch_spmd_disk.py): a mesh that is not a DeviceMesh is a
+    TypeError, exchange='hier' without one a ValueError."""
     name = next(iter(knob))
     if name in SPMD_TAKEN:
         exc, text = SPMD_TAKEN[name]
@@ -174,10 +176,13 @@ def test_remaining_refusals_name_their_knob(knob, exc, text):
     assert text in str(ei.value)
 
 
-@pytest.mark.parametrize("module,package", [("repro_torch.store.spmd", "repro_torch.store")])
+@pytest.mark.parametrize("module,package", [
+    ("repro_torch.models", "repro_torch"), ("repro_torch.training", "repro_torch"),
+    ("repro_torch.configs", "repro_torch"), ("repro_torch.launch", "repro_torch")])
 def test_unported_modules_are_named(module, package):
-    """The JAX package's modules outside the port (the SPMD store) do not
-    exist in it, and the package that would hold each says so by name."""
+    """The JAX package's modules outside the port (the LM scaffolding:
+    models, training, configs, launch) do not exist in it, and the package
+    that would hold each says so by name."""
     import importlib
 
     with pytest.raises(ModuleNotFoundError):
@@ -188,11 +193,13 @@ def test_unported_modules_are_named(module, package):
 
 @pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.obs.profiler",
                                     "repro_torch.obs.fleet", "repro_torch.obs.live",
-                                    "repro_torch.cli"])
+                                    "repro_torch.cli", "repro_torch.store",
+                                    "repro_torch.store.shard", "repro_torch.store.spmd"])
 def test_ported_modules_match_reference(module):
-    """The observability modules and the CLI the port took over from the JAX
-    package export the JAX package's ``__all__``, and each imports in a
-    fresh interpreter without pulling in jax or the JAX package."""
+    """The observability modules, the CLI and the store (its SPMD group and
+    its physical shards included) the port took over from the JAX package
+    export the JAX package's ``__all__``, and each imports in a fresh
+    interpreter without pulling in jax or the JAX package."""
     import importlib
 
     reference = importlib.import_module("repro" + module[len("repro_torch"):])

@@ -157,8 +157,10 @@ def test_disk_phase_on_cpu(monkeypatch, tmp_path, capsys):
     chaos serve's kernel 6) and a plain-version check on each kernel-3/6
     tail's own (idx, val), the fleet reports of the two traced SSSP solves
     (one worker, no straggler) and the CLI's store verify, obs report and
-    obs merge (over two resident traces) pass, and the store directory is
-    gone afterwards."""
+    obs merge (over two resident traces) pass; the store directory is
+    returned for the spmd phase (which removes it) and the checkpoints'
+    are gone."""
+    import shutil
     import tempfile
 
     import torch
@@ -203,9 +205,16 @@ def test_disk_phase_on_cpu(monkeypatch, tmp_path, capsys):
         traces[label] = Recorder()
         PMVEngine(EDGES, N, b=8, strategy="vertical", device="cpu", obs=traces[label]).run(
             sssp(0), max_iters=2, tol=0.5)
-    smoke.disk_phase(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, theta, sssp_v,
-                     served, peaks, rows, failures, traces=traces)
+    disk = smoke.disk_phase(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, theta,
+                            sssp_v, served, peaks, rows, failures, traces=traces)
     assert failures == []
+    # the store stays for the spmd phase, with what it holds its runs to
+    assert disk["root"] == str(root) and root.exists()
+    assert sorted(disk["solves"]) == sorted(
+        ["sssp/vertical disk", "pagerank/horizontal disk", "pagerank/vertical packed disk",
+         "sssp/hybrid disk", "pagerank/hybrid disk"])
+    assert len(disk["rwr"]) == 8 and disk["rwr_sources"] == [int(s) for s in sources[:8]]
+    shutil.rmtree(root)
     out = capsys.readouterr().out
     for label in ("sssp/vertical disk", "sssp/hybrid disk"):
         assert f"fleet {label}: workers=1 iterations=" in out
@@ -451,27 +460,77 @@ def test_telemetry_checks_on_cpu(capsys):
     assert "close() stopped the exporter's thread" in out
 
 
-def test_spmd_gloo_phase_on_cpu(capsys):
+def test_spmd_gloo_phase_on_cpu(capsys, tmp_path):
     """The smoke's spmd phase, part (b), rehearsed on the CPU at scale 10:
     8 gloo ranks (subprocesses of chip_smoke.py --spmd-rank) run the flat
-    SSSP (bitwise the emulated run 2 and its exchanged elements) and the
-    horizontal PageRank, then on the smaller graph the two-hop SSSP on
-    (2, 4) and the RWR serve, against the smoke's scipy references
-    (nothing launches on the CPU, so the launch checks are off)."""
+    SSSP (bitwise the emulated run 2 and its exchanged elements), then on
+    the smaller graph the horizontal PageRank, the two-hop SSSP on (2, 4)
+    and the RWR serve, against the smoke's scipy references; then
+    the out-of-core runs over a store as the disk phase leaves it (each
+    rank on its own shard view under a per-worker budget): the SSSP, the
+    hybrid and packed PageRanks and the hybrid RWR serve bitwise the
+    single-process disk runs, the chaos SSSP with worker 1's prefetch
+    degraded and worker 2 the straggler, and each tail's kernel held
+    against its plain version on every rank (nothing launches on the CPU,
+    so the launch checks are off)."""
     import torch
+
+    from repro_torch.core import cost_model
+    from repro_torch.serving import PMVServer, Query
+    from repro_torch.store import ingest_edges
 
     eng = PMVEngine(EDGES, N, b=8, strategy="vertical", backend="auto", scatter="kernel",
                     stream="off", device="cpu")
     res = eng.run(sssp(0), max_iters=100, tol=0.5)
     run2 = {"v": res.v, "want": smoke.sssp_ref(np, sp, csgraph, EDGES, N, 0),
             "exchanged_elems": [r["exchanged_elems"] for r in res.per_iter]}
-    rows, failures = {}, []
+    root = str(tmp_path / "store")
+    man = ingest_edges(EDGES, N, 8, root, theta=40.0)
+    budget = 2 * cost_model.stripe_slice_bytes(8, man.e_cap, has_w=True)
+    kw = dict(store=root, residency="disk", backend="auto", store_budget_bytes=budget,
+              device="cpu")
+
+    def solve(spec, iters, tol, **k):
+        disk_eng = PMVEngine(None, **kw, **k)
+        try:
+            return disk_eng.run(spec, max_iters=iters, tol=tol)
+        finally:
+            disk_eng.prepare(spec)[-1]["executor"].close()
+
+    solves = {
+        "sssp/vertical disk": solve(sssp(0), 100, 0.5, strategy="vertical", scatter="kernel"),
+        "pagerank/hybrid disk": solve(pagerank(N), 10, 0.0, strategy="hybrid", theta=40.0,
+                                      scatter="kernel"),
+        "pagerank/vertical packed disk": solve(pagerank(N), 10, 0.0, strategy="vertical",
+                                               exchange="packed", scatter="kernel")}
+    sources = [3, 17, 100, 200, 300, 400, 500, 600]
+    srv = PMVServer(store=root, residency="disk", strategy="hybrid", theta=40.0,
+                    backend="auto", scatter="kernel", store_budget_bytes=budget, device="cpu")
+    try:
+        got = srv.serve([Query("rwr", source=s, c=0.85, max_iters=10) for s in sources])
+    finally:
+        srv.close()
+    disk = {"root": root, "e_cap": man.e_cap, "budget": budget, "solves": solves,
+            "rwr": [(r.vector, r.iterations) for r in got], "rwr_sources": sources}
+    rows = {name: {"launches": 0} for name in smoke.KERNEL_SOURCES}
+    failures = []
     small = (rmat(SCALE - 1, 16 << (SCALE - 1), seed=0), N // 2)
     smoke.spmd_gloo(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, 40.0, run2,
-                    [3, 17, 100, 200, 300, 400, 500, 600], rows, failures, small=small,
-                    hints={"pagerank": 52}, expect_launches=False)
+                    sources, rows, failures, small=small, hints={"pagerank": 52},
+                    expect_launches=False, disk=disk)
     out = capsys.readouterr().out
     assert failures == [], (failures, out)
     for label in ("sssp_flat", "pagerank_horizontal", "sssp_hier", "serve_rwr"):
         assert f"spmd run {label} W=8" in out and "-> ok" in out
+    for label in smoke.SPMD_DISK_RUNS:
+        line = next(x for x in out.splitlines() if x.startswith(f"spmd disk {label} W=8"))
+        assert line.endswith("-> ok"), line
+    assert "bitwise the disk phase's single-process run: True" in out
+    assert [(c["path"], c["semiring"]) for c in rows["scatter_combine"]["disk_checks"]] == [
+        ("spmd sssp_disk", "min_plus"), ("spmd pagerank_hybrid_disk", "plus_times"),
+        ("spmd sssp_disk_chaos", "min_plus")]
+    assert [c["path"] for c in rows["packed_scatter_combine"]["disk_checks"]] == [
+        "spmd pagerank_packed_disk"]
+    assert [c["path"] for c in rows["scatter_combine_multi"]["disk_checks"]] == [
+        "spmd serve_rwr_disk"]
     assert "spmd gloo phase:" in out

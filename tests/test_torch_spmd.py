@@ -242,8 +242,9 @@ REFUSALS = [
      "tuple axis_name"),
     ("host", "engine", dict(b=8, residency="host", store="unused"), "NotImplementedError",
      "residency='host'"),
-    ("disk", "engine", dict(b=8, residency="disk", store="unused"), "NotImplementedError",
-     "SpmdDiskGroup"),
+    ("disk", "engine", dict(residency="disk", store="b4"), "ValueError", "must divide b=4"),
+    ("disk_server", "server", dict(residency="disk", store="b4"), "ValueError",
+     "must divide b=4"),
     ("axis_not_a_dim", "engine", dict(b=8, axis_name="pods"), "ValueError", "'pods'"),
     ("dim_outside_axis", "engine",
      dict(b=4, axis_name="model", mesh=((2, 4), ("data", "model"))), "NotImplementedError",
@@ -257,12 +258,14 @@ def refused(tmp_path_factory):
 
     n = 64
     edges = rmat(6, 200, seed=0)
-    store = str(tmp_path_factory.mktemp("spmd_store"))
-    ingest_edges(edges, n, 8, store)
+    stores = {}
+    for label, b in (("unused", 8), ("b4", 4)):
+        stores[label] = str(tmp_path_factory.mktemp(f"spmd_store_{label}"))
+        ingest_edges(edges, n, b, stores[label])
     cases = []
     for name, cls, kw, _, _ in REFUSALS:
         if "store" in kw:   # a real store, so that only the mesh is refused
-            cases.append((name, cls, dict(kw, store=store, b=None)))
+            cases.append((name, cls, dict(kw, store=stores[kw["store"]], b=None)))
         else:
             cases.append((name, cls, dict(kw, edges=edges, n=n)))
     return S.run("refusals", 8, dict(mesh=((8,), ("workers",)), cases=cases))
@@ -271,14 +274,40 @@ def refused(tmp_path_factory):
 @pytest.mark.parametrize("name,cls,kw,exc,text", REFUSALS, ids=[r[0] for r in REFUSALS])
 def test_spmd_refusals(refused, name, cls, kw, exc, text):
     """b other than the mesh size (both numbers named), 'hier' on a flat
-    axis, host and disk residency under a mesh, an axis name that is not a
-    dim, a mesh dim outside axis_name: each rank raises the same exception."""
+    axis, host residency under a mesh, disk residency on a store whose b the
+    mesh size does not divide (the engine and the server), an axis name that
+    is not a dim, a mesh dim outside axis_name: each rank raises the same
+    exception."""
     for r in refused:
         got_exc, msg = r[name]
         assert got_exc == exc, (got_exc, msg)
         assert text in msg, msg
         if name.startswith("b_ne_mesh"):
             assert "8" in msg
+
+
+@pytest.fixture(scope="module")
+def collective_rows():
+    """Each rank's all_gather / all_to_all at b_w = 1, 2, 4 on a mesh of 4."""
+    return S.run("collectives_rows", 4, dict(mesh=((4,), ("workers",)), b_ws=(1, 2, 4)))
+
+
+@pytest.mark.parametrize("b_w", [1, 2, 4])
+def test_collectives_take_several_workers_a_rank(collective_rows, b_w):
+    """With b_w workers on each of 4 ranks (the out-of-core path's shard
+    views): all_to_all gives each rank its destinations' rows of the
+    emulated transpose, all_gather the whole [b, ...] in worker order; at
+    b_w = 1 all_to_all is bitwise the resident path's single-row exchange."""
+    world = 4
+    b = world * b_w
+    x = np.random.default_rng(b_w).standard_normal((b, b, 3)).astype(np.float32)
+    emulated = x.transpose(1, 0, 2)
+    for rank, got in enumerate(collective_rows):
+        g = got[b_w]
+        np.testing.assert_array_equal(g["all_to_all"], emulated[rank * b_w:(rank + 1) * b_w])
+        np.testing.assert_array_equal(g["all_gather"], x)
+        if b_w == 1:
+            assert g["all_to_all"].tobytes() == g["rows"].tobytes()
 
 
 def test_hier_without_mesh_raises():
