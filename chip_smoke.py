@@ -140,6 +140,27 @@ Phases, each printed as it ends; any failure exits non-zero:
               timed against their plain versions and ``index_add_`` on
               pre-decoded ids, and profiled: device launches and device ms
               per call (each must make exactly one launch per call).
+6b. pallas -- the forced flat-ELL backend (``backend='pallas'``) on RMAT-14
+              (the paper's a, b, c, d, edge factor 16, b = 8): every stripe
+              one flat ELL table per destination block, or one merged table
+              a worker for the horizontal placement, at its longest row's
+              width (the tables' bytes printed; at most 8 GB).  Runs, the
+              launch counters zeroed before each and read after: PageRank
+              horizontal (tol 1e-6), SSSP vertical (scatter='kernel'), CC
+              hybrid (theta=300, a non-empty dense region; d_cap printed),
+              PageRank vertical packed (scatter='kernel', delta_eps=0.0),
+              ``PMVServer(backend='pallas', strategy='hybrid',
+              scatter='kernel')`` with 8 RWR and 8 SSSP at Q = 8, and the 8
+              RWR again through ``exchange='packed'``: every kernel of the
+              path must launch (1-8 over the phase).  SSSP and CC equal
+              scipy and are bitwise the port's ``backend='torch'`` run;
+              PageRank and RWR within rtol 1e-4 of scipy's float64 iteration
+              and 1e-5 of 'torch'; the packed serve bitwise the sparse one.
+              One SSSP with ``pallas_interpret=True`` must be bitwise the
+              kernel run and launch nothing.  Kernels 1 and 5 are held
+              against their plain versions at the merged table's flat shape
+              (Q = 8 for kernel 5) and timed ("bucket pallas merged" lines:
+              CUDA-event ms, CSR library ms, the valid-slot bound).
 7. disk    -- the out-of-core store (``repro_torch.store``): the directed edges
               of phase 2 ingested at b = 8, with the θ-split shards of
               theta=3000, into a temporary directory (its free space printed
@@ -242,7 +263,14 @@ Phases, each printed as it ends; any failure exits non-zero:
               the flat sparse exchange's at the same capacity;
               ``PMVServer(mesh=..., strategy='hybrid', theta=3000,
               scatter='kernel')`` on the first 8 RWR sources of phase 5 (mod
-              n) in one Q = 8 batch, within rtol 1e-4 of scipy.  Then out
+              n) in one Q = 8 batch, within rtol 1e-4 of scipy.  On phase
+              6b's RMAT-14, ``backend='pallas'``: the vertical SSSP on a
+              (2, 4) ('data', 'model') mesh with axis_name='model' (two
+              replicas of 4 workers), bitwise the emulated b = 4 engine; the
+              SSSP with axis_name ('workers', 'pod') on the ('pod',
+              'workers') mesh (workers against rank order), bitwise the
+              emulated engine; the horizontal PageRank on the flat mesh,
+              within rtol 1e-5 of phase 6b's run.  Then out
               of core over phase 7's store, each rank opening only its
               shard view under a per-worker budget of two of its weighted
               slices: SSSP (vertical, scatter='kernel'; bitwise phase 7's
@@ -299,8 +327,9 @@ Phases, each printed as it ends; any failure exits non-zero:
 9. summary -- the card, a ``{"kernels": [...]}`` line (eight kernels), and last
               the device line.
 
-Exits non-zero without a result when no CUDA device is present, or when the
-repository's ``src/repro_torch`` is not beside this file.
+Exits 2 without a result, saying why on stdout and stderr, when no CUDA
+device is present, or when the repository's ``src/repro_torch`` is not
+beside this file.
 """
 from __future__ import annotations
 
@@ -2812,6 +2841,245 @@ def stream_serve(torch, np, sp, dev, gen, edges, n, b, seed, rows, failures, pea
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# pallas phase: the forced flat-ELL backend
+
+
+PALLAS_SCALE = 14
+PALLAS_THETA = 300.0
+PALLAS_TABLE_BYTES_MAX = 8e9
+
+
+def ell_table_bytes(matrix: dict) -> int:
+    """Bytes of a prepared matrix's flat ELL tables (cols and weights)."""
+    total = 0
+    for key in ("ell", "sparse_ell"):
+        ell = matrix.get(key)
+        if ell is not None:
+            total += ell.cols.numel() * 4 + (0 if ell.w is None else ell.w.numel() * 4)
+    return total
+
+
+def pallas_phase(torch, np, sp, csgraph, dev, seed, rows, failures, *,
+                 scale: int = PALLAS_SCALE, theta: float = PALLAS_THETA) -> dict:
+    """The forced flat-ELL backend (``backend='pallas'``) on RMAT(scale) with
+    the paper's a, b, c, d, edge factor 16 and b = 8: every stripe one flat
+    ELL table per destination block (vertical, the hybrid's sparse region)
+    or one merged table a worker (horizontal), at its longest row's width.
+    Runs, each ``backend='pallas'`` with the launch counters zeroed just
+    before it and read just after (its launches join the kernel rows):
+    PageRank horizontal (tol 1e-6), SSSP vertical (scatter='kernel'), CC
+    hybrid (``theta``: a non-empty dense region, its d_cap printed), PageRank vertical packed (delta_eps=0.0, scatter='kernel'),
+    and ``PMVServer(backend='pallas', strategy='hybrid', scatter='kernel')``
+    with 8 RWR and 8 SSSP at Q = 8, then the same 8 RWR through
+    ``exchange='packed'``.  SSSP and CC equal scipy and are bitwise the
+    port's ``backend='torch'`` run; PageRank and RWR lie within rtol 1e-4 of
+    scipy's float64 iteration and 1e-5 of 'torch' (same iteration counts);
+    the packed serve is bitwise the sparse one.  One SSSP with
+    ``pallas_interpret=True`` is bitwise the kernel run and launches
+    nothing.  Kernels 1 and 5 are then held, timed and bounded at the
+    phase's flat shapes (the merged table; Q = 8).  Returns what the spmd
+    phase's gloo ranks need: the graph and the emulated answers."""
+    from repro_torch import kernels
+    from repro_torch.core import PMVEngine, connected_components, pagerank, sssp
+    from repro_torch.graph import rmat, symmetrize_edges
+    from repro_torch.serving import PMVServer, Query
+
+    t0 = time.perf_counter()
+    n, b = 1 << scale, 8
+    edges = rmat(scale, 16 << scale, seed=seed)
+    sym = symmetrize_edges(edges)
+    out = {"edges": edges, "n": n}
+
+    def solve(label, spec, expect, *, graph=edges, max_iters=100, tol, **kw):
+        eng = PMVEngine(graph, n, b=b, backend="pallas", device=dev, **kw)
+        matrix, *_, meta = eng.prepare(spec)
+        nbytes = ell_table_bytes(matrix)
+        if nbytes > PALLAS_TABLE_BYTES_MAX:
+            raise SmokeError(f"pallas {label}: flat tables of {nbytes} B pass "
+                             f"{PALLAS_TABLE_BYTES_MAX:.0f} B")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        res = eng.run(spec, max_iters=max_iters, tol=tol)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        counts = kernels.launch_counts()
+        # the kernels on the card; their plain versions on the CPU
+        if meta["backend"] != "pallas" or meta["cfg"].interpret != (dev.type != "cuda"):
+            raise SmokeError(f"pallas {label}: backend {meta['backend']!r}, interpret "
+                             f"{meta['cfg'].interpret}")
+        for name in expect:
+            if counts[name] == 0:
+                raise SmokeError(f"pallas {label}: kernel {name} never launched on the path")
+            rows.setdefault(name, {"launches": 0})["launches"] += counts[name]
+        walls = [1e3 * r["wall_s"] for r in res.per_iter]
+        shapes = {k: list(matrix[k].cols.shape) for k in ("ell", "sparse_ell") if k in matrix}
+        log(f"pallas run {label}: iterations={res.iterations} converged={res.converged} "
+            f"prepare_s={meta['prepare_s']:.2f} run_s={run_s:.2f} "
+            f"median_iter_ms={np.median(walls):.3f} tables {json.dumps(shapes)} "
+            f"{nbytes} B launches={json.dumps({k: c for k, c in counts.items() if c})}")
+        return eng, res, meta, counts
+
+    def torch_run(spec, *, graph=edges, max_iters, tol, **kw):
+        return PMVEngine(graph, n, b=b, backend="torch", device=dev, **kw).run(
+            spec, max_iters=max_iters, tol=tol)
+
+    def check(label, ok, what):
+        log(f"check pallas {label}: {what} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"pallas {label} failed its check")
+
+    def rel_err(got, want):
+        return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+
+    # PageRank horizontal: the merged tables, one launch an iteration
+    eng, res, meta, _ = solve("pagerank/horizontal", pagerank(n), ("ell_gimv",), tol=1e-6,
+                              strategy="horizontal")
+    want = pagerank_ref(np, sp, edges, n, res.iterations)
+    base = torch_run(pagerank(n), max_iters=res.iterations, tol=0.0, strategy="horizontal")
+    check("pagerank/horizontal",
+          np.allclose(res.v, want, rtol=1e-4, atol=1e-12)
+          and np.allclose(res.v, base.v, rtol=1e-5, atol=1e-12),
+          f"scipy max rel err {rel_err(res.v, want):.3e}, 'torch' {rel_err(res.v, base.v):.3e}")
+    out["pagerank"] = (res.v, res.iterations)
+    matrix = eng.prepare(pagerank(n))[0]
+    part = meta["part"]
+    v_flat = torch.from_numpy(part.to_blocked(res.v.astype(np.float32)).reshape(-1).copy()).to(dev)
+    flat = {}
+    ell_bucket_times(torch, "pallas merged", [matrix["ell"]], v_flat, flat)
+    rows["ell_gimv"]["flat_width"] = flat
+    vq = torch.rand((v_flat.shape[0], 8), device=dev)
+    flat_q = {}
+    ell_bucket_times(torch, "pallas merged Q=8", [matrix["ell"]], vq, flat_q)
+    rows.setdefault("ell_gimv_multi", {"launches": 0})["flat_width"] = flat_q
+    del eng, matrix, v_flat, vq
+    torch.cuda.empty_cache()
+
+    # SSSP vertical, one launch a destination block, kernel 3 folds
+    want = sssp_ref(np, sp, csgraph, edges, n, 0)
+    _, res, meta, counts = solve("sssp/vertical", sssp(0), ("ell_gimv", "scatter_combine"),
+                                 tol=0.5, strategy="vertical", scatter="kernel")
+    base = torch_run(sssp(0), max_iters=100, tol=0.5, strategy="vertical", scatter="segment")
+    check("sssp/vertical", res.converged and np.array_equal(res.v.astype(np.float64), want)
+          and np.array_equal(res.v, base.v) and res.iterations == base.iterations,
+          f"scipy, bitwise 'torch', {counts['ell_gimv']} ELL launches "
+          f"({counts['ell_gimv'] // res.iterations} an iteration)")
+    out["sssp"] = res.v
+    # the same solve through the plain versions, asked for on the card
+    eng = PMVEngine(edges, n, b=b, backend="pallas", strategy="vertical", scatter="kernel",
+                    pallas_interpret=True, device=dev)
+    eng.prepare(sssp(0))
+    kernels.reset_launch_counts()
+    plain = eng.run(sssp(0), max_iters=100, tol=0.5)
+    launched = sum(kernels.launch_counts().values())
+    # (on the CPU the wrappers run the plain versions themselves, so a
+    # rehearsal there counts their calls)
+    check("sssp/vertical pallas_interpret=True",
+          (launched == 0 or dev.type != "cuda") and np.array_equal(plain.v, res.v)
+          and plain.iterations == res.iterations,
+          f"{launched} launches, bitwise the kernel run")
+    del eng
+    # the same SSSP at b = 4, the reference of the gloo part's replica mesh
+    out["sssp_b4"] = PMVEngine(edges, n, b=4, backend="pallas", strategy="vertical",
+                               scatter="kernel", device=dev).run(sssp(0), max_iters=100,
+                                                                 tol=0.5).v
+    torch.cuda.empty_cache()
+
+    # CC hybrid: the sparse region's tables and the dense region's kernel
+    want = cc_ref(np, sp, csgraph, sym, n)
+    _, res, meta, _ = solve("cc/hybrid", connected_components(), ("ell_gimv", "dense_gimv"),
+                            graph=sym, tol=0.5, strategy="hybrid", theta=theta)
+    hm = meta["hm"]
+    base = torch_run(connected_components(), graph=sym, max_iters=100, tol=0.5,
+                     strategy="hybrid", theta=theta)
+    check("cc/hybrid", hm.dense.d_cap > 0 and res.converged and np.array_equal(res.v, want)
+          and np.array_equal(res.v, base.v) and res.iterations == base.iterations,
+          f"theta={theta} dense vertices={meta['n_dense']} d_cap={hm.dense.d_cap}, "
+          f"scipy ({len(np.unique(want))} components), bitwise 'torch'")
+    torch.cuda.empty_cache()
+
+    # PageRank vertical over the packed exchange, delta iteration on
+    _, res, meta, _ = solve("pagerank/vertical packed", pagerank(n),
+                            ("ell_gimv", "packed_scatter_combine"), tol=1e-6,
+                            strategy="vertical", exchange="packed", scatter="kernel",
+                            delta_eps=0.0)
+    want = pagerank_ref(np, sp, edges, n, res.iterations)
+    base = torch_run(pagerank(n), max_iters=res.iterations, tol=0.0, strategy="vertical",
+                     exchange="packed", delta_eps=0.0)
+    check("pagerank/vertical packed",
+          meta["exchange"] == "packed" and np.allclose(res.v, want, rtol=1e-4, atol=1e-12)
+          and np.allclose(res.v, base.v, rtol=1e-5, atol=1e-12),
+          f"delta {meta['delta_reason']}, scipy max rel err {rel_err(res.v, want):.3e}, "
+          f"'torch' {rel_err(res.v, base.v):.3e}")
+    torch.cuda.empty_cache()
+
+    # the serve: 8 RWR and 8 SSSP at Q = 8, then the RWR through 'packed'
+    outdeg = np.bincount(edges[:, 0], minlength=n)
+    srcs = np.random.default_rng(seed).choice(np.flatnonzero(outdeg >= 1), 16, replace=False)
+    queries = ([Query("rwr", source=int(s), c=0.85, tol=1e-6) for s in srcs[:8]]
+               + [Query("sssp", source=int(s), tol=0.5) for s in srcs[8:]])
+    served = {}
+    for label, exchange, qs, expect in (
+            ("serve", "sparse", queries,
+             ("ell_gimv_multi", "dense_gimv_multi", "scatter_combine_multi")),
+            ("packed serve", "packed", queries[:8],
+             ("ell_gimv_multi", "dense_gimv_multi", "packed_scatter_combine_multi"))):
+        kw = dict(b=b, strategy="hybrid", theta=theta, scatter="kernel",
+                  exchange=exchange, buckets=(8,), device=dev)
+        srv = PMVServer(edges, n, backend="pallas", **kw)
+        try:
+            for q in (qs[0], qs[-1]):
+                srv.engine_for(q)[0].prepare(srv.engine_for(q)[1])
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            got = srv.serve([Query(q.spec_kind, source=q.source, c=q.c, tol=q.tol) for q in qs])
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t
+            counts = kernels.launch_counts()
+        finally:
+            srv.close()
+        for name in expect:
+            if counts[name] == 0:
+                raise SmokeError(f"pallas {label}: kernel {name} never launched on the path")
+            rows.setdefault(name, {"launches": 0})["launches"] += counts[name]
+        if any(counts[k] for k in SINGLE):
+            raise SmokeError(f"pallas {label}: a single-vector kernel launched")
+        served[label] = got
+        log(f"pallas {label}: {len(got)} queries at Q = 8 in {serve_s:.2f} s, iterations "
+            f"{[r.iterations for r in got]}, launches "
+            f"{json.dumps({k: c for k, c in counts.items() if c})}")
+    srv = PMVServer(edges, n, backend="torch", b=b, strategy="hybrid", theta=theta,
+                    scatter="kernel", buckets=(8,), device=dev)
+    try:
+        base = srv.serve([Query(q.spec_kind, source=q.source, c=q.c, tol=q.tol)
+                          for q in queries])
+    finally:
+        srv.close()
+    got = served["serve"]
+    rwr_want = rwr_ref(np, sp, edges, n, [q.source for q in queries[:8]],
+                       [r.iterations for r in got[:8]])
+    rwr_got = np.stack([r.vector for r in got[:8]], axis=1)
+    ok_rwr = (all(r.converged and r.reason == "completed" for r in got)
+              and np.allclose(rwr_got, rwr_want, rtol=1e-4, atol=1e-12)
+              and all(np.allclose(r.vector, w.vector, rtol=1e-5, atol=1e-12)
+                      for r, w in zip(got[:8], base[:8])))
+    ok_sssp = all(np.array_equal(r.vector.astype(np.float64),
+                                 sssp_ref(np, sp, csgraph, edges, n, q.source))
+                  and np.array_equal(r.vector, w.vector) and r.iterations == w.iterations
+                  for q, r, w in zip(queries[8:], got[8:], base[8:]))
+    ok_packed = all(np.array_equal(p.vector, r.vector) and p.iterations == r.iterations
+                    for p, r in zip(served["packed serve"], got[:8]))
+    check("serve", ok_rwr and ok_sssp and ok_packed,
+          f"8 RWR within rtol 1e-4 of scipy (max rel err "
+          f"{rel_err(rwr_got, rwr_want):.3e}) and 1e-5 of the 'torch' serve; 8 SSSP scipy and "
+          "bitwise 'torch'; the packed serve bitwise the sparse one")
+    log(f"pallas phase: {time.perf_counter() - t0:.1f} s (rmat scale {scale}, n={n}, "
+        f"edges={len(edges)})")
+    return out
+
+
 def packed_widths_phase(torch, np, dev, gen):
     """Both packed kernels at the four device widths: random sorted sets of
     b = 8 senders padded with the sentinel, n_local at the top of each
@@ -3137,7 +3405,8 @@ def spmd_rank(rank: int, d: str) -> int:
     """One rank of the spmd phase's gloo part (``chip_smoke.py --spmd-rank R
     --spmd-dir D``): the runs of ``D/payload.json`` on the shared graph
     ``D/edges.npy`` (PageRank, the hier SSSP and the serve on
-    ``D/edges_small.npy``),
+    ``D/edges_small.npy``; the backend='pallas' runs on
+    ``D/edges_pallas.npy``),
     then the out-of-core runs over the disk phase's store
     (``spmd_disk_runs``), each between barriers with the launch counters zeroed
     before it and read after it; results in ``D/r{R}.json`` (and rank 0's
@@ -3171,6 +3440,9 @@ def spmd_rank(rank: int, d: str) -> int:
         flat = DeviceMesh(dev.type, torch.arange(world), mesh_dim_names=("workers",))
         pods = DeviceMesh(dev.type, torch.arange(world).reshape(2, world // 2),
                           mesh_dim_names=("pod", "workers"))
+        # two replicas of world // 2 workers: the dim 'data' is outside axis_name
+        replicas = DeviceMesh(dev.type, torch.arange(world).reshape(2, world // 2),
+                              mesh_dim_names=("data", "model"))
         edges = np.load(os.path.join(d, "edges.npy"))
         small = np.load(os.path.join(d, "edges_small.npy"))
         out = {"rank": rank, "device": str(dev), "up_s": time.perf_counter() - t0}
@@ -3186,7 +3458,9 @@ def spmd_rank(rank: int, d: str) -> int:
             return res
 
         def solve(label, spec, max_iters, tol, graph=(edges, n), **kw):
-            eng = PMVEngine(*graph, b=world, backend="auto", device=dev, **kw)
+            kw.setdefault("b", world)
+            kw.setdefault("backend", "auto")
+            eng = PMVEngine(*graph, device=dev, **kw)
             res = counted(label, lambda: eng.run(spec, max_iters=max_iters, tol=tol))
             meta = eng.prepare(spec)[-1]
             out[label].update(
@@ -3225,6 +3499,20 @@ def spmd_rank(rank: int, d: str) -> int:
             iter_walls_ms=[1e3 * w for w in st["iter_wall_s"]])
         if rank == 0:
             np.save(os.path.join(d, "serve_rwr.npy"), np.stack([r.vector for r in got]))
+        if cfg.get("pallas") is not None:
+            # backend='pallas' on the pallas phase's graph: the SSSP on two
+            # replicas of world // 2 workers and with axis_name against rank
+            # order, and the horizontal PageRank on the flat mesh
+            pal = cfg["pallas"]
+            graph = (np.load(os.path.join(d, "edges_pallas.npy")), pal["n"])
+            solve("sssp_replica", sssp(0), 100, 0.5, graph=graph, b=world // 2,
+                  backend="pallas", strategy="vertical", scatter="kernel", mesh=replicas,
+                  axis_name="model")
+            solve("sssp_reordered", sssp(0), 100, 0.5, graph=graph, backend="pallas",
+                  strategy="vertical", scatter="kernel", mesh=pods,
+                  axis_name=("workers", "pod"))
+            solve("pagerank_pallas", pagerank(pal["n"]), pal["pagerank_iters"], 0.0,
+                  graph=graph, backend="pallas", strategy="horizontal", mesh=flat)
         if cfg.get("disk") is not None:
             spmd_disk_runs(rank, d, cfg, dev, flat, out, counted)
         with open(os.path.join(d, f"r{rank}.tmp"), "w") as f:
@@ -3241,7 +3529,8 @@ def spmd_rank(rank: int, d: str) -> int:
 
 
 def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources, rows,
-              failures, *, small=None, hints=None, expect_launches=True, disk=None) -> None:
+              failures, *, small=None, hints=None, expect_launches=True, disk=None,
+              pallas=None) -> None:
     """Part (b) of the spmd phase: ``b`` gloo ranks sharing ``dev``, each a
     subprocess that runs the kernels on the card (``spmd_rank``): the flat
     SSSP bitwise run 2 (``run2``: its answer and per-iteration exchanged
@@ -3257,7 +3546,15 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
     ``hints`` ({'pagerank': k, 'rwr': [k, ...]}, the emulated runs'), and
     again after for any count the ranks did not share.  With ``disk`` (what
     ``disk_phase`` returns) the ranks then run the out-of-core runs over its
-    store (``spmd_disk_runs``), held by :func:`spmd_disk_checks`."""
+    store (``spmd_disk_runs``), held by :func:`spmd_disk_checks`.  With
+    ``pallas`` (what ``pallas_phase`` returns) they first run
+    ``backend='pallas'`` on its graph: the vertical SSSP on a (2, b/2)
+    ('data', 'model') mesh with axis_name='model' (two replicas of b/2
+    workers), bitwise the emulated b/2 engine's; the same SSSP at b with
+    axis_name ('workers', 'pod') on the ('pod', 'workers') mesh (workers
+    against rank order), bitwise the emulated engine's; and the horizontal
+    PageRank on the flat mesh for the emulated run's iteration count,
+    within rtol 1e-5 of it."""
     import os
     import shutil
     import tempfile
@@ -3278,10 +3575,15 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
     try:
         np.save(os.path.join(d, "edges.npy"), edges)
         np.save(os.path.join(d, "edges_small.npy"), small_edges)
+        spmd_pallas = None
+        if pallas is not None:
+            np.save(os.path.join(d, "edges_pallas.npy"), pallas["edges"])
+            spmd_pallas = {"n": pallas["n"], "pagerank_iters": pallas["pagerank"][1]}
         with open(os.path.join(d, "payload.json"), "w") as f:
             json.dump({"src": str(Path(__file__).resolve().parent / "src"), "world": b, "n": n,
                        "n_small": n_small, "theta": theta, "device": str(dev),
-                       "rwr_sources": rwr_sources, "disk": spmd_disk}, f)
+                       "rwr_sources": rwr_sources, "disk": spmd_disk,
+                       "pallas": spmd_pallas}, f)
         for rank in range(b):
             log_f = open(os.path.join(d, f"r{rank}.log"), "w")
             procs.append((subprocess.Popen(
@@ -3318,6 +3620,7 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
         res = [json.loads(Path(d, f"r{r}.json").read_text()) for r in range(b)]
         vec = {k: np.load(os.path.join(d, f"{k}.npy"))
                for k in ("sssp_flat", "pagerank_horizontal", "sssp_hier", "serve_rwr")
+               + (SPMD_PALLAS_RUNS if pallas is not None else ())
                + (SPMD_DISK_RUNS if disk is not None else ())}
     finally:
         for proc, log_f in procs:
@@ -3393,6 +3696,29 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
     expect = {"sssp_flat": ("ell_gimv", "scatter_combine"), "pagerank_horizontal": ("ell_gimv",),
               "sssp_hier": ("ell_gimv", "scatter_combine"),
               "serve_rwr": ("ell_gimv_multi", "dense_gimv_multi", "scatter_combine_multi")}
+    if pallas is not None:
+        n_p = pallas["n"]
+        for label, want, what in (
+                ("sssp_replica", pallas["sssp_b4"],
+                 f"(2, {b // 2}) ('data', 'model') mesh, axis_name='model', b={b // 2}: two "
+                 "replicas, bitwise the emulated engine"),
+                ("sssp_reordered", pallas["sssp"],
+                 f"axis_name ('workers', 'pod') on the (2, {b // 2}) ('pod', 'workers') mesh, "
+                 "bitwise the emulated engine")):
+            r0 = res[0][label]
+            ok = (r0["converged"] and np.array_equal(vec[label], want)
+                  and all(r[label]["iterations"] == r0["iterations"] for r in res))
+            counts[label] = line(label, f"backend='pallas' rmat n={n_p}, {what}, iterations="
+                                 f"{r0['iterations']}", ok)
+            expect[label] = ("ell_gimv", "scatter_combine")
+        pr_v, pr_iters = pallas["pagerank"]
+        rel = float(np.max(np.abs(vec["pagerank_pallas"] - pr_v) / np.maximum(pr_v, 1e-30)))
+        ok = (np.allclose(vec["pagerank_pallas"], pr_v, rtol=1e-5, atol=1e-12)
+              and res[0]["pagerank_pallas"]["iterations"] == pr_iters)
+        counts["pagerank_pallas"] = line(
+            "pagerank_pallas", f"backend='pallas' horizontal rmat n={n_p}, {pr_iters} "
+            f"iterations, max rel err {rel:.3e} from the emulated run", ok)
+        expect["pagerank_pallas"] = ("ell_gimv",)
     if expect_launches:
         for label, names in expect.items():
             for name in names:
@@ -3406,10 +3732,13 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
         spmd_disk_checks(np, b, res, vec, disk, spmd_disk, disk_want, rows, failures,
                          expect_launches=expect_launches)
     log(f"spmd gloo phase: {wall:.1f} s for {b} ranks and "
-        f"{4 + (len(SPMD_DISK_RUNS) if disk is not None else 0)} runs, the checks "
+        f"{4 + (len(SPMD_PALLAS_RUNS) if pallas is not None else 0)}"
+        f"{f' + {len(SPMD_DISK_RUNS)}' if disk is not None else ''} runs, the checks "
         f"{time.perf_counter() - t - wall:.1f} s after")
 
 
+# the backend='pallas' runs of the spmd phase's gloo part
+SPMD_PALLAS_RUNS = ("sssp_replica", "sssp_reordered", "pagerank_pallas")
 # the out-of-core runs of the spmd phase, and the kernel each tail folds with
 SPMD_DISK_RUNS = ("sssp_disk", "pagerank_hybrid_disk", "pagerank_packed_disk",
                   "sssp_disk_chaos", "serve_rwr_disk")
@@ -3542,6 +3871,13 @@ def spmd_disk_checks(np, b, res, vec, disk, spmd_disk, want, rows, failures, *,
 # ---------------------------------------------------------------------------
 
 
+def refuse(cause: str) -> int:
+    """Say why the smoke cannot run, on stdout and stderr, and give exit code 2."""
+    print(f"chip_smoke: not run: {cause}", flush=True)
+    print(f"chip_smoke: not run: {cause}", file=sys.stderr)
+    return 2
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: n = 2**scale")
@@ -3558,12 +3894,10 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
+        return refuse("no CUDA device is available")
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: {src / 'repro_torch'} not found", file=sys.stderr)
-        return 2
+        return refuse(f"{src / 'repro_torch'} not found")
     sys.path.insert(0, str(src))
 
     import numpy as np
@@ -3818,6 +4152,8 @@ def main() -> int:
     packed_serve_phase(torch, np, dev, gen, edges, n, b, 3000.0, answers["rwr"], rows, failures)
     del answers
     packed_widths_phase(torch, np, dev, gen)
+    # -- pallas: the forced flat-ELL backend on RMAT-14 --
+    pallas = pallas_phase(torch, np, sp, csgraph, dev, args.seed, rows, failures)
     # -- disk: the out-of-core store, five solves and a serve from the same edges --
     disk = disk_phase(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, sssp_v, served, peaks,
                       rows, failures, seed=args.seed, traces=traces)
@@ -3832,11 +4168,11 @@ def main() -> int:
         small = (rmat(args.scale - 2, 16 << (args.scale - 2), seed=args.seed),
                  1 << (args.scale - 2))
         spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, run2, served[1], rows,
-                  failures, small=small, disk=disk)
+                  failures, small=small, disk=disk, pallas=pallas)
     finally:
         shutil.rmtree(disk["root"], ignore_errors=True)
     log(f"spmd phase: {time.perf_counter() - t:.1f} s (card: {card})")
-    del run2, disk
+    del run2, disk, pallas
     del edges, sym
     # -- stream: the bucket-streamed executor on a uniform sparse graph at b = 64,
     # at scale - 1 to keep the smoke inside its time limit --

@@ -1,4 +1,9 @@
-"""PMV core on PyTorch: specs, pre-partitioning, planner, placements, engine."""
+"""PMV core on PyTorch: specs, pre-partitioning, planner, placements, engine.
+
+``__all__`` is the JAX package's ``repro.core.__all__``; ``placement_call``
+(the one placement step that ``make_step`` wraps) and ``from_reference``
+(the JAX package's partition outputs carried into this package) are
+importable here too."""
 from repro_torch.core import cost_model, planner
 from repro_torch.core.algorithms import (
     connected_components,
@@ -8,7 +13,7 @@ from repro_torch.core.algorithms import (
     sssp,
 )
 from repro_torch.core.convert import from_reference
-from repro_torch.core.engine import PMVEngine, PMVResult, StepConfig, placement_call
+from repro_torch.core.engine import PMVEngine, PMVResult, StepConfig, make_step, placement_call
 from repro_torch.core.gimv import GimvSpec
 from repro_torch.core.partition import Partition, partition_graph
 from repro_torch.core.planner import BlockPlan, ExecutionPlan
@@ -18,7 +23,7 @@ __all__ = [
     "PMVEngine",
     "PMVResult",
     "StepConfig",
-    "placement_call",
+    "make_step",
     "Partition",
     "partition_graph",
     "planner",
@@ -30,5 +35,4 @@ __all__ = [
     "sssp",
     "connected_components",
     "cost_model",
-    "from_reference",
 ]

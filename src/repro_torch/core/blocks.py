@@ -34,6 +34,9 @@ __all__ = [
     "structural_partial_nnz",
     "DenseRegion",
     "materialize_dense_matrix",
+    "EllStripe",
+    "stripe_to_ell",
+    "stack_ells",
     "materialize_dense_block",
     "EllBucket",
     "DenseGroup",
@@ -201,6 +204,89 @@ class DenseRegion:
     d_count: Any      # [b] int32
     d_cap: int
     theta: float
+
+
+@dataclasses.dataclass(frozen=True)
+class EllStripe:
+    """Destination-major ELL repack of a :class:`BlockEdges` stripe for the
+    forced flat-ELL backend (backend='pallas'): each destination row stores
+    up to D source slots, left-packed; col < 0 marks padding.
+
+    Two layouts, built at pre-partition time (:func:`stripe_to_ell`):
+
+    - per-block (vertical stripes): cols [b, n_local, D] -- row r of table i
+      lists the v^(j)-local sources of destination r in sub-matrix M^(i,j);
+      one table per destination block keeps the partials separable for the
+      compact exchange.
+    - merged (horizontal stripes): cols [n_local, D] -- all b source blocks'
+      edges of destination r in ONE row, cols pre-offset to index the flat
+      gathered vector [b * stride]; the combineAll over D is then also the
+      combineAll across blocks, so one launch does a worker's whole compute.
+    """
+
+    cols: Any        # [(b,) n_local, D] int32; -1 = pad
+    w: Any | None    # matching weights, or None when the spec never reads them
+
+    @property
+    def d_cap(self) -> int:
+        return self.cols.shape[-1]
+
+
+def stripe_to_ell(stripe: BlockEdges, n_rows: int, *, merge_col_stride: int | None = None,
+                  d_cap: int | None = None) -> EllStripe:
+    """Repack a padded edge-block stripe into ELL tables (``ell_from_edges``,
+    which left-packs every row in edge order).
+
+    merge_col_stride=None: per-block tables [b, n_local, D] (cols are the
+    block-local gather indices, as stored), D the largest in-degree of any
+    block unless ``d_cap`` is given.  merge_col_stride=s: one merged table
+    [n_local, D] whose cols are flattened to block_k * s + gat_local, the
+    flat gathered vector's index, D the largest row's total in-degree."""
+    b = stripe.seg_local.shape[0]
+    counts = np.asarray(stripe.count)
+    seg = np.asarray(stripe.seg_local)
+    gat = np.asarray(stripe.gat_local)
+    www = None if stripe.w is None else np.asarray(stripe.w)
+
+    def block_edges(k):
+        cnt = int(counts[k])
+        return seg[k, :cnt], gat[k, :cnt], (None if www is None else www[k, :cnt])
+
+    if merge_col_stride is not None:
+        parts = [block_edges(k) for k in range(b)]
+        dst = np.concatenate([p[0] for p in parts]) if parts else np.zeros(0, np.int64)
+        src = (np.concatenate([p[1].astype(np.int64) + k * merge_col_stride
+                               for k, p in enumerate(parts)])
+               if parts else np.zeros(0, np.int64))
+        w = None if www is None else np.concatenate([p[2] for p in parts])
+        cols, ww = ell_from_edges(dst, src, w, n_rows, d_cap=d_cap)
+        return EllStripe(cols=cols, w=ww)
+    if d_cap is None:
+        d_cap = 1
+        for k in range(b):
+            cnt = int(counts[k])
+            if cnt:
+                d_cap = max(d_cap, int(np.bincount(seg[k, :cnt], minlength=n_rows).max()))
+    tables = [ell_from_edges(*block_edges(k), n_rows, d_cap=d_cap) for k in range(b)]
+    return EllStripe(cols=np.stack([t[0] for t in tables]),
+                     w=None if www is None else np.stack([t[1] for t in tables]))
+
+
+def stack_ells(ells: list[EllStripe]) -> EllStripe:
+    """Per-worker ELL tables -> one stripe with a leading worker axis, each
+    padded to the widest table (pad slots -1, weight 0: rows stay
+    left-packed)."""
+    d = max(e.d_cap for e in ells)
+
+    def stacked(arrays, fill):
+        # one allocation, each table copied into its row once
+        out = np.full((len(arrays),) + arrays[0].shape[:-1] + (d,), fill, arrays[0].dtype)
+        for i, a in enumerate(arrays):
+            out[i, ..., :a.shape[-1]] = a
+        return out
+
+    return EllStripe(cols=stacked([e.cols for e in ells], -1),
+                     w=None if ells[0].w is None else stacked([e.w for e in ells], 0))
 
 
 # ---------------------------------------------------------------------------

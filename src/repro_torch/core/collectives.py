@@ -16,6 +16,15 @@ take any b_w.
 A rank owns the worker whose index is its row-major coordinate over the
 ``axis_name`` dims of a ``torch.distributed.device_mesh.DeviceMesh``: the
 order ``shard_map`` gives, and the g = p * W + w of the two-hop exchange.
+``axis_name`` may list the dims in any order, and a mesh may place its
+ranks in any order: the worker index is the position in that row-major
+order, whatever the ranks' own order.  ``torch.distributed`` orders a
+group's members by global rank, so where the two differ the helpers permute
+the chunks of ``all_to_all_single`` and the rows of
+``all_gather_into_tensor`` (``WorkerAxis.order``).  The mesh dims outside
+``axis_name`` are replicas, as ``shard_map`` over ``P(axis_name)`` makes
+them: every combination of their coordinates holds its own b workers, over
+its own process group, and runs the same solve (``WorkerAxis.replica``).
 
 Every call here is collective over the axis: all of its ranks make it, in
 the same order.  Nothing is caught: a failed collective raises on its rank.
@@ -23,39 +32,58 @@ the same order.  Nothing is caught: a failed collective raises on its rank.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import torch
 
 __all__ = ["WorkerAxis", "HierGroups", "worker_axis", "hier_groups", "rank_device",
-           "axis_index", "own_slice", "all_gather", "all_to_all", "all_to_all_rows", "psum",
-           "barrier"]
+           "is_lead", "axis_index", "own_slice", "all_gather", "all_gather_object", "all_to_all",
+           "all_to_all_rows", "psum", "barrier"]
 
 
 @dataclasses.dataclass(frozen=True)
 class HierGroups:
     """The sub-groups of the two-hop exchange on a (pod, *inner) axis: this
     rank's pod group (the ranks that share its inner coordinates, one per
-    pod) and its inner group (the W ranks of its pod)."""
+    pod) and its inner group (the W ranks of its pod), each with the member
+    index of every group rank (``pod_order`` / ``inner_order``, None where it
+    is the group's own rank order)."""
 
     n_pods: int
     w_size: int
     pod: object
     inner: object
+    pod_order: tuple[int, ...] | None = None
+    inner_order: tuple[int, ...] | None = None
 
 
 @dataclasses.dataclass(eq=False)
 class WorkerAxis:
     """The worker axis of a mesh as this rank sees it: the axis dims, the
-    process group over them, its size W (= b) and this rank's worker index."""
+    process group over this rank's replica of them, its size W (= b) and
+    this rank's worker index.  ``order[g]`` is the worker index of the
+    group's rank g (None where they agree); ``replica`` is the row-major
+    index of this rank's coordinates over the mesh dims outside the axis (0
+    without such dims), ``mesh_group`` the group over every rank of the mesh
+    (None: the default group)."""
 
     names: tuple[str, ...]
     dims: tuple[int, ...]          # sizes of the axis dims, outermost first
     size: int
     index: int
     group: object                  # None: the default group
-    ranks: tuple[int, ...]         # global rank of each worker, in worker order
+    replicas: tuple[tuple[int, ...], ...]   # every replica's global ranks, in worker order
+    replica: int = 0
+    order: tuple[int, ...] | None = None
+    mesh_group: object = None
     _hier: HierGroups | None = None
+
+    @property
+    def ranks(self) -> tuple[int, ...]:
+        """The global rank of each worker of this rank's replica, in worker
+        order."""
+        return self.replicas[self.replica]
 
 
 _AXES: dict = {}
@@ -65,12 +93,31 @@ def _names(axis_name) -> tuple[str, ...]:
     return tuple(axis_name) if isinstance(axis_name, (tuple, list)) else (axis_name,)
 
 
+def _group(members) -> tuple[object, tuple[int, ...] | None]:
+    """A process group over the global ranks ``members`` (None: the default
+    group, when they are every rank in rank order) and the member index of
+    each of its group ranks (None where that is the identity).  Collective
+    over the default group: every rank calls it, for every group, in the
+    same order; the order is read only on a member."""
+    import torch.distributed as dist
+
+    members = [int(r) for r in members]
+    if members == list(range(dist.get_world_size())):
+        return None, None
+    group = dist.new_group(sorted(members))
+    if dist.get_rank() not in members:
+        return group, None
+    order = tuple(members.index(r) for r in dist.get_process_group_ranks(group))
+    return group, (None if order == tuple(range(len(members))) else order)
+
+
 def worker_axis(mesh, axis_name="workers") -> WorkerAxis:
     """The :class:`WorkerAxis` of ``axis_name`` (a dim name, or a tuple of
-    them) on ``mesh`` (a ``DeviceMesh`` with named dims), built once per
-    (mesh, axis_name) and shared.  Collective on first use: every rank of the
-    default group must build it, in the same order.  A mesh dim outside
-    ``axis_name`` raises NotImplementedError naming it."""
+    them, in any order) on ``mesh`` (a ``DeviceMesh`` with named dims), built
+    once per (mesh, axis_name) and shared.  A mesh dim outside ``axis_name``
+    makes replicas (module doc): one group over each replica's ranks, all
+    built on every rank.  Collective on first use: every rank of the
+    default group must build it, in the same order."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -86,34 +133,32 @@ def worker_axis(mesh, axis_name="workers") -> WorkerAxis:
     for nm in names:
         if nm not in dim_names:
             raise ValueError(f"axis_name {nm!r} is not a dim of the mesh {dim_names}")
-    for nm in dim_names:
-        if nm not in names:
-            raise NotImplementedError(
-                f"mesh dim {nm!r} is outside axis_name {names}: the SPMD path runs one "
-                "worker per rank over every dim of the mesh")
-    grid = mesh.mesh.permute([dim_names.index(nm) for nm in names])
-    ranks = tuple(int(r) for r in grid.flatten().tolist())
-    if list(ranks) != sorted(ranks):
-        raise NotImplementedError(
-            f"axis_name {names} orders the workers {ranks}, not by ascending rank")
+    outside = [d for d, nm in enumerate(dim_names) if nm not in names]
+    grid = mesh.mesh.permute(outside + [dim_names.index(nm) for nm in names])
+    dims = tuple(int(s) for s in grid.shape[len(outside):])
+    size = math.prod(dims)
+    replicas = tuple(tuple(int(r) for r in row) for row in grid.reshape(-1, size).tolist())
     me = dist.get_rank()
-    if me not in ranks:
-        raise ValueError(f"rank {me} is not in the mesh {ranks}")
-    group = None
-    if list(ranks) != list(range(dist.get_world_size())):
-        group = dist.new_group(list(ranks))
-    axis = WorkerAxis(names=names, dims=tuple(int(s) for s in grid.shape), size=len(ranks),
-                      index=ranks.index(me), group=group, ranks=ranks)
+    mine = [k for k, ranks in enumerate(replicas) if me in ranks]
+    if not mine:
+        raise ValueError(f"rank {me} is not in the mesh {replicas}")
+    groups = [_group(ranks) for ranks in replicas]      # every replica's, on every rank
+    k = mine[0]
+    mesh_group = groups[k][0]                           # one replica: the mesh is the axis
+    if len(replicas) > 1:
+        mesh_group = _group(sorted(r for ranks in replicas for r in ranks))[0]
+    axis = WorkerAxis(names=names, dims=dims, size=size, index=replicas[k].index(me),
+                      group=groups[k][0], replicas=replicas, replica=k, order=groups[k][1],
+                      mesh_group=mesh_group)
     _AXES[key] = (mesh, axis)
     return axis
 
 
 def hier_groups(axis: WorkerAxis | None) -> HierGroups:
     """The two-hop exchange's sub-groups of a (pod, *inner) axis, built once
-    (collective: every rank of the default group builds every sub-group, in
-    the same order).  ValueError without a mesh or on a one-dim axis."""
-    import torch.distributed as dist
-
+    (collective: every rank of the default group builds every sub-group of
+    every replica, in the same order).  ValueError without a mesh or on a
+    one-dim axis."""
     if axis is None or len(axis.names) < 2:
         raise ValueError("exchange='hier' needs a mesh and a tuple axis_name of at least two "
                          f"dims (pod, *inner), got {None if axis is None else axis.names}")
@@ -121,16 +166,18 @@ def hier_groups(axis: WorkerAxis | None) -> HierGroups:
         n_pods = axis.dims[0]
         w_size = axis.size // n_pods
         p, w = divmod(axis.index, w_size)
-        pod = inner = None
-        for ww in range(w_size):                     # one group per inner index
-            g = dist.new_group([axis.ranks[pp * w_size + ww] for pp in range(n_pods)])
-            if ww == w:
-                pod = g
-        for pp in range(n_pods):                     # one group per pod
-            g = dist.new_group([axis.ranks[pp * w_size + ww] for ww in range(w_size)])
-            if pp == p:
-                inner = g
-        axis._hier = HierGroups(n_pods=n_pods, w_size=w_size, pod=pod, inner=inner)
+        pod = inner = pod_order = inner_order = None
+        for k, ranks in enumerate(axis.replicas):
+            for ww in range(w_size):                     # one group per inner index
+                g, order = _group([ranks[pp * w_size + ww] for pp in range(n_pods)])
+                if k == axis.replica and ww == w:
+                    pod, pod_order = g, order
+            for pp in range(n_pods):                     # one group per pod
+                g, order = _group([ranks[pp * w_size + ww] for ww in range(w_size)])
+                if k == axis.replica and pp == p:
+                    inner, inner_order = g, order
+        axis._hier = HierGroups(n_pods=n_pods, w_size=w_size, pod=pod, inner=inner,
+                                pod_order=pod_order, inner_order=inner_order)
     return axis._hier
 
 
@@ -142,6 +189,12 @@ def rank_device(device) -> torch.device:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
                            % torch.cuda.device_count())
     return dev
+
+
+def is_lead(axis: WorkerAxis | None) -> bool:
+    """True on the one rank that writes what the whole mesh shares (a
+    checkpoint): worker 0 of replica 0 (always in emulation)."""
+    return axis is None or (axis.index == 0 and axis.replica == 0)
 
 
 def axis_index(axis: WorkerAxis | None) -> int:
@@ -168,6 +221,24 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8)
 
 
+def _to_group_order(x: torch.Tensor, order) -> torch.Tensor:
+    """Rows [k, ...] from member order into group-rank order (``order[g]``:
+    the member index of group rank g)."""
+    if order is None:
+        return x
+    return x.index_select(0, torch.tensor(order, device=x.device))
+
+
+def _from_group_order(x: torch.Tensor, order) -> torch.Tensor:
+    """Rows [k, ...] from group-rank order back into member order."""
+    if order is None:
+        return x
+    inv = [0] * len(order)
+    for g, m in enumerate(order):
+        inv[m] = g
+    return x.index_select(0, torch.tensor(inv, device=x.device))
+
+
 def all_gather(x: torch.Tensor, axis: WorkerAxis | None) -> torch.Tensor:
     """A rank's workers' rows [b_w, ...] -> [b, ...] (b = W * b_w), worker
     j's row at j, on every rank.  Emulation: ``x`` itself, the blocked
@@ -182,18 +253,39 @@ def all_gather(x: torch.Tensor, axis: WorkerAxis | None) -> torch.Tensor:
     # all_gather_into_tensor, under the name newer releases give it
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(_bytes(out), _bytes(x), group=axis.group)
-    return out
+    if axis.order is None:
+        return out
+    return _from_group_order(out.reshape((axis.size, -1) + tuple(x.shape[1:])),
+                             axis.order).reshape(out.shape)
 
 
-def all_to_all_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """Row j of ``x`` [k, ...] to group rank j; row j of the result from
-    group rank j."""
+def all_gather_object(obj, axis: WorkerAxis | None) -> list:
+    """Every worker's picklable ``obj``, in worker order (emulation: [obj])."""
     import torch.distributed as dist
 
-    src = x.contiguous()
+    if axis is None:
+        return [obj]
+    got = [None] * axis.size
+    dist.all_gather_object(got, obj, group=axis.group)
+    if axis.order is None:
+        return got
+    out = [None] * axis.size
+    for g, m in enumerate(axis.order):
+        out[m] = got[g]
+    return out
+
+
+def all_to_all_rows(x: torch.Tensor, group, order=None) -> torch.Tensor:
+    """Row j of ``x`` [k, ...] to the group's member j; row j of the result
+    from member j.  ``order`` (the member index of each group rank, as
+    :func:`worker_axis` and :func:`hier_groups` keep it) None: the members
+    are the group's ranks in order."""
+    import torch.distributed as dist
+
+    src = _to_group_order(x, order).contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(_bytes(out), _bytes(src), group=group)
-    return out
+    return _from_group_order(out, order)
 
 
 def all_to_all(x: torch.Tensor, axis: WorkerAxis | None) -> torch.Tensor:
@@ -209,7 +301,7 @@ def all_to_all(x: torch.Tensor, axis: WorkerAxis | None) -> torch.Tensor:
     b_w, rest = x.shape[0], tuple(x.shape[2:])
     # [b_w(s), W, b_w(d), ...] -> [W, b_w(s), b_w(d), ...]: rank r's chunk contiguous
     send = x.reshape((b_w, axis.size, b_w) + rest).transpose(0, 1)
-    got = all_to_all_rows(send, axis.group)        # [W (sending rank), b_w(s), b_w(d), ...]
+    got = all_to_all_rows(send, axis.group, axis.order)   # [W (sending worker), ...]
     return got.permute((2, 0, 1) + tuple(range(3, got.ndim))).reshape(
         (b_w, axis.size * b_w) + rest)
 
@@ -229,8 +321,9 @@ def psum(x: torch.Tensor, axis: WorkerAxis | None) -> torch.Tensor:
 
 
 def barrier(axis: WorkerAxis | None) -> None:
-    """Wait for every worker of the axis (nothing in emulation)."""
+    """Wait for every rank of the mesh, every replica's workers (nothing in
+    emulation)."""
     import torch.distributed as dist
 
     if axis is not None:
-        dist.barrier(group=axis.group)
+        dist.barrier(group=axis.mesh_group)

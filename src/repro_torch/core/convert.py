@@ -3,7 +3,7 @@
 PMV has no learned weights; its parameters are the pre-partitioned matrix.
 :func:`from_reference` rebuilds the JAX package's partition outputs
 (``Partition``, ``GraphStats``, ``BlockEdges``, ``DenseRegion``,
-``EllBucket``, ``DenseGroup``, ``PlannedStripe``, ``PartitionedMatrix``,
+``EllStripe``, ``EllBucket``, ``DenseGroup``, ``PlannedStripe``, ``PartitionedMatrix``,
 ``HybridMatrix``, and lists / tuples / dicts of them) as this package's
 dataclasses of numpy arrays.  It matches them by class and field name and
 reads every array through ``np.asarray``, so it never imports the JAX
@@ -16,14 +16,14 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.blocks import (BlockEdges, DenseGroup, DenseRegion, EllBucket,
-                                     PlannedStripe)
+                                     EllStripe, PlannedStripe)
 from repro_torch.core.partition import HybridMatrix, Partition, PartitionedMatrix
 from repro_torch.graph.stats import GraphStats
 
 __all__ = ["from_reference"]
 
 _CLASSES = {cls.__name__: cls for cls in (
-    Partition, GraphStats, BlockEdges, DenseRegion, EllBucket, DenseGroup,
+    Partition, GraphStats, BlockEdges, DenseRegion, EllStripe, EllBucket, DenseGroup,
     PlannedStripe, PartitionedMatrix, HybridMatrix)}
 
 

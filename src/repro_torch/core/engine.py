@@ -27,6 +27,9 @@ non-identity entries, the paper's I/O metric).
 
 ``placement_call`` and ``StepConfig`` also serve the multi-query step of
 ``repro_torch.serving``: v and ctx may carry a trailing query axis.
+``make_step`` wraps ``placement_call`` into the JAX package's
+``step(matrix, v, ctx, mask) -> (v_new, delta, stats)``, the step ``run``
+iterates.
 
 ``exchange='packed'`` derives the per-(source, destination) row sets once at
 prepare (``repro_torch.exchange``) and ships only payloads each iteration;
@@ -75,19 +78,23 @@ from repro_torch.exchange import plan as exchange_plan
 from repro_torch.faults import RetryPolicy, as_injector
 from repro_torch.graph.generators import symmetrize_edges
 from repro_torch.graph.stats import compute_stats
+from repro_torch.kernels import plain_versions
 from repro_torch.kernels.block_gimv import has_semiring, semiring_of
 from repro_torch.obs.recorder import as_recorder
 
-__all__ = ["PMVEngine", "PMVResult", "StepConfig", "placement_call", "resolve_device",
-           "CheckpointCorruptError", "CheckpointCorruptWarning"]
+__all__ = ["PMVEngine", "PMVResult", "StepConfig", "make_step", "placement_call",
+           "resolve_device", "CheckpointCorruptError", "CheckpointCorruptWarning"]
 
-BACKENDS = ("torch", "auto")
+# 'xla', the JAX package's name for its plain backend, is taken as 'torch'
+BACKENDS = ("torch", "auto", "pallas", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     """Static per-step configuration, derived from the ExecutionPlan.
-    ``backend`` is the resolved mode: 'torch' | 'planned'."""
+    ``backend`` is the resolved mode: 'torch' | 'pallas' | 'planned';
+    ``interpret`` runs every kernel call of the step as its plain version
+    (the engine's resolved ``pallas_interpret``)."""
 
     strategy: str            # 'horizontal' | 'vertical' | 'hybrid'
     n_local: int
@@ -103,6 +110,7 @@ class StepConfig:
     # wire dtype of the exchanged values (e.g. 'bfloat16'); None ships the
     # spec dtype.  Accumulation stays in the spec dtype.
     payload_dtype: str | None = None
+    interpret: bool = False
 
 
 def _wire_dtype(name: str | None) -> torch.dtype | None:
@@ -123,28 +131,57 @@ def placement_call(spec: GimvSpec, cfg: StepConfig, matrix: dict, v, ctx, mask,
     (the previously shipped packed payload) is passed.  ``axis`` (a
     ``collectives.WorkerAxis``) runs the step as this rank's worker of an
     SPMD solve; None, as the emulated one of every worker."""
+    with plain_versions(cfg.interpret):
+        return _placement_call(spec, cfg, matrix, v, ctx, mask, xstate, axis)
+
+
+def _placement_call(spec, cfg, matrix, v, ctx, mask, xstate, axis):
     scatter = cfg.plan.scatter if cfg.plan is not None else "segment"
     wire = _wire_dtype(cfg.payload_dtype)
     if cfg.strategy == "horizontal":
         return placement.horizontal_step(
             spec, matrix.get("stripe"), v, ctx, mask, n_local=cfg.n_local,
-            planned=matrix.get("planned"), backend=cfg.backend, axis=axis)
+            planned=matrix.get("planned"), ell=matrix.get("ell"), backend=cfg.backend, axis=axis)
     if cfg.strategy == "vertical":
         return placement.vertical_step(
             spec, matrix.get("stripe"), v, ctx, mask, n_local=cfg.n_local,
             exchange=cfg.exchange, capacity=cfg.capacity,
             planned=matrix.get("planned"), streamed=matrix.get("streamed"),
-            backend=cfg.backend, scatter=scatter, xchg=matrix.get("xchg"), xplan=cfg.xplan,
-            delta_eps=cfg.delta_eps, delta_state=xstate, payload_dtype=wire, axis=axis)
+            ell=matrix.get("ell"), backend=cfg.backend, scatter=scatter,
+            xchg=matrix.get("xchg"), xplan=cfg.xplan, delta_eps=cfg.delta_eps,
+            delta_state=xstate, payload_dtype=wire, axis=axis)
     if cfg.strategy == "hybrid":
         return placement.hybrid_step(
             spec, matrix.get("sparse_stripe"), matrix.get("dense_stripe"),
             matrix["dense_region"], v, ctx, mask, n_local=cfg.n_local,
             capacity=cfg.capacity, planned_sparse=matrix.get("planned_sparse"),
-            streamed_sparse=matrix.get("streamed_sparse"), dense_matrix=matrix.get("dense_matrix"),
-            backend=cfg.backend, scatter=scatter, exchange=cfg.exchange, xchg=matrix.get("xchg"),
-            xplan=cfg.xplan, payload_dtype=wire, axis=axis)
+            streamed_sparse=matrix.get("streamed_sparse"), sparse_ell=matrix.get("sparse_ell"),
+            dense_matrix=matrix.get("dense_matrix"), backend=cfg.backend, scatter=scatter,
+            exchange=cfg.exchange, xchg=matrix.get("xchg"), xplan=cfg.xplan,
+            payload_dtype=wire, axis=axis)
     raise ValueError(cfg.strategy)
+
+
+def make_step(spec: GimvSpec, cfg: StepConfig, mesh=None, axis_name="workers"):
+    """Build step(matrix, v, ctx, mask) -> (v_new, delta, stats), as the JAX
+    package's ``make_step`` does; with ``cfg.delta_eps`` set the step takes
+    the delta-iteration state as a fifth argument and returns the new state
+    as a fourth element.
+
+    matrix: a prepared matrix (``PMVEngine.prepare``); v / ctx / mask: the
+    blocked [b, n_local] arrays with their leading worker axis.  In
+    emulation (``mesh`` None) the step is ``placement_call`` plus the
+    convergence delta.  Under a ``mesh`` (a ``DeviceMesh``, as
+    ``PMVEngine(mesh=)`` takes it) it runs this rank's worker of the
+    ``axis_name`` axis on its [1, n_local] rows, and the delta and the stats
+    come back summed over the axis, the same on every rank."""
+    axis = None if mesh is None else collectives.worker_axis(mesh, axis_name)
+
+    def step(matrix, v, ctx, mask, *xstate):
+        v_new, _r, stats, *xnew = placement_call(spec, cfg, matrix, v, ctx, mask, *xstate,
+                                                 axis=axis)
+        return (v_new, collectives.psum(spec.default_delta(v, v_new), axis), stats, *xnew)
+    return step
 
 
 @dataclasses.dataclass
@@ -181,11 +218,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(knob: str, detail: str = "") -> NotImplementedError:
-    return NotImplementedError(
-        f"PMVEngine knob {knob} is not supported by repro_torch yet" + (f" ({detail})" if detail else ""))
-
-
 class PMVEngine:
     """Scalable GIM-V engine with pre-partitioning + placement selection.
 
@@ -220,10 +252,16 @@ class PMVEngine:
       spec dtype before the receive fold, so accumulation stays in the spec
       dtype; the wire byte counts use its itemsize.  Not supported out of
       core (ValueError, as in the JAX package).
-    backend: 'torch' (plain tensor ops) | 'auto' (the per-block planner with
-      the ELL / dense / scatter-combine kernels).  A spec whose
-      (combine2, combineAll) pair has no kernel semiring resolves to 'torch',
-      recorded in meta['backend'].
+    backend: 'torch' (plain tensor ops; 'xla', the JAX package's name, is the
+      same) | 'auto' (the per-block planner with the ELL / dense /
+      scatter-combine kernels) | 'pallas' (the forced flat-ELL layout: each
+      stripe one ELL table per destination block, or one merged table a
+      worker for the horizontal placement, at the width of its longest row,
+      run by the ELL kernels; the hybrid dense region on the dense kernel: a
+      forced override for small graphs, as in the JAX package).  A spec
+      whose (combine2, combineAll) pair has no kernel semiring resolves to
+      'torch', recorded in meta['backend'].  Out of core 'pallas' raises
+      ValueError, as in the JAX package.
     scatter: receive side of the sparse and packed exchanges -- 'segment' |
       'kernel' | 'auto' (the cost model's crossover).
     stream: 'auto' | 'on' | 'off': the planned vertical / hybrid partial
@@ -235,6 +273,10 @@ class PMVEngine:
       'off' where nothing streams (horizontal, the dense exchange,
       backend='torch'), as in the JAX package.  meta['plan'].stream and
       ``plan.memory_profile()`` record it.
+    pallas_interpret: None runs the kernels on a CUDA device and their plain
+      versions (``ref.py``) on the CPU; True runs the plain versions on any
+      device (the JAX package's interpret mode); False on the CPU raises
+      ValueError.  meta['cfg'].interpret records the resolution.
     device: None (the GPU; raises without one) | 'cuda' | 'cpu'.
     store / residency: run against an out-of-core pre-partitioned block
       store (``repro_torch.store``) in place of an edge list.  ``store`` is
@@ -264,20 +306,21 @@ class PMVEngine:
     mesh / axis_name: SPMD, one rank per worker (module doc).  ``mesh`` is
       a ``DeviceMesh`` with named dims, built after ``init_process_group``;
       ``axis_name`` names its worker dims (a name, or a tuple such as
-      ('pod', 'workers')), and a rank owns the worker whose index is its
-      row-major coordinate over them.  ``b`` must equal their size
-      (ValueError naming both), except under residency='disk', where their
+      ('pod', 'workers'), in any order), and a rank owns the worker whose
+      index is its row-major coordinate over them, whatever the ranks'
+      own order.  The mesh dims outside ``axis_name`` are replicas: each
+      combination of their coordinates runs the whole solve on its own b
+      ranks (``collectives.WorkerAxis``).  ``b`` must equal the size of the
+      ``axis_name`` dims (ValueError naming both), except under
+      residency='disk', where their
       size W must divide b (ValueError otherwise) and a rank runs the
       contiguous range of b / W workers whose stripe files its
       ``SpmdDiskGroup`` shard view owns, under its own
       ``store_budget_bytes`` and prefetch thread; each iteration record
-      then carries the ``store_worker_*`` lists of the W workers.  A mesh
-      dim outside ``axis_name`` raises NotImplementedError, as does
-      residency='host' under a mesh.  A checkpoint is gathered and written
-      by worker 0 and read by every rank.
-
-    The JAX package's other knobs (backend='pallas' / 'xla') raise
-    NotImplementedError naming the knob.
+      then carries the ``store_worker_*`` lists of the W workers.
+      residency='host' under a mesh raises NotImplementedError, as in the
+      JAX package.  A checkpoint is gathered and written by worker 0 of the
+      first replica and read by every rank.
     """
 
     def __init__(
@@ -297,6 +340,7 @@ class PMVEngine:
         backend: str = "torch",
         scatter: str = "auto",
         stream: str = "auto",
+        pallas_interpret: bool | None = None,
         symmetrize: bool = False,
         base_weights: np.ndarray | None = None,
         mesh=None,
@@ -317,8 +361,6 @@ class PMVEngine:
         if delta_eps is not None and not delta_eps >= 0.0:
             raise ValueError(f"delta_eps must be >= 0, got {delta_eps}")
         if backend not in BACKENDS:
-            if backend in ("pallas", "xla"):
-                raise _not_ported(f"backend={backend!r}", "use 'torch' or 'auto'")
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         if scatter not in ("auto", "segment", "kernel"):
             raise ValueError(scatter)
@@ -381,6 +423,14 @@ class PMVEngine:
             collectives.hier_groups(self.axis)
         self.device = (resolve_device(device) if self.axis is None
                        else collectives.rank_device(resolve_device(device)))
+        if pallas_interpret is False and self.device.type != "cuda":
+            raise ValueError(
+                f"pallas_interpret=False runs the CUDA kernels, which need a CUDA device; "
+                f"the engine runs on {self.device} (pass pallas_interpret=None or True)")
+        self.pallas_interpret = pallas_interpret
+        # the kernels' plain versions: asked for, or the only ones the CPU has
+        self.interpret = (self.device.type != "cuda" if pallas_interpret is None
+                          else bool(pallas_interpret))
         self.edges = edges
         self.n = int(n)
         self.b = int(b)
@@ -392,7 +442,7 @@ class PMVEngine:
         self.slack = slack
         self.payload_dtype = payload_dtype
         self.delta_eps = delta_eps
-        self.backend = backend
+        self.backend = "torch" if backend == "xla" else backend
         self.scatter = scatter
         self.stream = stream
         self.base_weights = base_weights
@@ -430,9 +480,10 @@ class PMVEngine:
         raise ValueError(self.strategy)
 
     def _resolve_backend(self, spec: GimvSpec) -> str:
-        """'auto' -> 'planned' when the spec's semiring has kernels, else 'torch'."""
-        if self.backend == "auto" and has_semiring(spec.combine2, spec.combine_all):
-            return "planned"
+        """'auto' -> 'planned' and a forced 'pallas' -> 'pallas' when the
+        spec's semiring has kernels, else 'torch' (the JAX package's 'xla')."""
+        if self.backend in ("auto", "pallas") and has_semiring(spec.combine2, spec.combine_all):
+            return "planned" if self.backend == "auto" else "pallas"
         return "torch"
 
     def _resolve_stream(self, strategy: str, backend: str, capacity: int | None,
@@ -496,6 +547,17 @@ class PMVEngine:
             return per_worker
         return per_worker[collectives.own_slice(self.axis, self.b)]
 
+    def _put_ell(self, stripes: list, n_local: int, layout: str) -> blocks_lib.EllStripe:
+        """This process's workers' stripes as flat ELL tables on the matrix's
+        home (``placement.flatten_ell``): one merged table each
+        (layout='merged', cols into the flat gathered vector) or one table
+        per destination block (layout='vertical')."""
+        stride = n_local if layout == "merged" else None
+        return placement.flatten_ell(
+            blocks_lib.stack_ells([blocks_lib.stripe_to_ell(s, n_local, merge_col_stride=stride)
+                                   for s in self.own_rows(stripes)]),
+            n_local, layout, self._matrix_home)
+
     def _put_stripe(self, stripes: list) -> blocks_lib.BlockEdges:
         s = blocks_lib.stack_stripes(self.own_rows(stripes))
         home = self._matrix_home
@@ -554,10 +616,16 @@ class PMVEngine:
                 capacity = None
                 if backend == "torch":
                     matrix["stripe"] = self._put_stripe(pm.horizontal)
+                elif backend == "pallas":
+                    # merged ELL: cols pre-offset into the flat gathered vector
+                    matrix["ell"] = self._put_ell(pm.horizontal, nl, "merged")
             elif strategy == "vertical":
                 capacity = self._capacity(pm, None)
                 if backend == "torch":
                     matrix["stripe"] = self._put_stripe(pm.vertical)
+                elif backend == "pallas":
+                    # one table per destination block, a launch each
+                    matrix["ell"] = self._put_ell(pm.vertical, nl, "vertical")
             else:
                 capacity = self._capacity(pm, hm)
                 matrix["dense_region"] = blocks_lib.DenseRegion(
@@ -568,6 +636,8 @@ class PMVEngine:
                     matrix["sparse_stripe"] = self._put_stripe(hm.sparse_vertical)
                     matrix["dense_stripe"] = self._put_stripe(hm.dense_horizontal)
                 else:
+                    if backend == "pallas":
+                        matrix["sparse_ell"] = self._put_ell(hm.sparse_vertical, nl, "vertical")
                     # the dense REGION is a region-level dense tactic (§3.5):
                     # materialized once, one dense kernel launch per iteration.
                     semiring = semiring_of(spec.combine2, spec.combine_all)
@@ -583,7 +653,7 @@ class PMVEngine:
         with rec.span("prepare.plan") as sp:
             plan = planner.plan_execution(
                 pm, hm, strategy=strategy, mode=backend, theta=theta, capacity=capacity,
-                scatter=scatter, stream=stream, interpret=self.device.type != "cuda",
+                scatter=scatter, stream=stream, interpret=self.interpret,
                 residency=self.residency)
             sp.set("mode", backend)
             sp.set("predicted_slots", plan.planned_slots)
@@ -627,7 +697,8 @@ class PMVEngine:
             part, matrix)
         cfg = StepConfig(strategy=strategy, n_local=nl, exchange=exchange,
                          capacity=capacity, backend=backend, plan=plan, xplan=xplan,
-                         delta_eps=delta_eps, payload_dtype=self.payload_dtype)
+                         delta_eps=delta_eps, payload_dtype=self.payload_dtype,
+                         interpret=self.interpret)
         # the mask, the pinning and the wait for every queued copy
         with rec.span("prepare.device_put"):
             real_mask = self._put(self.own_rows(part.global_ids_grid() < self.n))
@@ -721,9 +792,12 @@ class PMVEngine:
         executor (repro_torch.store.residency) that streams shard slices
         block by block with double-buffered prefetch.  As in the JAX
         package it plans in the plain mode ('torch', the counterpart of
-        'xla'), and a ``delta_eps`` keeps the full stream."""
+        'xla'), and a ``delta_eps`` keeps the full stream; backend='pallas'
+        raises ValueError."""
         from repro_torch.store import DiskExecutor, make_disk_step, plan_from_manifest
 
+        if self.backend == "pallas":
+            raise ValueError(_DISK_PALLAS)
         if strategy == "hybrid":
             return self._prepare_disk_hybrid(spec, theta, t0)
         if strategy == "vertical" and self.exchange == "dense":
@@ -743,7 +817,7 @@ class PMVEngine:
             plan = plan_from_manifest(
                 self.store, strategy=strategy, mode="torch", theta=theta, capacity=capacity,
                 scatter=scatter, stream="on" if strategy == "vertical" else "off",
-                interpret=self.device.type != "cuda", residency="disk")
+                interpret=self.interpret, residency="disk")
             sp.set("predicted_slots", plan.planned_slots)
         self._record_plan_metrics(plan)
         exchange, xplan, xchg, decision = self._resolve_disk_exchange(
@@ -752,9 +826,11 @@ class PMVEngine:
             dstore = self._disk_store(strategy, spec)
             executor = DiskExecutor(spec, part, plan, dstore, capacity=capacity,
                                     scatter=plan.scatter, retry=self.io_retry, obs=rec,
-                                    exchange=exchange, xchg=xchg, xplan=xplan, axis=self.axis)
+                                    exchange=exchange, xchg=xchg, xplan=xplan, axis=self.axis,
+                                    interpret=self.interpret)
         cfg = StepConfig(strategy=strategy, n_local=part.n_local, exchange=exchange,
-                         capacity=capacity, backend="torch", plan=plan, xplan=xplan)
+                         capacity=capacity, backend="torch", plan=plan, xplan=xplan,
+                         interpret=self.interpret)
         real_mask = self._put(self.own_rows(part.global_ids_grid() < self.n))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -783,6 +859,8 @@ class PMVEngine:
         its own DiskBlockStore under the same ``store_budget_bytes``."""
         from repro_torch.store import HybridDiskExecutor, make_disk_step
 
+        if self.backend == "pallas":
+            raise ValueError(_DISK_PALLAS)
         if self.payload_dtype is not None:
             raise ValueError("payload_dtype is not supported out of core")
         if self.exchange not in ("sparse", "auto"):
@@ -813,9 +891,10 @@ class PMVEngine:
                                            dense_gather_idx=region.gather_idx)
             executor = HybridDiskExecutor(spec, part, sparse_store, dense_store, region,
                                           capacity=capacity, scatter=scatter,
-                                          retry=self.io_retry, obs=rec, axis=self.axis)
+                                          retry=self.io_retry, obs=rec, axis=self.axis,
+                                          interpret=self.interpret)
         cfg = StepConfig(strategy="hybrid", n_local=part.n_local, exchange="sparse",
-                         capacity=capacity, backend="torch")
+                         capacity=capacity, backend="torch", interpret=self.interpret)
         real_mask = self._put(self.own_rows(part.global_ids_grid() < self.n))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -1016,7 +1095,7 @@ class PMVEngine:
         cfg: StepConfig = meta["cfg"]
         disk_step = meta.get("step")
         axis = self.axis
-        step = self.on_device(lambda m, *args: placement_call(spec, cfg, m, *args, axis=axis))
+        step = self.on_device(make_step(spec, cfg, self.mesh, self.axis_name))
         if v0 is not None:
             v = self._put(self.own_rows(part.to_blocked(np.asarray(v0, dtype=spec.dtype))))
         # delta-iteration carried state: the previously shipped packed
@@ -1042,6 +1121,10 @@ class PMVEngine:
                 start_iter = 0
             else:
                 v = self._put(self.own_rows(v_np))
+        if resume and checkpoint_dir:
+            # every rank has read the checkpoint before the lead replaces it
+            # (another replica's lead runs ahead of this rank's replica)
+            collectives.barrier(axis)
 
         per_iter: list[dict] = []
         converged = False
@@ -1057,11 +1140,11 @@ class PMVEngine:
             with obs.span("pmv.iteration") as sp:
                 if disk_step is not None:
                     v_new, _r, stats = disk_step(matrix, v, ctx_b, mask)
+                    delta = collectives.psum(spec.default_delta(v, v_new), axis)
                 elif xstate is not None:
-                    v_new, _r, stats, xstate = step(matrix, v, ctx_b, mask, xstate)
+                    v_new, delta, stats, xstate = step(matrix, v, ctx_b, mask, xstate)
                 else:
-                    v_new, _r, stats = step(matrix, v, ctx_b, mask)
-                delta = collectives.psum(spec.default_delta(v, v_new), axis)
+                    v_new, delta, stats = step(matrix, v, ctx_b, mask)
                 keys = [k for k, x in stats.items() if isinstance(x, torch.Tensor)]
                 scalars = torch.stack([delta.to(torch.float32)]
                                       + [stats[k].to(torch.float32) for k in keys])
@@ -1113,7 +1196,7 @@ class PMVEngine:
                     "rerun with capacity='structural' or exchange='dense'")
             if checkpoint_dir and checkpoint_every and (it + 1) % checkpoint_every == 0:
                 v_all = collectives.all_gather(v, axis).cpu().numpy()
-                if collectives.axis_index(axis) == 0:
+                if collectives.is_lead(axis):
                     _ckpt_save(checkpoint_dir, v_all, it + 1)
                 collectives.barrier(axis)
             if delta < tol:
@@ -1220,9 +1303,9 @@ class PMVEngine:
             strategy=meta["strategy"], theta=meta["theta"], psi=self.psi,
             exchange=self.exchange, capacity=self.capacity_mode, slack=self.slack,
             payload_dtype=self.payload_dtype, delta_eps=self.delta_eps, backend=self.backend,
-            scatter=self.scatter, stream=self.stream, base_weights=self.base_weights,
-            obs=self.obs, faults=self._fault_injector, io_retry=self.io_retry,
-            mesh=self.mesh, axis_name=self.axis_name, device=self.device)
+            scatter=self.scatter, stream=self.stream, pallas_interpret=self.pallas_interpret,
+            base_weights=self.base_weights, obs=self.obs, faults=self._fault_injector,
+            io_retry=self.io_retry, mesh=self.mesh, axis_name=self.axis_name, device=self.device)
         kwargs.update(overrides)
         if self.store is not None:
             return PMVEngine(None, store=self.store, residency=self.residency,
@@ -1258,6 +1341,10 @@ class PMVEngine:
         n_dense = meta["n_dense"]
         p_out = 1.0 - n_dense / n
         return n * p_out + b * n_dense + n + 2.0 * logical
+
+
+_DISK_PALLAS = ("residency='disk' runs the streamed per-block plain path; backend='pallas' "
+                "is not available out of core")
 
 
 def _tree_map(fn, obj: Any):

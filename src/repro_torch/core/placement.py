@@ -21,6 +21,15 @@ moving the bytes between the ranks.
 
 Backends (``StepConfig.backend``):
 - 'torch': plain tensor ops (gather + segment combine) over the edge stripes.
+- 'pallas' (the JAX package's name for its forced flat-ELL kernel layout):
+  every stripe packed as flat ELL tables at prepare (``blocks.stripe_to_ell``
+  laid out by :func:`flatten_ell`): one merged table a worker for the
+  horizontal placement, one table per destination block for the vertical
+  one and the hybrid's sparse region, each run by the ELL GIM-V kernel at
+  its single width (one launch for the horizontal step, one a destination
+  block, each partial compacted or payload-gathered as it is produced); the
+  hybrid dense region on the dense GIM-V kernel.  A forced override for small
+  graphs: the tables are as wide as the largest in-degree.
 - 'planned': the per-block ExecutionPlan (core/planner.py).  ELL-tactic
   blocks run the ELL GIM-V kernel per degree bucket, dense-tactic blocks and
   the hybrid dense region the dense GIM-V kernel; each destination row lives
@@ -30,9 +39,17 @@ Backends (``StepConfig.backend``):
   per-worker offsets are applied to rows and cols.
 
 ``scatter`` picks the receive side of the compact and packed exchanges in
-both backends: 'segment' (segment combine) or 'kernel' (the scatter-combine
+every backend: 'segment' (segment combine) or 'kernel' (the scatter-combine
 kernel; for the packed exchange its packed-id form, which decodes the
 bit-packed ids in the kernel).
+
+``StepConfig.interpret`` (the engine's ``pallas_interpret``) runs every
+kernel call of a step as its plain version on any device, what the JAX
+package's interpret mode is to its Pallas kernels: ``engine.placement_call``
+runs the step inside ``kernels.plain_versions``, so ``ell_gimv_call``,
+``_dense_call`` and the exchanges' scatter calls take the ``ref.py``
+functions on the card, and nothing launches; on the CPU the wrappers run
+them (``kernels.runs_plain``).
 
 Multi-query: v_local may carry a trailing query axis ([b, n_local, Q], one
 query per column, as PMVServer batches them).  Every step carries it through
@@ -49,12 +66,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import collectives, sparse_exchange
-from repro_torch.core.blocks import BlockEdges, DenseRegion, PlannedStripe
+from repro_torch.core.blocks import BlockEdges, DenseRegion, EllStripe, PlannedStripe
 from repro_torch.core.gimv import (GimvSpec, combine2, combine_elementwise,
                                    segment_combine, tree_combine)
 from repro_torch.exchange import runtime as packed_rt
-from repro_torch.kernels.block_gimv import dense_gimv, dense_gimv_multi, semiring_of
-from repro_torch.kernels.ell_spmv import check_left_packed, ell_gimv, ell_gimv_multi
+from repro_torch.kernels import runs_plain
+from repro_torch.kernels.block_gimv import (dense_gimv, dense_gimv_multi, dense_gimv_multi_ref,
+                                            dense_gimv_ref, semiring_of)
+from repro_torch.kernels.ell_spmv import (check_left_packed, ell_gimv, ell_gimv_multi,
+                                          ell_gimv_multi_ref, ell_gimv_ref)
 
 __all__ = [
     "horizontal_step",
@@ -66,6 +86,7 @@ __all__ = [
     "single_block_compact",
     "single_block_contrib",
     "ell_gimv_call",
+    "flatten_ell",
     "FlatBucket",
     "FlatPlanned",
     "flatten_planned",
@@ -200,16 +221,24 @@ def single_block_contrib(spec: GimvSpec, seg, gat, w, cnt, v_src: torch.Tensor,
 
 def ell_gimv_call(spec: GimvSpec, cols, w, v):
     """One ELL table [R, D] through the ELL GIM-V kernel: v [N] -> r [R], or
-    the multi-query kernel: v [N, Q] -> r [R, Q]."""
-    fn = ell_gimv_multi if v.ndim == 2 else ell_gimv
+    the multi-query kernel: v [N, Q] -> r [R, Q]; inside
+    ``kernels.plain_versions`` their plain versions."""
+    if runs_plain(v.device):
+        fn = ell_gimv_multi_ref if v.ndim == 2 else ell_gimv_ref
+    else:
+        fn = ell_gimv_multi if v.ndim == 2 else ell_gimv
     return fn(cols, w if spec.needs_weights else None, v,
               semiring=semiring_of(spec.combine2, spec.combine_all))
 
 
 def _dense_call(spec: GimvSpec, matrix2d, operand):
     """One dense launch over a materialized matrix [M, K]: operand [K] ->
-    r [M], or (multi-query kernel) operand [K, Q] -> r [M, Q]."""
-    fn = dense_gimv_multi if operand.ndim == 2 else dense_gimv
+    r [M], or (multi-query kernel) operand [K, Q] -> r [M, Q]; inside
+    ``kernels.plain_versions`` their plain versions."""
+    if runs_plain(operand.device):
+        fn = dense_gimv_multi_ref if operand.ndim == 2 else dense_gimv_ref
+    else:
+        fn = dense_gimv_multi if operand.ndim == 2 else dense_gimv
     return fn(matrix2d, operand, semiring=semiring_of(spec.combine2, spec.combine_all))
 
 
@@ -220,6 +249,119 @@ def _dense_region_gimv(spec: GimvSpec, dense_matrix, v_d, n_local: int):
     tail = tuple(v_d.shape[2:])
     r = _dense_call(spec, dense_matrix, v_d.reshape((-1,) + tail).contiguous())
     return r.reshape((-1, n_local) + tail)
+
+
+# --------------------------------------------------------------------------
+# The forced flat-ELL executors (backend='pallas').
+# --------------------------------------------------------------------------
+
+def flatten_ell(ell: EllStripe, n_local: int, layout: str, device) -> EllStripe:
+    """Stacked (numpy) EllStripe -> the tensors the flat-ELL executors read,
+    on ``device``, with the worker axis folded into the rows once, at
+    prepare (the JAX package offsets the cols every step).
+
+    layout='merged' (horizontal, cols [b_w, n_local, D] already indexing the
+    flat gathered vector): cols [b_w * n_local, D], row w * n_local + r.
+    layout='vertical' (cols [b_w, b, n_local, D], block-local sources):
+    block-major cols [b, b_w * n_local, D], a col c of worker w offset to
+    w * n_local + c in the flat local vector [b_w * n_local] (pads stay -1),
+    so that destination block k is the contiguous view ``cols[k]``.
+    Refuses a table whose rows are not left-packed (``check_left_packed``),
+    the layout the ELL kernels need."""
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # uploaded as stacked, laid out on the device (one copy on the host)
+    cols, w = put(ell.cols), None if ell.w is None else put(ell.w)
+    d = cols.shape[-1]
+    if layout == "vertical":
+        n_w, b = cols.shape[:2]
+        off = (torch.arange(n_w, dtype=torch.int32, device=cols.device) * n_local)
+        cols = torch.where(cols >= 0, cols + off.view(n_w, 1, 1, 1), cols)
+        cols = cols.transpose(0, 1).reshape(b, n_w * n_local, d)
+        if w is not None:
+            w = w.transpose(0, 1).reshape(b, n_w * n_local, d)
+    else:
+        assert layout == "merged", layout
+        cols = cols.reshape(-1, d)
+        w = None if w is None else w.reshape(-1, d)
+    out = EllStripe(cols=cols, w=w)
+    check_left_packed(out.cols.reshape(-1, d))
+    return out
+
+
+def _ell_gathered_gimv(spec: GimvSpec, ell: EllStripe, v_all: torch.Tensor,
+                       n_local: int) -> torch.Tensor:
+    """Flat-ELL horizontal compute: the merged table [b_w * n_local, D] of
+    every held worker against the flat gathered vector v_all [b, n_local(,
+    Q)], one kernel launch.  Returns r [b_w, n_local(, Q)]."""
+    tail = tuple(v_all.shape[2:])
+    r = ell_gimv_call(spec, ell.cols, ell.w, v_all.reshape((-1,) + tail).contiguous())
+    return r.reshape((-1, n_local) + tail)
+
+
+def _ell_block_partials(spec: GimvSpec, ell: EllStripe, v_local: torch.Tensor,
+                        n_local: int) -> torch.Tensor:
+    """Flat-ELL vertical compute of every destination block at once (the
+    dense exchange ships them all): one launch over the block-major tables.
+    Returns partials [b_w, b, n_local(, Q)]."""
+    b_w, tail = v_local.shape[0], tuple(v_local.shape[2:])
+    b, _, d = ell.cols.shape
+    r = ell_gimv_call(spec, ell.cols.reshape(-1, d),
+                      None if ell.w is None else ell.w.reshape(-1, d),
+                      v_local.reshape((-1,) + tail).contiguous())
+    return r.reshape((b, b_w, n_local) + tail).transpose(0, 1).contiguous()
+
+
+def _ell_blocks(spec: GimvSpec, ell: EllStripe, v_local: torch.Tensor, n_local: int):
+    """Yields (k, partial [b_w, n_local(, Q)]) for each destination block k:
+    one launch of its table against the flat local vector.  Each partial
+    is consumed before the next launch, so one is live at a time (paper
+    Alg. 2's schedule)."""
+    tail = tuple(v_local.shape[2:])
+    v_flat = v_local.reshape((-1,) + tail).contiguous()
+    for k in range(ell.cols.shape[0]):
+        r = ell_gimv_call(spec, ell.cols[k], None if ell.w is None else ell.w[k], v_flat)
+        yield k, r.reshape((-1, n_local) + tail)
+
+
+def _ell_partials_compact(spec: GimvSpec, ell: EllStripe, v_local: torch.Tensor, n_local: int,
+                          capacity: int, axis=None):
+    """Flat-ELL vertical compute + compaction, a destination block at a
+    time: each block's partial is compacted into slot [:, k] of the
+    [b_w, b, cap] exchange buffers as soon as it is produced, so live memory
+    stays O(b_w * n_local + b_w * b * cap).  Per-row compaction is
+    independent, so the buffers equal ``compact_partials`` over all the
+    partials.  Returns (idx, val, overflow, logical), the counters summed
+    over the worker ``axis``."""
+    b_w, tail = v_local.shape[0], tuple(v_local.shape[2:])
+    b = ell.cols.shape[0]
+    cap = min(capacity, n_local)
+    dev = v_local.device
+    idx = torch.empty((b_w, b, cap), dtype=torch.int32, device=dev)
+    val = torch.empty((b_w, b, cap) + tail, dtype=spec.torch_dtype, device=dev)
+    overflow = torch.zeros((), dtype=torch.float32, device=dev)
+    logical = torch.zeros((), dtype=torch.float32, device=dev)
+    for k, partial in _ell_blocks(spec, ell, v_local, n_local):
+        i, v, ov, lg = sparse_exchange.compact_chunk(spec, partial, capacity,
+                                                     batched=bool(tail))
+        idx[:, k], val[:, k] = i, v
+        overflow, logical = overflow + ov, logical + lg
+    return idx, val, collectives.psum(overflow, axis), collectives.psum(logical, axis)
+
+
+def _ell_partials_payload(spec: GimvSpec, ell: EllStripe, v_local: torch.Tensor, n_local: int,
+                          send_rows: torch.Tensor) -> torch.Tensor:
+    """Flat-ELL vertical compute feeding the packed exchange: each block's
+    partial gathered at its static send rows ``send_rows[:, k]`` into slot
+    [:, k] of the [b_w, b, p(, Q)] payload as it is produced.  Equals
+    ``gather_payload`` over all the partials."""
+    b_w, b, p = send_rows.shape
+    tail = tuple(v_local.shape[2:])
+    payload = torch.empty((b_w, b, p) + tail, dtype=spec.torch_dtype, device=v_local.device)
+    for k, partial in _ell_blocks(spec, ell, v_local, n_local):
+        payload[:, k] = packed_rt.gather_payload(spec, partial, send_rows[:, k])
+    return payload
 
 
 # --------------------------------------------------------------------------
@@ -540,12 +682,15 @@ def apply_assign(spec: GimvSpec, v_local, r_local, ctx_local, real_mask):
 
 def horizontal_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
                     real_mask, *, n_local: int, planned: FlatPlanned | None = None,
-                    backend: str = "torch", axis=None):
-    """Alg. 1: gather the whole vector, compute the row stripe locally."""
+                    ell: EllStripe | None = None, backend: str = "torch", axis=None):
+    """Alg. 1: gather the whole vector, compute the row stripe locally
+    (backend 'pallas': the merged flat-ELL table ``ell``, one launch)."""
     nq = _num_queries(v_local)
     v_all = collectives.all_gather(v_local, axis)              # [b, n_local(, Q)]
     if backend == "planned":
         r = _planned_merged_gimv(spec, planned, v_all, n_local)
+    elif backend == "pallas":
+        r = _ell_gathered_gimv(spec, ell, v_all, n_local)
     else:
         r = gathered_gimv(spec, stripe, v_all, n_local)
     v_new = apply_assign(spec, v_local, r, ctx_local, real_mask)
@@ -598,13 +743,16 @@ def _compact_exchange(spec: GimvSpec, compacted, capacity: int, n_local: int, sc
 
 def _compact_partials(spec: GimvSpec, v_local, n_local: int, capacity: int, *, stripe=None,
                       planned: FlatPlanned | None = None,
-                      streamed: FlatStreamed | None = None, backend: str = "torch", axis=None):
+                      streamed: FlatStreamed | None = None, ell: EllStripe | None = None,
+                      backend: str = "torch", axis=None):
     """The vertical partials, through whichever executor, compacted to
     (idx, val, overflow, logical) of static ``capacity``, the counters
-    summed over the worker ``axis``: the streamed executor compacts block by
-    block, the others compact all b at once."""
+    summed over the worker ``axis``: the streamed and flat-ELL executors
+    compact block by block, the others compact all b at once."""
     if backend == "planned" and streamed is not None:
         return _streamed_planned_compact(spec, streamed, v_local, capacity, axis)
+    if backend == "pallas":
+        return _ell_partials_compact(spec, ell, v_local, n_local, capacity, axis)
     if backend == "planned":
         partials = _planned_vertical_partials(spec, planned, v_local, n_local)
     else:
@@ -615,11 +763,13 @@ def _compact_partials(spec: GimvSpec, v_local, n_local: int, capacity: int, *, s
 
 def _packed_payload(spec: GimvSpec, v_local, n_local: int, send_rows, *, stripe=None,
                     planned: FlatPlanned | None = None, streamed: FlatStreamed | None = None,
-                    backend: str = "torch") -> torch.Tensor:
+                    ell: EllStripe | None = None, backend: str = "torch") -> torch.Tensor:
     """The vertical partials, through whichever executor, gathered at the
     packed send order ``send_rows`` [b_w, b, p] -> payload [b_w, b, p(, Q)]."""
     if backend == "planned" and streamed is not None:
         return _streamed_planned_payload(spec, streamed, v_local, send_rows)
+    if backend == "pallas":
+        return _ell_partials_payload(spec, ell, v_local, n_local, send_rows)
     if backend == "planned":
         partials = _planned_vertical_partials(spec, planned, v_local, n_local)
     else:
@@ -694,14 +844,14 @@ def hierarchical_exchange(spec: GimvSpec, idx, val, n_local: int, axis, *,
     # receives [W_src, P, cap] and folds the W senders of each pod set
     def hop1(x):                                   # [P, W_dest, cap(, Q)] -> [P, W_src, ...]
         x = x[0].reshape((n_pods, w_size, cap) + tuple(x.shape[3:])).transpose(0, 1)
-        return collectives.all_to_all_rows(x, groups.inner).transpose(0, 1)
+        return collectives.all_to_all_rows(x, groups.inner, groups.inner_order).transpose(0, 1)
 
     idx_r, val_r = hop1(idx), hop1(val)
     per_pod = sparse_exchange.scatter_partials(
         spec, idx_r.contiguous(), val_r.to(spec.torch_dtype).contiguous(), n_local,
-        method=scatter)                                               # [P, n_local(, Q)]
+        method=scatter)                                         # [P, n_local(, Q)]
     # hop 2: the combined rows across the pods, then the final combine
-    received = collectives.all_to_all_rows(per_pod, groups.pod)
+    received = collectives.all_to_all_rows(per_pod, groups.pod, groups.pod_order)
     r = _combine_received(spec, received, 0)
     stats = {
         "intra_pod_elems": float(n_pods) ** 2 * w_size * (w_size - 1) * cap * (1 + (nq or 1)),
@@ -722,9 +872,9 @@ def _combine_received(spec: GimvSpec, received: torch.Tensor, dim: int) -> torch
 def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local, real_mask,
                   *, n_local: int, exchange: str = "sparse", capacity: int | None = None,
                   planned: FlatPlanned | None = None, streamed: FlatStreamed | None = None,
-                  backend: str = "torch", scatter: str = "segment", xchg: dict | None = None,
-                  xplan=None, delta_eps: float | None = None, delta_state=None,
-                  payload_dtype=None, axis=None):
+                  ell: EllStripe | None = None, backend: str = "torch",
+                  scatter: str = "segment", xchg: dict | None = None, xplan=None,
+                  delta_eps: float | None = None, delta_state=None, payload_dtype=None, axis=None):
     """Alg. 2: local column-stripe partials, exchange, combine at the owner.
 
     exchange='dense' ships the full [b, n_local] partials; 'sparse' compacts
@@ -738,16 +888,21 @@ def vertical_step(spec: GimvSpec, stripe: BlockEdges | None, v_local, ctx_local,
     (``planned``: all partials at once) or bucket-streamed one destination
     block at a time (``streamed``, plan.stream='on'; the sparse, packed and
     hier exchanges only -- the dense exchange ships the full partials).
+    backend='pallas' runs the per-destination-block flat-ELL tables ``ell``:
+    one launch a block, each partial compacted or gathered as it is produced,
+    or one launch over all of them for the dense exchange.
     ``payload_dtype`` (a torch dtype) is the wire dtype of the sparse,
     packed and hier exchanges' values; the dense exchange ships the spec
     dtype, as in the JAX package."""
     nq = _num_queries(v_local)
-    kw = dict(stripe=stripe, planned=planned, streamed=streamed, backend=backend)
+    kw = dict(stripe=stripe, planned=planned, streamed=streamed, ell=ell, backend=backend)
     shipped = None
     if exchange == "dense":
         assert streamed is None, "the dense exchange takes the fused layout"
         if backend == "planned":
             partials = _planned_vertical_partials(spec, planned, v_local, n_local)
+        elif backend == "pallas":
+            partials = _ell_block_partials(spec, ell, v_local, n_local)
         else:
             partials = block_gimv_partials(spec, stripe, v_local, n_local)
         b = partials.shape[1]
@@ -805,9 +960,10 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
                 dense_stripe: BlockEdges | None, dense_region: DenseRegion, v_local,
                 ctx_local, real_mask, *, n_local: int, capacity: int,
                 planned_sparse: FlatPlanned | None = None,
-                streamed_sparse: FlatStreamed | None = None, dense_matrix=None,
-                backend: str = "torch", scatter: str = "segment", exchange: str = "sparse",
-                xchg: dict | None = None, xplan=None, payload_dtype=None, axis=None):
+                streamed_sparse: FlatStreamed | None = None, sparse_ell: EllStripe | None = None,
+                dense_matrix=None, backend: str = "torch", scatter: str = "segment",
+                exchange: str = "sparse", xchg: dict | None = None, xplan=None,
+                payload_dtype=None, axis=None):
     """Alg. 4: vertical over the sparse region + horizontal over the dense
     region, combined at the owner, then assign.  The dense sub-vector v_d
     is the compacted gather of high-out-degree entries [b_w, d_cap],
@@ -815,7 +971,9 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
     through the dense GIM-V kernel on the materialized ``dense_matrix`` and
     the sparse region through the plan, fused (``planned_sparse``) or
     bucket-streamed per destination block (``streamed_sparse``,
-    plan.stream='on').  The sparse region's partials take the packed
+    plan.stream='on'); backend 'pallas' the same dense region and the sparse
+    region through its per-destination-block flat-ELL tables ``sparse_ell``.
+    The sparse region's partials take the packed
     exchange when ``exchange`` is 'packed', else the compact one (hybrid has
     no dense or two-hop exchange), their values on the wire in
     ``payload_dtype`` (None: the spec dtype)."""
@@ -824,12 +982,12 @@ def hybrid_step(spec: GimvSpec, sparse_stripe: BlockEdges | None,
     if nq is not None:
         gather_idx = gather_idx[:, :, None].expand(-1, -1, nq)
     v_d = collectives.all_gather(torch.gather(v_local, 1, gather_idx), axis)  # [b, d_cap(, Q)]
-    if backend == "planned":
+    if backend in ("planned", "pallas"):
         r_dense = _dense_region_gimv(spec, dense_matrix, v_d, n_local)
     else:
         r_dense = gathered_gimv(spec, dense_stripe, v_d, n_local)
     kw = dict(stripe=sparse_stripe, planned=planned_sparse, streamed=streamed_sparse,
-              backend=backend)
+              ell=sparse_ell, backend=backend)
     if exchange == "packed":
         assert xchg is not None and xplan is not None, \
             "packed exchange needs the prepare-built index arrays and plan"

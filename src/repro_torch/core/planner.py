@@ -48,7 +48,7 @@ __all__ = [
 ]
 
 TACTICS = ("skip", "ell", "dense")
-MODES = ("torch", "planned")
+MODES = ("torch", "pallas", "planned")
 STREAM_MODES = ("on", "off")
 RESIDENCY_MODES = cost_model.RESIDENCY_MODES
 
@@ -72,11 +72,12 @@ class BlockPlan:
 class ExecutionPlan:
     """Static, hashable execution plan for one prepared solve.  mode
     'planned' runs the per-block tactics; 'torch' records the plain-tensor
-    backend (its executor ignores the tactic table; the out-of-core
-    executor plans in this mode, as the JAX package's plans in 'xla')."""
+    backend and 'pallas' the forced flat-ELL one (their executors ignore
+    the tactic table, which explain() still reports; the out-of-core
+    executor plans in 'torch', as the JAX package's plans in 'xla')."""
 
     strategy: str                   # 'horizontal' | 'vertical' | 'hybrid'
-    mode: str                       # 'torch' | 'planned'
+    mode: str                       # 'torch' | 'pallas' | 'planned'
     b: int
     n_local: int
     theta: float | None

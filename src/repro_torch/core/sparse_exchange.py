@@ -131,7 +131,8 @@ def scatter_partials(spec: GimvSpec, idx: torch.Tensor, val: torch.Tensor,
     into its own (n_local + 1)-wide output segment whose last slot catches
     the padding.  method 'kernel': the scatter-combine kernel (its Q-wide
     form for a batched val), which folds the b received rows of each set in
-    order (idx must be the compacted layout of :func:`compact_partials`).
+    order (idx must be the compacted layout of :func:`compact_partials`);
+    inside ``kernels.plain_versions`` its plain version.
     """
     assert method in SCATTER_METHODS, method
     batched = val.ndim == idx.ndim + 1
@@ -139,11 +140,17 @@ def scatter_partials(spec: GimvSpec, idx: torch.Tensor, val: torch.Tensor,
     lead = idx.shape[:-2]
     n_sets = math.prod(lead) if lead else 1
     if method == "kernel":
+        from repro_torch.kernels import runs_plain
         from repro_torch.kernels.block_gimv import semiring_of
         from repro_torch.kernels.scatter_combine import (scatter_combine_gimv,
-                                                         scatter_combine_gimv_multi)
+                                                         scatter_combine_gimv_multi,
+                                                         scatter_combine_multi_ref,
+                                                         scatter_combine_ref)
 
-        fn = scatter_combine_gimv_multi if batched else scatter_combine_gimv
+        if runs_plain(val.device):
+            fn = scatter_combine_multi_ref if batched else scatter_combine_ref
+        else:
+            fn = scatter_combine_gimv_multi if batched else scatter_combine_gimv
         out = fn(idx.reshape((n_sets,) + idx.shape[-2:]).contiguous(),
                  val.reshape((n_sets,) + val.shape[-2 - len(tail):]).contiguous(),
                  n_local, semiring=semiring_of(spec.combine2, spec.combine_all))

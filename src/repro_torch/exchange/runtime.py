@@ -67,12 +67,16 @@ def scatter_payload(spec: GimvSpec, val: torch.Tensor, n_local: int, *,
     sender order) decodes the bit-packed ids inside the packed scatter-combine
     kernel -- the ids never exist as int32 on the device; without
     ``recv_words`` it takes the sparse scatter-combine kernel on
-    ``recv_rows``.
+    ``recv_rows``; inside ``kernels.plain_versions`` either kernel's plain
+    version.
     """
     if method == "kernel" and recv_words is not None:
+        from repro_torch.kernels import runs_plain
         from repro_torch.kernels.block_gimv import semiring_of
         from repro_torch.kernels.scatter_combine import (packed_scatter_combine_gimv,
-                                                         packed_scatter_combine_gimv_multi)
+                                                         packed_scatter_combine_gimv_multi,
+                                                         packed_scatter_combine_multi_ref,
+                                                         packed_scatter_combine_ref)
 
         batched = (val.ndim - recv_words.ndim) == 2
         nq = val.shape[-1] if batched else None
@@ -82,10 +86,14 @@ def scatter_payload(spec: GimvSpec, val: torch.Tensor, n_local: int, *,
         seg_w = n_local + 1
         set_slots = b * p_dev            # slots sharing one worker's output segment
         flat_val = val.reshape((n_sets * set_slots, nq) if batched else (-1,)).contiguous()
-        fn = packed_scatter_combine_gimv_multi if batched else packed_scatter_combine_gimv
-        out = fn(recv_words.reshape(-1).contiguous(), flat_val, n_sets * seg_w,
-                 set_slots=set_slots, n_local=n_local, width=width,
-                 semiring=semiring_of(spec.combine2, spec.combine_all), senders=b)
+        kw = dict(set_slots=set_slots, n_local=n_local, width=width,
+                  semiring=semiring_of(spec.combine2, spec.combine_all))
+        if runs_plain(val.device):
+            fn = packed_scatter_combine_multi_ref if batched else packed_scatter_combine_ref
+        else:
+            fn = packed_scatter_combine_gimv_multi if batched else packed_scatter_combine_gimv
+            kw["senders"] = b
+        out = fn(recv_words.reshape(-1).contiguous(), flat_val, n_sets * seg_w, **kw)
         out = out.reshape(lead + ((seg_w, nq) if batched else (seg_w,)))
         return out[..., :n_local, :] if batched else out[..., :n_local]
     return scatter_partials(spec, recv_rows, val, n_local, method=method)

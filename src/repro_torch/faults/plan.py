@@ -290,6 +290,17 @@ class FaultInjector:
                     return True
         return False
 
+    def drop_unscoped(self) -> None:
+        """Drop every fetch event that names no worker (``worker=None``) from
+        this injector's schedule, unfired: what each SPMD rank but the one at
+        worker index 0 does with its own injector, so that such an event
+        fires once across the fleet (``repro_torch.store.spmd``).  Kills and
+        the events that name a worker stay."""
+        with self._lock:
+            for i, e in enumerate(self.plan.events):
+                if hasattr(e, "worker") and e.worker is None:
+                    self._remaining[i] = 0
+
     def on_iteration(self, iteration: int) -> None:
         """Called at the top of every engine iteration; raises InjectedKill
         where a kill is scheduled."""

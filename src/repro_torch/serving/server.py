@@ -262,8 +262,9 @@ class PMVServer:
     device: None (the GPU; raises without one) | 'cuda' | 'cpu', as for
     :class:`PMVEngine`.  The other engine knobs (strategy, theta, psi,
     exchange, capacity, slack, payload_dtype, backend, scatter, stream,
-    base_weights, mesh, axis_name, io_retry, obs, faults) are passed to each
-    family's engine,
+    pallas_interpret, base_weights, mesh, axis_name, io_retry, obs, faults)
+    are passed to each family's engine (backend='pallas' runs the flat-ELL
+    tables through the Q-wide kernels),
     and with ``store=`` also
     ``residency`` and ``store_budget_bytes`` (without a store the server,
     like the JAX package's, holds its edges resident and ignores them).
@@ -291,6 +292,7 @@ class PMVServer:
         backend: str = "torch",
         scatter: str = "auto",
         stream: str = "auto",
+        pallas_interpret: bool | None = None,
         base_weights: np.ndarray | None = None,
         buckets: tuple[int, ...] = DEFAULT_BUCKETS,
         max_iters: int = 200,
@@ -337,7 +339,8 @@ class PMVServer:
         self._engine_kwargs = dict(
             strategy=strategy, theta=theta, psi=psi, exchange=exchange,
             capacity=capacity, slack=slack, payload_dtype=payload_dtype, backend=backend,
-            scatter=scatter, stream=stream, base_weights=base_weights,
+            scatter=scatter, stream=stream, pallas_interpret=pallas_interpret,
+            base_weights=base_weights,
             io_retry=io_retry, obs=self.obs, mesh=mesh, axis_name=axis_name,
             device=resolve_device(device),
             # normalized ONCE, so every family engine shares one injector and

@@ -81,6 +81,7 @@ from repro_torch.core.partition import Partition
 from repro_torch.core.planner import ExecutionPlan
 from repro_torch.exchange import runtime as packed_rt
 from repro_torch.faults import DEFAULT_RETRY, RetryPolicy, as_injector
+from repro_torch.kernels import plain_versions
 from repro_torch.obs.recorder import as_recorder
 from repro_torch.store import format as fmt
 from repro_torch.store.manifest import (
@@ -584,14 +585,16 @@ class DiskExecutor:
     (the compact or packed exchange all-to-all, the horizontal v and the
     dense region's v_d gathered, the counts summed); None, the emulated
     solve of all b workers, where each of those is the leading-axis
-    operation it always was."""
+    operation it always was.  ``interpret`` folds the tails with the scatter
+    kernels' plain versions (the engine's ``pallas_interpret=True``)."""
 
     def __init__(self, spec: GimvSpec, part: Partition, plan: ExecutionPlan | None,
                  store: DiskBlockStore, *, capacity: int | None = None,
                  scatter: str = "segment", retry: RetryPolicy | None = None,
                  exchange: str = "sparse", xchg: dict | None = None, xplan=None, obs=None,
-                 axis=None):
+                 axis=None, interpret: bool = False):
         self.spec = spec
+        self.interpret = interpret
         self.axis = axis
         self.obs = as_recorder(obs)
         self.part = part
@@ -716,10 +719,11 @@ class DiskExecutor:
         from disk (``_packed_blocks``), then the payload-only scatter tail."""
         self._begin_iteration()
         val, logical = self._packed_blocks(v)
-        r = packed_rt.scatter_payload(
-            self.spec, val, self.part.n_local,
-            recv_rows=self.xchg.get("recv_rows"), recv_words=self.xchg.get("recv_words"),
-            p_dev=self.xplan.p_dev, width=self.xplan.width_dev, method=self.scatter)
+        with plain_versions(self.interpret):
+            r = packed_rt.scatter_payload(
+                self.spec, val, self.part.n_local,
+                recv_rows=self.xchg.get("recv_rows"), recv_words=self.xchg.get("recv_words"),
+                p_dev=self.xplan.p_dev, width=self.xplan.width_dev, method=self.scatter)
         v_new = placement.apply_assign(self.spec, v, r, ctx, mask)
         # payload slots are structurally sized: overflow is impossible
         return v_new, r, torch.zeros((), device=v.device), logical
@@ -732,9 +736,10 @@ class DiskExecutor:
             return self._vertical_iteration_packed(v, ctx, mask)
         self._begin_iteration()
         idx, val, over, logical = self._compact_blocks(v)
-        r = sparse_exchange.scatter_partials(self.spec, self._to_owners(idx),
-                                             self._to_owners(val), self.part.n_local,
-                                             method=self.scatter)
+        with plain_versions(self.interpret):
+            r = sparse_exchange.scatter_partials(self.spec, self._to_owners(idx),
+                                                 self._to_owners(val), self.part.n_local,
+                                                 method=self.scatter)
         v_new = placement.apply_assign(self.spec, v, r, ctx, mask)
         return v_new, r, over, logical
 
@@ -868,9 +873,9 @@ class HybridDiskExecutor(DiskExecutor):
     def __init__(self, spec: GimvSpec, part: Partition, sparse_store: DiskBlockStore,
                  dense_store: DiskBlockStore, region, *, capacity: int,
                  scatter: str = "segment", retry: RetryPolicy | None = None, obs=None,
-                 axis=None):
+                 axis=None, interpret: bool = False):
         super().__init__(spec, part, None, sparse_store, capacity=capacity, scatter=scatter,
-                         retry=retry, obs=obs, axis=axis)
+                         retry=retry, obs=obs, axis=axis, interpret=interpret)
         self.legs.append(DiskLeg.walking(dense_store, "source"))
         self.region = region
         # [b_w, d_cap]: the rank's workers' rows
@@ -897,9 +902,10 @@ class HybridDiskExecutor(DiskExecutor):
         r_dense = tree_combine(spec, [got.get(jj, pad) for jj in range(b)])
         del got, pad, v_d
         idx, val, over, logical = self._compact_blocks(v)
-        r_sparse = sparse_exchange.scatter_partials(spec, self._to_owners(idx),
-                                                    self._to_owners(val), n_local,
-                                                    method=self.scatter)
+        with plain_versions(self.interpret):
+            r_sparse = sparse_exchange.scatter_partials(spec, self._to_owners(idx),
+                                                        self._to_owners(val), n_local,
+                                                        method=self.scatter)
         r = combine_elementwise(spec, r_sparse, r_dense)
         v_new = placement.apply_assign(spec, v, r, ctx, mask)
         d_cap = self.region.d_cap

@@ -32,8 +32,14 @@ aggregates.
 
 Faults: each rank holds its own injector built from the same plan, and its
 store's ``fault_scope`` is its worker index, so an event that names a
-worker fires on that worker's rank alone; one that names none fires on
-every rank's store.  Tracing: a rank's store records into the
+worker fires on that worker's rank alone.  An event that names none is kept
+only in the injector of the rank at worker index 0 and dropped from every
+other rank's (``FaultInjector.drop_unscoped``), so it fires once, as in the
+JAX package, whose W stores share one injector; there such an event goes to
+whichever store fetches first, here always to worker index 0, so the choice
+is deterministic, and the fleet's ``fault.injected*`` sums equal the JAX
+package's single-host disk run of the same plan.  Kills name no worker and
+stay on every rank (each rank's engine stops at the same boundary).  Tracing: a rank's store records into the
 ``w{rank}`` child of the engine's recorder (its prefetch thread a track of
 that lane); :meth:`SpmdDiskGroup.fleet_recorder` gathers the W lanes into
 one recorder that ``repro_torch.obs.fleet.merge_traces`` lays out.
@@ -147,6 +153,9 @@ class SpmdDiskGroup:
                 "worker owns a whole stripe range")
         recorder = as_recorder(obs)
         rank = axis.index
+        injector = as_injector(faults, recorder)
+        if injector is not None and rank != 0:
+            injector.drop_unscoped()      # an unnamed fetch event fires once (module doc)
         # the rank's store records into its own w{rank} lane (its prefetch
         # thread a track of it); the child shares the parent's metrics, so
         # store.prefetch_degraded and retry.* count on the rank's registry
@@ -154,7 +163,7 @@ class SpmdDiskGroup:
                                budget_bytes=budget_bytes, device=device,
                                dense_gather_idx=dense_gather_idx,
                                obs=recorder.child(f"w{rank}"),
-                               faults=as_injector(faults, recorder), verify=verify,
+                               faults=injector, verify=verify,
                                fault_scope=rank)
         return cls(local, axis, obs=recorder)
 
@@ -212,24 +221,23 @@ class SpmdDiskGroup:
 
         Epochs: each rank's spans are stored relative to its own recorder's
         epoch, a ``time.perf_counter()`` reading.  On Linux that clock is
-        CLOCK_MONOTONIC, one clock for every process of a host, so rank r's
-        spans are moved onto rank 0's timeline by adding epoch_r - epoch_0.
+        CLOCK_MONOTONIC, one clock for every process of a host, so the
+        merged timeline starts at the earliest rank's epoch and rank r's spans
+        move onto it by adding epoch_r - that epoch (never negative, so no
+        merged span can start before 0, whichever rank started first).
         Ranks on different hosts share no such clock; their lanes would be
         aligned only as well as the hosts' clocks are."""
-        import torch.distributed as dist
-
         from repro_torch.obs.recorder import Recorder
 
         rec = self.obs
         mine = (rec.epoch, list(rec.events) if self.axis.index == 0 else None,
                 {label: list(ch.events) for label, ch in rec.children.items()})
-        got = [None] * self.axis.size
-        dist.all_gather_object(got, mine, group=self.axis.group)
-        epoch0 = got[0][0]
-        fleet = Recorder(_epoch=epoch0)
-        fleet.events = got[0][1]
+        got = collectives.all_gather_object(mine, self.axis)
+        start = min(epoch for epoch, _main, _lanes in got)
+        fleet = Recorder(_epoch=start)
+        fleet.events = [dict(ev, ts=ev["ts"] + got[0][0] - start) for ev in got[0][1]]
         for epoch, _main, lanes in got:
-            shift = epoch - epoch0
+            shift = epoch - start
             for label, events in lanes.items():
                 fleet.child(label).events.extend(
                     dict(ev, ts=ev["ts"] + shift) for ev in events)

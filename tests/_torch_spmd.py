@@ -10,7 +10,8 @@ does not eat the suite's clock) and returns each rank's return value.  The
 parent test computes its references while the ranks run.
 
 Every task builds the DeviceMesh it is given (``payload['mesh']``: the mesh
-shape and dim names) after ``init_process_group``; engines run with
+shape and dim names, and optionally the ranks' order) after
+``init_process_group``; engines run with
 ``device='cpu'`` (``engine_cases`` takes ``payload['device']``: with 'cuda'
 every rank runs its kernels on ``cuda:{LOCAL_RANK % device_count()}``, and
 gloo moves the card's tensors).
@@ -132,12 +133,14 @@ def rank_main() -> None:
 # Tasks: each runs on every rank and returns a picklable value.
 # ---------------------------------------------------------------------------
 
-def make_mesh(shape, names):
+def make_mesh(shape, names, order=None):
+    """A DeviceMesh of ``shape`` with dim names ``names``, its ranks in
+    row-major ``order`` (default ascending)."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
 
-    return DeviceMesh("cpu", torch.arange(int(np.prod(shape))).reshape(tuple(shape)),
-                      mesh_dim_names=tuple(names))
+    ranks = torch.arange(int(np.prod(shape))) if order is None else torch.tensor(order)
+    return DeviceMesh("cpu", ranks.reshape(tuple(shape)), mesh_dim_names=tuple(names))
 
 
 # algorithm -> (spec factory(module, n), ctx factory | None, symmetrize)
@@ -162,16 +165,18 @@ def _result(r) -> dict:
 
 def engine_cases(payload) -> list:
     """Each case of ``payload['cases']`` (engine knobs plus 'algo' and
-    'run', and optionally 'mesh' / 'axis_name' in place of the payload's)
-    through ``PMVEngine(mesh=...)``; returns one ``_result`` each."""
+    'run', and optionally 'mesh' / 'axis_name' / 'b' in place of the
+    payload's) through ``PMVEngine(mesh=...)``; returns one ``_result``
+    each."""
     import repro_torch.core as T
 
     meshes = {}
-    edges, n, b = payload["edges"], payload["n"], payload["b"]
+    edges, n = payload["edges"], payload["n"]
     out = []
     for case in payload["cases"]:
         kw = dict(case)
         algo, run_kw = kw.pop("algo"), kw.pop("run")
+        b = kw.pop("b", payload["b"])
         shape = kw.pop("mesh", payload.get("mesh"))
         axis_name = kw.pop("axis_name", payload.get("axis_name"))
         if shape not in meshes:
@@ -264,6 +269,103 @@ def checkpoint(payload) -> dict:
             "saved": saved}
 
 
+def make_step_cases(payload) -> list:
+    """``repro_torch.core.make_step`` under a mesh, one step of each case of
+    ``payload['make_step']`` (engine knobs of a PageRank engine plus 'mesh',
+    'axis_name', 'v' the blocked start vector and optionally 'b') from its
+    'v' (and, with delta iteration, a zero state): the gathered v_new, the
+    delta, the stats and the gathered new state."""
+    import torch
+
+    import repro_torch.core as T
+    from repro_torch.core import collectives
+
+    out = []
+    edges, n, b = payload["edges"], payload["n"], payload["b"]
+    for case in payload["make_step"]:
+        kw = dict(case)
+        mesh_shape, axis_name = kw.pop("mesh"), kw.pop("axis_name")
+        b, v_blocked = kw.pop("b", b), kw.pop("v")
+        mesh = make_mesh(*mesh_shape)
+        eng = T.PMVEngine(edges, n, b=b, mesh=mesh, axis_name=axis_name, device="cpu", **kw)
+        spec = T.pagerank(n)
+        matrix, _v0, _ctx, mask, meta = eng.prepare(spec)
+        cfg = meta["cfg"]
+        step = T.make_step(spec, cfg, mesh, axis_name)
+        v = torch.from_numpy(eng.own_rows(v_blocked).copy())
+        extra = ()
+        if cfg.delta_eps is not None:
+            extra = (torch.zeros((1, b, cfg.xplan.p_dev), dtype=torch.float32),)
+        got = step(matrix, v, {}, mask, *extra)
+        res = {"v": collectives.all_gather(got[0], eng.axis).numpy(), "delta": float(got[1]),
+               "stats": {k: float(x) for k, x in got[2].items()}}
+        if extra:
+            res["state"] = collectives.all_gather(got[3], eng.axis).numpy()
+        out.append(res)
+    return out
+
+
+def axis_rows(payload) -> list:
+    """For each (mesh, axis_name) of ``payload['axes']``: this rank's
+    ``WorkerAxis`` (index, replica, ranks, order) and its ``all_gather``,
+    ``all_to_all`` and ``all_gather_object`` of its row of a [b, b, 3] array
+    every rank draws from the same seed (b the axis size)."""
+    import torch
+
+    from repro_torch.core import collectives
+
+    out = []
+    for shape, axis_name in payload["axes"]:
+        axis = collectives.worker_axis(make_mesh(*shape), axis_name)
+        x = np.random.default_rng(axis.size).standard_normal(
+            (axis.size, axis.size, 3)).astype(np.float32)
+        mine = torch.from_numpy(x[axis.index:axis.index + 1].copy())
+        out.append({"index": axis.index, "replica": axis.replica, "ranks": axis.ranks,
+                    "order": axis.order,
+                    "all_gather": collectives.all_gather(mine, axis).numpy(),
+                    "all_to_all": collectives.all_to_all(mine, axis).numpy(),
+                    "objects": collectives.all_gather_object(axis.index, axis)})
+    return out
+
+
+def barrier_waits(payload) -> list:
+    """For each (mesh, axis_name) of ``payload['barriers']``: the seconds
+    this rank spent in ``collectives.barrier`` of that axis while rank 0
+    slept ``payload['sleep_s']`` before entering it (all ranks aligned by a
+    default-group barrier first)."""
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives
+
+    out = []
+    for shape, axis_name in payload["barriers"]:
+        axis = collectives.worker_axis(make_mesh(*shape), axis_name)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            time.sleep(payload["sleep_s"])
+        t0 = time.perf_counter()
+        collectives.barrier(axis)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def mesh_cases(payload) -> dict:
+    """One spawn's seven parts: the refusals (:func:`refusals`), the worker
+    axes of meshes with a dim outside axis_name or ranks against worker
+    order (:func:`axis_rows`), the engine cases of ``payload['cases']``
+    (:func:`engine_cases`: such meshes, backend 'pallas'), the make_step
+    cases (:func:`make_step_cases`), a serve on such a mesh (:func:`serve`
+    of ``payload['serve']``), a kill and resume on such a mesh
+    (:func:`checkpoint` of ``payload['checkpoint']``) and the mesh-wide
+    barrier's waits (:func:`barrier_waits`)."""
+    return {"refusals": refusals(payload), "axes": axis_rows(payload),
+            "engine": engine_cases(payload), "make_step": make_step_cases(payload),
+            "serve": serve(payload["serve"]), "checkpoint": checkpoint(payload["checkpoint"]),
+            "barrier": barrier_waits(payload)}
+
+
 def refusals(payload) -> dict:
     """The exception (class name, message) each refused configuration
     raises under a mesh (``payload['mesh']``, or the case's own)."""
@@ -272,7 +374,7 @@ def refusals(payload) -> dict:
 
     meshes = {}
     out = {}
-    for name, cls, kw in payload["cases"]:
+    for name, cls, kw in payload["refusals"]:
         ctor = T.PMVEngine if cls == "engine" else PMVServer
         kw = dict(kw)
         shape = kw.pop("mesh", payload["mesh"])
@@ -295,6 +397,10 @@ def _fault_plan(events):
     if not events:
         return None
     return F.FaultPlan(events=tuple(getattr(F, kind)(**kw) for kind, kw in events), seed=0)
+
+
+FAULT_COUNTERS = ("fault.injected", "fault.injected.transient_io",
+                  "fault.injected.corrupt_fetch", "store.verify_failures")
 
 
 def _disk_engine(case: dict, meshes: dict, device: str):
@@ -325,7 +431,8 @@ def disk_cases(payload) -> list:
     :func:`_disk_engine`; 'algo'; 'run'; 'extras': names}) through the SPMD
     disk engine; returns one ``_result`` each, plus this rank's
     ``_rank_io``.  Extras: 'obs' (the store.prefetch_degraded count and the
-    pmv.io_*.w{k} series of this rank's recorder), 'trace' (the merged
+    pmv.io_*.w{k} series of this rank's recorder), 'faults' (this rank's
+    ``fault.injected*`` and ``store.verify_failures`` counts), 'trace' (the merged
     fleet trace, validated here), 'fleet' (``fleet_report`` of the result),
     'checkpoint' (the case's engine killed by its plan, resumed from
     ``payload['dir']/<case index>``; the result is the resumed run's).  A
@@ -370,6 +477,8 @@ def disk_cases(payload) -> list:
             res["io"] = _rank_io(meta)
             if "checkpoint" in extras:
                 res["killed"] = killed
+            if "faults" in extras:
+                res["faults"] = {k: eng.obs.counter(k).value for k in FAULT_COUNTERS}
             if "obs" in extras:
                 res["degraded"] = eng.obs.counter("store.prefetch_degraded").value
                 res["series"] = {d["name"]: d["values"] for d in eng.obs.metrics.to_dicts()
@@ -446,5 +555,6 @@ def disk_group(payload) -> dict:
 
 
 TASKS = {"engine_cases": engine_cases, "batched_hier": batched_hier, "serve": serve,
-         "checkpoint": checkpoint, "refusals": refusals, "disk_cases": disk_cases,
-         "disk_group": disk_group, "collectives_rows": collectives_rows}
+         "checkpoint": checkpoint, "refusals": refusals, "mesh_cases": mesh_cases,
+         "disk_cases": disk_cases, "disk_group": disk_group,
+         "collectives_rows": collectives_rows}

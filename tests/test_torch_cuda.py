@@ -1498,3 +1498,71 @@ def test_cuda_spmd_disk_two_gloo_ranks_equal_single_process(cuda_device, tmp_pat
             assert [x["store_bytes_read"] for x in r[i]["per_iter"]] == [
                 x["store_bytes_read"] for x in want.per_iter]
             assert all(len(x["store_worker_io_s"]) == 2 for x in r[i]["per_iter"])
+
+
+# -- the forced flat-ELL backend (backend='pallas') ----------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["merged", "vertical"])
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_cuda_ell_kernels_at_flat_ell_shape(cuda_device, semiring, layout):
+    """Kernels 1 and 5 on the flat tables ``backend='pallas'`` builds from an
+    RMAT graph (one merged table of all workers' rows at the longest row's
+    width; a destination block's table of every worker), against their
+    plain versions; Q = 8 for kernel 5."""
+    from repro_torch.core import blocks, pagerank, partition_graph, placement
+    from repro_torch.graph import rmat
+
+    n, b = 1 << 12, 4
+    pm, _ = partition_graph(rmat(12, 16 << 12, seed=5), n, b, pagerank(n))
+    nl = pm.part.n_local
+    stripes = pm.horizontal if layout == "merged" else pm.vertical
+    stride = nl if layout == "merged" else None
+    ell = placement.flatten_ell(
+        blocks.stack_ells([blocks.stripe_to_ell(s, nl, merge_col_stride=stride)
+                           for s in stripes]), nl, layout, cuda_device)
+    cols = ell.cols if layout == "merged" else ell.cols[1]
+    w = ell.w if layout == "merged" else ell.w[1]
+    n_src = b * nl
+    rng = np.random.default_rng(3)
+    v = torch.from_numpy(rng.random(n_src).astype(np.float32)).to(cuda_device)
+    vq = torch.from_numpy(rng.random((n_src, 8)).astype(np.float32)).to(cuda_device)
+    before = kernels.launch_counts()
+    _assert_match(ell_spmv.ell_gimv(cols, w, v, semiring=semiring),
+                  ell_spmv.ell_gimv_ref(cols, w, v, semiring=semiring), semiring, np.float32)
+    _assert_match(ell_spmv.ell_gimv_multi(cols, w, vq, semiring=semiring),
+                  ell_spmv.ell_gimv_multi_ref(cols, w, vq, semiring=semiring), semiring,
+                  np.float32)
+    after = kernels.launch_counts()
+    assert after["ell_gimv"] == before["ell_gimv"] + 1
+    assert after["ell_gimv_multi"] == before["ell_gimv_multi"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,scatter", [("horizontal", "segment"),
+                                              ("vertical", "kernel"), ("hybrid", "kernel")])
+def test_cuda_pallas_engine_runs_on_the_kernels(cuda_device, strategy, scatter):
+    """backend='pallas' on the card launches the ELL kernel (and the scatter
+    and dense kernels where its path has them), equals the same solve on the
+    host bitwise (SSSP), and with pallas_interpret=True on the card launches
+    nothing and gives the same bits."""
+    from repro_torch.core import PMVEngine, sssp
+    from repro_torch.graph import rmat
+
+    n = 1 << 12
+    edges = rmat(12, 8 << 12, seed=3)
+    kw = dict(b=4, strategy=strategy, theta=40.0, backend="pallas", scatter=scatter)
+    kernels.reset_launch_counts()
+    on_card = PMVEngine(edges, n, device="cuda", **kw).run(sssp(0), tol=0.5)
+    counts = kernels.launch_counts()
+    assert counts["ell_gimv"] > 0
+    assert (counts["scatter_combine"] > 0) == (scatter == "kernel")
+    assert (counts["dense_gimv"] > 0) == (strategy == "hybrid")
+    kernels.reset_launch_counts()
+    plain = PMVEngine(edges, n, device="cuda", pallas_interpret=True, **kw).run(sssp(0),
+                                                                                tol=0.5)
+    assert sum(kernels.launch_counts().values()) == 0
+    on_host = PMVEngine(edges, n, device="cpu", **kw).run(sssp(0), tol=0.5)
+    for other in (plain, on_host):
+        np.testing.assert_array_equal(on_card.v, other.v)
+        assert on_card.iterations == other.iterations

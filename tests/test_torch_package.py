@@ -1,8 +1,8 @@
 """Package rules of the PyTorch port: it never imports JAX or the JAX
 package, its engine and server run on the GPU unless told otherwise, every
-knob outside the ported slice raises NotImplementedError naming the knob,
-the SPMD knobs name what they need when it is missing, and the store knobs
-the slice takes behave as the JAX package's do."""
+engine and server knob of the JAX package is taken and behaves as the JAX
+package's does, and the SPMD knobs name what they need when it is
+missing."""
 import json
 import os
 import subprocess
@@ -78,10 +78,12 @@ def test_engine_without_device_raises_without_gpu(monkeypatch):
 # what the JAX package does with the same arguments: the same exception
 # class, or an answer from both (without a store the server, like the JAX
 # package's, holds its edges resident and ignores residency and the
-# budget).  STORE stands for a θ-split store of the same graph.
+# budget).  STORE stands for a θ-split store of the same graph.  The
+# forced backends are taken too: 'pallas' (the flat-ELL layout) and 'xla'
+# (the port's 'torch').
 STORE = "<store>"
 TAKEN = ("store", "residency", "store_budget_bytes", "io_retry", "strategy", "obs",
-         "capacity", "payload_dtype", "faults", "slack", "telemetry")
+         "capacity", "payload_dtype", "faults", "slack", "telemetry", "backend")
 # the SPMD knobs, without the process group and DeviceMesh they need
 SPMD_TAKEN = {"mesh": (TypeError, "DeviceMesh"), "exchange": (ValueError, "tuple axis_name")}
 
@@ -131,9 +133,10 @@ def _outcome(mod, qmod, cls, knob, root, **extra) -> str:
     dict(store=STORE, residency="disk", io_retry=None, strategy="vertical", n=64, b=2),
     dict(store=STORE, residency="disk", strategy="vertical", b=4)])
 def test_knobs_outside_the_slice_raise(knob, knob_store):
-    """PMVEngine and PMVServer each refuse the knobs they do not take yet;
-    the store knobs they take behave as the JAX package's do.  The SPMD
-    knobs are taken, under residency='disk' too (tests/test_torch_spmd.py,
+    """PMVEngine and PMVServer take every knob here and behave as the JAX
+    package's do (backend='xla' and 'pallas' included, which they refused
+    before the flat-ELL backend was ported).  The SPMD knobs are taken,
+    under residency='disk' too (tests/test_torch_spmd.py,
     tests/test_torch_spmd_disk.py): a mesh that is not a DeviceMesh is a
     TypeError, exchange='hier' without one a ValueError."""
     name = next(iter(knob))
@@ -160,13 +163,11 @@ def test_knobs_outside_the_slice_raise(knob, knob_store):
 @pytest.mark.parametrize("knob,exc,text", [
     (dict(mesh=object()), TypeError, "DeviceMesh"),
     (dict(exchange="hier"), ValueError, "tuple axis_name"),
-    (dict(backend="pallas"), NotImplementedError, "backend='pallas'"),
-    (dict(backend="xla"), NotImplementedError, "backend='xla'")])
+    (dict(pallas_interpret=False), ValueError, "pallas_interpret=False")])
 def test_remaining_refusals_name_their_knob(knob, exc, text):
-    """Each knob the port still refuses raises NotImplementedError naming the
-    knob (and its value where the knob takes other values); the SPMD knobs,
-    taken now, name what they need when it is missing: a DeviceMesh, and
-    for 'hier' a mesh with a tuple axis_name."""
+    """The engine and the server take every knob of the JAX package's; where
+    a knob lacks what it needs they name it: a DeviceMesh, for 'hier' a mesh
+    with a tuple axis_name, and for pallas_interpret=False a CUDA device."""
     edges = rmat(6, 200, seed=0)
     with pytest.raises(exc, match=text.replace("'", ".")) as ei:
         T.PMVEngine(edges, 64, b=2, device="cpu", **knob)
@@ -194,12 +195,14 @@ def test_unported_modules_are_named(module, package):
 @pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.obs.profiler",
                                     "repro_torch.obs.fleet", "repro_torch.obs.live",
                                     "repro_torch.cli", "repro_torch.store",
-                                    "repro_torch.store.shard", "repro_torch.store.spmd"])
+                                    "repro_torch.store.shard", "repro_torch.store.spmd",
+                                    "repro_torch.core"])
 def test_ported_modules_match_reference(module):
-    """The observability modules, the CLI and the store (its SPMD group and
-    its physical shards included) the port took over from the JAX package
-    export the JAX package's ``__all__``, and each imports in a fresh
-    interpreter without pulling in jax or the JAX package."""
+    """The core (``make_step`` included), the observability modules, the CLI
+    and the store (its SPMD group and its physical shards included) the port
+    took over from the JAX package export the JAX package's ``__all__``, and
+    each imports in a fresh interpreter without pulling in jax or the JAX
+    package."""
     import importlib
 
     reference = importlib.import_module("repro" + module[len("repro_torch"):])

@@ -465,7 +465,10 @@ def test_spmd_gloo_phase_on_cpu(capsys, tmp_path):
     8 gloo ranks (subprocesses of chip_smoke.py --spmd-rank) run the flat
     SSSP (bitwise the emulated run 2 and its exchanged elements), then on
     the smaller graph the horizontal PageRank, the two-hop SSSP on (2, 4)
-    and the RWR serve, against the smoke's scipy references; then
+    and the RWR serve, against the smoke's scipy references; backend='pallas'
+    on the pallas phase's graph (the SSSP on two replicas of 4 workers and
+    with axis_name against rank order, the horizontal PageRank), against
+    the emulated pallas runs; then
     the out-of-core runs over a store as the disk phase leaves it (each
     rank on its own shard view under a per-worker budget): the SSSP, the
     hybrid and packed PageRanks and the hybrid RWR serve bitwise the
@@ -515,13 +518,23 @@ def test_spmd_gloo_phase_on_cpu(capsys, tmp_path):
     rows = {name: {"launches": 0} for name in smoke.KERNEL_SOURCES}
     failures = []
     small = (rmat(SCALE - 1, 16 << (SCALE - 1), seed=0), N // 2)
+    pal_edges = rmat(SCALE - 1, 16 << (SCALE - 1), seed=1)
+    pal = PMVEngine(pal_edges, N // 2, b=8, strategy="horizontal", backend="pallas",
+                    device="cpu").run(pagerank(N // 2), max_iters=100, tol=1e-6)
+    pallas = {"edges": pal_edges, "n": N // 2, "pagerank": (pal.v, pal.iterations)}
+    for key, b in (("sssp", 8), ("sssp_b4", 4)):
+        pallas[key] = PMVEngine(pal_edges, N // 2, b=b, strategy="vertical", backend="pallas",
+                                scatter="kernel", device="cpu").run(sssp(0), tol=0.5).v
     smoke.spmd_gloo(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, 40.0, run2,
                     sources, rows, failures, small=small, hints={"pagerank": 52},
-                    expect_launches=False, disk=disk)
+                    expect_launches=False, disk=disk, pallas=pallas)
     out = capsys.readouterr().out
     assert failures == [], (failures, out)
     for label in ("sssp_flat", "pagerank_horizontal", "sssp_hier", "serve_rwr"):
         assert f"spmd run {label} W=8" in out and "-> ok" in out
+    for label in smoke.SPMD_PALLAS_RUNS:
+        line = next(x for x in out.splitlines() if x.startswith(f"spmd run {label} W=8"))
+        assert line.endswith("-> ok"), line
     for label in smoke.SPMD_DISK_RUNS:
         line = next(x for x in out.splitlines() if x.startswith(f"spmd disk {label} W=8"))
         assert line.endswith("-> ok"), line
@@ -534,3 +547,33 @@ def test_spmd_gloo_phase_on_cpu(capsys, tmp_path):
     assert [c["path"] for c in rows["scatter_combine_multi"]["disk_checks"]] == [
         "spmd serve_rwr_disk"]
     assert "spmd gloo phase:" in out
+
+
+def test_pallas_phase_on_cpu(monkeypatch, capsys):
+    """The smoke's pallas phase (backend='pallas': PageRank horizontal, SSSP
+    vertical and its pallas_interpret=True twin, CC hybrid, PageRank vertical
+    packed, the sparse and the packed serve at Q = 8, and kernels 1 and 5 at
+    the merged table's flat shape) at scale 10 on the CPU, with the card's
+    timers stubbed and the wrappers counting their calls: every check
+    holds, every kernel of the path launches, and the kernel rows gain the
+    flat-width lines."""
+    import torch
+
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(smoke, "time_ms", lambda torch, fn, reps, warmup=2: (fn(), 0.5)[1])
+    _count_launches_on_cpu(monkeypatch)
+    rows = {name: {"launches": 0} for name in smoke.KERNEL_SOURCES}
+    failures = []
+    out = smoke.pallas_phase(torch, np, sp, csgraph, torch.device("cpu"), 0, rows, failures,
+                             scale=SCALE, theta=40.0)
+    text = capsys.readouterr().out
+    assert failures == [], (failures, text)
+    assert text.count("check pallas") == 6 and "-> FAIL" not in text
+    for name in smoke.KERNEL_SOURCES:
+        assert rows[name]["launches"] > 0, name
+    for name in ("ell_gimv", "ell_gimv_multi"):
+        flat = rows[name]["flat_width"]
+        assert flat["ms"] == 0.5 and flat["bound_ms"] > 0 and flat["shape"][0] == N
+    assert set(out) == {"edges", "n", "pagerank", "sssp", "sssp_b4"}
+    np.testing.assert_array_equal(out["sssp"], out["sssp_b4"])

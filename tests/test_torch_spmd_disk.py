@@ -98,7 +98,16 @@ def _misc_cases(root: str, mesh) -> list:
             algo="pagerank", run=RUN, extras=("fleet",)),
         "checkpoint": dict(engine=dict(base, faults=[("KillAtIteration", {"iteration": 2})]),
                            algo="sssp", run=dict(max_iters=6, tol=0.0), extras=("checkpoint",)),
+        "unnamed_faults": dict(engine=dict(base, obs=True, faults=UNNAMED_FAULTS),
+                               algo="pagerank", run=RUN, extras=("faults",)),
     }
+
+
+# fetch faults that name no worker: each fires once across the fleet (on
+# worker index 0's rank), as once in the JAX package's single-host run
+UNNAMED_FAULTS = [("TransientIO", {"block": 1, "times": 2}),
+                  ("CorruptFetch", {"block": 2, "array": "seg"}),
+                  ("CorruptFetch", {"block": 3, "array": "gat"})]
 
 
 @pytest.fixture(scope="module")
@@ -330,6 +339,31 @@ def test_spmd_disk_straggler_attributed_to_injected_worker(stores, spmd):
         assert fl["skew"]["max"] > 2.0, fl["skew"]
         assert set(fl["kinds"]) >= {"spmd_io", "spmd_overlap"}
         assert fl["text"]
+
+
+def test_spmd_disk_unnamed_faults_fire_once(stores, spmd):
+    """A plan of fetch events that name no worker (TransientIO twice on one
+    block, a corrupt seg and a corrupt gat slice) under a mesh of 4: the
+    fleet's ``fault.injected*`` and ``store.verify_failures`` sums equal the
+    JAX package's single-host disk run of the same plan (each event fires
+    once, on worker index 0's rank: the other ranks drop it), and every
+    rank's answer is bitwise the clean run."""
+    from repro import faults as JF
+
+    _edges, root = stores["misc"]
+    clean = _single(root, "pagerank", dict(strategy="vertical"))
+    plan = JF.FaultPlan(events=tuple(getattr(JF, kind)(**kw) for kind, kw in UNNAMED_FAULTS),
+                        seed=0)
+    jeng = J.PMVEngine.from_store(root, residency="disk", strategy="vertical", faults=plan,
+                                  obs=True)
+    jeng.run(J.pagerank(jeng.n), **RUN)
+    want = {k: jeng.obs.counter(k).value for k in S.FAULT_COUNTERS}
+    assert want["fault.injected"] == 4 and want["store.verify_failures"] == 2, want
+    ranks = _case(spmd, 4, ("misc", "unnamed_faults"))
+    for r in ranks:
+        np.testing.assert_array_equal(r["v"], clean.v)
+    assert {k: sum(r["faults"][k] for r in ranks) for k in S.FAULT_COUNTERS} == want
+    assert all(x == 0 for r in ranks[1:] for x in r["faults"].values())
 
 
 def test_spmd_disk_checkpoint_resumes_bitwise(stores, spmd):
