@@ -12,6 +12,21 @@ Phases, each printed as it ends; any failure exits non-zero:
               ``packed_scatter_combine`` / ``packed_scatter_combine_multi``),
               one ``nvcc`` per source, in parallel.
 2. graph   -- RMAT(scale, 16 << scale) with the paper's a,b,c,d and b = 8 workers.
+1b. lm     -- the LM serving path (``repro_torch.models``, ``launch.serve``;
+              plain torch, no Pallas kernel, so none of the eight kernels may
+              launch in it): qwen3-1.7b at full width (28 layers, d_model
+              2048, vocab 151936) from ``build_model``'s seed-0 draw on the
+              card.  In float32 (TF32 off): B = 4, a 16-token prompt, 32
+              greedy steps, every step's logits within rtol 5e-2 / atol 5e-4
+              of one forward over the 48 tokens.  In the config's bfloat16,
+              ``launch.serve.main`` (finite logits), then the same run timed:
+              decode ms a step (median), tok/s, the prompt's ms a token, peak
+              GiB, beside the bound (parameter bytes over 3.35 TB/s); the
+              bfloat16 logits' difference from float32 and the greedy tokens'
+              agreement are printed, not gated.  Then the other nine archs at
+              their smoke configs in float32: decode against forward (rtol
+              5e-2, atol 5e-4) and the card's logits within rtol / atol 1e-4
+              of the same model on the host (forward at S = 12 and 32, decode).
 3. runs    -- three ``PMVEngine(backend='auto', device='cuda').run`` solves:
               PageRank (strategy='selective'), SSSP from vertex 0
               (strategy='vertical', scatter='kernel') and connected components
@@ -71,8 +86,9 @@ Phases, each printed as it ends; any failure exits non-zero:
               kernels' precondition) and prints their sum.
    Each run is also profiled for 3 more iterations (torch.profiler): device
    time per iteration by kernel, host wall per iteration, idle share.
-4b. bf16   -- after run 4 (``repro_torch.faults`` layer, the resident leg):
-              ``PMVEngine(strategy='vertical', backend='auto',
+4b. bf16   -- after run 4 (``repro_torch.faults`` layer, the resident leg), on
+              RMAT(scale - 2), the spmd phase's graph (cut from scale to fit
+              the time limit): ``PMVEngine(strategy='vertical', backend='auto',
               scatter='kernel', payload_dtype='bfloat16')`` runs PageRank 20
               iterations at tol 0, then on the same engine 10 iterations
               checkpointed every 5 and resumed to 20: the resumed answer
@@ -81,7 +97,7 @@ Phases, each printed as it ends; any failure exits non-zero:
               iteration's ``exchange_payload_bytes`` exactly half the float32
               wire's (``exchange_wire_split`` at itemsize 2 against 4);
               ``ell_gimv`` and ``scatter_combine`` must launch.  A
-              "checkpoint save" line times one save's legs (the 4 MiB
+              "checkpoint save" line times one save's legs (the 1 MiB
               blocked v to the host, ``np.savez``, ``os.replace``) against
               the median iteration.
 5. serve   -- ``PMVServer(strategy='hybrid', theta=3000, backend='auto',
@@ -297,7 +313,7 @@ Phases, each printed as it ends; any failure exits non-zero:
               (NCCL, NVLink) can be read from them.
 8. stream  -- the bucket-streamed planned executor (``stream='on'``, one
               destination block at a time) on ``erdos_renyi(2**s, 16 * 2**s)``
-              with s = scale - 1 (cut from scale to fit the time limit) at
+              with s = scale - 2 (cut from scale to fit the time limit) at
               b = 64 workers, cyclic psi: a uniform sparse
               graph at the paper's regime of many workers, where the default
               ``stream='auto'`` streams.  Run 1: SSSP from 0,
@@ -3871,6 +3887,149 @@ def spmd_disk_checks(np, b, res, vec, disk, spmd_disk, want, rows, failures, *,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# lm phase: the LM serving path (repro_torch.models, repro_torch.launch.serve)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3_1_7b"
+
+
+def teacher_forced(torch, model, batch, steps: int):
+    """serve_step over the batch's first ``steps`` tokens after prefill_cache:
+    each step's logits [B, V] as float32, stacked [B, steps, V]."""
+    tokens = batch["tokens"]
+    with torch.inference_mode():
+        cache = model.init_cache(tokens.shape[0], steps, enc_len=steps)
+        cache = model.prefill_cache(cache, batch)
+        out = []
+        for t in range(steps):
+            lg, cache = model.serve_step(cache, tokens[:, t : t + 1], t)
+            out.append(lg[:, 0].float())
+    return torch.stack(out, dim=1)
+
+
+def lm_smoke_arch(torch, dev, arch: str) -> dict:
+    """One architecture at its smoke config, float32: the same parameters
+    on the card and on the host; the card's 12 decode steps against its own
+    forward (rtol 5e-2, atol 5e-4) and the card's logits (forward at S = 12
+    and S = 32, which takes flash_attention, and the decode steps) against
+    the host's (rtol 1e-4, atol 1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+
+    cfg = smoke_config(arch)
+    if cfg.n_experts:                 # the forward drops no token, as decode
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    cpu = build_model(cfg, "cpu")
+    card = build_model(cfg, dev)
+    card.load_params({k: v.to(dev) for k, v in cpu.params().items()})
+    errs = {}
+    ok = True
+    for S in (12, 32):
+        hb = serve.synthetic_batch(cfg, 2, S, device=torch.device("cpu"), seed=S)
+        cb = {k: v.to(dev) for k, v in hb.items()}
+        with torch.inference_mode():
+            want, _ = cpu(hb)
+            got, _ = card(cb)
+        errs[f"forward{S}"] = float((got.float().cpu() - want.float()).abs().max())
+        ok &= torch.allclose(got.float().cpu(), want.float(), rtol=1e-4, atol=1e-4)
+        if S == 12:
+            dec = teacher_forced(torch, card, cb, S)
+            dec_cpu = teacher_forced(torch, cpu, hb, S)
+            errs["decode_vs_forward"] = float((dec - got.float()).abs().max())
+            errs["decode_vs_host"] = float((dec.cpu() - dec_cpu).abs().max())
+            ok &= torch.allclose(dec, got.float(), rtol=5e-2, atol=5e-4)
+            ok &= torch.allclose(dec.cpu(), dec_cpu, rtol=1e-4, atol=1e-4)
+            ok &= bool(torch.isfinite(dec).all())
+    return {"ok": bool(ok), **errs}
+
+
+def lm_phase(torch, np, dev, card: str, failures: list) -> None:
+    """The LM serving path (module doc, phase 1b).  No Pallas kernel is on
+    it, so none of the eight kernels may launch."""
+    import dataclasses
+
+    from repro_torch import configs, kernels
+    from repro_torch.launch import flops, serve
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    cfg = configs.config_for(LM_ARCH)
+    B, P, G = 4, 16, 32
+
+    # float32 at full width: every decode step against one full forward
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32, dev)
+    batch = serve.synthetic_batch(cfg32, B, P, device=dev)
+    g32 = serve.generate(model, batch, G)
+    seq = torch.cat([batch["tokens"], g32.tokens.to(dev)], dim=1)
+    with torch.inference_mode():
+        full, _ = model({"tokens": seq})
+    full = full.float()
+    err = float((g32.logits - full).abs().max())
+    ok = bool(torch.allclose(g32.logits, full, rtol=5e-2, atol=5e-4))
+    log(f"lm {cfg.name} float32 (full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}): B={B} prompt {P} + {G} greedy steps; each step's logits vs one "
+        f"forward over the {P + G} tokens: max abs err {err:.3e} (rtol 5e-2, atol 5e-4) "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"lm {LM_ARCH} float32 decode disagrees with its forward")
+    logits32, tokens32 = g32.logits[:, :P].clone(), g32.tokens
+    del model, g32, full, seq
+    torch.cuda.empty_cache()
+
+    # the config's bfloat16 through the CLI's entry point, then its timings
+    t = time.perf_counter()
+    served = serve.main(["--arch", LM_ARCH, "--batch", str(B), "--prompt-len", str(P),
+                         "--gen", str(G), "--device", dev.type])
+    main_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dev)
+    g16 = serve.generate(model, batch, G)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(g16.logits).all())
+    steps_ms = [1e3 * s for s in g16.step_s]
+    med = float(np.median(steps_ms))
+    n_params = flops.param_count(cfg)
+    bound_ms = 1e3 * n_params * 2 / H100_BYTES_PER_S
+    d0 = float((g16.logits[:, 0] - logits32[:, 0]).abs().max())
+    dp = float((g16.logits[:, :P] - logits32).abs().max())
+    agree = float((g16.tokens == tokens32).float().mean())
+    log(f"lm {cfg.name} bfloat16: serve.main {main_s:.2f} s, tokens {served.shape}, "
+        f"the same as generate: {bool(np.array_equal(served, g16.tokens.numpy()))}; logits "
+        f"finite: {finite} -> {'ok' if finite else 'FAIL'}")
+    log(f"lm {cfg.name} bfloat16 B={B}: decode median {med:.3f} ms a step (min "
+        f"{min(steps_ms):.3f}, max {max(steps_ms):.3f}), {B * G / sum(g16.step_s):.1f} tok/s; "
+        f"prefill by decode {1e3 * g16.prefill_s / P:.3f} ms a token; peak {peak:.2f} GiB; "
+        f"bound {bound_ms:.3f} ms a step ({n_params:,} params x 2 B / 3.35 TB/s; card: {card})")
+    log(f"lm {cfg.name} bfloat16 vs float32 (not gated): step-0 logits max abs diff {d0:.3e}, "
+        f"over the prompt's {P} steps {dp:.3e}; greedy tokens agreeing {agree:.3f}")
+    if not finite:
+        failures.append(f"lm {LM_ARCH} bfloat16 logits not finite")
+    del model, g16, logits32, batch
+    torch.cuda.empty_cache()
+
+    # the other nine archs at their smoke configs, card against host
+    for arch in configs.ARCHS:
+        if arch == LM_ARCH:
+            continue
+        r = lm_smoke_arch(torch, dev, arch)
+        log(f"lm {arch} smoke: " + " ".join(f"{k}={v:.3e}" for k, v in r.items() if k != "ok")
+            + f" -> {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            failures.append(f"lm {arch} smoke: card disagrees")
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        failures.append(f"lm phase launched PMV kernels: {counts}")
+    log(f"lm phase: {time.perf_counter() - t_phase:.1f} s; PMV kernel launches "
+        f"{sum(counts.values())} (the LM path has no Pallas kernel)")
+
+
 def refuse(cause: str) -> int:
     """Say why the smoke cannot run, on stdout and stderr, and give exit code 2."""
     print(f"chip_smoke: not run: {cause}", flush=True)
@@ -3939,6 +4098,9 @@ def main() -> int:
     rows: dict[str, dict] = {}
     failures: list[str] = []
     peaks: dict[str, float] = {}
+    # -- lm: the LM serving path, qwen3-1.7b at full width, then the other
+    # nine archs at their smoke configs --
+    lm_phase(torch, np, dev, card, failures)
 
     def rand_v(size, dtype):
         if dtype == torch.int32:
@@ -4139,9 +4301,12 @@ def main() -> int:
     del eng, v_local
     torch.cuda.empty_cache()
 
-    # -- run 4b: PageRank over the bfloat16 wire, checkpointed and resumed -------
+    # -- run 4b: PageRank over the bfloat16 wire, checkpointed and resumed, on
+    # RMAT(scale - 2), the spmd phase's graph, to keep the smoke inside its limit --
     t = time.perf_counter()
-    bf16_phase(torch, np, sp, dev, edges, n, b, rows, failures)
+    small = (rmat(args.scale - 2, 16 << (args.scale - 2), seed=args.seed),
+             1 << (args.scale - 2))
+    bf16_phase(torch, np, sp, dev, *small, b, rows, failures)
     log(f"bf16 phase: {time.perf_counter() - t:.1f} s")
 
     # -- serve: PMVServer, hybrid theta=3000, 96 RWR + 96 SSSP queries at Q=64 ---
@@ -4165,8 +4330,6 @@ def main() -> int:
     t = time.perf_counter()
     try:
         spmd_nccl(torch, np, sp, csgraph, dev, args.seed, rows, failures, disk=disk)
-        small = (rmat(args.scale - 2, 16 << (args.scale - 2), seed=args.seed),
-                 1 << (args.scale - 2))
         spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, run2, served[1], rows,
                   failures, small=small, disk=disk, pallas=pallas)
     finally:
@@ -4175,8 +4338,8 @@ def main() -> int:
     del run2, disk, pallas
     del edges, sym
     # -- stream: the bucket-streamed executor on a uniform sparse graph at b = 64,
-    # at scale - 1 to keep the smoke inside its time limit --
-    stream_phase(torch, np, sp, csgraph, dev, gen, args.scale - 1, args.seed, rows, failures,
+    # at scale - 2 to keep the smoke inside its time limit --
+    stream_phase(torch, np, sp, csgraph, dev, gen, args.scale - 2, args.seed, rows, failures,
                  peaks)
 
     if failures:

@@ -74,6 +74,7 @@ from repro_torch.core import blocks as blocks_lib
 from repro_torch.core import collectives, cost_model, placement, planner
 from repro_torch.core.gimv import GimvSpec
 from repro_torch.core.partition import HybridMatrix, Partition, PartitionedMatrix, partition_graph
+from repro_torch.device import resolve_device
 from repro_torch.exchange import plan as exchange_plan
 from repro_torch.faults import RetryPolicy, as_injector
 from repro_torch.graph.generators import symmetrize_edges
@@ -199,23 +200,6 @@ class PMVResult:
     def deltas(self) -> np.ndarray:
         """Per-iteration convergence-delta trajectory."""
         return np.asarray([r["delta"] for r in self.per_iter])
-
-
-def resolve_device(device) -> torch.device:
-    """None -> the GPU, raising when there is none; otherwise the named
-    device, raising for 'cuda' without a GPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "PMVEngine runs on the GPU by default and no CUDA device is "
-                "available; pass device='cpu' to run the plain versions on the host")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device!r} requested but no CUDA device is available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 class PMVEngine:

@@ -55,7 +55,13 @@ print(json.dumps({"modules": names, "bad": bad}))
             "repro_torch.store.residency", "repro_torch.store.spmd",
             "repro_torch.store.shard", "repro_torch.faults.retry", "repro_torch.faults.plan",
             "repro_torch.graph.io", "repro_torch.obs.profiler", "repro_torch.obs.fleet",
-            "repro_torch.obs.live", "repro_torch.cli"} <= set(report["modules"])
+            "repro_torch.obs.live", "repro_torch.cli", "repro_torch.configs",
+            "repro_torch.configs.qwen3_1_7b", "repro_torch.models.config",
+            "repro_torch.models.layers", "repro_torch.models.mla", "repro_torch.models.moe",
+            "repro_torch.models.ssm", "repro_torch.models.rglru",
+            "repro_torch.models.transformer", "repro_torch.models.model",
+            "repro_torch.models.convert", "repro_torch.launch.flops",
+            "repro_torch.launch.serve"} <= set(report["modules"])
 
 
 def test_engine_without_device_raises_without_gpu(monkeypatch):
@@ -178,42 +184,85 @@ def test_remaining_refusals_name_their_knob(knob, exc, text):
 
 
 @pytest.mark.parametrize("module,package", [
-    ("repro_torch.models", "repro_torch"), ("repro_torch.training", "repro_torch"),
-    ("repro_torch.configs", "repro_torch"), ("repro_torch.launch", "repro_torch")])
+    ("repro_torch.training", "repro_torch"), ("repro_torch.launch.train", "repro_torch.launch"),
+    ("repro_torch.launch.dryrun", "repro_torch.launch"),
+    ("repro_torch.launch.hlo_analysis", "repro_torch.launch"),
+    ("repro_torch.launch.roofline", "repro_torch.launch"),
+    ("repro_torch.launch.mesh", "repro_torch.launch"),
+    ("repro_torch.models.sharding", "repro_torch.models")])
 def test_unported_modules_are_named(module, package):
-    """The JAX package's modules outside the port (the LM scaffolding:
-    models, training, configs, launch) do not exist in it, and the package
-    that would hold each says so by name."""
+    """The JAX package's modules outside the port (the LM training slice:
+    training, the train / dryrun / hlo_analysis / roofline / mesh launchers,
+    the models' sharding) do not exist in it; the port's root docstring
+    names each in full, and the package that would hold it by its name."""
     import importlib
 
     with pytest.raises(ModuleNotFoundError):
         importlib.import_module(module)
+    root = importlib.import_module("repro_torch").__doc__
+    assert "Not ported yet" in root and module in root
     doc = importlib.import_module(package).__doc__
     assert "Not ported yet" in doc and module.rsplit(".", 1)[1] in doc
 
 
-@pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.obs.profiler",
-                                    "repro_torch.obs.fleet", "repro_torch.obs.live",
-                                    "repro_torch.cli", "repro_torch.store",
-                                    "repro_torch.store.shard", "repro_torch.store.spmd",
-                                    "repro_torch.core"])
-def test_ported_modules_match_reference(module):
-    """The core (``make_step`` included), the observability modules, the CLI
-    and the store (its SPMD group and its physical shards included) the port
-    took over from the JAX package export the JAX package's ``__all__``, and
-    each imports in a fresh interpreter without pulling in jax or the JAX
-    package."""
+PORTED = ["repro_torch.obs", "repro_torch.obs.profiler", "repro_torch.obs.fleet",
+          "repro_torch.obs.live", "repro_torch.cli", "repro_torch.store",
+          "repro_torch.store.shard", "repro_torch.store.spmd", "repro_torch.core",
+          "repro_torch.configs", "repro_torch.models.config", "repro_torch.models.layers",
+          "repro_torch.models.mla", "repro_torch.models.moe", "repro_torch.models.ssm",
+          "repro_torch.models.rglru", "repro_torch.models.transformer",
+          "repro_torch.models.model", "repro_torch.launch.flops", "repro_torch.launch.serve"]
+
+
+@pytest.fixture(scope="module")
+def fresh_imports():
+    """One fresh interpreter imports the PORTED modules in turn and lists,
+    after each, the jax / jaxlib / repro modules then loaded: a module that
+    pulls one in is the first whose list is not empty."""
+    code = ("import importlib, json, sys\n"
+            "out = {}\n"
+            "for m in sys.argv[1:]:\n"
+            "    importlib.import_module(m)\n"
+            "    out[m] = sorted(k for k in sys.modules\n"
+            "                    if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(json.dumps(out))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, *PORTED], capture_output=True, text=True,
+                         env=env, timeout=300, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", PORTED)
+def test_ported_modules_match_reference(module, fresh_imports):
+    """The core (``make_step`` included), the observability modules, the CLI,
+    the store (its SPMD group and its physical shards included) and the LM
+    serving slice (configs, the models, ``launch.flops`` and
+    ``launch.serve``) the port took over from the JAX package export the JAX
+    package's ``__all__`` where it has one (the configs and the serve
+    launcher have none), and each imports in a fresh interpreter without
+    pulling in jax or the JAX package."""
     import importlib
 
     reference = importlib.import_module("repro" + module[len("repro_torch"):])
-    assert importlib.import_module(module).__all__ == reference.__all__
-    code = (f"import sys, {module}\n"
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-            "'repro')))")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env=env, timeout=300, check=True)
-    assert out.stdout.strip() == "[]"
+    port = importlib.import_module(module)
+    if hasattr(reference, "__all__"):
+        assert port.__all__ == reference.__all__
+    else:
+        assert not hasattr(port, "__all__")
+    assert fresh_imports[module] == []
+
+
+def test_seq_parallel_is_refused_by_name():
+    """cfg.seq_parallel=True is a mesh knob: the model refuses it, naming
+    the knob, until the sharding slice."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(smoke_config("qwen3_1_7b"), seq_parallel=True)
+    with pytest.raises(NotImplementedError, match="seq_parallel"):
+        build_model(cfg, "cpu")
 
 
 def test_packed_exchange_and_delta_eps_are_accepted():

@@ -577,3 +577,28 @@ def test_pallas_phase_on_cpu(monkeypatch, capsys):
         assert flat["ms"] == 0.5 and flat["bound_ms"] > 0 and flat["shape"][0] == N
     assert set(out) == {"edges", "n", "pagerank", "sssp", "sssp_b4"}
     np.testing.assert_array_equal(out["sssp"], out["sssp_b4"])
+
+
+def test_lm_phase_on_cpu(monkeypatch, capsys):
+    """The smoke's lm phase on the CPU, qwen3-1.7b cut to its smoke config
+    (``config_for`` stubbed) and the card's memory calls stubbed: every
+    check holds (float32 decode against the forward, the CLI's bfloat16
+    run, the nine smoke archs' card-against-host comparisons, here host
+    against host), and no PMV kernel launches."""
+    import torch
+
+    from repro_torch import configs
+
+    monkeypatch.setattr(configs, "config_for", configs.smoke_config)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 1 << 30)
+    failures = []
+    smoke.lm_phase(torch, np, torch.device("cpu"), "a card, 700 W", failures)
+    out = capsys.readouterr().out
+    assert failures == [], failures
+    assert "FAIL" not in out
+    assert out.count("lm ") >= 12 and "[serve] qwen3-1.7b-smoke: generated (4, 32) tokens" in out
+    assert "PMV kernel launches 0" in out
+    for arch in configs.ARCHS[1:]:
+        assert f"lm {arch} smoke: forward12=" in out
