@@ -27,6 +27,29 @@ Phases, each printed as it ends; any failure exits non-zero:
               their smoke configs in float32: decode against forward (rtol
               5e-2, atol 5e-4) and the card's logits within rtol / atol 1e-4
               of the same model on the host (forward at S = 12 and 32, decode).
+1c. train  -- the LM training path (``repro_torch.training``,
+              ``launch.train``; plain torch, none of the eight kernels may
+              launch in it).  (a) Each of the ten smoke configs, float32 (TF32
+              off): one ``make_train_step`` step (the default OptConfig) on
+              the card against the same step on the host, from the same
+              parameters and numpy batch (B = 2, S = 32): loss within rtol
+              1e-5, grad_norm within 1e-4, every updated parameter within
+              atol 1e-6 / rtol 1e-4.  (b) qwen3-1.7b at full width in its
+              bfloat16 through ``launch.train.main`` (B = 4, S = 256, 8
+              steps, remat='block'): every step's loss and grad norm finite,
+              grad norm > 0, the parameters moved; step ms (median, min-max;
+              host clock ending in the loss's copy to the host), tok/s and
+              peak GiB beside the bound, the larger of ``cell_cost``'s
+              train FLOPs over the data sheet's bf16 dense peak and its HBM
+              bytes over 3.35 TB/s.  Then 5 ``make_train_step`` steps on one
+              repeated batch (lr 1e-3, warmup 1): the loss must fall from
+              the first to the last; one more step timed in two halves (the
+              gradients, AdamW) and one under torch.profiler (device ms,
+              idle share, the top device ops).  (c) The CLI at smoke size on
+              the card under ``torch.use_deterministic_algorithms(True,
+              warn_only=True)``: ``--simulate-preemption 3`` exits 42 after
+              committing step 3, the rerun resumes to 6, and its parameters
+              must be bitwise those of an uninterrupted 6-step run.
 3. runs    -- three ``PMVEngine(backend='auto', device='cuda').run`` solves:
               PageRank (strategy='selective'), SSSP from vertex 0
               (strategy='vertical', scatter='kernel') and connected components
@@ -267,13 +290,14 @@ Phases, each printed as it ends; any failure exits non-zero:
               shows that NCCL takes the port's tensors.  (b) gloo, 8 ranks
               sharing the card (NCCL refuses two ranks on one GPU), each a
               subprocess of this script (``--spmd-rank R --spmd-dir D``)
-              that runs the kernels on the card on its own worker's rows, on
-              the graph of phase 2: the SSSP of run 2 (strategy='vertical',
-              scatter='kernel'), bitwise run 2's answer and its
-              per-iteration ``exchanged_elems``.  On RMAT(scale - 2) (every
-              rank runs the whole host prepare, so these three are cut to
-              fit the time limit): PageRank horizontal within rtol 1e-4 of
-              scipy; the SSSP through ``exchange='hier'`` on a (2, 4)
+              that runs the kernels on the card on its own worker's rows.  On
+              RMAT(scale - 2) (every rank runs the whole host prepare, so
+              these four are cut to fit the time limit): the SSSP of run
+              2's knobs (strategy='vertical', scatter='kernel') on the flat
+              mesh, equal to scipy and bitwise an emulated b = 8 engine's
+              answer and per-iteration ``exchanged_elems`` on that graph
+              (run while the ranks run); PageRank horizontal within rtol
+              1e-4 of scipy; the SSSP through ``exchange='hier'`` on a (2, 4)
               ('pod', 'workers') mesh, equal to scipy, its
               ``inter_pod_elems`` the closed form P(P-1)·W·n_local and below
               the flat sparse exchange's at the same capacity;
@@ -364,6 +388,7 @@ from pathlib import Path
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 H100_TF32_OPS_PER_S = 495e12
+H100_BF16_OPS_PER_S = 989e12      # the data sheet's dense bf16 tensor-core peak
 
 KERNEL_SOURCES = {
     "ell_gimv": ("src/repro_torch/kernels/csrc/ell_gimv.cu",
@@ -3420,8 +3445,7 @@ def spmd_disk_runs(rank: int, d: str, cfg: dict, dev, mesh, out: dict, counted) 
 def spmd_rank(rank: int, d: str) -> int:
     """One rank of the spmd phase's gloo part (``chip_smoke.py --spmd-rank R
     --spmd-dir D``): the runs of ``D/payload.json`` on the shared graph
-    ``D/edges.npy`` (PageRank, the hier SSSP and the serve on
-    ``D/edges_small.npy``; the backend='pallas' runs on
+    ``D/edges_small.npy`` (the backend='pallas' runs on
     ``D/edges_pallas.npy``),
     then the out-of-core runs over the disk phase's store
     (``spmd_disk_runs``), each between barriers with the launch counters zeroed
@@ -3446,7 +3470,7 @@ def spmd_rank(rank: int, d: str) -> int:
         from repro_torch.serving import PMVServer, Query
 
         torch.set_num_threads(1)
-        world, n, n_small = cfg["world"], cfg["n"], cfg["n_small"]
+        world, n_small = cfg["world"], cfg["n_small"]
         dev = collectives.rank_device(cfg["device"])
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -3459,7 +3483,6 @@ def spmd_rank(rank: int, d: str) -> int:
         # two replicas of world // 2 workers: the dim 'data' is outside axis_name
         replicas = DeviceMesh(dev.type, torch.arange(world).reshape(2, world // 2),
                               mesh_dim_names=("data", "model"))
-        edges = np.load(os.path.join(d, "edges.npy"))
         small = np.load(os.path.join(d, "edges_small.npy"))
         out = {"rank": rank, "device": str(dev), "up_s": time.perf_counter() - t0}
 
@@ -3473,7 +3496,7 @@ def spmd_rank(rank: int, d: str) -> int:
             out[label] = {"s": time.perf_counter() - t, "launches": kernels.launch_counts()}
             return res
 
-        def solve(label, spec, max_iters, tol, graph=(edges, n), **kw):
+        def solve(label, spec, max_iters, tol, graph=(small, n_small), **kw):
             kw.setdefault("b", world)
             kw.setdefault("backend", "auto")
             eng = PMVEngine(*graph, device=dev, **kw)
@@ -3494,9 +3517,9 @@ def spmd_rank(rank: int, d: str) -> int:
 
         solve("sssp_flat", sssp(0), 100, 0.5, strategy="vertical", scatter="kernel",
               stream="off", mesh=flat)
-        solve("pagerank_horizontal", pagerank(n_small), 100, 1e-6, graph=(small, n_small),
-              strategy="horizontal", mesh=flat)
-        solve("sssp_hier", sssp(0), 100, 0.5, graph=(small, n_small), strategy="vertical",
+        solve("pagerank_horizontal", pagerank(n_small), 100, 1e-6, strategy="horizontal",
+              mesh=flat)
+        solve("sssp_hier", sssp(0), 100, 0.5, strategy="vertical",
               scatter="kernel", stream="off", exchange="hier", mesh=pods,
               axis_name=("pod", "workers"))
         srv = PMVServer(small, n_small, b=world, strategy="hybrid", theta=cfg["theta"],
@@ -3544,14 +3567,15 @@ def spmd_rank(rank: int, d: str) -> int:
         os._exit(code)
 
 
-def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources, rows,
+def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, rwr_sources, rows,
               failures, *, small=None, hints=None, expect_launches=True, disk=None,
               pallas=None) -> None:
     """Part (b) of the spmd phase: ``b`` gloo ranks sharing ``dev``, each a
-    subprocess that runs the kernels on the card (``spmd_rank``): the flat
-    SSSP bitwise run 2 (``run2``: its answer and per-iteration exchanged
-    elements) on ``edges``; on ``small`` ((edges, n), default the same
-    graph) a horizontal PageRank within rtol 1e-4 of scipy, the two-hop
+    subprocess that runs the kernels on the card (``spmd_rank``), on
+    ``small`` ((edges, n), default the same graph): the flat SSSP equal to
+    scipy and bitwise an emulated b-worker engine's answer and
+    per-iteration exchanged elements (run here while the ranks run), a
+    horizontal PageRank within rtol 1e-4 of scipy, the two-hop
     SSSP on a (2, b/2) ('pod', 'workers') mesh equal to scipy with its
     inter-pod elements at the closed form and below the flat sparse
     exchange's at the same capacity, and a ``PMVServer(mesh=...)`` batch of
@@ -3575,7 +3599,7 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
     import shutil
     import tempfile
 
-    from repro_torch.core import cost_model
+    from repro_torch.core import PMVEngine, cost_model, sssp
 
     spmd_disk = None
     if disk is not None:
@@ -3589,7 +3613,6 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
     procs = []
     t = time.perf_counter()
     try:
-        np.save(os.path.join(d, "edges.npy"), edges)
         np.save(os.path.join(d, "edges_small.npy"), small_edges)
         spmd_pallas = None
         if pallas is not None:
@@ -3608,7 +3631,14 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
                 env={**os.environ, "LOCAL_RANK": str(rank), "OMP_NUM_THREADS": "1"}), log_f))
         deadline = time.monotonic() + SPMD_RANK_TIMEOUT_S
         hints = hints or {}
-        pre = {}                            # the references, while the ranks run
+        # the references, while the ranks run: the flat SSSP's emulated engine
+        # (run 2's knobs) on the same graph, then scipy's
+        ref = PMVEngine(small_edges, n_small, b=b, strategy="vertical", backend="auto",
+                        scatter="kernel", stream="off", device=dev).run(sssp(0), max_iters=100,
+                                                                        tol=0.5)
+        flat_want = {"v": ref.v, "exchanged_elems": [r["exchanged_elems"] for r in ref.per_iter]}
+        del ref
+        pre = {}
         if "pagerank" in hints:
             pre["pagerank"] = (hints["pagerank"],
                                pagerank_ref(np, sp, small_edges, n_small, hints["pagerank"]))
@@ -3668,10 +3698,12 @@ def spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, theta, run2, rwr_sources
 
     same = all(r["sssp_flat"]["stats"] == res[0]["sssp_flat"]["stats"] for r in res)
     flat = res[0]["sssp_flat"]
-    ok = (flat["converged"] and np.array_equal(vec["sssp_flat"], run2["v"])
-          and flat["stats"]["exchanged_elems"] == run2["exchanged_elems"] and same)
-    counts = {"sssp_flat": line("sssp_flat", f"iterations={flat['iterations']}, bitwise run 2 "
-                                f"and its exchanged_elems {run2['exchanged_elems'][-1]:.0f}", ok)}
+    ok = (flat["converged"] and np.array_equal(vec["sssp_flat"], flat_want["v"])
+          and np.array_equal(vec["sssp_flat"].astype(np.float64), hier_want)
+          and flat["stats"]["exchanged_elems"] == flat_want["exchanged_elems"] and same)
+    counts = {"sssp_flat": line(
+        "sssp_flat", f"rmat n={n_small}, iterations={flat['iterations']}, scipy, bitwise the "
+        f"emulated engine and its exchanged_elems {flat_want['exchanged_elems'][-1]:.0f}", ok)}
     pr = res[0]["pagerank_horizontal"]
     its, want = pre.get("pagerank", (None, None))
     if its != pr["iterations"]:
@@ -4030,6 +4062,197 @@ def lm_phase(torch, np, dev, card: str, failures: list) -> None:
         f"{sum(counts.values())} (the LM path has no Pallas kernel)")
 
 
+# ---------------------------------------------------------------------------
+# train phase: the LM training path (repro_torch.training, launch.train)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 256, 8
+
+
+def train_smoke_arch(torch, dev, arch: str) -> dict:
+    """One float32 train step of ``arch``'s smoke config on the card and on
+    the host, same parameters and numpy batch (B = 2, S = 32: flash
+    attention); the errors, and whether they are inside the tolerances of
+    the module doc (phase 1c a)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import SyntheticTokenPipeline, TrainConfig, make_train_step
+    from repro_torch.training.train_step import init_train_state
+
+    cfg = smoke_config(arch)
+    pipe = SyntheticTokenPipeline(
+        vocab=cfg.vocab, global_batch=2, seq_len=32, seed=5,
+        vis_tokens=cfg.n_vision_tokens if cfg.family == "vlm" else 0,
+        enc_len=32 if cfg.family == "encdec" else 0, d_model=cfg.d_model)
+    batch = pipe.batch_at(0)
+    tcfg = TrainConfig()
+    host = build_model(cfg, "cpu")
+    card = build_model(cfg, dev)
+    card.load_params({k: v.detach().to(dev) for k, v in host.params().items()})
+    out = {}
+    for where, model in (("host", host), ("card", card)):
+        params = model.params()
+        state = init_train_state(model, params, tcfg)
+        params, _, metrics = make_train_step(model, tcfg)(params, state, batch)
+        out[where] = (params, {k: float(v) for k, v in metrics.items()})
+    host, hm = out["host"]
+    card, cm = out["card"]
+    ok = abs(cm["loss"] - hm["loss"]) <= 1e-5 * abs(hm["loss"])
+    ok &= abs(cm["grad_norm"] - hm["grad_norm"]) <= 1e-4 * abs(hm["grad_norm"])
+    p_err = 0.0
+    for name, want in host.items():
+        got, want = card[name].detach().cpu(), want.detach()
+        p_err = max(p_err, float((got - want).abs().max()))
+        ok &= bool(torch.allclose(got, want, rtol=1e-4, atol=1e-6))
+    return {"ok": bool(ok), "loss_rel": abs(cm["loss"] - hm["loss"]) / abs(hm["loss"]),
+            "grad_norm_rel": abs(cm["grad_norm"] - hm["grad_norm"]) / abs(hm["grad_norm"]),
+            "param_max_abs": p_err}
+
+
+def train_phase(torch, np, dev, card: str, failures: list) -> None:
+    """The LM training path (module doc, phase 1c).  No Pallas kernel is on
+    it, so none of the eight kernels may launch."""
+    import tempfile
+
+    from repro_torch import configs, kernels
+    from repro_torch.launch import flops, train
+    from repro_torch.models.model import build_model
+    from repro_torch.training import (OptConfig, SyntheticTokenPipeline, TrainConfig,
+                                      make_train_step)
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_step import _accum_grads, init_train_state
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+
+    # (a) the ten smoke configs, one float32 step, card against host
+    for arch in configs.ARCHS:
+        r = train_smoke_arch(torch, dev, arch)
+        log(f"train {arch} smoke card vs host: loss rel {r['loss_rel']:.3e}, grad_norm rel "
+            f"{r['grad_norm_rel']:.3e}, params max abs {r['param_max_abs']:.3e} "
+            f"-> {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            failures.append(f"train {arch} smoke: card disagrees with host")
+
+    # (b) qwen3-1.7b at full width, bfloat16, through the CLI's entry point
+    cfg = configs.config_for(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run = train.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+                      "--seq", str(TRAIN_S), "--log-every", "4", "--device", dev.type])
+    main_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = run.history
+    finite = all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist)
+    positive = all(h["grad_norm"] > 0 for h in hist)
+    # the CLI starts from build_model's seed-0 draw: a second draw is the start
+    params, start = run.model.params(), build_model(cfg, dev).params()
+    moved = [k for k in params if not torch.equal(params[k], start[k])]
+    moved_share = (sum(int((params[k] != start[k]).sum()) for k in moved)
+                   / sum(p.numel() for p in params.values()))
+    del start
+    ok = finite and positive and "wte" in moved and len(hist) == TRAIN_STEPS
+    steps_ms = [1e3 * h["step_s"] for h in hist]
+    later = steps_ms[1:]
+    med = float(np.median(later))
+    cost = flops.cell_cost(cfg, "train", TRAIN_S, TRAIN_B)
+    b_ops = 1e3 * cost.flops / H100_BF16_OPS_PER_S
+    b_bytes = 1e3 * cost.hbm_bytes / H100_BYTES_PER_S
+    log(f"train {cfg.name} bfloat16 (full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, remat={cfg.remat}) via launch.train.main: B={TRAIN_B} S={TRAIN_S} "
+        f"{len(hist)} steps in {main_s:.2f} s; losses "
+        f"{[round(h['loss'], 4) for h in hist]}; grad norms "
+        f"{[round(h['grad_norm'], 3) for h in hist]}; finite {finite}, grad_norm > 0 "
+        f"{positive}; {len(moved)} of {len(params)} leaves moved (wte among them: "
+        f"{'wte' in moved}), {moved_share:.4f} of the elements -> {'ok' if ok else 'FAIL'}")
+    log(f"train {cfg.name} bfloat16 B={TRAIN_B} S={TRAIN_S}: step median {med:.3f} ms over "
+        f"steps 2-{len(hist)} (min {min(later):.3f}, max {max(later):.3f}; step 1 "
+        f"{steps_ms[0]:.3f}), {TRAIN_B * TRAIN_S / (med / 1e3):.1f} tok/s; peak {peak:.2f} "
+        f"GiB; bound {max(b_ops, b_bytes):.3f} ms a step (data sheet: {cost.flops:.4e} FLOP "
+        f"/ 989 TFLOP/s bf16 dense = {b_ops:.3f} ms; {cost.hbm_bytes:.4e} B / 3.35 TB/s = "
+        f"{b_bytes:.3f} ms; card: {card})")
+    if not ok:
+        failures.append(f"train {LM_ARCH} full width: a step not finite or no update")
+
+    # the same model, a fresh optimizer, 5 steps on one repeated batch
+    model = run.model
+    del run, params
+    torch.cuda.empty_cache()
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=5))
+    params = model.params()
+    state = init_train_state(model, params, tcfg)
+    step = make_train_step(model, tcfg)
+    batch = SyntheticTokenPipeline(vocab=cfg.vocab, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                                   seed=3).batch_at(0)
+    losses = []
+    for _ in range(5):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    falls = losses[-1] < losses[0] and all(np.isfinite(losses))
+    log(f"train {cfg.name} bfloat16, one batch repeated (lr 1e-3, warmup 1): losses "
+        f"{[round(x, 4) for x in losses]} -> {'ok' if falls else 'FAIL'}")
+    if not falls:
+        failures.append(f"train {LM_ARCH}: the loss did not fall on a repeated batch")
+    # where a step's time goes: the gradients and AdamW apart (host clock,
+    # each ending in a synchronize), then one whole step under the profiler
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, _, grads = _accum_grads(model, tb, 1)
+    torch.cuda.synchronize()
+    grad_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    adamw_update(tcfg.opt, params, grads, state["opt"])
+    torch.cuda.synchronize()
+    opt_ms = 1e3 * (time.perf_counter() - t)
+    del grads
+    prof = device_breakdown(torch, lambda: step(params, state, batch), 1)
+    log(f"train {cfg.name} bfloat16 step split: loss + gradients (remat) {grad_ms:.3f} ms, "
+        f"AdamW {opt_ms:.3f} ms ({len(params)} leaves)")
+    log(f"profile train step: {json.dumps(prof)}")
+    del model, params, state, step, tb
+    torch.cuda.empty_cache()
+
+    # (c) preemption and restart through the CLI, smoke size, deterministic
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--arch", LM_ARCH, "--smoke", "--batch", "4", "--seq", "32", "--steps", "6",
+                "--log-every", "6", "--device", dev.type]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                code = None
+                try:
+                    train.main(argv + ["--ckpt-dir", d, "--ckpt-every", "3",
+                                       "--simulate-preemption", "3"])
+                except SystemExit as e:
+                    code = e.code
+                resumed = train.main(argv + ["--ckpt-dir", d, "--ckpt-every", "3"])
+                whole = train.main(argv)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    got, want = resumed.model.params(), whole.model.params()
+    diff = max(float((got[k].detach().float() - want[k].detach().float()).abs().max())
+               for k in want)
+    bitwise = all(torch.equal(got[k], want[k]) for k in want)
+    ok = code == 42 and resumed.start_step == 3 and bitwise
+    log(f"train {LM_ARCH} smoke CLI preemption (deterministic algorithms): exit {code} at step "
+        f"3, resumed from {resumed.start_step} to {int(resumed.state['step'])}; parameters vs "
+        f"an uninterrupted run: max abs diff {diff:.3e}, bitwise {bitwise} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"train {LM_ARCH} smoke: the restart is not bitwise the whole run")
+    del resumed, whole, got, want
+    torch.cuda.empty_cache()
+
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        failures.append(f"train phase launched PMV kernels: {counts}")
+    log(f"train phase: {time.perf_counter() - t_phase:.1f} s; PMV kernel launches "
+        f"{sum(counts.values())} (the LM path has no Pallas kernel)")
+
+
 def refuse(cause: str) -> int:
     """Say why the smoke cannot run, on stdout and stderr, and give exit code 2."""
     print(f"chip_smoke: not run: {cause}", flush=True)
@@ -4101,6 +4324,9 @@ def main() -> int:
     # -- lm: the LM serving path, qwen3-1.7b at full width, then the other
     # nine archs at their smoke configs --
     lm_phase(torch, np, dev, card, failures)
+    # -- train: the LM training path, the smoke configs card against host,
+    # qwen3-1.7b at full width through the CLI, the CLI's restart --
+    train_phase(torch, np, dev, card, failures)
 
     def rand_v(size, dtype):
         if dtype == torch.int32:
@@ -4204,8 +4430,6 @@ def main() -> int:
     if not ok:
         failures.append("sssp disagrees with scipy")
     sssp_v = res.v
-    run2 = {"v": res.v, "want": want,
-            "exchanged_elems": [r["exchanged_elems"] for r in res.per_iter]}
     fp = eng.prepare(spec)[0]["planned"]
     part = meta["part"]
     nl = part.n_local
@@ -4324,18 +4548,19 @@ def main() -> int:
                       rows, failures, seed=args.seed, traces=traces)
     del traces
     # -- spmd: one rank per worker, NCCL at W = 1, then 8 gloo ranks on the card;
-    # PageRank, the hier SSSP and the serve on RMAT(scale - 2), which keeps the
-    # smoke inside its time limit (every rank runs the whole host prepare); then
-    # the out-of-core runs over the disk phase's store, removed after them --
+    # the flat SSSP, PageRank, the hier SSSP and the serve on RMAT(scale - 2),
+    # which keeps the smoke inside its time limit (every rank runs the whole
+    # host prepare); then the out-of-core runs over the disk phase's store,
+    # removed after them --
     t = time.perf_counter()
     try:
         spmd_nccl(torch, np, sp, csgraph, dev, args.seed, rows, failures, disk=disk)
-        spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, run2, served[1], rows,
+        spmd_gloo(torch, np, sp, csgraph, dev, edges, n, b, 3000.0, served[1], rows,
                   failures, small=small, disk=disk, pallas=pallas)
     finally:
         shutil.rmtree(disk["root"], ignore_errors=True)
     log(f"spmd phase: {time.perf_counter() - t:.1f} s (card: {card})")
-    del run2, disk, pallas
+    del disk, pallas
     del edges, sym
     # -- stream: the bucket-streamed executor on a uniform sparse graph at b = 64,
     # at scale - 2 to keep the smoke inside its time limit --

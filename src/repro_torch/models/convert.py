@@ -24,8 +24,10 @@ _STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def to_torch(a) -> torch.Tensor:
-    """A numpy array (or anything ``np.asarray`` takes) as a CPU tensor of
-    its own, bfloat16 bit for bit."""
+    """A numpy array (or anything ``np.asarray`` takes, or a tensor) as a
+    CPU tensor of its own, bfloat16 bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().clone()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
@@ -51,8 +53,8 @@ def _scan_length(cfg: ModelConfig, key: str) -> int:
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
-    """The JAX package's ``init_params`` tree (numpy leaves) -> the port's
-    state dict on ``device`` (None: the GPU), ready for
+    """The JAX package's ``init_params`` tree (numpy or tensor leaves) ->
+    the port's state dict on ``device`` (None: the GPU), ready for
     ``Model.load_params``: each stacked leaf [n, ...] becomes n leaves."""
     dev = resolve_device(device)
     out = {}
@@ -60,7 +62,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
         if key in _STACKED:
             n = _scan_length(cfg, key)
             for path, leaf in flatten_tree(sub).items():
-                a = np.asarray(leaf)
+                a = leaf if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
                 if a.shape[:1] != (n,):
                     raise ValueError(f"{key}.{path}: leading axis {a.shape[:1]}, expected ({n},)")
                 for i in range(n):

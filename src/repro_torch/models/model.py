@@ -12,6 +12,12 @@ parameter tree, one layer a module: ``wte``, ``ln_f``, ``lm_head``, the
 are keyed ``l0``, ``l1``, ... (``repro_torch.models.convert`` maps the JAX
 package's stacked tree onto it and back).
 
+Every parameter is trainable: ``loss_fn`` under autograd gives the
+gradients of the training slice (``repro_torch.training``), and with
+``cfg.remat == "block"`` each superblock of a scanned stack is recomputed
+in the backward (``torch.utils.checkpoint``, the JAX package's
+``jax.checkpoint``).  Decode runs under ``torch.inference_mode``.
+
 serve_step(cache, tokens [B,1], pos) -> (logits [B,1,V], cache): one decode
 step against the KV/state caches, which it writes in place; modality caches
 (cross K/V over the stub embeddings) are filled once by ``prefill_cache``.
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -47,6 +54,14 @@ def _superblocks(cfg, pattern, n_sb, gen):
             for _ in range(n_sb)]
 
 
+def _superblock(sb, x, aux_loss, aux):
+    """One superblock's layers in order, the aux loss summed as it goes."""
+    for blk in sb.values():
+        x, a = blk(x, aux)
+        aux_loss = aux_loss + a
+    return x, aux_loss
+
+
 def _stack_modules(cfg, pattern, trees):
     return nn.ModuleList(nn.ModuleDict({f"l{i}": Block(kind, cfg, t[f"l{i}"])
                                         for i, kind in enumerate(pattern)}) for t in trees)
@@ -68,7 +83,7 @@ class Model(nn.Module):
         plan = cfg.scan_plan()
         for key, value in tree.items():
             if isinstance(value, torch.Tensor):
-                self.register_parameter(key, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(key, nn.Parameter(value))
         if cfg.family == "encdec":
             self.enc_blocks = _stack_modules(cfg, ("enc",), tree["enc_blocks"])
             self.dec_blocks = _stack_modules(cfg, ("dec",), tree["dec_blocks"])
@@ -148,11 +163,15 @@ class Model(nn.Module):
         return x @ self.lm_head
 
     def _run_stack(self, stack, x, aux):
+        """The scanned superblocks; under autograd with remat='block' each
+        one's activations are recomputed in the backward, not kept."""
         aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.cfg.remat == "block" and torch.is_grad_enabled()
         for sb in stack:
-            for blk in sb.values():
-                x, a = blk(x, aux)
-                aux_loss = aux_loss + a
+            if remat:
+                x, aux_loss = checkpoint(_superblock, sb, x, aux_loss, aux, use_reentrant=False)
+            else:
+                x, aux_loss = _superblock(sb, x, aux_loss, aux)
         return x, aux_loss
 
     def forward(self, batch):
@@ -199,7 +218,8 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- loss
     def loss_fn(self, batch):
-        """Next-token cross entropy (mean over B*(S-1) tokens), forward only."""
+        """Next-token cross entropy (mean over B*(S-1) tokens) plus the MoE
+        aux loss; differentiable in every parameter."""
         logits, aux_loss = self.forward(batch)
         tokens = batch["tokens"]
         lg = f32(logits[:, :-1])

@@ -40,10 +40,10 @@ __all__ = ["init_block", "apply_block", "decode_block", "init_block_cache"]
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors as a module: leaves become parameters (no
-    gradient until the training slice), subtrees child modules, under the
-    same keys; ``tree[key]`` reads either, so the functional code below
-    takes it where the JAX package takes its dict."""
+    """A nested dict of tensors as a module: leaves become (trainable)
+    parameters, subtrees child modules, under the same keys; ``tree[key]``
+    reads either, so the functional code below takes it where the JAX
+    package takes its dict."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -51,7 +51,7 @@ class ParamTree(nn.Module):
             if isinstance(value, dict):
                 self.add_module(key, ParamTree(value))
             else:
-                self.register_parameter(key, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(key, nn.Parameter(value))
 
     def __getitem__(self, key):
         return getattr(self, key)

@@ -61,7 +61,10 @@ print(json.dumps({"modules": names, "bad": bad}))
             "repro_torch.models.ssm", "repro_torch.models.rglru",
             "repro_torch.models.transformer", "repro_torch.models.model",
             "repro_torch.models.convert", "repro_torch.launch.flops",
-            "repro_torch.launch.serve"} <= set(report["modules"])
+            "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.training.optimizer", "repro_torch.training.data",
+            "repro_torch.training.train_step",
+            "repro_torch.training.checkpoint"} <= set(report["modules"])
 
 
 def test_engine_without_device_raises_without_gpu(monkeypatch):
@@ -184,17 +187,18 @@ def test_remaining_refusals_name_their_knob(knob, exc, text):
 
 
 @pytest.mark.parametrize("module,package", [
-    ("repro_torch.training", "repro_torch"), ("repro_torch.launch.train", "repro_torch.launch"),
+    ("repro_torch.training.pipeline", "repro_torch.training"),
     ("repro_torch.launch.dryrun", "repro_torch.launch"),
     ("repro_torch.launch.hlo_analysis", "repro_torch.launch"),
     ("repro_torch.launch.roofline", "repro_torch.launch"),
     ("repro_torch.launch.mesh", "repro_torch.launch"),
     ("repro_torch.models.sharding", "repro_torch.models")])
 def test_unported_modules_are_named(module, package):
-    """The JAX package's modules outside the port (the LM training slice:
-    training, the train / dryrun / hlo_analysis / roofline / mesh launchers,
-    the models' sharding) do not exist in it; the port's root docstring
-    names each in full, and the package that would hold it by its name."""
+    """The JAX package's modules outside the port (the multi-device LM
+    slice: the GPipe pipeline, the mesh launcher and the models' sharding;
+    the dryrun / hlo_analysis / roofline launchers) do not exist in it; the
+    port's root docstring names each in full, and the package that would
+    hold it by its name."""
     import importlib
 
     with pytest.raises(ModuleNotFoundError):
@@ -211,7 +215,10 @@ PORTED = ["repro_torch.obs", "repro_torch.obs.profiler", "repro_torch.obs.fleet"
           "repro_torch.configs", "repro_torch.models.config", "repro_torch.models.layers",
           "repro_torch.models.mla", "repro_torch.models.moe", "repro_torch.models.ssm",
           "repro_torch.models.rglru", "repro_torch.models.transformer",
-          "repro_torch.models.model", "repro_torch.launch.flops", "repro_torch.launch.serve"]
+          "repro_torch.models.model", "repro_torch.launch.flops", "repro_torch.launch.serve",
+          "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.data",
+          "repro_torch.training.train_step", "repro_torch.training.checkpoint",
+          "repro_torch.launch.train"]
 
 
 @pytest.fixture(scope="module")
@@ -235,12 +242,13 @@ def fresh_imports():
 @pytest.mark.parametrize("module", PORTED)
 def test_ported_modules_match_reference(module, fresh_imports):
     """The core (``make_step`` included), the observability modules, the CLI,
-    the store (its SPMD group and its physical shards included) and the LM
+    the store (its SPMD group and its physical shards included), the LM
     serving slice (configs, the models, ``launch.flops`` and
-    ``launch.serve``) the port took over from the JAX package export the JAX
-    package's ``__all__`` where it has one (the configs and the serve
-    launcher have none), and each imports in a fresh interpreter without
-    pulling in jax or the JAX package."""
+    ``launch.serve``) and the LM training slice (``training`` and its
+    modules, ``launch.train``) the port took over from the JAX package
+    export the JAX package's ``__all__`` where it has one (the configs and
+    the serve and train launchers have none), and each imports in a fresh
+    interpreter without pulling in jax or the JAX package."""
     import importlib
 
     reference = importlib.import_module("repro" + module[len("repro_torch"):])
@@ -263,6 +271,20 @@ def test_seq_parallel_is_refused_by_name():
     cfg = dataclasses.replace(smoke_config("qwen3_1_7b"), seq_parallel=True)
     with pytest.raises(NotImplementedError, match="seq_parallel"):
         build_model(cfg, "cpu")
+
+
+def test_compress_pod_is_refused_by_name():
+    """TrainConfig(compress_pod=True) runs the step over a mesh's pod axis:
+    make_train_step refuses it, naming the knob and the mesh slice, until
+    the sharding slice."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import TrainConfig, make_train_step
+
+    model = build_model(smoke_config("qwen3_1_7b"), "cpu")
+    with pytest.raises(NotImplementedError, match="compress_pod") as ei:
+        make_train_step(model, TrainConfig(compress_pod=True))
+    assert "repro_torch.models.sharding" in str(ei.value)
 
 
 def test_packed_exchange_and_delta_eps_are_accepted():

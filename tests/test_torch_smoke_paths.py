@@ -462,14 +462,14 @@ def test_telemetry_checks_on_cpu(capsys):
 
 def test_spmd_gloo_phase_on_cpu(capsys, tmp_path):
     """The smoke's spmd phase, part (b), rehearsed on the CPU at scale 10:
-    8 gloo ranks (subprocesses of chip_smoke.py --spmd-rank) run the flat
-    SSSP (bitwise the emulated run 2 and its exchanged elements), then on
-    the smaller graph the horizontal PageRank, the two-hop SSSP on (2, 4)
-    and the RWR serve, against the smoke's scipy references; backend='pallas'
-    on the pallas phase's graph (the SSSP on two replicas of 4 workers and
-    with axis_name against rank order, the horizontal PageRank), against
-    the emulated pallas runs; then
-    the out-of-core runs over a store as the disk phase leaves it (each
+    8 gloo ranks (subprocesses of chip_smoke.py --spmd-rank) run, on the
+    smaller graph, the flat SSSP (bitwise an emulated engine and its
+    exchanged elements, and scipy), the horizontal PageRank, the two-hop
+    SSSP on (2, 4) and the RWR serve, against the smoke's scipy references;
+    backend='pallas' on the pallas phase's graph (the SSSP on two replicas
+    of 4 workers and with axis_name against rank order, the horizontal
+    PageRank), against the emulated pallas runs; then the out-of-core runs
+    over a store as the disk phase leaves it (each
     rank on its own shard view under a per-worker budget): the SSSP, the
     hybrid and packed PageRanks and the hybrid RWR serve bitwise the
     single-process disk runs, the chaos SSSP with worker 1's prefetch
@@ -482,11 +482,6 @@ def test_spmd_gloo_phase_on_cpu(capsys, tmp_path):
     from repro_torch.serving import PMVServer, Query
     from repro_torch.store import ingest_edges
 
-    eng = PMVEngine(EDGES, N, b=8, strategy="vertical", backend="auto", scatter="kernel",
-                    stream="off", device="cpu")
-    res = eng.run(sssp(0), max_iters=100, tol=0.5)
-    run2 = {"v": res.v, "want": smoke.sssp_ref(np, sp, csgraph, EDGES, N, 0),
-            "exchanged_elems": [r["exchanged_elems"] for r in res.per_iter]}
     root = str(tmp_path / "store")
     man = ingest_edges(EDGES, N, 8, root, theta=40.0)
     budget = 2 * cost_model.stripe_slice_bytes(8, man.e_cap, has_w=True)
@@ -525,7 +520,7 @@ def test_spmd_gloo_phase_on_cpu(capsys, tmp_path):
     for key, b in (("sssp", 8), ("sssp_b4", 4)):
         pallas[key] = PMVEngine(pal_edges, N // 2, b=b, strategy="vertical", backend="pallas",
                                 scatter="kernel", device="cpu").run(sssp(0), tol=0.5).v
-    smoke.spmd_gloo(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, 40.0, run2,
+    smoke.spmd_gloo(torch, np, sp, csgraph, torch.device("cpu"), EDGES, N, 8, 40.0,
                     sources, rows, failures, small=small, hints={"pagerank": 52},
                     expect_launches=False, disk=disk, pallas=pallas)
     out = capsys.readouterr().out
@@ -602,3 +597,4 @@ def test_lm_phase_on_cpu(monkeypatch, capsys):
     assert "PMV kernel launches 0" in out
     for arch in configs.ARCHS[1:]:
         assert f"lm {arch} smoke: forward12=" in out
+
