@@ -50,6 +50,28 @@ Phases, each printed as it ends; any failure exits non-zero:
               warn_only=True)``: ``--simulate-preemption 3`` exits 42 after
               committing step 3, the rerun resumes to 6, and its parameters
               must be bitwise those of an uninterrupted 6-step run.
+1d. mesh   -- the multi-device LM slice (``models.sharding`` / ``spmd``,
+              ``launch.mesh``, ``launch.dryrun``; plain torch, none of the
+              eight kernels may launch in it).  (b) and (c) run in
+              subprocesses while (a) runs here.  (a) One NCCL rank on a (1, 1)
+              ('data', 'model') mesh: qwen3-1.7b at full width in its
+              bfloat16 (the train phase's B = 4, S = 256, remat='block'), 3
+              steps of ``make_train_step(model, tcfg, mesh)`` with the
+              parameters and state placed by ``param_shardings``, against 3
+              one-device steps from the same seed-0 draw and batches: losses
+              within rel 1e-6, parameters within 1e-6 (bitwise printed), step
+              ms and peak GiB of both.  (b) 8 gloo ranks sharing the card
+              (``chip_smoke.py --mesh-rank R``) on a (2, 2, 2) ('pod',
+              'data', 'model') mesh, the smoke configs of qwen3-1.7b and
+              Mixtral (B = 8, S = 32, float32): one sharded step plain and
+              with seq_parallel (loss rel <= 1e-6, parameters <= 1e-6 of the
+              card's one-rank step), compress_pod (loss rel <= 1e-6,
+              parameters within 2 lr + 1e-6), a checkpoint saved under the
+              mesh and restored on one device bitwise.  (``pipeline_apply``
+              is not run here: gloo's send / recv does not take CUDA
+              tensors.)  (c) ``python -m repro_torch.launch.dryrun --arch
+              qwen3_1_7b --shape train_4k --mesh single``: ok, its flops,
+              collective bytes and temp GiB printed.
 3. runs    -- three ``PMVEngine(backend='auto', device='cuda').run`` solves:
               PageRank (strategy='selective'), SSSP from vertex 0
               (strategy='vertical', scatter='kernel') and connected components
@@ -4253,6 +4275,361 @@ def train_phase(torch, np, dev, card: str, failures: list) -> None:
         f"{sum(counts.values())} (the LM path has no Pallas kernel)")
 
 
+MESH_RANKS = 8
+MESH_RANK_TIMEOUT_S = 240.0
+MESH_SMOKE_ARCHS = ("qwen3_1_7b", "mixtral_8x22b")
+MESH_B, MESH_S = 8, 32
+
+
+def mesh_batch(np, vocab: int) -> dict:
+    """The mesh phase's numpy batch: B = 8 rows (pod x data = 4 divides
+    them), S = 32 (past the smoke configs' flash threshold)."""
+    rng = np.random.default_rng(3)
+    return {"tokens": rng.integers(0, vocab, size=(MESH_B, MESH_S), dtype=np.int32)}
+
+
+def mesh_rank(rank: int, d: str) -> int:
+    """One gloo rank of the mesh phase (``chip_smoke.py --mesh-rank R
+    --mesh-dir D``), on cuda:0 with its seven peers: on a (2, 2, 2) ('pod',
+    'data', 'model') mesh, one sharded train step of each smoke arch plain
+    and with seq_parallel, compress_pod, and a checkpoint saved under the
+    mesh and restored on one device.  Each part runs on its own: one that
+    raises (a collective gloo lacks for CUDA tensors, say) is recorded with
+    its error, the next part goes on, and the parent fails the phase.  (Not
+    here: ``pipeline_apply``, whose ring shift is send / recv, which gloo
+    does not take for CUDA tensors: its tcp pair writes from the device
+    pointer, "writev: Bad address"; the CPU tests hold it.)  Every rank
+    writes ``D/r{R}.json``, rank 0 the arrays to ``D/*.npz``; leaves with
+    ``os._exit`` after a last barrier."""
+    import os
+    import traceback
+
+    code = 1
+    try:
+        with open(os.path.join(d, "payload.json")) as f:
+            cfg = json.load(f)
+        sys.path.insert(0, cfg["src"])
+        import dataclasses
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch import configs
+        from repro_torch.launch.mesh import data_axes
+        from repro_torch.models import spmd
+        from repro_torch.models.model import build_model
+        from repro_torch.training import TrainConfig, checkpoint, make_train_step
+        from repro_torch.training.train_step import init_train_state
+
+        dev = torch.device(cfg["device"])
+        if dev.type == "cuda":
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                                world_size=MESH_RANKS)
+        mesh = DeviceMesh(dev.type, torch.arange(MESH_RANKS).reshape(2, 2, 2),
+                          mesh_dim_names=("pod", "data", "model"))
+        out = {}
+
+        def full(t):
+            return spmd.full_tensor(t).detach().float().cpu()
+
+        def part(name, fn):
+            dist.barrier()
+            t0 = time.perf_counter()
+            try:
+                res = fn()
+                out[name] = {"ok": True, "s": time.perf_counter() - t0, **(res or {})}
+            except Exception as e:  # noqa: BLE001 -- reported by name, the next part goes on
+                out[name] = {"ok": False, "error": f"{type(e).__name__}: {e}"[:600],
+                             "traceback": traceback.format_exc()[-1500:]}
+
+        def step_case(arch, sp=False, compress=False):
+            c = configs.smoke_config(arch)
+            if sp:
+                c = dataclasses.replace(c, seq_parallel=True, dp_axes=data_axes(mesh))
+            model = build_model(c, dev)
+            params = model.distribute(mesh, src_data_rank=None)   # the same draw on every rank
+            tcfg = TrainConfig(compress_pod=compress)
+            state = init_train_state(model, params, tcfg)
+            params, state, m = make_train_step(model, tcfg, mesh)(
+                params, state, mesh_batch(np, c.vocab))
+            arrays = {k: full(v) for k, v in params.items()}
+            if rank == 0:
+                tag = f"{arch}{'_sp' if sp else ''}{'_compress' if compress else ''}"
+                np.savez(os.path.join(d, f"{tag}.npz"),
+                         **{k: v.numpy() for k, v in arrays.items()})
+            return {"metrics": {k: float(v) for k, v in m.items()}}
+
+        for arch in MESH_SMOKE_ARCHS:
+            part(f"{arch} step", lambda a=arch: step_case(a))
+            part(f"{arch} seq_parallel", lambda a=arch: step_case(a, sp=True))
+        part("qwen3_1_7b compress_pod", lambda: step_case("qwen3_1_7b", compress=True))
+
+
+        def ckpt():
+            c = configs.smoke_config("qwen3_1_7b")
+            model = build_model(c, dev)
+            params = model.distribute(mesh, src_data_rank=None)
+            tcfg = TrainConfig()
+            state = init_train_state(model, params, tcfg)
+            params, state, _ = make_train_step(model, tcfg, mesh)(params, state,
+                                                                   mesh_batch(np, c.vocab))
+            tree = {"params": params, "state": state}
+            want = {k: full(v) for k, v in checkpoint._flatten(tree).items()}
+            checkpoint.save(os.path.join(d, "ckpt"), 1, tree)
+            got = checkpoint.restore(os.path.join(d, "ckpt"), 1, tree,
+                                     shardings=dev)
+            flat = checkpoint._flatten(got)
+            bitwise = all(torch.equal(flat[k].detach().float().cpu(), v) for k, v in want.items())
+            plain = all(type(v) is torch.Tensor and v.device == dev for v in flat.values())
+            return {"bitwise": bitwise, "plain_on_card": plain, "leaves": len(want)}
+        part("checkpoint", ckpt)
+
+        with open(os.path.join(d, f"r{rank}.tmp"), "w") as f:
+            json.dump(out, f)
+        os.replace(os.path.join(d, f"r{rank}.tmp"), os.path.join(d, f"r{rank}.json"))
+        dist.barrier()
+        code = 0
+    except BaseException:  # noqa: BLE001 -- reported through the rank's log and exit code
+        traceback.print_exc()
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+
+
+def mesh_nccl(torch, np, dev, card: str, failures: list) -> None:
+    """Part (a) of the mesh phase: one NCCL rank in this process on a (1, 1)
+    ('data', 'model') mesh, qwen3-1.7b at full width in its bfloat16 (the
+    train phase's B = 4, S = 256, remat='block'): 3 steps of the one-device
+    make_train_step, then the same 3 from the same seed-0 draw and batches
+    with the parameters and state placed by param_shardings and
+    make_train_step(model, tcfg, mesh)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    from repro_torch.training import SyntheticTokenPipeline, TrainConfig, make_train_step
+    from repro_torch.training.train_step import init_train_state
+
+    cfg = configs.config_for(LM_ARCH)
+    pipe = SyntheticTokenPipeline(vocab=cfg.vocab, global_batch=TRAIN_B, seq_len=TRAIN_S, seed=5)
+    batches = [pipe.batch_at(i) for i in range(3)]
+    tcfg = TrainConfig()
+
+    def run(mesh):
+        model = build_model(cfg, dev)
+        params = model.distribute(mesh) if mesh is not None else model.params()
+        state = init_train_state(model, params, tcfg)
+        step = make_train_step(model, tcfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for b in batches:
+            t = time.perf_counter()
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            ms.append(1e3 * (time.perf_counter() - t))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        final = {k: (v.to_local() if hasattr(v, "to_local") else v).detach().cpu()
+                 for k, v in params.items()}
+        del model, params, state, step
+        torch.cuda.empty_cache()
+        return losses, ms, peak, final
+
+    t0 = time.perf_counter()
+    one = run(None)
+    d = tempfile.mkdtemp(prefix="lm_nccl_")
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                              mesh_dim_names=("data", "model"))
+            sharded = run(mesh)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sharded[0], one[0]))
+    diffs = [float((sharded[3][k].float() - one[3][k].float()).abs().max()) for k in one[3]]
+    bitwise = all(torch.equal(sharded[3][k], one[3][k]) for k in one[3])
+    ok = loss_rel <= 1e-6 and max(diffs) <= 1e-6 and all(np.isfinite(sharded[0]))
+    log(f"mesh nccl W=1 (1, 1) ('data', 'model'): {cfg.name} bfloat16 full width, B={TRAIN_B} "
+        f"S={TRAIN_S}, 3 steps sharded vs one device: losses {sharded[0]} vs {one[0]} (max rel "
+        f"{loss_rel:.3e}); parameters max abs diff {max(diffs):.3e}, bitwise {bitwise} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    log(f"mesh nccl W=1 step ms: sharded {[round(x, 3) for x in sharded[1]]} vs one device "
+        f"{[round(x, 3) for x in one[1]]} (steps 2-3 median: DTensor host overhead "
+        f"{np.median(sharded[1][1:]) - np.median(one[1][1:]):.3f} ms); peak GiB sharded "
+        f"{sharded[2]:.2f} vs {one[2]:.2f} ({time.perf_counter() - t0:.1f} s; card: {card})")
+    if not ok:
+        failures.append("mesh nccl W=1: the sharded steps disagree with the one-device steps")
+
+
+def mesh_phase(torch, np, dev, card: str, failures: list, *, parts: str = "abc") -> None:
+    """The multi-device LM slice (module doc, phase 1d): (b) and (c) run in
+    subprocesses while (a) runs here (``parts`` picks them; on
+    ``dev='cpu'`` (b) and (c) rehearse on the host).  No Pallas kernel is on
+    it, so none of the eight kernels may launch."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import configs, kernels
+    from repro_torch.models.model import build_model
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.train_step import init_train_state
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    root = Path(__file__).resolve().parent
+    d = tempfile.mkdtemp(prefix="lm_mesh_")
+    procs = []
+    try:
+        with open(os.path.join(d, "payload.json"), "w") as f:
+            json.dump({"src": str(root / "src"), "device": dev.type}, f)
+        for rank in range(MESH_RANKS if "b" in parts else 0):
+            log_f = open(os.path.join(d, f"r{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-X", "faulthandler", str(root / "chip_smoke.py"),
+                 "--mesh-rank", str(rank), "--mesh-dir", d], stdout=log_f,
+                stderr=subprocess.STDOUT,
+                env={**os.environ, "OMP_NUM_THREADS": "1", "PYTHONUNBUFFERED": "1"}), log_f))
+        dry = None
+        if "c" in parts:
+            dry_log = open(os.path.join(d, "dryrun.log"), "w")
+            dry = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH, "--shape",
+                 "train_4k", "--mesh", "single", "--force", "--results-dir",
+                 os.path.join(d, "dryrun")], stdout=dry_log, stderr=subprocess.STDOUT,
+                cwd=str(root),
+                env={**os.environ, "PYTHONPATH": str(root / "src"), "OMP_NUM_THREADS": "1"})
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+
+        # (a) here, while they run
+        if "a" in parts:
+            mesh_nccl(torch, np, dev, card, failures)
+
+        # the card's one-rank references of (b)
+        refs = {}
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for arch in MESH_SMOKE_ARCHS:
+            c = configs.smoke_config(arch)
+            model = build_model(c, dev)
+            params = model.params()
+            tcfg = TrainConfig()
+            state = init_train_state(model, params, tcfg)
+            params, _, m = make_train_step(model, tcfg)(params, state, mesh_batch(np, c.vocab))
+            refs[arch] = ({k: float(v) for k, v in m.items()},
+                          {k: v.detach().float().cpu() for k, v in params.items()})
+
+        for proc, log_f in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise SmokeError("mesh gloo ranks still running after "
+                                 f"{MESH_RANK_TIMEOUT_S:.0f} s")
+        if procs:
+            codes = [p.returncode for p, _ in procs]
+            if any(codes) or not os.path.exists(os.path.join(d, "r0.json")):
+                logs = "\n".join(f"--- rank {i} (exit {c}) ---\n" + Path(
+                    d, f"r{i}.log").read_text(errors="replace")[-1500:] for i, c in
+                    enumerate(codes))
+                raise SmokeError(f"mesh gloo ranks failed, exit codes {codes}:\n{logs}")
+            with open(os.path.join(d, "r0.json")) as f:
+                res = json.load(f)
+            for name, r in res.items():     # every rank's own error of a part not run
+                if not r["ok"]:
+                    errs = set()
+                    for i in range(MESH_RANKS):
+                        with open(os.path.join(d, f"r{i}.json")) as f:
+                            errs.add(json.load(f)[name].get("error"))
+                    r["error"] = " | ".join(sorted(e for e in errs if e))
+            mesh_gloo_checks(torch, np, d, res, refs, failures)
+        if dry is not None:
+            try:
+                dry.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise SmokeError("mesh dry run still running")
+            dry_log.close()
+            rec_path = os.path.join(d, "dryrun", f"single__lm__{LM_ARCH}@train_4k.json")
+            if dry.returncode != 0 or not os.path.exists(rec_path):
+                tail = Path(d, "dryrun.log").read_text()[-3000:]
+                raise SmokeError(f"mesh dry run failed:\n{tail}")
+            with open(rec_path) as f:
+                rec = json.load(f)
+            ok = rec["ok"] and rec["cost"]["flops"] > 0
+            log(f"mesh dryrun {LM_ARCH}@train_4k on the fake (16, 16) mesh "
+                f"(device_type {rec['meta'].get('device_type')}): ok {rec['ok']}, flops/rank "
+                f"{rec['cost']['flops']:.4e} (analytic global {rec['analytic']['flops']:.4e}), "
+                f"collective bytes/rank {rec['collectives']['bytes']['total']:.4e} "
+                f"{json.dumps(rec['collectives']['counts'])}, temp "
+                f"{rec['memory']['temp_bytes'] / 2**30:.2f} GiB, arguments "
+                f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, trace {rec['lower_s']} s "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("mesh dry run: qwen3_1_7b@train_4k not ok")
+    finally:
+        for proc, log_f in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+        shutil.rmtree(d, ignore_errors=True)
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        failures.append(f"mesh phase launched PMV kernels: {counts}")
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; PMV kernel launches "
+        f"{sum(counts.values())} (the LM path has no Pallas kernel)")
+
+
+def mesh_gloo_checks(torch, np, d, res, refs, failures) -> None:
+    """Part (b)'s results against the card's one-rank runs: a step (plain
+    and seq_parallel) loss within rel 1e-6 and every parameter within 1e-6;
+    compress_pod's loss within rel 1e-6 (computed before the compression)
+    and every parameter within 2 lr + 1e-6 (AdamW's first update is lr
+    g / (|g| + eps) plus the decay, whatever int8 did to g); the checkpoint
+    bitwise on one device.  A part that raised on any rank fails the phase
+    with its error."""
+    import os
+
+    for name, r in res.items():
+        if not r["ok"]:
+            log(f"mesh gloo 8 ranks on cuda:0 {name}: raised: {r['error']} -> FAIL")
+            failures.append(f"mesh gloo {name} raised: {r['error']}")
+            continue
+        if name.endswith(("step", "seq_parallel", "compress_pod")):
+            arch = name.split()[0]
+            m_ref, p_ref = refs[arch]
+            tag = arch + ("_sp" if name.endswith("seq_parallel") else "") + \
+                ("_compress" if name.endswith("compress_pod") else "")
+            with np.load(os.path.join(d, f"{tag}.npz")) as z:
+                diff = max(float(np.abs(z[k] - p_ref[k].numpy()).max()) for k in p_ref)
+            loss_rel = abs(r["metrics"]["loss"] - m_ref["loss"]) / abs(m_ref["loss"])
+            tol = 2 * m_ref["lr"] + 1e-6 if name.endswith("compress_pod") else 1e-6
+            ok = loss_rel <= 1e-6 and diff <= tol
+            log(f"mesh gloo 8 ranks on cuda:0 (2, 2, 2) {name}: loss {r['metrics']['loss']:.6f} "
+                f"vs one rank {m_ref['loss']:.6f} (rel {loss_rel:.3e}), grad_norm "
+                f"{r['metrics']['grad_norm']:.6f} vs {m_ref['grad_norm']:.6f}, parameters max "
+                f"abs diff {diff:.3e} (tol {tol:.1e}), {r['s']:.1f} s -> {'ok' if ok else 'FAIL'}")
+        else:
+            ok = r["bitwise"] and r["plain_on_card"]
+            log(f"mesh gloo checkpoint saved under (2, 2, 2), restored on one device: "
+                f"{r['leaves']} leaves bitwise {r['bitwise']}, plain tensors on the card "
+                f"{r['plain_on_card']}, {r['s']:.1f} s -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"mesh gloo {name} disagrees with the card's one-rank run")
+
+
 def refuse(cause: str) -> int:
     """Say why the smoke cannot run, on stdout and stderr, and give exit code 2."""
     print(f"chip_smoke: not run: {cause}", flush=True)
@@ -4268,9 +4645,13 @@ def main() -> int:
                     help="print nvcc's -Xptxas -v report")
     ap.add_argument("--spmd-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--spmd-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.spmd_rank is not None:          # one rank of the spmd phase (spmd_gloo)
         return spmd_rank(args.spmd_rank, args.spmd_dir)
+    if args.mesh_rank is not None:          # one rank of the mesh phase (mesh_phase)
+        return mesh_rank(args.mesh_rank, args.mesh_dir)
     t_start = time.perf_counter()
 
     import torch
@@ -4327,6 +4708,9 @@ def main() -> int:
     # -- train: the LM training path, the smoke configs card against host,
     # qwen3-1.7b at full width through the CLI, the CLI's restart --
     train_phase(torch, np, dev, card, failures)
+    # -- mesh: the multi-device LM slice, NCCL at W = 1 at full width, 8 gloo
+    # ranks on the card at smoke size, the dry run --
+    mesh_phase(torch, np, dev, card, failures)
 
     def rand_v(size, dtype):
         if dtype == torch.int32:

@@ -5,13 +5,17 @@ The port of the JAX package ``repro`` to PyTorch and CUDA.  It imports
 code it shares with the JAX package.  Entry point: ``repro_torch.core.PMVEngine``.
 
 The JAX package's LM scaffolding (no PMV code, no Pallas kernel) is ported
-on one device: ``repro_torch.configs``, ``repro_torch.models``,
+whole: ``repro_torch.configs``, ``repro_torch.models``,
 ``repro_torch.training`` and ``repro_torch.launch`` (``flops``, ``serve``,
 ``train``: ``python -m repro_torch.launch.serve --arch qwen3_1_7b``,
-``python -m repro_torch.launch.train --arch qwen3_1_7b``).
-
-Not ported yet: the multi-device LM slice (``repro_torch.models.sharding``,
-``repro_torch.launch.mesh``, ``repro_torch.training.pipeline``), and
-``repro_torch.launch.dryrun``, ``repro_torch.launch.hlo_analysis`` and
-``repro_torch.launch.roofline``.
+``python -m repro_torch.launch.train --arch qwen3_1_7b``), and its
+multi-device slice on a torch ``DeviceMesh``: ``repro_torch.models.sharding``
+(the parameter / batch / cache rules as DTensor placements, run in the FSDP
+idiom of ``repro_torch.models.spmd``, ``cfg.seq_parallel`` included),
+``repro_torch.launch.mesh``, ``repro_torch.training.pipeline`` (GPipe over
+the pod axis), ``TrainConfig(compress_pod=True)``, checkpoints that re-shard
+across meshes, and ``python -m repro_torch.launch.dryrun`` (a fake 256 / 512
+rank process group) with ``repro_torch.launch.hlo_analysis`` and
+``repro_torch.launch.roofline`` (H100 data-sheet constants).  Every module
+of the JAX package has its counterpart here.
 """

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, spmd
 from repro_torch.models.layers import cache_write, f32, init_dense, rms_norm, rope, torch_dtype
 
 __all__ = ["init_mla", "mla_attention", "mla_decode", "mla_nope_dim"]
@@ -88,10 +88,18 @@ def mla_decode(p, x, cfg, cache, pos):
     c_new, k_rope_new = _project_latent(p, x, cfg)
     k_rope_new = rope(k_rope_new, positions, cfg.rope_theta)
 
-    cache_write(cache["c_kv"], c_new, pos)
-    cache_write(cache["k_rope"], k_rope_new[:, :, 0, :], pos)
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]       # [B,S,r], [B,S,dr]
-    S = c_kv.shape[1]
+    ctx = spmd.active()
+    split = ctx.seq_split(cache["c_kv"])
+    if split:   # slots split over 'model': the owner writes, each scores its own
+        c_kv, off, _ = ctx.cache_view(cache["c_kv"])
+        k_rope, _, _ = ctx.cache_view(cache["k_rope"])
+    else:
+        c_kv, off = cache["c_kv"], 0
+        k_rope = cache["k_rope"]
+    if off <= pos < off + c_kv.shape[1]:
+        cache_write(c_kv, c_new, pos - off)
+        cache_write(k_rope, k_rope_new[:, :, 0, :], pos - off)
+    S = c_kv.shape[1]                                     # [B,S,r], [B,S,dr]
 
     w_uk = p["w_uk"].reshape(r, H, dn)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)          # absorb W_uk
@@ -99,10 +107,13 @@ def mla_decode(p, x, cfg, cache, pos):
         torch.einsum("bhr,bsr->bhs", f32(q_lat), f32(c_kv))
         + torch.einsum("bhd,bsd->bhs", f32(q_rope[:, 0]), f32(k_rope))
     ) * (dn + dr) ** -0.5
-    ok = torch.arange(S, device=x.device) <= pos
+    ok = torch.arange(S, device=x.device) + off <= pos
     s = s.masked_fill(~ok[None, None], -1e30)
-    probs = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", probs.to(c_kv.dtype), c_kv)
+    if split:
+        o_lat = ctx.softmax_combine(s, c_kv, "bhs,bsr->bhr").to(c_kv.dtype)
+    else:
+        probs = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhs,bsr->bhr", probs.to(c_kv.dtype), c_kv)
     w_uv = p["w_uv"].reshape(r, H, dn)
     out = torch.einsum("bhr,rhd->bhd", o_lat, w_uv).reshape(B, 1, H * dn)
     return out @ p["w_o"], cache

@@ -21,18 +21,28 @@ in the backward (``torch.utils.checkpoint``, the JAX package's
 serve_step(cache, tokens [B,1], pos) -> (logits [B,1,V], cache): one decode
 step against the KV/state caches, which it writes in place; modality caches
 (cross K/V over the stub embeddings) are filled once by ``prefill_cache``.
+
+On a device mesh (``distribute``) the parameters are DTensors placed by
+``repro_torch.models.sharding``, batches and caches are DTensors placed by
+its batch and cache rules, and every call runs each rank's rows in the
+FSDP idiom of ``repro_torch.models.spmd`` (with ``cfg.seq_parallel`` its
+sequence slice too); the loss and the logits' values are the one-device
+model's.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.models import spmd as spmd_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import flatten_tree
 from repro_torch.models.layers import f32, init_dense, normal, rms_norm, torch_dtype
-from repro_torch.models.transformer import Block, init_block, init_block_cache
+from repro_torch.models.transformer import Block, _sp_constraint, init_block, init_block_cache
 
 __all__ = ["Model", "build_model", "sinusoid_positions"]
 
@@ -72,13 +82,9 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.seq_parallel:
-            raise NotImplementedError(
-                "cfg.seq_parallel=True shards activations over a device mesh's 'model' axis; "
-                "the port has no mesh for the LM yet (repro_torch.models.sharding is not "
-                "ported)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = None
         tree = self._draw(self._generator(0))
         plan = cfg.scan_plan()
         for key, value in tree.items():
@@ -151,38 +157,103 @@ class Model(nn.Module):
                                      f"{tuple(dst.shape)} {dst.dtype}")
                 dst.copy_(value)
 
+    def distribute(self, mesh, shardings=None, *, src_data_rank: int | None = 0) -> dict:
+        """Place every parameter on ``mesh`` (a named ``DeviceMesh``) as a
+        DTensor under its spec (``shardings``, a dict of specs under
+        :meth:`params`' names; default ``sharding.param_shardings``), in
+        place; returns :meth:`params`.  ``src_data_rank`` as
+        ``distribute_tensor`` takes it (0: rank 0's values; None: each rank
+        keeps its own, equal on every rank)."""
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.models import sharding as sh
+
+        cfg = self.cfg
+        if cfg.seq_parallel and set(cfg.dp_axes) != set(sh.data_axes(mesh)):
+            raise ValueError(f"cfg.seq_parallel with dp_axes={cfg.dp_axes}: the mesh's batch axes "
+                             f"are {sh.data_axes(mesh)} (set dp_axes=data_axes(mesh))")
+        params = self.params()
+        specs = shardings if shardings is not None else sh.param_shardings(params, mesh)
+        dev = torch.device(mesh.device_type)
+        if dev.type == "cuda":      # this rank's card (index 0 under a dry run's fake tensors)
+            dev = torch.device("cuda", torch.cuda.current_device()
+                               if torch.cuda.is_available() else 0)
+        with torch.no_grad():
+            for name, p in params.items():
+                mod_name, _, leaf = name.rpartition(".")
+                mod = self.get_submodule(mod_name) if mod_name else self
+                dt = distribute_tensor(p.detach().to(dev), mesh,
+                                       sh.placements(specs[name], mesh),
+                                       src_data_rank=src_data_rank)
+                setattr(mod, leaf, nn.Parameter(dt))
+        self.mesh = mesh
+        self.device = dev
+        return self.params()
+
+    def spmd_context(self, batch=None, *, manual: tuple = (), decode: bool = False,
+                     microbatches: int = 1):
+        """The mesh context of one call: the active one, or one from the
+        batch's row placement (``spmd.ONE_RANK`` without a mesh); the
+        'model' ranks split the rows too where each gets a multiple of
+        ``microbatches`` of them (not in a decode step)."""
+        ctx = spmd_lib.active()
+        if self.mesh is None or ctx.mesh is not None:
+            return ctx
+        tokens = None if batch is None else batch.get("tokens", next(iter(batch.values())))
+        rows = spmd_lib.batch_rows(tokens, self.mesh)
+        names = self.mesh.mesh_dim_names
+        model_rows = (not decode and "model" in names and spmd_lib._is_dtensor(tokens)
+                      and tokens.to_local().shape[0] % (self.mesh["model"].size()
+                                                        * microbatches) == 0)
+        return spmd_lib.Spmd(self.mesh, rows=rows, seq=self.cfg.seq_parallel, manual=manual,
+                             model_rows=model_rows)
+
+    def _entered(self, batch=None, **kw):
+        return self.spmd_context(batch, **kw).entered()
+
     # ------------------------------------------------------------ forward
+    def _p(self, name):
+        return spmd_lib.local_param(getattr(self, name))
+
     def _embed(self, tokens):
-        return self.wte[tokens].to(torch_dtype(self.cfg.dtype))
+        return self._p("wte")[tokens].to(torch_dtype(self.cfg.dtype))
 
     def _logits(self, x):
         cfg = self.cfg
-        x = rms_norm(x, self.ln_f, cfg.norm_eps)
+        x = rms_norm(x, self._p("ln_f"), cfg.norm_eps)
         if cfg.tie_embeddings or cfg.family == "encdec":      # whisper ties
-            return x @ self.wte.T.to(torch_dtype(cfg.dtype))
-        return x @ self.lm_head
+            return x @ self._p("wte").T.to(torch_dtype(cfg.dtype))
+        return x @ self._p("lm_head")
 
     def _run_stack(self, stack, x, aux):
         """The scanned superblocks; under autograd with remat='block' each
         one's activations are recomputed in the backward, not kept."""
         aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat == "block" and torch.is_grad_enabled()
+        ctx = spmd_lib.active()
         for sb in stack:
-            if remat:
-                x, aux_loss = checkpoint(_superblock, sb, x, aux_loss, aux, use_reentrant=False)
+            if remat:      # the recompute runs in this call's mesh context
+                x, aux_loss = checkpoint(_superblock, sb, x, aux_loss, aux, use_reentrant=False,
+                                         context_fn=lambda: (contextlib.nullcontext(),
+                                                             ctx.entered()))
             else:
                 x, aux_loss = _superblock(sb, x, aux_loss, aux)
         return x, aux_loss
 
     def forward(self, batch):
-        """-> (logits [B,S,V], aux_loss)."""
+        """-> (logits [B,S,V], aux_loss); on a mesh each rank's logits of its
+        rows (and with seq_parallel its sequence slice)."""
+        with self._entered(batch) as ctx:
+            return self._forward(ctx.local_batch(batch))
+
+    def _forward(self, batch):
         cfg = self.cfg
         if cfg.family == "encdec":
             return self._forward_encdec(batch)
         tokens = batch["tokens"]
-        S = tokens.shape[1]
         x = self._embed(tokens)
-        aux = {"positions": torch.arange(S, device=x.device)[None, :], "ctx": batch.get("vis_emb")}
+        x, positions = _seq_shard(x, cfg)
+        aux = {"positions": positions, "ctx": batch.get("vis_emb")}
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.head:
             x, a = blk(x, aux)
@@ -200,9 +271,11 @@ class Model(nn.Module):
         enc = enc_emb.to(dt)
         Se = enc.shape[1]
         enc = enc + sinusoid_positions(Se, cfg.d_model, device=enc.device).to(dt)[None]
-        aux_e = {"positions": torch.arange(Se, device=enc.device)[None, :], "ctx": None}
+        enc, positions = _seq_shard(enc, cfg)
+        aux_e = {"positions": positions, "ctx": None}
         enc, _ = self._run_stack(self.enc_blocks, enc, aux_e)
-        return rms_norm(enc, self.ln_enc, cfg.norm_eps)
+        enc = rms_norm(enc, self._p("ln_enc"), cfg.norm_eps)
+        return spmd_lib.active().gather_seq(enc)
 
     def _forward_encdec(self, batch):
         cfg = self.cfg
@@ -212,21 +285,36 @@ class Model(nn.Module):
         Sd = tokens.shape[1]
         y = self._embed(tokens)
         y = y + sinusoid_positions(Sd, cfg.d_model, device=y.device).to(dt)[None]
-        aux_d = {"positions": torch.arange(Sd, device=y.device)[None, :], "ctx": enc}
+        y, positions = _seq_shard(y, cfg)
+        aux_d = {"positions": positions, "ctx": enc}
         y, _ = self._run_stack(self.dec_blocks, y, aux_d)
         return self._logits(y), torch.zeros((), dtype=torch.float32, device=y.device)
 
     # --------------------------------------------------------------- loss
     def loss_fn(self, batch):
         """Next-token cross entropy (mean over B*(S-1) tokens) plus the MoE
-        aux loss; differentiable in every parameter."""
-        logits, aux_loss = self.forward(batch)
+        aux loss; differentiable in every parameter.  On a mesh the value is
+        the global one on every rank and each rank's gradients are its
+        share (``repro_torch.models.spmd``); off a mesh one rank holds
+        every row and position."""
+        with self._entered(batch) as ctx:
+            batch = ctx.local_batch(batch)
+            logits, aux_loss = self._forward(batch)
         tokens = batch["tokens"]
-        lg = f32(logits[:, :-1])
-        tgt = tokens[:, 1:]
+        B, S = tokens.shape
+        n_rows = 1
+        for a in ctx.rows:
+            n_rows *= ctx.mesh[a].size()
+        start, s_loc = ctx.seq_start(logits.shape[1]), logits.shape[1]
+        # targets of this rank's positions; the sequence's last has none
+        tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).narrow(1, start, s_loc)
+        valid = (torch.arange(s_loc, device=tokens.device) + start) < S - 1
+        lg = f32(logits)
         logz = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, tgt[..., None].long())[..., 0]
-        ce = torch.mean(logz - gold)
+        part = torch.sum(torch.where(valid[None, :], logz - gold, torch.zeros_like(logz)))
+        ce = ctx.sum_partial(part / (B * n_rows * (S - 1)))
+        aux_loss = ctx.sum_partial(aux_loss / ctx.n_partial)
         loss = ce + AUX_LOSS_COEF * aux_loss
         return loss, {"ce": ce, "aux_loss": aux_loss}
 
@@ -253,7 +341,17 @@ class Model(nn.Module):
 
     # --------------------------------------------------------- serve step
     def serve_step(self, cache, tokens, pos: int):
-        """tokens [B,1] -> (logits [B,1,V], cache), the cache written in place."""
+        """tokens [B,1] -> (logits [B,1,V], cache), the cache written in place
+        (on a mesh each rank's rows; a cache whose sequence dim is split
+        over 'model' is read split-KV: each rank its slots, the softmax
+        combined across them)."""
+        batch = {"tokens": tokens}
+        with self._entered(batch, decode=True) as ctx:
+            logits, _ = self._serve_step(_local_cache(cache, ctx),
+                                         ctx.local_batch(batch)["tokens"], pos)
+        return logits, cache
+
+    def _serve_step(self, cache, tokens, pos: int):
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         x = self._embed(tokens)
@@ -273,25 +371,62 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ prefill
     def prefill_cache(self, cache, batch):
-        """Fill the static modality caches (cross K/V) from stub embeddings."""
+        """Fill the static modality caches (cross K/V) from stub embeddings
+        (on a mesh each rank its rows of the placed caches)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         KVH, dh = cfg.n_kv_heads, cfg.d_head
 
-        def fill(c, p, ctx):
-            B, Sc = ctx.shape[0], ctx.shape[1]
-            c["xk"] = (ctx @ p["wk"]).reshape(B, Sc, KVH, dh)
-            c["xv"] = (ctx @ p["wv"]).reshape(B, Sc, KVH, dh)
+        def fill(c, p, emb, mesh_ctx):
+            B, Sc = emb.shape[0], emb.shape[1]
+            _put(c, "xk", (emb @ p["wk"]).reshape(B, Sc, KVH, dh), mesh_ctx)
+            _put(c, "xv", (emb @ p["wv"]).reshape(B, Sc, KVH, dh), mesh_ctx)
 
-        if cfg.family == "vlm":
-            ctx = batch["vis_emb"].to(dt)
-            for sb, c_sb in zip(self.blocks, cache["blocks"]):
-                fill(c_sb["l0"], sb["l0"]["xattn"], ctx)
-        elif cfg.family == "encdec":
-            enc = self._encode(batch["enc_emb"])
-            for sb, c_sb in zip(self.dec_blocks, cache["dec_blocks"]):
-                fill(c_sb["l0"], sb["l0"]["xattn"], enc)
+        with self._entered(batch, decode=True) as mesh_ctx:
+            batch = mesh_ctx.local_batch(batch)
+            if cfg.family == "vlm":
+                emb = batch["vis_emb"].to(dt)
+                for sb, c_sb in zip(self.blocks, cache["blocks"]):
+                    fill(c_sb["l0"], sb["l0"]["xattn"], emb, mesh_ctx)
+            elif cfg.family == "encdec":
+                enc = self._encode(batch["enc_emb"])
+                for sb, c_sb in zip(self.dec_blocks, cache["dec_blocks"]):
+                    fill(c_sb["l0"], sb["l0"]["xattn"], enc, mesh_ctx)
         return cache
+
+
+def _put(c: dict, key: str, value, ctx) -> None:
+    """``c[key] = value``; a DTensor leaf (a cache placed on a mesh) keeps
+    its placement and takes its local block of ``value`` (``value`` holds
+    this rank's rows; a sequence split over 'model' is cut to the rank's
+    slots)."""
+    if not spmd_lib._is_dtensor(c[key]):
+        c[key] = value
+        return
+    local, off, _ = ctx.cache_view(c[key])
+    local.copy_(value.narrow(1, off, local.shape[1]))
+
+
+def _local_cache(tree, ctx):
+    """A cache tree with each DTensor leaf as its local tensor (a view: the
+    writes land in the DTensor), except a leaf whose sequence dim is split
+    over 'model', which the split-KV decode reads as it is."""
+    if isinstance(tree, dict):
+        return {k: _local_cache(v, ctx) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_local_cache(v, ctx) for v in tree]
+    if spmd_lib._is_dtensor(tree) and not ctx.seq_split(tree):
+        return tree.to_local()
+    return tree
+
+
+def _seq_shard(x, cfg):
+    """(x, positions [1, S]): under seq_parallel on a mesh the rank's
+    sequence slice (``_sp_constraint`` on the embeddings, as the JAX
+    package anchors them) and its global positions."""
+    x = _sp_constraint(x, cfg)
+    start = spmd_lib.active().seq_start(x.shape[1])
+    return x, (torch.arange(x.shape[1], device=x.device) + start)[None, :]
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

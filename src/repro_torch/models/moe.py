@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import spmd
 from repro_torch.models.layers import f32, init_dense, normal, silu, torch_dtype
 
 __all__ = ["init_moe", "moe_ffn"]
@@ -60,7 +61,35 @@ def moe_ffn(p, x, cfg, *, return_aux=False, no_drop=False):
 
     no_drop=True (decode/inference): capacity = T*k, no token ever dropped.
     Training uses the GShard capacity factor (drops on overflow).
+
+    On a mesh (``repro_torch.models.spmd``) the dispatch is global, as the
+    JAX package's: the tokens are gathered over the ranks holding different
+    ones, every rank routes them all and computes its contiguous share of
+    the (expert, slot) pairs, and a reduce-scatter returns each rank's
+    tokens (the shared experts are token-local).  Without dropping
+    (no_drop) a token's routing does not depend on the others: each rank
+    routes its own.  Off a mesh, and under no_drop, one rank holds every
+    token and every pair (``spmd.ONE_RANK``: the gather, the share and the
+    reduce-scatter are identities).
     """
+    ctx = spmd.active()
+    if no_drop:
+        ctx = spmd.ONE_RANK
+    out, aux = _routed(p, ctx.gather_tokens(x), cfg, no_drop=no_drop, share=ctx.share)
+    out = ctx.scatter_tokens(out)
+    if cfg.n_shared_experts:
+        B, S, D = x.shape
+        xt = x.reshape(B * S, D)
+        sp = p["shared"]
+        g = silu(xt @ sp["w_gate"])
+        out = out + ((g * (xt @ sp["w_up"])) @ sp["w_down"]).reshape(B, S, D)
+    return (out, aux) if return_aux else out
+
+
+def _routed(p, x, cfg, *, no_drop, share):
+    """The routed experts' sum [B, S, D] and the aux loss, over this rank's
+    (expert, slot) pairs: ``share(n)`` gives its [lo, hi) of the n = E * C
+    pairs in expert-major order (all of them on one rank)."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -81,27 +110,27 @@ def moe_ffn(p, x, cfg, *, return_aux=False, no_drop=False):
     gate_ec = torch.where(valid, gate.reshape(-1)[torch.clamp(slot_tok, 0, T * k - 1)],
                           torch.zeros((), dtype=gate.dtype, device=x.device))
 
-    x_e = xt[tok_idx] * valid[..., None].to(xt.dtype)       # [E, C, D]
-    h = silu(torch.einsum("ecd,edf->ecf", x_e, p["w_gate"])) * torch.einsum(
-        "ecd,edf->ecf", x_e, p["w_up"])
-    y_e = torch.einsum("ecf,efd->ecd", h, p["w_down"])      # [E, C, D]
-    y_e = y_e * gate_ec[..., None].to(y_e.dtype)
+    # the experts holding this rank's pairs; a pair outside the share
+    # computes zeros (masked like an invalid slot)
+    lo, hi = share(E * capacity)
+    e0, e1 = lo // capacity, -(-hi // capacity)
+    pair = torch.arange(e0 * capacity, e1 * capacity, device=x.device).reshape(-1, capacity)
+    mine = valid[e0:e1] & (pair >= lo) & (pair < hi)
+    tok_idx, gate_ec = tok_idx[e0:e1], gate_ec[e0:e1]
 
+    x_e = xt[tok_idx] * mine[..., None].to(xt.dtype)       # [E', C, D]
+    h = silu(torch.einsum("ecd,edf->ecf", x_e, p["w_gate"][e0:e1])) * torch.einsum(
+        "ecd,edf->ecf", x_e, p["w_up"][e0:e1])
+    y_e = torch.einsum("ecf,efd->ecd", h, p["w_down"][e0:e1])      # [E', C, D]
+    y_e = y_e * gate_ec[..., None].to(y_e.dtype)
     # one index_add_ an expert, in expert order: a token's k contributions
     # land one at a time, in the order of the JAX package's scatter-add (its
     # slot rows are expert-major), so a bfloat16 sum rounds as that one does
     out = torch.zeros((T, D), dtype=x.dtype, device=x.device)
-    for e in range(E):
+    for e in range(e1 - e0):
         out.index_add_(0, tok_idx[e], y_e[e].to(x.dtype))
 
-    if cfg.n_shared_experts:
-        sp = p["shared"]
-        g = silu(xt @ sp["w_gate"])
-        out = out + (g * (xt @ sp["w_up"])) @ sp["w_down"]
-
     out = out.reshape(B, S, D)
-    if not return_aux:
-        return out
     # GShard load-balancing aux loss.
     density = torch.mean(F.one_hot(eid[:, 0], E).to(torch.float32), dim=0)
     mean_prob = torch.mean(probs, dim=0)

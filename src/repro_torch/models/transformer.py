@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers, mla as mla_lib, moe as moe_lib, rglru as rglru_lib
-from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import spmd, ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     attention,
@@ -43,7 +43,8 @@ class ParamTree(nn.Module):
     """A nested dict of tensors as a module: leaves become (trainable)
     parameters, subtrees child modules, under the same keys; ``tree[key]``
     reads either, so the functional code below takes it where the JAX
-    package takes its dict."""
+    package takes its dict.  A DTensor parameter (a model on a mesh) reads
+    gathered whole (``spmd.local_param``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -54,7 +55,7 @@ class ParamTree(nn.Module):
                 self.register_parameter(key, nn.Parameter(value))
 
     def __getitem__(self, key):
-        return getattr(self, key)
+        return spmd.local_param(getattr(self, key))
 
 
 class Block(ParamTree):
@@ -84,6 +85,20 @@ def _dot(a, b):
 # attention wrappers (GQA path)
 # =========================================================================
 
+def _sp_constraint(x, cfg):
+    """Sequence-parallel layout (cfg.seq_parallel): batch over the dp axes,
+    the sequence dim over 'model' -- this rank's slice of a tensor whose
+    sequence it holds whole (the embeddings at the stack's entry; the
+    residual stream then stays cut).  Without a mesh the identity."""
+    return spmd.active().seq_slice(x) if cfg.seq_parallel else x
+
+
+def _replicated_constraint(x, cfg):
+    """Batch over the dp axes, the sequence whole: a rank's slice of K / V
+    gathered over 'model' (all-gather, reduce-scatter of the gradient)."""
+    return spmd.active().gather_seq(x) if cfg.seq_parallel else x
+
+
 def _qkv(p, x, cfg, positions):
     B, S, _ = x.shape
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -96,19 +111,34 @@ def _qkv(p, x, cfg, positions):
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if S > 1:  # decode keeps its own cache layout; q keeps this rank's positions
+        k = _replicated_constraint(k, cfg)
+        v = _replicated_constraint(v, cfg)
     return q, k, v
 
 
 def gqa_attention(p, x, cfg, positions, *, causal=True, window=0):
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    if S > cfg.flash_threshold:
+    # under seq_parallel q holds this rank's positions, k / v all of them
+    q_off = spmd.active().seq_start(S)
+    if k.shape[1] > cfg.flash_threshold:
         out = layers.flash_attention(q, k, v, causal=causal, window=window,
-                                     q_chunk=cfg.attn_chunk_q, k_chunk=cfg.attn_chunk_k,
-                                     skip_masked=cfg.flash_skip)
+                                     q_chunk=min(cfg.attn_chunk_q, S), k_chunk=cfg.attn_chunk_k,
+                                     q_offset=q_off, skip_masked=cfg.flash_skip)
     else:
-        out = attention(q, k, v, causal=causal, window=window)
+        out = attention(q, k, v, causal=causal, window=window, q_offset=q_off)
     return out.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
+
+
+def _on_full_sequence(fn, x, cfg):
+    """fn(x) for a block that is not token-local (a recurrence, MLA): under
+    seq_parallel it runs on the sequence gathered over 'model' and each rank
+    keeps its slice; otherwise fn(x)."""
+    ctx = spmd.active()
+    if not ctx.seq:
+        return fn(x)
+    return ctx.seq_slice(fn(ctx.gather_seq(x)))
 
 
 def cross_attention(p, x, ctx, cfg):
@@ -145,6 +175,9 @@ def gqa_decode(p, x, cfg, cache, pos):
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     positions = torch.full((B, 1), pos, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
+    ctx = spmd.active()
+    if ctx.seq_split(cache["k"]):
+        return _gqa_decode_split(p, cfg, cache, pos, q, k, v, ctx)
     W = cache["k"].shape[1]
     ring = cfg.window != 0
     slot = pos % W if ring else pos
@@ -161,6 +194,27 @@ def gqa_decode(p, x, cfg, cache, pos):
     out = torch.einsum("bhgk,bkhd->bhgd", probs.to(vc.dtype), vc)
     out = out.reshape(B, 1, H * dh) @ p["wo"]
     return out, cache
+
+
+def _gqa_decode_split(p, cfg, cache, pos, q, k, v, ctx):
+    """gqa_decode against a cache whose slots are split over 'model': the
+    rank owning the slot writes it, each scores its own slots."""
+    B = q.shape[0]
+    H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kc, off, W = ctx.cache_view(cache["k"])
+    vc, _, _ = ctx.cache_view(cache["v"])
+    ring = cfg.window != 0
+    slot = pos % W if ring else pos
+    if off <= slot < off + kc.shape[1]:
+        cache_write(kc, k, slot - off)
+        cache_write(vc, v, slot - off)
+    j = torch.arange(kc.shape[1], device=q.device) + off
+    ok = (pos - torch.remainder(pos - j, W) >= 0) if ring else j <= pos
+    qg = scale_by(q.reshape(B, KVH, H // KVH, dh), dh ** -0.5)
+    s = torch.einsum("bhgd,bkhd->bhgk", f32(qg), f32(kc))
+    s = s.masked_fill(~ok[None, None, None], -1e30)
+    out = ctx.softmax_combine(s, vc, "bhgk,bkhd->bhgd").to(vc.dtype)
+    return out.reshape(B, 1, H * dh) @ p["wo"], cache
 
 
 def cfg_max_cache(cfg) -> int:
@@ -213,9 +267,13 @@ def _init_attn_kind(gen, cfg):
 def _self_attn_apply(p, x, cfg, positions, *, window=None):
     window = cfg.window if window is None else window
     if cfg.attn_kind == "mla":
-        flash = x.shape[1] > cfg.flash_threshold
-        return mla_lib.mla_attention(p, x, cfg, positions, flash=flash,
-                                     q_chunk=cfg.attn_chunk_q, k_chunk=cfg.attn_chunk_k)
+        def mla(h):
+            pos = torch.arange(h.shape[1], device=h.device)[None, :]
+            flash = h.shape[1] > cfg.flash_threshold
+            return mla_lib.mla_attention(p, h, cfg, pos if spmd.active().seq
+                                         else positions, flash=flash,
+                                         q_chunk=cfg.attn_chunk_q, k_chunk=cfg.attn_chunk_k)
+        return _on_full_sequence(mla, x, cfg)
     return gqa_attention(p, x, cfg, positions, causal=True, window=window)
 
 
@@ -239,7 +297,8 @@ def apply_block(kind: str, p, x, cfg: ModelConfig, aux: dict):
             p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
         return x, 0.0
     if kind == "rglru":
-        x = x + rglru_lib.rglru_block(p["rec"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+        x = x + _on_full_sequence(lambda h: rglru_lib.rglru_block(p["rec"], h, cfg),
+                                  rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
         x = x + layers.swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
         return x, 0.0
     if kind == "attn_local":
@@ -248,7 +307,8 @@ def apply_block(kind: str, p, x, cfg: ModelConfig, aux: dict):
         x = x + layers.swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
         return x, 0.0
     if kind == "mamba":
-        x = x + ssm_lib.mamba_block(p["mixer"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+        x = x + _on_full_sequence(lambda h: ssm_lib.mamba_block(p["mixer"], h, cfg),
+                                  rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
         return x, 0.0
     if kind == "enc":
         x = x + gqa_attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
@@ -300,6 +360,12 @@ def _cross_decode(p, x, cfg, xk, xv):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     qg = scale_by(q.reshape(B, KVH, H // KVH, dh), dh ** -0.5)
+    ctx = spmd.active()
+    if ctx.seq_split(xk):
+        xk, xv = ctx.cache_view(xk)[0], ctx.cache_view(xv)[0]
+        s = torch.einsum("bhgd,bkhd->bhgk", f32(qg), f32(xk))
+        out = ctx.softmax_combine(s, xv, "bhgk,bkhd->bhgd").to(xv.dtype)
+        return _dot(out.reshape(B, 1, H * dh), p["wo"])
     s = torch.einsum("bhgd,bkhd->bhgk", f32(qg), f32(xk))
     probs = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs.to(xv.dtype), xv)

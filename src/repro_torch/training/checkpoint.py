@@ -17,6 +17,12 @@ Layout:
 - bfloat16 is stored as numpy keeps it without a bfloat16 type (``|V2``,
   as the JAX package's file holds it) and restored bit for bit through
   int16, guided by the manifest's dtypes.
+- On a device mesh (DTensor leaves) every rank calls ``save``: each leaf
+  is gathered whole (``full_tensor``) and rank 0 writes the same files and
+  commits; the ranks leave together.  ``restore(..., shardings=)`` places
+  each leaf under the given placements on any mesh, or on one device: the
+  arrays are stored unsharded, so scaling the mesh up or down is a
+  restore-time decision (elastic re-shard), bit for bit.
 - Retention: keep the last `keep` checkpoints.
 """
 from __future__ import annotations
@@ -64,8 +70,18 @@ def _structure(tree) -> str:
     return "None" if tree is None else "*"
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     """(array as stored, dtype name as the JAX package's manifest names it)."""
+    if _is_dtensor(leaf):
+        from repro_torch.models.spmd import full_tensor
+
+        leaf = full_tensor(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -83,18 +99,24 @@ def _to_tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def save(ckpt_dir: str, step: int, state, *, keep: int = 3) -> str:
-    """state: nested dicts / lists of tensors (or numpy arrays)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """state: nested dicts / lists of tensors (or numpy arrays).  With
+    DTensor leaves every rank of their process group calls it; rank 0
+    writes."""
     name = f"step_{step:09d}"
     tmp = os.path.join(ckpt_dir, name + ".tmp")
     final = os.path.join(ckpt_dir, name)
+    flat = _flatten(state)
+    sharded = any(_is_dtensor(v) for v in flat.values())
+    arrays, dtypes = {}, {}
+    for k, leaf in flat.items():        # every rank gathers, in the same order
+        arrays[k], dtypes[k] = _to_numpy(leaf)
+    if sharded and torch.distributed.get_rank() != 0:
+        torch.distributed.barrier()     # rank 0 has committed
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    arrays, dtypes = {}, {}
-    for k, leaf in _flatten(state).items():
-        arrays[k], dtypes[k] = _to_numpy(leaf)
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {
         "step": step,
@@ -111,6 +133,8 @@ def save(ckpt_dir: str, step: int, state, *, keep: int = 3) -> str:
 
     for old in all_steps(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{old:09d}"), ignore_errors=True)
+    if sharded:
+        torch.distributed.barrier()
     return final
 
 
@@ -130,17 +154,43 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like):
+def restore(ckpt_dir: str, step: int, like, *, shardings=None, mesh=None):
     """Restore into the structure of ``like`` (nested dicts / lists whose
     leaves have a ``.shape``): tensors in the stored dtypes, each on its
-    ``like`` tensor's device (the CPU for any other leaf)."""
+    ``like`` tensor's device (the CPU for any other leaf).
+
+    ``shardings``: the *target* layout (elastic re-shard): one device for
+    every leaf, or a matching tree whose leaves are each a spec
+    (``models.sharding``'s tuples; needs ``mesh``), a ``(DeviceMesh,
+    placements)`` pair or a device.  A placed leaf is a DTensor on its
+    mesh: every rank of it calls ``restore`` and reads the same files."""
     path = os.path.join(ckpt_dir, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:
         dtypes = json.load(f)["dtypes"]
     with np.load(os.path.join(path, "arrays.npz")) as z:
         arrays = {k: z[k] for k in z.files}
 
-    def build(tree, p):
+    def place(t, sharding):
+        if sharding is None:
+            return t
+        if isinstance(sharding, (str, torch.device)):
+            return t.to(sharding)
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.models.sharding import placements
+
+        if len(sharding) == 2 and hasattr(sharding[0], "mesh_dim_names"):
+            target, pls = sharding
+        else:
+            if mesh is None:
+                raise ValueError("restore(shardings=<specs>) needs mesh=")
+            target, pls = mesh, placements(tuple(sharding), mesh)
+        return distribute_tensor(t.to(target.device_type), target, pls, src_data_rank=None)
+
+    def sub(sh, key):
+        return sh if sh is None or isinstance(sh, (str, torch.device)) else sh[key]
+
+    def build(tree, p, sh):
         kids = _children(tree, p)
         if kids is None:
             if tree is None:
@@ -148,13 +198,17 @@ def restore(ckpt_dir: str, step: int, like):
             arr = arrays[p]
             if tuple(arr.shape) != tuple(tree.shape):
                 raise ValueError(f"{p}: stored shape {arr.shape}, expected {tuple(tree.shape)}")
+            if sh is not None:
+                return place(_to_tensor(arr, dtypes[p]), sh)
             dev = tree.device if isinstance(tree, torch.Tensor) else "cpu"
+            if _is_dtensor(tree):
+                return place(_to_tensor(arr, dtypes[p]), (tree.device_mesh, tree.placements))
             return _to_tensor(arr, dtypes[p]).to(dev)
         if isinstance(tree, dict):
-            return {k: build(tree[k], f"{p}[{k!r}]") for k in tree}
-        return type(tree)(build(v, q) for q, v in kids)
+            return {k: build(tree[k], f"{p}[{k!r}]", sub(sh, k)) for k in tree}
+        return type(tree)(build(v, q, sub(sh, i)) for i, (q, v) in enumerate(kids))
 
-    return build(like, "")
+    return build(like, "", shardings)
 
 
 def to_jax_layout(cfg, params: dict, state: dict) -> dict:

@@ -7,7 +7,9 @@ updated in float32 and cast back (master-copy semantics).  The scalars the
 JAX package computes in float32 (the schedule, the bias corrections, the
 clip scale) are float32 tensors here too, so every update rounds as its
 does.  ``adamw_update`` writes the parameters and the moments in place (the
-JAX package's train CLI donates them) and returns them.
+JAX package's train CLI donates them) and returns them.  On a device mesh
+the parameters, gradients and moments are DTensors under the parameters'
+placements and each rank updates its local shards.
 """
 from __future__ import annotations
 
@@ -47,14 +49,31 @@ def lr_at(cfg: OptConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _zeros32(p) -> torch.Tensor:
+    """float32 zeros of p's shape; a DTensor's under its placements."""
+    if _is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _local(x):
+    return x.to_local() if _is_dtensor(x) else x
+
+
 def adamw_init(params: dict) -> dict:
+    """Zero moments (DTensors under their parameters' placements on a mesh)."""
+    first = next(iter(params.values()), None)
     return {
-        "mu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in params.items()},
-        "nu": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in params.items()},
+        "mu": {k: _zeros32(p) for k, p in params.items()},
+        "nu": {k: _zeros32(p) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32,
-                            device=next(iter(params.values())).device if params else None),
+                            device=None if first is None else _local(first).device),
     }
 
 
@@ -68,17 +87,43 @@ def _leaf_key(name: str) -> tuple:
     return tuple((0, int(p), "") if p.isdigit() else (1, 0, p) for p in parts)
 
 
+def _squares(grads: dict) -> dict:
+    """Each gradient's sum of squares, in float32.  A DTensor's local sums
+    are summed over the mesh dims that shard it, one all-reduce for all the
+    gradients of one placement."""
+    out, by_pl = {}, {}
+    for name, g in grads.items():
+        s = torch.sum(torch.square(_local(g).to(torch.float32)))
+        if _is_dtensor(g):
+            by_pl.setdefault((g.device_mesh, tuple(g.placements)), []).append((name, s))
+        else:
+            out[name] = s
+    if by_pl:
+        import torch.distributed as dist
+        from torch.distributed.tensor import Shard
+
+        for (mesh, pls), items in by_pl.items():
+            total = torch.stack([s for _, s in items])
+            for a, pl in zip(mesh.mesh_dim_names, pls):
+                if isinstance(pl, Shard) and mesh[a].size() > 1:
+                    dist.all_reduce(total, group=mesh.get_group(a))
+            out.update((name, total[i]) for i, (name, _) in enumerate(items))
+    return out
+
+
 def _global_norm(grads: dict) -> torch.Tensor:
     """sqrt of the sum of squares, summed leaf by leaf in the JAX package's
-    leaf order (a stacked leaf's layers first summed together)."""
+    leaf order (a stacked leaf's layers first summed together); a sharded
+    gradient's sum is its full tensor's."""
     total = None
     groups: dict = {}
     for name in grads:
         groups.setdefault(_leaf_key(name), []).append(name)
+    squares = _squares(grads)
     for key in sorted(groups):
         leaf = None
         for name in groups[key]:
-            s = torch.sum(torch.square(grads[name].to(torch.float32)))
+            s = squares[name]
             leaf = s if leaf is None else leaf + s
         total = leaf if total is None else total + leaf
     if total is None:
@@ -89,7 +134,15 @@ def _global_norm(grads: dict) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, params: dict, grads: dict, state: dict):
     """Returns (params, state, metrics); params and the moments are written
-    in place."""
+    in place.  On a mesh every rank updates its own shards: each gradient
+    must arrive under its parameter's placements (the mesh step's
+    ``spmd`` backward reduces it so); any other placement, ``Partial``
+    included, raises."""
+    for k, g in grads.items():
+        if _is_dtensor(g) and tuple(g.placements) != tuple(params[k].placements):
+            raise ValueError(f"gradient {k!r} has placements {tuple(g.placements)}, its "
+                             f"parameter {tuple(params[k].placements)}: reduce it to the "
+                             "parameter's placements first")
     gnorm = _global_norm(grads)
     one = torch.ones((), dtype=torch.float32, device=gnorm.device)
     scale = torch.minimum(one, torch.full_like(one, cfg.clip_norm)
@@ -101,8 +154,9 @@ def adamw_update(cfg: OptConfig, params: dict, grads: dict, state: dict):
     b2c = 1 - torch.pow(_f32(cfg.b2, step.device), stepf)
 
     for name, p in params.items():
-        mu, nu = state["mu"][name], state["nu"][name]
-        g = grads[name].to(torch.float32) * scale
+        p = _local(p)
+        mu, nu = _local(state["mu"][name]), _local(state["nu"][name])
+        g = _local(grads[name]).to(torch.float32) * scale
         mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         mhat = mu / b1c

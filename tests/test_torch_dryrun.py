@@ -1,0 +1,191 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) at CPU-test scale: the
+smoke configs of qwen3-1.7B (dense) and DeepSeek-V2-Lite (MoE with MLA) in
+train, prefill and decode, and a PMV step on a small graph, traced under
+``FakeTensorMode`` on fake (2, 2) and (2, 2, 2) process groups in one
+subprocess.  Each record has the JAX package's record keys, its
+``analytic`` is the JAX package's ``launch.flops.cell_cost``, its
+``argument_bytes`` the local shards' bytes computed by hand from the
+sharding rules, and a sharded step shows its all-gathers (and, training,
+its reduce-scatters)."""
+from __future__ import annotations
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+MESHES = ("2x2", "2x2x2")
+ARCHS = ("qwen3_1_7b", "deepseek_v2_lite_16b")
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+PMV = "smoke@pagerank@vertical"
+CELLS = [("lm", f"{a}@{s}", m) for m in MESHES for a in ARCHS for s in SHAPES] + \
+        [("pmv", PMV, m) for m in MESHES]
+
+SCRIPT = r"""
+import json, sys
+from repro_torch.launch import dryrun
+out = []
+for kind, name, mesh in json.loads(sys.argv[2]):
+    out.append(dryrun.run_cell(kind, name, mesh, force=True, smoke=True, results_dir=sys.argv[1]))
+print("RECORDS " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    d = tmp_path_factory.mktemp("dryrun")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, "-c", SCRIPT, str(d), json.dumps(CELLS)],
+                         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("RECORDS ")]
+    assert line, out.stdout[-2000:] + out.stderr[-3000:]
+    recs = json.loads(line[0][len("RECORDS "):])
+    # written incrementally, one file a cell, outside benchmarks/
+    assert len(list(Path(d).glob("*.json"))) == len(CELLS)
+    return {(r["kind"], r["cell"], r["mesh"]): r for r in recs}
+
+
+def _jax_record_keys() -> set:
+    """The keys of an ok record of the JAX package's run_cell, read from its
+    source (importing it would force 512 host devices)."""
+    tree = ast.parse((ROOT / "src/repro/launch/dryrun.py").read_text())
+    fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == "run_cell")
+    keys = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) and \
+                any(isinstance(t, ast.Name) and t.id == "rec" for t in node.targets):
+            keys |= {k.value for k in node.value.keys}
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Subscript) and isinstance(t.value, ast.Name)
+                and t.value.id == "rec" for t in node.targets):
+            keys |= {t.slice.value for t in node.targets if isinstance(t, ast.Subscript)}
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) and \
+                node.func.attr == "update" and isinstance(node.func.value, ast.Name) and \
+                node.func.value.id == "rec" and any(
+                    k.arg == "ok" and isinstance(k.value, ast.Constant) and k.value.value
+                    for k in node.keywords):
+            keys |= {k.arg for k in node.keywords}
+    return keys
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=["-".join(c[1:]) for c in CELLS])
+def test_cell_traces_ok_with_jax_keys(records, cell):
+    """Every cell traces (ok), with the JAX package's record keys and
+    compile_s 0 (nothing is compiled); an LM cell counts its matmul flops
+    (FlopCounterMode counts matmuls and attention only: a PMV step, all
+    gathers and scatters, counts 0)."""
+    rec = records[cell]
+    assert rec["ok"], rec.get("error")
+    assert set(rec) == _jax_record_keys()
+    assert rec["compile_s"] == 0.0
+    assert (rec["cost"]["flops"] > 0) == (cell[0] == "lm")
+    assert set(rec["memory"]) == {"temp_bytes", "argument_bytes", "output_bytes", "alias_bytes",
+                                  "generated_code_bytes", "peak_bytes"}
+    assert rec["mesh_shape"] == dict(zip(("pod", "data", "model")[3 - len(cell[2].split("x")):],
+                                         map(int, cell[2].split("x"))))
+
+
+LM = [c for c in CELLS if c[0] == "lm"]
+
+
+@pytest.mark.parametrize("cell", LM, ids=["-".join(c[1:]) for c in LM])
+def test_analytic_is_jax_cell_cost(records, cell):
+    """analytic is the JAX package's launch.flops.cell_cost of the same
+    (config, mode, seq, batch, grad_accum)."""
+    from repro import configs as jconfigs
+    from repro.launch import flops as jflops
+    from repro_torch.launch.dryrun import SMOKE_SHAPES
+
+    rec = records[cell]
+    arch, shape = cell[1].split("@")
+    seq, batch, mode = SMOKE_SHAPES[shape]
+    cfg = jconfigs.smoke_config(arch)
+    want = jflops.cell_cost(cfg, mode, seq, batch, grad_accum=rec["meta"].get("grad_accum", 1),
+                            vis_tokens=cfg.n_vision_tokens).as_dict()
+    assert rec["analytic"] == want
+
+
+def _local(shape, spec, sizes) -> int:
+    n = int(np.prod(shape))
+    for e in spec:
+        for a in (() if e is None else (e if isinstance(e, tuple) else (e,))):
+            n //= sizes[a]
+    return n
+
+
+@pytest.mark.parametrize("cell", LM, ids=["-".join(c[1:]) for c in LM])
+def test_argument_bytes_are_the_local_shards(records, cell):
+    """argument_bytes is the bytes of this rank's local shards, computed by
+    hand from the sharding rules: the parameters (and, training, both
+    float32 moments and the two int32 step counters), the batch rows, and
+    for decode the caches."""
+    from repro_torch import configs as tconfigs
+    from repro_torch.launch.dryrun import SMOKE_SHAPES
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.model import build_model
+
+    rec = records[cell]
+    arch, shape = cell[1].split("@")
+    seq, batch, mode = SMOKE_SHAPES[shape]
+    shape_ = tuple(int(x) for x in cell[2].split("x"))
+    names = ("pod", "data", "model")[3 - len(shape_):]
+    mesh = AbstractMesh(shape_, names)
+    sizes = dict(zip(names, shape_))
+    cfg = tconfigs.smoke_config(arch)
+    model = build_model(cfg, "cpu")
+    params = model.params()
+    specs = sh.param_shardings(params, mesh)
+    p_bytes = sum(_local(p.shape, specs[k], sizes) * p.element_size() for k, p in params.items())
+    want = p_bytes
+    if mode == "train":
+        want += sum(_local(p.shape, specs[k], sizes) * 4 * 2 for k, p in params.items()) + 8
+        tok = np.zeros((batch, seq), np.int32)
+    else:
+        tok = np.zeros((batch, seq if mode == "prefill" else 1), np.int32)
+    want += _local(tok.shape, sh.batch_shardings({"t": tok}, mesh)["t"], sizes) * 4
+    if mode == "decode":
+        cache = model.init_cache(batch, seq)
+        cspecs = sh.cache_shardings(cache, mesh, cfg)
+
+        def walk(c, s):
+            if isinstance(c, dict):
+                return sum(walk(c[k], s[k]) for k in c)
+            if isinstance(c, list):
+                return sum(walk(a, b) for a, b in zip(c, s))
+            return _local(c.shape, s, sizes) * c.element_size()
+        want += walk(cache, cspecs)
+    assert rec["memory"]["argument_bytes"] == want
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_matmuls_show_their_collectives(records, arch, mesh):
+    """A train step all-gathers its 2D-sharded weights and reduce-scatters
+    their gradients; prefill and decode all-gather the weights and, dense,
+    scatter nothing (the MoE's global dispatch returns each rank's tokens
+    by a reduce-scatter in prefill; decode routes each rank's own)."""
+    train = records["lm", f"{arch}@train_4k", mesh]["collectives"]
+    assert train["counts"]["all-gather"] > 0 and train["counts"]["reduce-scatter"] > 0
+    assert train["bytes"]["total"] == sum(v for k, v in train["bytes"].items() if k != "total")
+    moe = arch == "deepseek_v2_lite_16b"
+    for shape in ("prefill_32k", "decode_32k"):
+        c = records["lm", f"{arch}@{shape}", mesh]["collectives"]
+        assert c["counts"]["all-gather"] > 0, shape
+        assert (c["counts"]["reduce-scatter"] > 0) == (moe and shape == "prefill_32k"), shape
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_pmv_step_records_its_exchange(records, mesh):
+    """The PMV vertical step's partials cross ranks by all-to-all: the record
+    counts it with its result bytes (a c10d op's output argument), and the
+    convergence delta by all-reduce."""
+    c = records["pmv", PMV, mesh]["collectives"]
+    assert c["counts"]["all-to-all"] > 0 and c["bytes"]["all-to-all"] > 0
+    assert c["counts"]["all-reduce"] > 0

@@ -64,7 +64,11 @@ print(json.dumps({"modules": names, "bad": bad}))
             "repro_torch.launch.serve", "repro_torch.launch.train",
             "repro_torch.training.optimizer", "repro_torch.training.data",
             "repro_torch.training.train_step",
-            "repro_torch.training.checkpoint"} <= set(report["modules"])
+            "repro_torch.training.checkpoint", "repro_torch.training.pipeline",
+            "repro_torch.models.sharding", "repro_torch.models.spmd",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.roofline"} <= set(report["modules"])
 
 
 def test_engine_without_device_raises_without_gpu(monkeypatch):
@@ -172,11 +176,21 @@ def test_knobs_outside_the_slice_raise(knob, knob_store):
 @pytest.mark.parametrize("knob,exc,text", [
     (dict(mesh=object()), TypeError, "DeviceMesh"),
     (dict(exchange="hier"), ValueError, "tuple axis_name"),
-    (dict(pallas_interpret=False), ValueError, "pallas_interpret=False")])
+    (dict(pallas_interpret=False), ValueError, "pallas_interpret=False"),
+    (dict(parse_computations="HloModule m"), NotImplementedError, "parse_computations")])
 def test_remaining_refusals_name_their_knob(knob, exc, text):
     """The engine and the server take every knob of the JAX package's; where
     a knob lacks what it needs they name it: a DeviceMesh, for 'hier' a mesh
-    with a tuple axis_name, and for pallas_interpret=False a CUDA device."""
+    with a tuple axis_name, and for pallas_interpret=False a CUDA device.
+    ``launch.hlo_analysis.parse_computations`` reads XLA HLO text, which the
+    port never produces: it raises, naming itself."""
+    if "parse_computations" in knob:
+        from repro_torch.launch.hlo_analysis import parse_computations
+
+        with pytest.raises(exc, match=text) as ei:
+            parse_computations(knob["parse_computations"])
+        assert "HLO" in str(ei.value)
+        return
     edges = rmat(6, 200, seed=0)
     with pytest.raises(exc, match=text.replace("'", ".")) as ei:
         T.PMVEngine(edges, 64, b=2, device="cpu", **knob)
@@ -194,19 +208,18 @@ def test_remaining_refusals_name_their_knob(knob, exc, text):
     ("repro_torch.launch.mesh", "repro_torch.launch"),
     ("repro_torch.models.sharding", "repro_torch.models")])
 def test_unported_modules_are_named(module, package):
-    """The JAX package's modules outside the port (the multi-device LM
-    slice: the GPipe pipeline, the mesh launcher and the models' sharding;
-    the dryrun / hlo_analysis / roofline launchers) do not exist in it; the
-    port's root docstring names each in full, and the package that would
-    hold it by its name."""
+    """The JAX package's modules that were outside the port (the
+    multi-device LM slice: the GPipe pipeline, the mesh launcher and the
+    models' sharding; the dryrun / hlo_analysis / roofline launchers) are
+    ported now: each imports, and neither the port's root docstring nor
+    its package's lists it as not ported (no module of the JAX package is
+    left unported: the docstrings say "Not ported yet" nowhere)."""
     import importlib
 
-    with pytest.raises(ModuleNotFoundError):
-        importlib.import_module(module)
-    root = importlib.import_module("repro_torch").__doc__
-    assert "Not ported yet" in root and module in root
-    doc = importlib.import_module(package).__doc__
-    assert "Not ported yet" in doc and module.rsplit(".", 1)[1] in doc
+    importlib.import_module(module)
+    for doc in (importlib.import_module("repro_torch").__doc__,
+                importlib.import_module(package).__doc__):
+        assert "Not ported yet" not in doc and "not ported" not in doc.lower()
 
 
 PORTED = ["repro_torch.obs", "repro_torch.obs.profiler", "repro_torch.obs.fleet",
@@ -218,7 +231,10 @@ PORTED = ["repro_torch.obs", "repro_torch.obs.profiler", "repro_torch.obs.fleet"
           "repro_torch.models.model", "repro_torch.launch.flops", "repro_torch.launch.serve",
           "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.data",
           "repro_torch.training.train_step", "repro_torch.training.checkpoint",
-          "repro_torch.launch.train"]
+          "repro_torch.launch.train", "repro_torch.training.pipeline",
+          "repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis",
+          "repro_torch.launch.roofline", "repro_torch.launch.mesh",
+          "repro_torch.models.sharding"]
 
 
 @pytest.fixture(scope="module")
@@ -244,11 +260,13 @@ def test_ported_modules_match_reference(module, fresh_imports):
     """The core (``make_step`` included), the observability modules, the CLI,
     the store (its SPMD group and its physical shards included), the LM
     serving slice (configs, the models, ``launch.flops`` and
-    ``launch.serve``) and the LM training slice (``training`` and its
-    modules, ``launch.train``) the port took over from the JAX package
-    export the JAX package's ``__all__`` where it has one (the configs and
-    the serve and train launchers have none), and each imports in a fresh
-    interpreter without pulling in jax or the JAX package."""
+    ``launch.serve``), the LM training slice (``training`` and its
+    modules, ``launch.train``) and the multi-device slice (``pipeline``,
+    ``models.sharding``, ``launch.mesh`` / ``dryrun`` / ``hlo_analysis`` /
+    ``roofline``) the port took over from the JAX package export the JAX
+    package's ``__all__`` where it has one (the configs and the serve,
+    train, dryrun and roofline launchers have none), and each imports in a
+    fresh interpreter without pulling in jax or the JAX package."""
     import importlib
 
     reference = importlib.import_module("repro" + module[len("repro_torch"):])
@@ -261,30 +279,53 @@ def test_ported_modules_match_reference(module, fresh_imports):
 
 
 def test_seq_parallel_is_refused_by_name():
-    """cfg.seq_parallel=True is a mesh knob: the model refuses it, naming
-    the knob, until the sharding slice."""
+    """cfg.seq_parallel=True was refused before the mesh slice; now the
+    model builds and runs with it.  Without a mesh the sequence-parallel
+    constraints are the identity, so the loss and its gradients equal the
+    plain model's bit for bit (on a mesh: tests/test_torch_mesh_ranks.py).
+    A model distributed with seq_parallel on a mesh whose batch axes are not
+    cfg.dp_axes is refused, naming both."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
     from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(smoke_config("qwen3_1_7b"), seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        build_model(cfg, "cpu")
+    base = smoke_config("qwen3_1_7b")
+    sp = build_model(dataclasses.replace(base, seq_parallel=True), "cpu")
+    plain = build_model(base, "cpu")
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, base.vocab, size=(2, 32), dtype=np.int32))}
+    losses = []
+    for m in (sp, plain):
+        loss, _ = m.loss_fn(batch)
+        losses.append((loss, torch.autograd.grad(loss, list(m.params().values()))))
+    assert torch.equal(losses[0][0], losses[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(losses[0][1], losses[1][1]))
+    from repro_torch.launch.mesh import AbstractMesh
+
+    with pytest.raises(ValueError, match="dp_axes"):
+        sp.distribute(AbstractMesh((2, 2, 2), ("pod", "data", "model")))
 
 
 def test_compress_pod_is_refused_by_name():
-    """TrainConfig(compress_pod=True) runs the step over a mesh's pod axis:
-    make_train_step refuses it, naming the knob and the mesh slice, until
-    the sharding slice."""
+    """TrainConfig(compress_pod=True) was refused before the mesh slice; now
+    make_train_step builds it on a mesh with the pod axis (it runs on 8
+    gloo ranks against the JAX package's compressed step in
+    tests/test_torch_mesh_ranks.py) and refuses it only without one,
+    naming the knob and the axis.  init_train_state makes the float32
+    error-feedback buffers."""
     from repro_torch.configs import smoke_config
     from repro_torch.models.model import build_model
     from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.train_step import init_train_state
 
     model = build_model(smoke_config("qwen3_1_7b"), "cpu")
-    with pytest.raises(NotImplementedError, match="compress_pod") as ei:
+    with pytest.raises(ValueError, match="compress_pod") as ei:
         make_train_step(model, TrainConfig(compress_pod=True))
-    assert "repro_torch.models.sharding" in str(ei.value)
+    assert "'pod'" in str(ei.value)
+    state = init_train_state(model, model.params(), TrainConfig(compress_pod=True))
+    assert sorted(state["ef"]) == sorted(model.params())
+    assert all(v.dtype == torch.float32 and not v.any() for v in state["ef"].values())
 
 
 def test_packed_exchange_and_delta_eps_are_accepted():
