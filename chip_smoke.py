@@ -70,8 +70,27 @@ Phases, each printed as it ends; any failure exits non-zero:
               mesh and restored on one device bitwise.  (``pipeline_apply``
               is not run here: gloo's send / recv does not take CUDA
               tensors.)  (c) ``python -m repro_torch.launch.dryrun --arch
-              qwen3_1_7b --shape train_4k --mesh single``: ok, its flops,
-              collective bytes and temp GiB printed.
+              qwen3_1_7b --shape train_4k --mesh single`` (fitted from 1 and
+              2 superblocks): ok, its flops and collective bytes within rel
+              1e-9 of the whole trace's (``MESH_DRYRUN_FLOPS`` /
+              ``_BYTES``), its temp GiB and trace seconds printed.
+1e. examples -- the eight PMV examples ported onto the port
+              (``examples/*_torch.py``), each through its ``main([...,
+              '--device', 'cuda'])`` in this process at the example's own
+              default size (the fleet example spawns its 4 gloo ranks sharing
+              the card), each with the launch counters zeroed just before it
+              and read just after (added to the kernels line's launches) and
+              under torch.profiler (the kernel names it saw printed, not
+              gated).  Each is held to an oracle that needs no JAX: SSSP
+              equal to ``scipy.sparse.csgraph.dijkstra``, CC's labels to
+              ``connected_components``' partition (its least vertex ids),
+              PageRank and RWR within rtol 1e-4 of a float64 scipy power
+              iteration of their own iteration counts, the chaos run bitwise
+              its clean run with its fault counters, the trace through
+              ``validate_chrome_trace``, the fleet's worker 2 flagged (a
+              slow fetch; another worker may be too, from the shared host's
+              noise) with one lane a worker, and serve_batch's greedy decode of qwen3-1.7b,
+              mamba2-130m and mixtral-8x22b (smoke configs) finite.
 3. runs    -- three ``PMVEngine(backend='auto', device='cuda').run`` solves:
               PageRank (strategy='selective'), SSSP from vertex 0
               (strategy='vertical', scatter='kernel') and connected components
@@ -4277,6 +4296,10 @@ def train_phase(torch, np, dev, card: str, failures: list) -> None:
 
 MESH_RANKS = 8
 MESH_RANK_TIMEOUT_S = 240.0
+# the mesh dry run's per-rank counts, from the whole (unfitted) trace of
+# qwen3_1_7b@train_4k on the single mesh (``launch.dryrun``, run on the CPU)
+MESH_DRYRUN_FLOPS = 66333622403072.0
+MESH_DRYRUN_BYTES = 7582238264.0
 MESH_SMOKE_ARCHS = ("qwen3_1_7b", "mixtral_8x22b")
 MESH_B, MESH_S = 8, 32
 
@@ -4567,7 +4590,9 @@ def mesh_phase(torch, np, dev, card: str, failures: list, *, parts: str = "abc")
                 raise SmokeError(f"mesh dry run failed:\n{tail}")
             with open(rec_path) as f:
                 rec = json.load(f)
-            ok = rec["ok"] and rec["cost"]["flops"] > 0
+            flops, nbytes = rec["cost"]["flops"], rec["collectives"]["bytes"]["total"]
+            ok = rec["ok"] and all(abs(got - want) <= 1e-9 * want for got, want in (
+                (flops, MESH_DRYRUN_FLOPS), (nbytes, MESH_DRYRUN_BYTES)))
             log(f"mesh dryrun {LM_ARCH}@train_4k on the fake (16, 16) mesh "
                 f"(device_type {rec['meta'].get('device_type')}): ok {rec['ok']}, flops/rank "
                 f"{rec['cost']['flops']:.4e} (analytic global {rec['analytic']['flops']:.4e}), "
@@ -4575,9 +4600,11 @@ def mesh_phase(torch, np, dev, card: str, failures: list, *, parts: str = "abc")
                 f"{json.dumps(rec['collectives']['counts'])}, temp "
                 f"{rec['memory']['temp_bytes'] / 2**30:.2f} GiB, arguments "
                 f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, trace {rec['lower_s']} s "
-                f"-> {'ok' if ok else 'FAIL'}")
+                f"(fitted at {json.dumps(rec['meta'].get('fit'))}); flops {flops!r} and bytes "
+                f"{nbytes!r} against the whole trace's {MESH_DRYRUN_FLOPS!r} and "
+                f"{MESH_DRYRUN_BYTES!r} -> {'ok' if ok else 'FAIL'}")
             if not ok:
-                failures.append("mesh dry run: qwen3_1_7b@train_4k not ok")
+                failures.append("mesh dry run: qwen3_1_7b@train_4k not ok or its counts moved")
     finally:
         for proc, log_f in procs:
             if proc.poll() is None:
@@ -4628,6 +4655,165 @@ def mesh_gloo_checks(torch, np, d, res, refs, failures) -> None:
                 f"{r['plain_on_card']}, {r['s']:.1f} s -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"mesh gloo {name} disagrees with the card's one-rank run")
+
+
+EXAMPLES = ("quickstart", "graph_mining", "explain_plan", "serve_queries", "serve_batch",
+            "trace_run", "chaos_run", "fleet_trace")
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` beside this file, as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"_example_{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dijkstra_ref(np, sp, csgraph, edges, n, sources):
+    """Unit-weight shortest paths (a repeated edge stays weight 1)."""
+    a = sp.csr_matrix((np.ones(len(edges)), (edges[:, 0], edges[:, 1])), shape=(n, n))
+    a.sum_duplicates()
+    a.data[:] = 1.0
+    return csgraph.dijkstra(a, directed=True, indices=sources)
+
+
+def example_checks(np, sp, csgraph, name: str, s: dict) -> list[str]:
+    """The JAX-free oracle of one example's summary: (label, ok) lines."""
+    out = []
+
+    def close(label, got, want):
+        rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+        out.append((f"{label} max rel {rel:.3e}", bool(np.allclose(got, want, rtol=1e-4,
+                                                                  atol=1e-12))))
+
+    def exact(label, got, want):
+        out.append((label, bool(np.array_equal(np.asarray(got, np.float64), want))))
+
+    if name in ("quickstart", "trace_run", "fleet_trace"):
+        close("pagerank", s["v"], pagerank_ref(np, sp, s["edges"], s["n"], s["iterations"]))
+    if name == "graph_mining":
+        n, edges, runs = s["n"], s["edges"], s["runs"]
+        close("pagerank", runs["PageRank"]["v"],
+              pagerank_ref(np, sp, edges, n, runs["PageRank"]["iterations"]))
+        close("rwr(7)", runs["RWR(src=7)"]["v"],
+              rwr_ref(np, sp, edges, n, [7], [runs["RWR(src=7)"]["iterations"]])[:, 0])
+        exact("sssp(0) vs dijkstra", runs["SSSP(src=0)"]["v"],
+              dijkstra_ref(np, sp, csgraph, edges, n, 0))
+        out.append(("cc vs connected_components", bool(np.array_equal(
+            runs["ConnectedComponents"]["v"], cc_ref(np, sp, csgraph, edges, n)))))
+    if name == "explain_plan":
+        exact("sssp(0) vs dijkstra", s["v"], dijkstra_ref(np, sp, csgraph, s["edges"], s["n"], 0))
+        out.append(("plan mixes ell and dense",
+                    {t for *_, t in s["tactics"]["vertical"]} == {"ell", "dense"}))
+    if name == "serve_queries":
+        res = s["results"]
+        sssp = [r for r in res if r["kind"] == "sssp"]
+        rwr = [r for r in res if r["kind"] == "rwr"]
+        want = dijkstra_ref(np, sp, csgraph, s["edges"], s["n"], [r["source"] for r in sssp])
+        out.append((f"{len(sssp)} sssp vs dijkstra", all(
+            np.array_equal(r["vector"].astype(np.float64), w) for r, w in zip(sssp, want))))
+        want = rwr_ref(np, sp, s["edges"], s["n"], [r["source"] for r in rwr],
+                       [r["iterations"] for r in rwr])
+        close(f"{len(rwr)} rwr", np.stack([r["vector"] for r in rwr], axis=1), want)
+        out.append(("every query converged", all(r["converged"] for r in res)))
+    if name == "serve_batch":
+        for arch, tokens in s.items():
+            out.append((f"{arch} decoded {tokens.shape}", tokens.ndim == 2 and tokens.size > 0))
+    if name == "trace_run":
+        from repro_torch.obs import validate_chrome_trace
+
+        with open(s["trace_path"]) as f:
+            out.append((f"trace {s['spans']} spans valid",
+                        validate_chrome_trace(json.load(f)) == s["spans"] > 0))
+    if name == "chaos_run":
+        close("clean pagerank", s["clean_v"],
+              pagerank_ref(np, sp, s["edges"], s["n"], s["iterations"]))
+        c = s["counters"]
+        out.append(("bitwise its clean run", s["bitwise"] and bool(np.array_equal(s["v"],
+                                                                               s["clean_v"]))))
+        out.append((f"faults {json.dumps(c)}", bool(s["killed"]) and s["remaining"] == 0
+                    and c.get("fault.injected.corrupt_fetch") == 1
+                    and c.get("fault.injected.transient_io") == 2
+                    and c.get("fault.injected.kill") == 1))
+    if name == "fleet_trace":
+        out.append(("bitwise its clean run", s["bitwise"]))
+        out.append((f"lanes {s['lanes']}", sorted(s["lanes"]) == ["main", "w0", "w1", "w2",
+                                                                    "w3"]))
+        out.append((f"stragglers {s['straggler_workers']} {s['causes']}",
+                    2 in s["straggler_workers"] and set(s["causes"]) == {"slow_fetch"}))
+        out.append((f"/metrics scraped, {s['scrape_lines']} lines",
+                    s["scrape_lines"] > 0 and bool(s["slo_lines"])))
+    return out
+
+
+def profiled_kernels(torch, prof) -> list[str]:
+    """The classes of this package's kernels among a profiler window's device
+    events, read off its raw events (``key_averages()`` first builds every
+    event's tree: 0.4-7.8 s a window in the examples phase)."""
+    try:
+        keys = {e.name() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA}
+    except AttributeError:
+        keys = {e.key for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+    return sorted({kernel_class(k) for k in keys} - {"other"})
+
+
+def examples_phase(torch, np, sp, csgraph, rows: dict, failures: list) -> None:
+    """Phase 1e: each example's ``main`` on the card at its default size,
+    counted, profiled and held to its oracle (``example_checks``)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="pmv_examples_")
+    try:
+        for name in EXAMPLES:
+            argv = ["--device", "cuda"]
+            if name in ("trace_run", "fleet_trace"):
+                argv += ["--out", os.path.join(out_dir, name)]
+            mod = load_example(name)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                        contextlib.redirect_stdout(io.StringIO()) as printed:
+                    summary = mod.main(argv)
+                    torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001 -- a failing example fails the phase
+                failures.append(f"example {name} raised {type(e).__name__}: {e}")
+                log(f"example {name}: raised {type(e).__name__}: {e}")
+                continue
+            secs = time.perf_counter() - t
+            counts = {k: c for k, c in kernels.launch_counts().items() if c}
+            for k, c in counts.items():
+                rows.setdefault(k, {"launches": 0})["launches"] += c
+            t = time.perf_counter()
+            seen = profiled_kernels(torch, prof)
+            prof_s, t = time.perf_counter() - t, time.perf_counter()
+            checks = example_checks(np, sp, csgraph, name, summary)
+            check_s = time.perf_counter() - t
+            bad = [label for label, ok in checks if not ok]
+            if bad:
+                failures.append(f"example {name}: " + "; ".join(bad))
+            last = printed.getvalue().strip().splitlines()[-1:] or [""]
+            log(f"example {name}: {secs:.1f} s (then the profiler's table {prof_s:.1f} s, the "
+                f"oracles {check_s:.1f} s); launches {json.dumps(counts)}; profiler saw {seen}; "
+                + "; ".join(f"{label} {'ok' if ok else 'FAIL'}" for label, ok in checks)
+                + f"; last line: {last[0]}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"examples phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def refuse(cause: str) -> int:
@@ -4711,6 +4897,9 @@ def main() -> int:
     # -- mesh: the multi-device LM slice, NCCL at W = 1 at full width, 8 gloo
     # ranks on the card at smoke size, the dry run --
     mesh_phase(torch, np, dev, card, failures)
+    # -- examples: the eight PMV examples on the port, each held to a JAX-free
+    # oracle --
+    examples_phase(torch, np, sp, csgraph, rows, failures)
 
     def rand_v(size, dtype):
         if dtype == torch.int32:

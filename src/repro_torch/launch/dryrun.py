@@ -12,11 +12,23 @@ For each cell, in this process:
 The step is the port's, FSDP + DP (``repro_torch.models.spmd``): a weight
 that the JAX rules shard over 'model' is gathered whole, so there is no
 tensor parallelism, and each record's ``meta['parallelism']`` says so.
-This rank's (rank 0's) share of the step is what is traced: every layer and
-microbatch runs eagerly on fake tensors, each collective is recorded with
-its result bytes as DTensor issues it, the flops are ``FlopCounterMode``'s
-per rank, the memory the live fake storages' peak.  The JAX package lowers
-and compiles; here ``lower_s`` is the trace's seconds and ``compile_s`` 0.
+This rank's (rank 0's) share of the step is what is traced: it runs eagerly
+on fake tensors, each collective is recorded with its result bytes as it is
+dispatched, the flops are ``FlopCounterMode``'s per rank (without its module
+tracker), the memory the live fake storages' peak.  The JAX package lowers and compiles; here
+``lower_s`` is the traces' seconds and ``compile_s`` 0.
+
+The JAX package lowers each scan once: the superblock stack and the
+microbatch loop.  The port fits them instead (``fit_points``): it traces
+the cell's own step at 1 and 2 superblocks of its ``scan_plan()`` pattern
+(head and tail kept; both stacks of an enc-dec) and, training, at two
+microbatch counts of the cell's own microbatch size, and extrapolates every
+count (flops, collective bytes and counts by kind, argument / output /
+alias / temp bytes) bilinearly to the cell's superblocks and
+microbatches.  Each count is affine in each of the two, so the fit is the
+whole trace's, which ``trace_lm_cell(..., whole=True)`` still gives; the
+collectives' ``top`` list is the largest traced step's.  A record's
+``meta['fit']`` names the traced points.
 Records are written incrementally to ``build/dryrun_results/<cell>.json``
 (``build/`` is git-ignored), so the sweep is restartable; failures are
 data.
@@ -29,6 +41,8 @@ Usage:
 import argparse
 import contextlib
 import dataclasses
+import fractions
+import gc
 import json
 import os
 import time
@@ -41,6 +55,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import configs as configs_lib
 from repro_torch.launch import flops as flops_lib
 from repro_torch.launch.hlo_analysis import (
+    KINDS,
     CollectiveRecorder,
     MemoryRecorder,
     collective_totals,
@@ -48,6 +63,7 @@ from repro_torch.launch.hlo_analysis import (
 )
 from repro_torch.launch.mesh import data_axes, make_production_mesh, worker_axes
 from repro_torch.models import sharding as sh
+from repro_torch.models.sharding import _batch_axes
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
                            "dryrun_results")
@@ -86,7 +102,7 @@ PMV_PARALLELISM = "PMV workers: one block row of the matrix a rank"
 # CPU-test scale: smoke configs at small shapes, a small graph, on a small
 # fake mesh named by its shape ("2x2": ('data', 'model'), "2x2x2": ('pod',
 # 'data', 'model'))
-SMOKE_SHAPES = {"train_4k": (32, 8, "train"), "prefill_32k": (32, 8, "prefill"),
+SMOKE_SHAPES = {"train_4k": (32, 16, "train"), "prefill_32k": (32, 8, "prefill"),
                 "decode_32k": (64, 8, "decode"), "long_500k": (64, 1, "decode")}
 SMOKE_GRAPHS = {"smoke": (4096, 65536, 2.0)}
 
@@ -145,22 +161,69 @@ def _outputs(out, args) -> tuple[float, float]:
 
 
 # ---------------------------------------------------------------------------
-def build_lm_cell(arch: str, shape_name: str, mesh, overrides: dict | None = None, *,
-                  smoke: bool = False):
-    """Returns (fn, args, meta): ``fn(*args)`` runs one step of the cell on
-    this rank, its inputs placed on ``mesh`` (call it under FakeTensorMode).
+def lm_cell_config(arch: str, shape_name: str, mesh, overrides: dict | None = None, *,
+                   smoke: bool = False):
+    """(cfg, seq, batch, mode, grad_accum) of an LM cell.
 
     overrides: ModelConfig field overrides for the variants, e.g.
     {"seq_parallel": True} — applied via dataclasses.replace.  ``smoke``:
     the smoke config at ``SMOKE_SHAPES``."""
-    from repro_torch.models.model import build_model
-    from repro_torch.training.optimizer import OptConfig
-    from repro_torch.training.train_step import TrainConfig, init_train_state, make_train_step
-
     cfg = (configs_lib.smoke_config if smoke else configs_lib.config_for)(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, dp_axes=data_axes(mesh), **overrides)
     seq, batch, mode = (SMOKE_SHAPES if smoke else configs_lib.SHAPES)[shape_name]
+    ga = 1
+    if mode == "train":
+        ga = cfg.grad_accum if cfg.grad_accum > 1 else GRAD_ACCUM.get(arch, 1)
+    return cfg, seq, batch, mode, ga
+
+
+def with_superblocks(cfg, k: int):
+    """``cfg`` with ``k`` superblocks of its ``scan_plan()`` pattern, its
+    head and tail layers kept (an enc-dec: ``k`` layers a stack)."""
+    plan = cfg.scan_plan()
+    return dataclasses.replace(cfg, n_layers=cfg.n_layers - (plan["n_sb"] - k)
+                               * len(plan["pattern"]))
+
+
+def fit_points(cfg, mode: str, batch: int, grad_accum: int, mesh) -> tuple[tuple, tuple]:
+    """The superblock counts and the microbatch counts to trace an LM cell
+    at: (1, 2) superblocks where the stack has more than 2 (else its own
+    count); training, two counts of at least 2 microbatches below its own
+    (the step's accumulation path; 1 takes another) whose rows split over
+    the data axes as the cell's do, where it has two such below its own
+    (else its own count)."""
+    n_sb = cfg.scan_plan()["n_sb"]
+    ks = (1, 2) if n_sb > 2 else (n_sb,)
+    ms = (grad_accum,)
+    if mode == "train" and grad_accum > 3:
+        rows = batch // grad_accum
+        want = _batch_axes(mesh, batch)
+        same = [m for m in range(2, grad_accum) if _batch_axes(mesh, m * rows) == want]
+        if len(same) >= 2:
+            ms = tuple(same[:2])
+    return ks, ms
+
+
+def build_lm_cell(arch: str, shape_name: str, mesh, overrides: dict | None = None, *,
+                  smoke: bool = False, superblocks: int | None = None,
+                  microbatches: int | None = None):
+    """Returns (fn, args, meta): ``fn(*args)`` runs one step of the cell on
+    this rank, its inputs placed on ``mesh`` (call it under FakeTensorMode).
+
+    overrides and ``smoke`` as :func:`lm_cell_config` takes them;
+    ``superblocks``: the stack cut to that many (:func:`with_superblocks`);
+    ``microbatches``: a train step of that many microbatches of the cell's
+    own size (None: the cell's own)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import TrainConfig, init_train_state, make_train_step
+
+    cfg, seq, batch, mode, ga = lm_cell_config(arch, shape_name, mesh, overrides, smoke=smoke)
+    if superblocks is not None:
+        cfg = with_superblocks(cfg, superblocks)
+    if microbatches is not None:
+        batch, ga = batch // ga * microbatches, microbatches
     model = build_model(cfg, "cpu")           # fake: allocates nothing
     params = model.distribute(mesh, src_data_rank=None)
     dev = model.device
@@ -176,7 +239,6 @@ def build_lm_cell(arch: str, shape_name: str, mesh, overrides: dict | None = Non
         return sh.sds_with(b, sh.batch_shardings(b, mesh), mesh, src_data_rank=None)
 
     if mode == "train":
-        ga = cfg.grad_accum if cfg.grad_accum > 1 else GRAD_ACCUM.get(arch, 1)
         tcfg = TrainConfig(opt=OptConfig(), grad_accum=ga)
         state = init_train_state(model, params, tcfg)  # moments mirror params
         step = make_train_step(model, tcfg, mesh)
@@ -335,17 +397,41 @@ class _Deadline(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+class _GlobalOnly:
+    """A ``FlopCounterMode``'s module tracker that files every op under
+    'Global' and registers no module hook: the real tracker's autograd hooks
+    kept each microbatch's tensors alive to the step's end, and the memory
+    recorder counted them (12 TB a rank in a 16-microbatch train cell)."""
+
+    parents = ("Global",)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
 def trace_step(fn, args) -> dict:
     """Run ``fn(*args)`` (inputs already fake) under the recorders:
-    {'seconds', 'flops', 'collectives', 'memory'}."""
+    {'seconds', 'flops', 'collectives', 'memory'}.  Python's automatic
+    garbage collection is off while it runs: where a collection landed
+    moved the recorded peak, so the same step could record different temp
+    bytes."""
     from torch.utils.flop_counter import FlopCounterMode
 
     arg_bytes = _local_bytes(args)
     coll, mem = CollectiveRecorder(), MemoryRecorder()
     counter = FlopCounterMode(display=False)
+    counter.mod_tracker = _GlobalOnly()
+    gc.collect()
+    gc.disable()
     t0 = time.time()
-    with counter, mem, coll:
-        out = fn(*args)
+    try:
+        with counter, mem, coll:
+            out = fn(*args)
+    finally:
+        gc.enable()
     seconds = time.time() - t0
     out_bytes, alias = _outputs(out, args)
     memory = compiled_memory_stats({"argument_bytes": arg_bytes, "output_bytes": out_bytes,
@@ -354,17 +440,80 @@ def trace_step(fn, args) -> dict:
             "collectives": collective_totals(coll), "memory": memory}
 
 
+_MEMORY_KEYS = ("temp_bytes", "argument_bytes", "output_bytes", "alias_bytes")
+
+
+def _weights(points: tuple, x: int) -> dict:
+    """Linear interpolation weights of ``points`` (one or two) at ``x``."""
+    if len(points) == 1:
+        return {points[0]: fractions.Fraction(1)}
+    a, b = points
+    return {a: fractions.Fraction(b - x, b - a), b: fractions.Fraction(x - a, b - a)}
+
+
+def fit_traces(traces: dict, superblocks: int, microbatches: int) -> dict:
+    """:func:`trace_step`'s dict at ``superblocks`` and ``microbatches``,
+    extrapolated bilinearly (exactly, in rationals) from ``traces``, the
+    steps traced at each (superblocks, microbatches) point of a grid of one
+    or two values a dimension; 'seconds' is the traces' sum, the
+    collectives' 'top' the largest traced step's."""
+    ks = tuple(sorted({k for k, _ in traces}))
+    ms = tuple(sorted({m for _, m in traces}))
+    w = {(k, m): wk * wm for k, wk in _weights(ks, superblocks).items()
+         for m, wm in _weights(ms, microbatches).items()}
+
+    def fit(get):
+        return float(sum(wt * fractions.Fraction(get(traces[p])) for p, wt in w.items()))
+
+    nbytes = {k: fit(lambda t, k=k: t["collectives"]["bytes"][k]) for k in KINDS}
+    coll = {"bytes": {**nbytes, "total": sum(nbytes.values())},
+            "raw_bytes": {**nbytes, "total": sum(nbytes.values())},
+            "counts": {k: int(fit(lambda t, k=k: t["collectives"]["counts"][k])) for k in KINDS},
+            "top": traces[ks[-1], ms[-1]]["collectives"]["top"]}
+    memory = compiled_memory_stats({k: fit(lambda t, k=k: t["memory"][k]) for k in _MEMORY_KEYS})
+    return {"seconds": sum(t["seconds"] for t in traces.values()),
+            "flops": fit(lambda t: t["flops"]), "collectives": coll, "memory": memory}
+
+
 def _parallelism(kind: str, meta: dict) -> str:
     if kind != "lm":
         return PMV_PARALLELISM
     return LM_PARALLELISM + (SP_PARALLELISM if meta["cfg"].seq_parallel else "")
 
 
+def trace_lm_cell(arch: str, shape_name: str, mesh, overrides: dict | None = None, *,
+                  smoke: bool = False, whole: bool = False,
+                  deadline=contextlib.nullcontext()) -> tuple[dict, dict]:
+    """(trace, meta) of an LM cell: its step traced at :func:`fit_points`
+    and extrapolated (:func:`fit_traces`), or ``whole`` traced as it is;
+    each traced step in a fresh ``FakeTensorMode``, under ``deadline``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg, _seq, batch, mode, ga = lm_cell_config(arch, shape_name, mesh, overrides, smoke=smoke)
+    n_sb = cfg.scan_plan()["n_sb"]
+    ks, ms = ((n_sb,), (ga,)) if whole else fit_points(cfg, mode, batch, ga, mesh)
+    traces = {}
+    for k in ks:
+        for m in ms:
+            with FakeTensorMode(allow_non_fake_inputs=True), deadline:
+                fn, args, meta = build_lm_cell(arch, shape_name, mesh, overrides, smoke=smoke,
+                                               superblocks=None if k == n_sb else k,
+                                               microbatches=None if m == ga else m)
+                traces[k, m] = trace_step(fn, args)
+                del fn, args
+    meta = {**meta, "cfg": cfg, "fit": {"superblocks": list(ks), "n_sb": n_sb,
+                                        "microbatches": list(ms)}}
+    if mode == "train":
+        meta["grad_accum"] = ga
+    return fit_traces(traces, n_sb, ga), meta
+
+
 def run_cell(kind: str, name: str, mesh_name: str, *, force=False,
              results_dir: str = RESULTS_DIR, timeout_s: float = 0.0, smoke: bool = False) -> dict:
-    """Trace one cell; its record (written to ``results_dir``, read back
-    unless ``force``).  ``timeout_s``: a trace that takes longer fails as
-    data (TimeoutError); ``smoke``: the CPU-test scale."""
+    """Trace one cell (an LM cell fitted, :func:`trace_lm_cell`); its record
+    (written to ``results_dir``, read back unless ``force``).
+    ``timeout_s``: a trace that takes longer fails as data (TimeoutError);
+    ``smoke``: the CPU-test scale."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     os.makedirs(results_dir, exist_ok=True)
@@ -380,17 +529,18 @@ def run_cell(kind: str, name: str, mesh_name: str, *, force=False,
     t0 = time.time()
     try:
         deadline = _Deadline(timeout_s) if timeout_s else contextlib.nullcontext()
-        with FakeTensorMode(allow_non_fake_inputs=True), deadline:
-            if kind == "lm":
-                parts = name.split("@")
-                arch, shape_name = parts[0], parts[1]
-                overrides = VARIANTS[parts[2]] if len(parts) > 2 else None
-                fn, args, meta = build_lm_cell(arch, shape_name, mesh, overrides, smoke=smoke)
-            else:
+        if kind == "lm":
+            parts = name.split("@")
+            arch, shape_name = parts[0], parts[1]
+            overrides = VARIANTS[parts[2]] if len(parts) > 2 else None
+            tr, meta = trace_lm_cell(arch, shape_name, mesh, overrides, smoke=smoke,
+                                     deadline=deadline)
+        else:
+            with FakeTensorMode(allow_non_fake_inputs=True), deadline:
                 graph, algo, strategy = name.split("@")
                 fn, args, meta = build_pmv_cell(graph, algo, strategy, mesh)
-            t_build = time.time() - t0
-            tr = trace_step(fn, args)
+                tr = trace_step(fn, args)
+        lower_s = time.time() - t0
 
         analytic = None
         if kind == "lm":
@@ -407,7 +557,7 @@ def run_cell(kind: str, name: str, mesh_name: str, *, force=False,
         coll, mem = tr["collectives"], tr["memory"]
         rec.update(
             ok=True, hlo=None,      # the JAX record's HLO file: the port has none
-            lower_s=round(t_build + tr["seconds"], 1), compile_s=0.0,
+            lower_s=round(lower_s, 1), compile_s=0.0,
             memory=mem, cost={"flops": tr["flops"]}, collectives=coll, analytic=analytic,
             meta={**{k: v for k, v in (meta or {}).items()
                      if not hasattr(v, "dtype") and k != "cfg"}, "device_type": device_type,

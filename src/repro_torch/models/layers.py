@@ -7,9 +7,9 @@ The port of the JAX package's ``repro.models.layers``, op for op:
   ``preferred_element_type=float32`` takes float32 operands here, so its
   products and sums are float32 as XLA's are);
 - GQA everywhere: q [B,S,KVH,G,dh] against k/v [B,S,KVH,dh];
-- two attention paths: dense einsum (short seq) and flash (loops over query
-  and kv chunks with an online softmax) for long sequences, selected by
-  cfg.flash_threshold;
+- two attention paths: dense einsum (short seq) and flash (a loop over kv
+  chunks, each taken by slabs of query chunks, with an online softmax) for
+  long sequences, selected by cfg.flash_threshold;
 - decode path: single-token query against a KV cache that is written in
   place (``cache_write``).
 
@@ -119,6 +119,39 @@ def swiglu(p, x):
     return (g * (x @ p["w_up"])) @ p["w_down"]
 
 
+# ------------------------------------------------------------------ scans
+def _slice(x, dim: int, start, stop, step=1):
+    return x[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _interleave(a, b, dim: int):
+    """a0 b0 a1 b1 ... along ``dim`` (a as long as b or one longer)."""
+    n = b.shape[dim]
+    out = torch.stack([_slice(a, dim, 0, n), b], dim=dim + 1).flatten(dim, dim + 1)
+    return out if a.shape[dim] == n else torch.cat([out, _slice(a, dim, n, None)], dim=dim)
+
+
+def associative_scan(combine, elems: tuple, dim: int) -> tuple:
+    """Inclusive scan of ``elems`` (tensors of one length along ``dim``)
+    under the associative ``combine(earlier, later)``: the JAX package's
+    ``lax.associative_scan``, the same recursion (adjacent pairs combined,
+    the half-length scan, then the even elements), so each element is
+    combined in the same tree; 2 log2(S) levels of torch ops, not S."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return tuple(elems)
+    reduced = combine(tuple(_slice(e, dim, 0, -1, 2) for e in elems),
+                      tuple(_slice(e, dim, 1, None, 2) for e in elems))
+    odd = associative_scan(combine, reduced, dim)
+    if n % 2 == 0:
+        even = combine(tuple(_slice(e, dim, 0, -1) for e in odd),
+                       tuple(_slice(e, dim, 2, None, 2) for e in elems))
+    else:
+        even = combine(odd, tuple(_slice(e, dim, 2, None, 2) for e in elems))
+    even = [torch.cat([_slice(e, dim, 0, 1), r], dim=dim) for e, r in zip(elems, even)]
+    return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
+
+
 # --------------------------------------------------------------- attention
 def _gqa_scores(q, k):
     """q [B,Sq,KVH,G,dh] x k [B,Sk,KVH,dh] -> [B,KVH,G,Sq,Sk] (f32)."""
@@ -155,14 +188,22 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0):
     return out.reshape(B, Sq, H, dv)
 
 
+# query chunks whose scores against one kv chunk are computed at once
+FLASH_SLAB_CHUNKS = 8
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, q_chunk=1024, k_chunk=1024,
                     q_offset=0, skip_masked=False):
     """Online-softmax attention: O(S * chunk) memory, never materializes SxS.
 
-    An outer loop over query chunks and an inner one over kv chunks (the JAX
-    package's nested ``lax.scan``).  skip_masked=True skips the fully masked
-    kv chunks (the JAX package's ``lax.cond``), decided here on the host from
-    the chunks' positions.
+    Each query chunk takes the kv chunks in ascending order (the JAX
+    package's nested ``lax.scan``: outer over query chunks, inner over kv
+    chunks), but the loop runs over the kv chunks: each is taken by the
+    contiguous range of query chunks that need it, ``FLASH_SLAB_CHUNKS`` of
+    them at a time, so every query row sees the same sequence of updates.
+    skip_masked=True skips the fully masked kv chunks of a query chunk (the
+    JAX package's ``lax.cond``), decided here on the host from the chunks'
+    positions.
     """
     B, Sq, H, dh = q.shape
     Sk, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -175,44 +216,47 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_chunk=1024, k_chunk=102
     nq, nk = Sq // q_chunk, Sk // k_chunk
     dev = q.device
 
-    qg = scale_by(q.reshape(B, nq, q_chunk, KVH, G, dh), dh ** -0.5)
+    def needed(iq, ik):
+        q_lo, k_lo = iq * q_chunk + q_offset, ik * k_chunk
+        ok = True
+        if causal:
+            ok &= k_lo <= q_lo + q_chunk - 1           # chunk not in the future
+        if window:
+            ok &= k_lo + k_chunk - 1 > q_lo - window      # chunk inside the window
+        return ok
+
+    qg = scale_by(q.reshape(B, Sq, KVH, G, dh), dh ** -0.5)
     ks = k.reshape(B, nk, k_chunk, KVH, dh)
     vs = v.reshape(B, nk, k_chunk, KVH, dv)
-    outs = []
-    for iq in range(nq):
-        qc = qg[:, iq]                                   # [B, q_chunk, KVH, G, dh]
-        q_lo = iq * q_chunk + q_offset
-        q_pos = torch.arange(q_chunk, device=dev) + q_lo
-        shape = (B, KVH, G, q_chunk)
-        m = torch.full(shape, -float("inf"), dtype=torch.float32, device=dev)
-        l = torch.zeros(shape, dtype=torch.float32, device=dev)
-        acc = torch.zeros(shape + (dv,), dtype=torch.float32, device=dev)
-        for ik in range(nk):
-            k_lo = ik * k_chunk
-            if skip_masked:
-                needed = True
-                if causal:
-                    needed &= k_lo <= q_lo + q_chunk - 1       # chunk not in the future
-                if window:
-                    needed &= k_lo + k_chunk - 1 > q_lo - window  # chunk inside the window
-                if not needed:
-                    continue
-            kc, vc = ks[:, ik], vs[:, ik]
-            k_pos = torch.arange(k_chunk, device=dev) + k_lo
-            s = _gqa_scores(qc, kc)                          # [B,KVH,G,qc,kc]
+    shape = (B, KVH, G, Sq)
+    # the online-softmax state of each query chunk
+    m = list(torch.full(shape, -float("inf"), dtype=torch.float32, device=dev)
+             .split(q_chunk, dim=-1))
+    l = list(torch.zeros(shape, dtype=torch.float32, device=dev).split(q_chunk, dim=-1))
+    acc = list(torch.zeros(shape + (dv,), dtype=torch.float32, device=dev)
+               .split(q_chunk, dim=-2))
+    for ik in range(nk):
+        iqs = [iq for iq in range(nq) if not skip_masked or needed(iq, ik)]
+        kc, vc = ks[:, ik], vs[:, ik]
+        k_pos = torch.arange(k_chunk, device=dev) + ik * k_chunk
+        for j in range(0, len(iqs), FLASH_SLAB_CHUNKS):
+            a, b = iqs[j], iqs[min(j + FLASH_SLAB_CHUNKS, len(iqs)) - 1] + 1
+            q_pos = torch.arange(a * q_chunk, b * q_chunk, device=dev) + q_offset
+            s = _gqa_scores(qg[:, a * q_chunk:b * q_chunk], kc)  # [B,KVH,G,rows,kc]
             s = s + _mask_bias(q_pos, k_pos, causal=causal, window=window)[None, None, None]
-            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            m_old = torch.cat(m[a:b], dim=-1)
+            m_new = torch.maximum(m_old, torch.amax(s, dim=-1))
             m_safe = torch.clamp(m_new, min=_NEG_INF)
             p = torch.exp(s - m_safe[..., None])
-            corr = torch.exp(torch.clamp(m, min=_NEG_INF) - m_safe)
-            l = l * corr + torch.sum(p, dim=-1)
+            corr = torch.exp(torch.clamp(m_old, min=_NEG_INF) - m_safe)
+            l_new = torch.cat(l[a:b], dim=-1) * corr + torch.sum(p, dim=-1)
             pv = f32(torch.einsum("bhgqk,bkhd->bhgqd", p.to(vc.dtype), vc))
-            acc = acc * corr[..., None] + pv
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-20)[..., None]     # [B,KVH,G,qc,dv]
-        outs.append(out.to(v.dtype))
-    out = torch.stack(outs, dim=1)                          # [B,nq,KVH,G,qc,dv]
-    return out.permute(0, 1, 4, 2, 3, 5).reshape(B, Sq, H, dv)
+            acc_new = torch.cat(acc[a:b], dim=-2) * corr[..., None] + pv
+            m[a:b] = m_new.split(q_chunk, dim=-1)
+            l[a:b] = l_new.split(q_chunk, dim=-1)
+            acc[a:b] = acc_new.split(q_chunk, dim=-2)
+    out = torch.cat(acc, dim=-2) / torch.clamp(torch.cat(l, dim=-1), min=1e-20)[..., None]
+    return out.to(v.dtype).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dv)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0):

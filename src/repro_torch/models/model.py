@@ -203,7 +203,7 @@ class Model(nn.Module):
         rows = spmd_lib.batch_rows(tokens, self.mesh)
         names = self.mesh.mesh_dim_names
         model_rows = (not decode and "model" in names and spmd_lib._is_dtensor(tokens)
-                      and tokens.to_local().shape[0] % (self.mesh["model"].size()
+                      and tokens.to_local().shape[0] % (spmd_lib.dim_size(self.mesh, "model")
                                                         * microbatches) == 0)
         return spmd_lib.Spmd(self.mesh, rows=rows, seq=self.cfg.seq_parallel, manual=manual,
                              model_rows=model_rows)
@@ -304,7 +304,7 @@ class Model(nn.Module):
         B, S = tokens.shape
         n_rows = 1
         for a in ctx.rows:
-            n_rows *= ctx.mesh[a].size()
+            n_rows *= spmd_lib.dim_size(ctx.mesh, a)
         start, s_loc = ctx.seq_start(logits.shape[1]), logits.shape[1]
         # targets of this rank's positions; the sequence's last has none
         tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).narrow(1, start, s_loc)

@@ -4,9 +4,9 @@ Recurrence: r_t = σ(W_r x_t), i_t = σ(W_i x_t),
             a_t = exp(-c · softplus(Λ) · r_t)          (c = 8)
             h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
 
-A first-order linear recurrence with input-dependent decay, computed by a
-loop over time in float32 (the JAX package's associative scan,
-sequentially); O(1) per step for decode.  The full recurrent block follows
+A first-order linear recurrence with input-dependent decay, computed in
+float32 by the JAX package's associative scan over time
+(``layers.associative_scan``, log-depth); O(1) per step for decode.  The full recurrent block follows
 Griffin: dual branches (conv1d -> RG-LRU) x (linear -> GeLU, the tanh form
 ``jax.nn.gelu`` takes by default), elementwise product, output projection.
 """
@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import f32, init_dense, normal, torch_dtype
+from repro_torch.models.layers import associative_scan, f32, init_dense, normal, torch_dtype
 from repro_torch.models.ssm import _causal_conv, _softplus
 
 __all__ = ["init_rglru_block", "rglru_block", "rglru_decode", "init_rglru_cache"]
@@ -64,12 +64,13 @@ def rglru_block(p, x, cfg):
     """Full-sequence recurrent block.  x [B,S,D] -> [B,S,D]."""
     xw = _causal_conv(x @ p["w_x"], p["conv_w"], p["conv_b"])
     a, gated = _rglru_gates(p, xw)
-    h_t = gated[:, 0]
-    hs = [h_t]
-    for t in range(1, x.shape[1]):
-        h_t = h_t * a[:, t] + gated[:, t]
-        hs.append(h_t)
-    h = torch.stack(hs, dim=1)
+
+    def combine(e1, e2):
+        a1, h1 = e1
+        a2, h2 = e2
+        return a1 * a2, h1 * a2 + h2
+
+    _, h = associative_scan(combine, (a, gated), dim=1)
     branch = _gelu(f32(x @ p["w_gate_branch"]))
     y = (h * branch).to(x.dtype)
     return y @ p["w_out"]

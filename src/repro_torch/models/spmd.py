@@ -60,6 +60,12 @@ def active():
     return _ACTIVE.get()
 
 
+def dim_size(mesh, name: str) -> int:
+    """The size of ``mesh``'s dim ``name``, read off its shape (``mesh[name]``
+    builds a sub-mesh: tensor ops on the rank grid at every call)."""
+    return int(mesh.shape[mesh.mesh_dim_names.index(name)])
+
+
 def _is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
@@ -112,13 +118,13 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, x, mesh, plan):
         ctx.mesh, ctx.plan = mesh, plan
         for d, a in plan:
-            x = _all_gather(x, d, mesh.get_group(a), mesh[a].size())
+            x = _all_gather(x, d, mesh.get_group(a), dim_size(mesh, a))
         return x
 
     @staticmethod
     def backward(ctx, g):
         for d, a in reversed(ctx.plan):
-            g = _reduce_scatter(g, d, ctx.mesh.get_group(a), ctx.mesh[a].size())
+            g = _reduce_scatter(g, d, ctx.mesh.get_group(a), dim_size(ctx.mesh, a))
         return g, None, None
 
 
@@ -130,13 +136,13 @@ class _Scatter(torch.autograd.Function):
     def forward(ctx, x, mesh, plan):
         ctx.mesh, ctx.plan = mesh, plan
         for d, a in reversed(plan):
-            x = _reduce_scatter(x, d, mesh.get_group(a), mesh[a].size())
+            x = _reduce_scatter(x, d, mesh.get_group(a), dim_size(mesh, a))
         return x
 
     @staticmethod
     def backward(ctx, g):
         for d, a in ctx.plan:
-            g = _all_gather(g, d, ctx.mesh.get_group(a), ctx.mesh[a].size())
+            g = _all_gather(g, d, ctx.mesh.get_group(a), dim_size(ctx.mesh, a))
         return g, None, None
 
 
@@ -147,7 +153,7 @@ class _SumPartial(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dims):
         for a in dims:
-            x = _all_reduce(x, mesh.get_group(a), mesh[a].size())
+            x = _all_reduce(x, mesh.get_group(a), dim_size(mesh, a))
         return x
 
     @staticmethod
@@ -166,7 +172,7 @@ class _ParamGather(torch.autograd.Function):
     def forward(ctx, x, mesh, shards, partial):
         ctx.mesh, ctx.shards, ctx.partial = mesh, shards, partial
         for d, a in reversed(shards):          # minor mesh dim first
-            x = _all_gather(x, d, mesh.get_group(a), mesh[a].size())
+            x = _all_gather(x, d, mesh.get_group(a), dim_size(mesh, a))
         return x
 
     @staticmethod
@@ -174,7 +180,7 @@ class _ParamGather(torch.autograd.Function):
         mesh = ctx.mesh
         sharded = {a for _, a in ctx.shards}
         for d, a in ctx.shards:                # major mesh dim first
-            n = mesh[a].size()
+            n = dim_size(mesh, a)
             if a in ctx.partial:
                 g = _reduce_scatter(g, d, mesh.get_group(a), n)
             else:
@@ -182,7 +188,7 @@ class _ParamGather(torch.autograd.Function):
                 g = g.narrow(d, mesh.get_local_rank(a) * k, k)
         for a in ctx.partial:
             if a not in sharded:
-                g = _all_reduce(g, mesh.get_group(a), mesh[a].size())
+                g = _all_reduce(g, mesh.get_group(a), dim_size(mesh, a))
         return g.contiguous(), None, None, None
 
 
@@ -214,14 +220,14 @@ class Spmd:
             raise ValueError(f"seq_parallel needs a 'model' mesh dim; the mesh has {names}")
         self.mesh = mesh
         self.names = names
-        self.seq = bool(seq) and "model" in names and mesh["model"].size() > 1
+        self.seq = bool(seq) and "model" in names and dim_size(mesh, "model") > 1
         # model_rows: the 'model' ranks split each rank's rows further
         # (pure data parallelism over the whole mesh)
         self.model_rows = bool(model_rows) and not self.seq and "model" in names
         rows = tuple(rows) + (("model",) if self.model_rows else ())
         self.rows = tuple(a for a in names if a in rows and a not in manual)
         self.partial = self.rows + (("model",) if self.seq else ())
-        self.n_model = mesh["model"].size() if "model" in names else 1
+        self.n_model = dim_size(mesh, "model") if "model" in names else 1
         self.model_rank = mesh.get_local_rank("model") if "model" in names else 0
 
     @classmethod
@@ -233,12 +239,12 @@ class Spmd:
             return ONE_RANK
         size = 1
         for a in rows:
-            size *= mesh[a].size()
+            size *= dim_size(mesh, a)
         if n_rows % size:
             rows = ()
             size = 1
         model_rows = (not seq and "model" in mesh.mesh_dim_names
-                      and n_rows % (size * mesh["model"].size()) == 0)
+                      and n_rows % (size * dim_size(mesh, "model")) == 0)
         return cls(mesh, rows=rows, seq=seq, manual=manual, model_rows=model_rows)
 
     def take_rows(self, batch: dict) -> dict:
@@ -246,7 +252,7 @@ class Spmd:
         first) of a batch whose rows every rank holds whole."""
         idx, size = 0, 1
         for a in self.rows:
-            k = self.mesh[a].size()
+            k = dim_size(self.mesh, a)
             idx, size = idx * k + self.mesh.get_local_rank(a), size * k
         out = {}
         for k, v in batch.items():
@@ -334,7 +340,7 @@ class Spmd:
         ranks of the partial dims (mesh order, major first)."""
         idx, size = 0, 1
         for a in self.partial:
-            k = self.mesh[a].size()
+            k = dim_size(self.mesh, a)
             idx, size = idx * k + self.mesh.get_local_rank(a), size * k
         per = -(-n // size)
         return min(idx * per, n), min((idx + 1) * per, n)
@@ -343,7 +349,7 @@ class Spmd:
     def n_partial(self) -> int:
         size = 1
         for a in self.partial:
-            size *= self.mesh[a].size()
+            size *= dim_size(self.mesh, a)
         return size
 
     def sum_partial(self, x):
@@ -359,7 +365,7 @@ class Spmd:
         """All-reduce ``op`` ('sum' / 'max') over 'model' (the split-KV
         decode's combine)."""
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        return _all_reduce(x, self.mesh.get_group("model"), self.mesh["model"].size(), red)
+        return _all_reduce(x, self.mesh.get_group("model"), dim_size(self.mesh, "model"), red)
 
     def softmax_combine(self, s, v_local, eq: str):
         """softmax(s) . v over slots split across 'model' (flash-decode):

@@ -2,8 +2,8 @@
 
 Chunked SSD: sequence split into chunks of length Q; within a chunk the
 recurrence is computed in its dual quadratic-attention form (masked
-matmuls); chunk boundary states propagate through a loop over the chunks
-(the JAX package's associative scan, sequentially).  Decode is the O(1)
+matmuls); chunk boundary states propagate through the JAX package's
+associative scan over the chunks (``layers.associative_scan``).  Decode is the O(1)
 recurrent update: no KV cache.
 
 Shapes: x [B,S,HP] split into H heads of P dims; B_ssm/C [B,S,N] (single
@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import f32, init_dense, normal, rms_norm, silu, torch_dtype
+from repro_torch.models.layers import (associative_scan, f32, init_dense, normal, rms_norm, silu,
+                                      torch_dtype)
 
 __all__ = ["init_mamba", "mamba_block", "mamba_decode", "init_mamba_cache"]
 
@@ -85,13 +86,14 @@ def ssd_chunked(x, dt, A, B_ssm, C, chunk: int):
     states = torch.einsum("bcqn,bcqh,bcqhp->bchpn", Bc, (dtc * decay_to_end).to(x.dtype), xc)
 
     gammas = torch.exp(total)                                   # [B,nc,H]
+
+    def combine(e1, e2):
+        a1, s1 = e1
+        a2, s2 = e2
+        return a1 * a2, s1 * a2[..., None, None].to(s1.dtype) + s2
+
+    _, s_scan = associative_scan(combine, (gammas, states), dim=1)   # [B,nc,H,P,N]
     # state *entering* chunk c = scanned state of chunk c-1 (zero for c=0)
-    s = states[:, 0]
-    scanned = [s]
-    for c in range(1, nc):
-        s = s * gammas[:, c, :, None, None].to(s.dtype) + states[:, c]
-        scanned.append(s)
-    s_scan = torch.stack(scanned, dim=1)                        # [B,nc,H,P,N]
     prev = torch.cat([torch.zeros_like(s_scan[:, :1]), s_scan[:, :-1]], dim=1)
 
     y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, prev) * torch.exp(seg)[..., None].to(x.dtype)

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from repro_torch.models import spmd as spmd_lib
+
 __all__ = ["OptConfig", "adamw_init", "adamw_update", "lr_at"]
 
 
@@ -105,7 +107,7 @@ def _squares(grads: dict) -> dict:
         for (mesh, pls), items in by_pl.items():
             total = torch.stack([s for _, s in items])
             for a, pl in zip(mesh.mesh_dim_names, pls):
-                if isinstance(pl, Shard) and mesh[a].size() > 1:
+                if isinstance(pl, Shard) and spmd_lib.dim_size(mesh, a) > 1:
                     dist.all_reduce(total, group=mesh.get_group(a))
             out.update((name, total[i]) for i, (name, _) in enumerate(items))
     return out

@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.models import spmd as spmd_lib
+
 __all__ = ["pipeline_apply"]
 
 
@@ -109,7 +111,7 @@ def pipeline_apply(stage_fn, stage_params, microbatches, mesh, *, axis: str = "p
     microbatches: [M, ...] (replicated across the pipeline axis).
     Returns [M, ...] outputs of the final stage, on every rank of the axis.
     """
-    n_stages = mesh[axis].size()
+    n_stages = spmd_lib.dim_size(mesh, axis)
     M = microbatches.shape[0]
     steps = M + n_stages - 1
     stage = mesh.get_local_rank(axis)

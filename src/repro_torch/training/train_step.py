@@ -30,6 +30,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from repro_torch.models import spmd as spmd_lib
 from repro_torch.training.optimizer import OptConfig, adamw_init, adamw_update
 from repro_torch.training.optimizer import _is_dtensor, _leaf_key, _local, _zeros32
 
@@ -81,7 +82,7 @@ def _quantize_leaf(gs: list, mesh, axis: str):
     for group in (mesh.get_group(a) for a in mesh.mesh_dim_names):
         dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
     scale = scale / 127.0 + 1e-12
-    npods = mesh[axis].size()
+    npods = spmd_lib.dim_size(mesh, axis)
     out = []
     for g, lg in zip(gs, local):
         q = torch.clamp(torch.round(lg / scale), -127, 127).to(torch.int8)
@@ -121,8 +122,6 @@ def _accum_grads(model, batch: dict, grad_accum: int, manual: tuple = ()):
     one-rank context) on each rank's local rows; microbatch i holds the
     batch's rows [i B / n, (i + 1) B / n), as the JAX package's reshape
     does (each pod's batch under a manual pod axis)."""
-    from repro_torch.models import spmd as spmd_lib
-
     if grad_accum == 1:
         with model.spmd_context(batch, manual=manual).entered() as ctx:
             return _grads(model, ctx.local_batch(batch))
@@ -150,8 +149,6 @@ def _rows_gathered(v, mesh, manual: tuple):
     dims, as placed): all-gathered over the other dims that split them."""
     if not _is_dtensor(v):
         return v
-    from repro_torch.models import spmd as spmd_lib
-
     rows = [a for a in spmd_lib.batch_rows(v, mesh) if a not in manual]
     with torch.no_grad():
         return spmd_lib._Gather.apply(v.to_local(), mesh, tuple((0, a) for a in reversed(rows)))
@@ -220,7 +217,7 @@ def make_train_step(model, tcfg: TrainConfig, mesh=None):
         # each pod its rows; gradients reduced within the pod only
         loss, metrics, grads = _accum_grads(model, _place_batch(model, batch), tcfg.grad_accum,
                                             manual=(axis,))
-        npods = mesh[axis].size()
+        npods = spmd_lib.dim_size(mesh, axis)
         pod = mesh.get_group(axis)
         for v in [loss, *metrics.values()]:
             dist.all_reduce(v, op=dist.ReduceOp.SUM, group=pod)

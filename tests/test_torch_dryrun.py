@@ -6,7 +6,11 @@ subprocess.  Each record has the JAX package's record keys, its
 ``analytic`` is the JAX package's ``launch.flops.cell_cost``, its
 ``argument_bytes`` the local shards' bytes computed by hand from the
 sharding rules, and a sharded step shows its all-gathers (and, training,
-its reduce-scatters)."""
+its reduce-scatters).  A record fitted from 1 and 2 superblocks (and two
+microbatch counts) equals the whole trace's.  The scans and the flash
+loop the trace runs: RG-LRU at S = 32768 dispatches few ops, and the
+RG-LRU and SSD scans and the slab-batched flash attention match the JAX
+package's."""
 from __future__ import annotations
 
 import ast
@@ -27,13 +31,29 @@ PMV = "smoke@pagerank@vertical"
 CELLS = [("lm", f"{a}@{s}", m) for m in MESHES for a in ARCHS for s in SHAPES] + \
         [("pmv", PMV, m) for m in MESHES]
 
+# fitted against whole: a train cell of 3 superblocks and 4 microbatches
+# (fitted from 1, 2 and 2, 3), prefill cells of 4 superblocks and of 3 plus
+# a tail layer
+FIT_CELLS = [("mamba2_130m@train_4k@ga4", {"n_layers": 3}),
+             ("qwen3_1_7b@prefill_32k", {"n_layers": 4}),
+             ("recurrentgemma_9b@prefill_32k", {"n_layers": 10})]
+FIT_MESH = "2x2x2"
+
 SCRIPT = r"""
 import json, sys
 from repro_torch.launch import dryrun
 out = []
 for kind, name, mesh in json.loads(sys.argv[2]):
     out.append(dryrun.run_cell(kind, name, mesh, force=True, smoke=True, results_dir=sys.argv[1]))
+fits, mesh = [], dryrun.production_mesh(sys.argv[4])
+for name, over in json.loads(sys.argv[3]):
+    arch, shape, *variant = name.split("@")
+    over = {**(dryrun.VARIANTS[variant[0]] if variant else {}), **over}
+    fits.append([[tr, {k: v for k, v in meta.items() if k != "cfg"}] for tr, meta in (
+        dryrun.trace_lm_cell(arch, shape, mesh, over, smoke=True, whole=whole)
+        for whole in (False, True))])
 print("RECORDS " + json.dumps(out))
+print("FITS " + json.dumps(fits))
 """
 
 
@@ -41,14 +61,19 @@ print("RECORDS " + json.dumps(out))
 def records(tmp_path_factory):
     d = tmp_path_factory.mktemp("dryrun")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    out = subprocess.run([sys.executable, "-c", SCRIPT, str(d), json.dumps(CELLS)],
+    out = subprocess.run([sys.executable, "-c", SCRIPT, str(d), json.dumps(CELLS),
+                          json.dumps(FIT_CELLS), FIT_MESH],
                          capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("RECORDS ")]
     assert line, out.stdout[-2000:] + out.stderr[-3000:]
     recs = json.loads(line[0][len("RECORDS "):])
+    fits = json.loads(next(ln for ln in out.stdout.splitlines()
+                           if ln.startswith("FITS "))[len("FITS "):])
     # written incrementally, one file a cell, outside benchmarks/
     assert len(list(Path(d).glob("*.json"))) == len(CELLS)
-    return {(r["kind"], r["cell"], r["mesh"]): r for r in recs}
+    out = {(r["kind"], r["cell"], r["mesh"]): r for r in recs}
+    out["fits"] = dict(zip((name for name, _ in FIT_CELLS), fits))
+    return out
 
 
 def _jax_record_keys() -> set:
@@ -189,3 +214,124 @@ def test_pmv_step_records_its_exchange(records, mesh):
     c = records["pmv", PMV, mesh]["collectives"]
     assert c["counts"]["all-to-all"] > 0 and c["bytes"]["all-to-all"] > 0
     assert c["counts"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("cell", [name for name, _ in FIT_CELLS])
+def test_fitted_record_equals_whole_trace(records, cell):
+    """An LM cell's counts fitted from its step traced at 1 and 2
+    superblocks (and, training, at 2 and 3 microbatches; what run_cell
+    records) equal the step traced whole: flops, the collectives' bytes and
+    counts by kind, and every memory figure (temp bytes included)."""
+    (fitted, f_meta), (whole, w_meta) = records["fits"][cell]
+    n_sb = f_meta["fit"]["n_sb"]
+    assert f_meta["fit"]["superblocks"] == [1, 2] and n_sb > 2
+    assert w_meta["fit"]["superblocks"] == [n_sb]
+    if "train" in cell:
+        assert f_meta["fit"]["microbatches"] == [2, 3]
+        assert w_meta["fit"]["microbatches"] == [f_meta["grad_accum"]] == [4]
+    assert fitted["flops"] == whole["flops"] > 0
+    for key in ("bytes", "raw_bytes", "counts"):
+        assert fitted["collectives"][key] == whole["collectives"][key], key
+    assert fitted["memory"] == whole["memory"]
+
+
+# the RG-LRU block at S = 32768 dispatched 327,757 ops under FakeTensorMode
+# with its per-timestep loop (before the associative scan)
+RGLRU_LOOP_OPS = 327_757
+
+
+def test_rglru_block_dispatches_log_depth_ops():
+    """One rglru_block at S = 32768 (the prefill_32k cells' length) under
+    FakeTensorMode dispatches at most 1/50 of the per-timestep loop's ops."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch import configs as tconfigs
+    from repro_torch.models import rglru
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = tconfigs.smoke_config("recurrentgemma_9b")
+    with FakeTensorMode():
+        p = rglru.init_rglru_block(torch.Generator(device="cpu"), cfg)
+        x = torch.zeros((1, 32768, cfg.d_model))
+        with Count():
+            y = rglru.rglru_block(p, x, cfg)
+    assert tuple(y.shape) == (1, 32768, cfg.d_model)
+    assert 0 < Count.n <= RGLRU_LOOP_OPS / 50, Count.n
+
+
+def _t(a):
+    import torch
+
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("S", [1, 2, 21, 64])
+def test_rglru_scan_matches_jax_at_any_length(S):
+    """The RG-LRU block's scan (JAX's recursion: odd and even lengths at
+    each level) against the JAX package's associative scan at the RG-LRU
+    test's tolerance."""
+    import jax
+    from repro import configs as jcfgs
+    from repro.models import rglru as jrglru
+    from repro_torch import configs as tconfigs
+    from repro_torch.models import rglru as trglru
+
+    cfg, jcfg = tconfigs.smoke_config("recurrentgemma_9b"), jcfgs.smoke_config("recurrentgemma_9b")
+    jp = jrglru.init_rglru_block(jax.random.PRNGKey(2), jcfg)
+    tp = {k: _t(v) for k, v in jp.items()}
+    x = np.random.default_rng(S).standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    want = jax.jit(lambda p, x: jrglru.rglru_block(p, x, jcfg))(jp, x)
+    got = trglru.rglru_block(tp, _t(x), cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [8, 24, 56])
+def test_ssd_scan_matches_jax_at_any_chunk_count(S):
+    """The SSD's inter-chunk scan at 1, 3 and 7 chunks against the JAX
+    package's ssd_chunked at the SSD test's tolerance."""
+    import jax
+    from repro.models import ssm as jssm
+    from repro_torch.models import ssm as tssm
+
+    rng = np.random.default_rng(S)
+    B, H, P, N = 2, 3, 4, 8
+    args = (rng.normal(size=(B, S, H, P)).astype(np.float32),
+            rng.uniform(0.1, 0.9, size=(B, S, H)).astype(np.float32),
+            -rng.uniform(0.5, 1.5, size=(H,)).astype(np.float32),
+            rng.normal(size=(B, S, N)).astype(np.float32),
+            rng.normal(size=(B, S, N)).astype(np.float32))
+    y, final = tssm.ssd_chunked(*map(_t, args), chunk=8)
+    jy, jfinal = jax.jit(lambda *a: jssm.ssd_chunked(*a, chunk=8))(*args)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("skip", [False, True])
+def test_flash_slabs_match_jax(window, skip):
+    """flash_attention with more query chunks than a slab (20 chunks: slabs
+    of 8, 8 and 4, and with skipping, ranges that start mid-way) against
+    the JAX package's flash_attention and the dense attention, at the flash
+    test's tolerances."""
+    import jax
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+
+    assert tlayers.FLASH_SLAB_CHUNKS < 20
+    rng = np.random.default_rng(7)
+    B, S, H, KVH, dh = 1, 160, 4, 2, 8
+    q, k, v = (rng.standard_normal((B, S, h, dh)).astype(np.float32) for h in (H, KVH, KVH))
+    kw = dict(causal=True, window=window, q_chunk=8, k_chunk=8, skip_masked=skip)
+    got = tlayers.flash_attention(_t(q), _t(k), _t(v), **kw)
+    want = jax.jit(lambda *a: jlayers.flash_attention(*a, **kw))(q, k, v)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    dense = tlayers.attention(_t(q), _t(k), _t(v), causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=2e-5, atol=2e-5)

@@ -88,8 +88,8 @@ def test_rope_and_rms_norm_match_jax(dtype):
 
 
 def test_ssd_chunked_matches_jax_and_recurrence():
-    """The chunked SSD (the chunk states' scan a loop here, an associative
-    scan there) equals the JAX package's and the naive recurrence."""
+    """The chunked SSD (the chunk states' associative scan in both
+    packages) equals the JAX package's and the naive recurrence."""
     rng = np.random.default_rng(0)
     B, S, H, P, N = 2, 32, 3, 4, 8
     x = rng.normal(size=(B, S, H, P)).astype(np.float32)
@@ -114,9 +114,9 @@ def test_ssd_chunked_matches_jax_and_recurrence():
 
 
 def test_rglru_scan_matches_jax():
-    """The RG-LRU block (the recurrence a float32 loop over time here, an
-    associative scan there) and its one-step decode equal the JAX package's
-    on the same parameters."""
+    """The RG-LRU block (the recurrence a float32 associative scan over time
+    in both packages) and its one-step decode equal the JAX package's on
+    the same parameters."""
     cfg = tcfgs.smoke_config("recurrentgemma_9b")
     jcfg = jcfgs.smoke_config("recurrentgemma_9b")
     jp = jrglru.init_rglru_block(jax.random.PRNGKey(2), jcfg)
