@@ -63,9 +63,13 @@ Phases, each printed as it ends; any failure exits non-zero:
               ms and peak GiB of both.  (b) 8 gloo ranks sharing the card
               (``chip_smoke.py --mesh-rank R``) on a (2, 2, 2) ('pod',
               'data', 'model') mesh, the smoke configs of qwen3-1.7b and
-              Mixtral (B = 8, S = 32, float32): one sharded step plain and
-              with seq_parallel (loss rel <= 1e-6, parameters <= 1e-6 of the
-              card's one-rank step), compress_pod (loss rel <= 1e-6,
+              Mixtral (B = 8, S = 32, float32): one sharded step, tensor
+              parallel over 'model' (attention, SwiGLU or MoE experts,
+              vocab-parallel embedding and loss; FSDP over 'data'), plain
+              and with seq_parallel (loss rel <= 1e-6, parameters <= 1e-6 of
+              the card's one-rank step; its collectives by kind and by mesh
+              dim printed, no all-gather over 'model' in the plain step),
+              compress_pod (loss rel <= 1e-6,
               parameters within 2 lr + 1e-6), a checkpoint saved under the
               mesh and restored on one device bitwise.  (``pipeline_apply``
               is not run here: gloo's send / recv does not take CUDA
@@ -4299,7 +4303,7 @@ MESH_RANK_TIMEOUT_S = 240.0
 # the mesh dry run's per-rank counts, from the whole (unfitted) trace of
 # qwen3_1_7b@train_4k on the single mesh (``launch.dryrun``, run on the CPU)
 MESH_DRYRUN_FLOPS = 66333622403072.0
-MESH_DRYRUN_BYTES = 7582238264.0
+MESH_DRYRUN_BYTES = 40018196016.0
 MESH_SMOKE_ARCHS = ("qwen3_1_7b", "mixtral_8x22b")
 MESH_B, MESH_S = 8, 32
 
@@ -4340,6 +4344,7 @@ def mesh_rank(rank: int, d: str) -> int:
         from torch.distributed.device_mesh import DeviceMesh
 
         from repro_torch import configs
+        from repro_torch.launch.hlo_analysis import CollectiveRecorder
         from repro_torch.launch.mesh import data_axes
         from repro_torch.models import spmd
         from repro_torch.models.model import build_model
@@ -4378,14 +4383,17 @@ def mesh_rank(rank: int, d: str) -> int:
             params = model.distribute(mesh, src_data_rank=None)   # the same draw on every rank
             tcfg = TrainConfig(compress_pod=compress)
             state = init_train_state(model, params, tcfg)
-            params, state, m = make_train_step(model, tcfg, mesh)(
-                params, state, mesh_batch(np, c.vocab))
+            rec = CollectiveRecorder(mesh)
+            with rec:
+                params, state, m = make_train_step(model, tcfg, mesh)(
+                    params, state, mesh_batch(np, c.vocab))
             arrays = {k: full(v) for k, v in params.items()}
             if rank == 0:
                 tag = f"{arch}{'_sp' if sp else ''}{'_compress' if compress else ''}"
                 np.savez(os.path.join(d, f"{tag}.npz"),
                          **{k: v.numpy() for k, v in arrays.items()})
-            return {"metrics": {k: float(v) for k, v in m.items()}}
+            return {"metrics": {k: float(v) for k, v in m.items()}, "layout": model.layout,
+                    "collectives": {str(k): v for k, v in rec.by_dim().items()}}
 
         for arch in MESH_SMOKE_ARCHS:
             part(f"{arch} step", lambda a=arch: step_case(a))
@@ -4620,8 +4628,10 @@ def mesh_phase(torch, np, dev, card: str, failures: list, *, parts: str = "abc")
 
 
 def mesh_gloo_checks(torch, np, d, res, refs, failures) -> None:
-    """Part (b)'s results against the card's one-rank runs: a step (plain
-    and seq_parallel) loss within rel 1e-6 and every parameter within 1e-6;
+    """Part (b)'s results against the card's one-rank runs: a step (tensor
+    parallel over 'model', plain and seq_parallel) loss within rel 1e-6 and
+    every parameter within 1e-6, its collectives printed by mesh dim and
+    kind, and none of them an all-gather over 'model' in a plain step;
     compress_pod's loss within rel 1e-6 (computed before the compression)
     and every parameter within 2 lr + 1e-6 (AdamW's first update is lr
     g / (|g| + eps) plus the decay, whatever int8 did to g); the checkpoint
@@ -4643,7 +4653,15 @@ def mesh_gloo_checks(torch, np, d, res, refs, failures) -> None:
                 diff = max(float(np.abs(z[k] - p_ref[k].numpy()).max()) for k in p_ref)
             loss_rel = abs(r["metrics"]["loss"] - m_ref["loss"]) / abs(m_ref["loss"])
             tol = 2 * m_ref["lr"] + 1e-6 if name.endswith("compress_pod") else 1e-6
-            ok = loss_rel <= 1e-6 and diff <= tol
+            coll = r["collectives"]
+            tp = sorted(k for k, v in r["layout"].items() if v == "tp")
+            # the plain TP step gathers no weight (nor anything) over 'model'
+            no_gather = name.endswith("seq_parallel") or "all-gather" not in coll.get("model", {})
+            ok = loss_rel <= 1e-6 and diff <= tol and no_gather and bool(tp)
+            log(f"mesh gloo (2, 2, 2) {name} collectives a step, by mesh dim "
+                f"{{kind: [count, bytes]}} (rank 0): {json.dumps(coll, sort_keys=True)}; TP over "
+                f"'model': {', '.join(tp)}; all-gather over 'model' "
+                f"{coll.get('model', {}).get('all-gather', [0])[0]}")
             log(f"mesh gloo 8 ranks on cuda:0 (2, 2, 2) {name}: loss {r['metrics']['loss']:.6f} "
                 f"vs one rank {m_ref['loss']:.6f} (rel {loss_rel:.3e}), grad_norm "
                 f"{r['metrics']['grad_norm']:.6f} vs {m_ref['grad_norm']:.6f}, parameters max "

@@ -56,6 +56,9 @@ def main(argv=None) -> dict:
         engine = PMVEngine(None, store=store_dir, residency="disk",
                            strategy="vertical", obs=rec, device=dev)
         result = engine.run(spec, max_iters=30, tol=1e-6)
+        # The next iteration's first block is still being prefetched: let it
+        # land, so the recorder holds every span of the run from here on.
+        engine.close()
         print(f"converged={result.converged} after {result.iterations} iterations; "
               f"read {result.totals['store_bytes_read']:.0f} B from disk "
               f"(prefetch overlap {result.totals['store_overlap']:.2f})")

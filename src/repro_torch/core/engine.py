@@ -1030,6 +1030,14 @@ class PMVEngine:
         return sec
 
     # ------------------------------------------------------------------
+    def close(self) -> None:
+        """Stop the disk prefetch of every prepared solve, waiting for a
+        fetch still in flight (its span lands in the recorder first); a
+        later ``run`` starts it anew."""
+        for *_, meta in self._prep_cache.values():
+            if meta.get("executor") is not None:
+                meta["executor"].close()
+
     def run(
         self,
         spec: GimvSpec,
@@ -1169,10 +1177,7 @@ class PMVEngine:
                             checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
                             resume=False, v0=v0, _allow_fallback=False)
                     finally:
-                        # out of core: stop the retry's prefetch threads
-                        for *_, m in fallback._prep_cache.values():
-                            if m.get("executor") is not None:
-                                m["executor"].close()
+                        fallback.close()     # out of core: stop the retry's prefetch threads
                     result.totals["fallback"] = label
                     return result
                 raise RuntimeError(

@@ -9,9 +9,14 @@ For each cell, in this process:
         place params / state / batch / caches by repro_torch.models.sharding
         run one train step (grad accumulation included), prefill or decode step
 
-The step is the port's, FSDP + DP (``repro_torch.models.spmd``): a weight
-that the JAX rules shard over 'model' is gathered whole, so there is no
-tensor parallelism, and each record's ``meta['parallelism']`` says so.
+The step is the port's (``repro_torch.models.spmd``), laid out as GSPMD
+lays out the JAX package's: tensor parallel over 'model' for the layers
+whose shards fall on whole heads and columns (``spmd.tp_layout``: GQA
+attention, the SwiGLU MLP, the MoE experts, the vocab-parallel embedding,
+logits and loss), FSDP over 'data', the rows over the data axes; the other
+layers, and a decode step, gather their weights over 'model'.  Each
+record's ``meta['parallelism']`` names the cell's TP layers and
+``meta['layout']`` gives every layer's path.
 This rank's (rank 0's) share of the step is what is traced: it runs eagerly
 on fake tensors, each collective is recorded with its result bytes as it is
 dispatched, the flops are ``FlopCounterMode``'s per rank (without its module
@@ -63,6 +68,7 @@ from repro_torch.launch.hlo_analysis import (
 )
 from repro_torch.launch.mesh import data_axes, make_production_mesh, worker_axes
 from repro_torch.models import sharding as sh
+from repro_torch.models import spmd
 from repro_torch.models.sharding import _batch_axes
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
@@ -92,11 +98,12 @@ MESH_WORLD = {"single": 256, "multi": 512}
 ALL_CELL_TIMEOUT_S = 300.0      # --all: a cell whose trace takes longer fails as data
 
 # What the traced step computes on the mesh (``repro_torch.models.spmd``),
-# recorded in every record's meta: the collectives, temp bytes and roofline
-# terms describe this parallelism, not the JAX package's tensor parallelism.
-LM_PARALLELISM = ("FSDP + DP: every weight gathered whole where a layer reads it; rows over "
-                  "the data axes, and over 'model' where they divide (a decode step splits "
-                  "its long caches over 'model' instead); no tensor parallelism over 'model'")
+# recorded in every record's meta with the cell's TP layers
+FSDP_PARALLELISM = ("FSDP over 'data': a weight gathered over 'data' where a layer reads it; "
+                    "rows over the data axes")
+DECODE_PARALLELISM = ("decode: every weight gathered over 'data' and 'model' where a layer "
+                      "reads it; rows over the data axes; long caches split over 'model' "
+                      "(split-KV)")
 SP_PARALLELISM = "; seq_parallel: the sequence over 'model'"
 PMV_PARALLELISM = "PMV workers: one block row of the matrix a rank"
 # CPU-test scale: smoke configs at small shapes, a small graph, on a small
@@ -227,6 +234,7 @@ def build_lm_cell(arch: str, shape_name: str, mesh, overrides: dict | None = Non
     model = build_model(cfg, "cpu")           # fake: allocates nothing
     params = model.distribute(mesh, src_data_rank=None)
     dev = model.device
+    layout = {} if mode == "decode" else model.layout
 
     def batch_struct():
         b = {"tokens": torch.zeros((batch, seq), dtype=torch.int32, device=dev)}
@@ -243,13 +251,13 @@ def build_lm_cell(arch: str, shape_name: str, mesh, overrides: dict | None = Non
         state = init_train_state(model, params, tcfg)  # moments mirror params
         step = make_train_step(model, tcfg, mesh)
         return step, (params, state, batch_struct()), {"cfg": cfg, "mode": mode,
-                                                       "grad_accum": ga}
+                                                       "grad_accum": ga, "layout": layout}
 
     if mode == "prefill":
         def prefill(p, b):
             with torch.no_grad():
                 return model.forward(b)[0]
-        return prefill, (params, batch_struct()), {"cfg": cfg, "mode": mode}
+        return prefill, (params, batch_struct()), {"cfg": cfg, "mode": mode, "layout": layout}
 
     # decode: one token against a seq-long cache
     enc_len = WHISPER_DECODE_ENC_LEN if cfg.family == "encdec" else 0
@@ -261,7 +269,8 @@ def build_lm_cell(arch: str, shape_name: str, mesh, overrides: dict | None = Non
     def decode(p, c, t, pos):
         with torch.no_grad():
             return model.serve_step(c, t, pos)
-    return decode, (params, cache, tok, seq - 1), {"cfg": cfg, "mode": mode, "enc_len": enc_len}
+    return decode, (params, cache, tok, seq - 1), {"cfg": cfg, "mode": mode, "enc_len": enc_len,
+                                                   "layout": layout}
 
 
 # ---------------------------------------------------------------------------
@@ -478,7 +487,11 @@ def fit_traces(traces: dict, superblocks: int, microbatches: int) -> dict:
 def _parallelism(kind: str, meta: dict) -> str:
     if kind != "lm":
         return PMV_PARALLELISM
-    return LM_PARALLELISM + (SP_PARALLELISM if meta["cfg"].seq_parallel else "")
+    if meta["mode"] == "decode":
+        out = DECODE_PARALLELISM
+    else:
+        out = f"{spmd.describe_layout(meta['layout'])}; {FSDP_PARALLELISM}"
+    return out + (SP_PARALLELISM if meta["cfg"].seq_parallel else "")
 
 
 def trace_lm_cell(arch: str, shape_name: str, mesh, overrides: dict | None = None, *,

@@ -63,13 +63,30 @@ def _kind(func) -> str | None:
     return _OPS.get(func._schema.name.split("::")[-1])
 
 
+def _group_name(args) -> str | None:
+    """The name of the process group a collective runs on: a c10d op's
+    torchbind argument, a functional op's last string argument."""
+    import torch.distributed as dist
+
+    for a in args:
+        if isinstance(a, torch.ScriptObject) and "ProcessGroup" in a._type().qualified_name():
+            return dist.ProcessGroup.unbox(a).group_name
+    names = [a for a in args if isinstance(a, str)]
+    return names[-1] if names else None
+
+
 class CollectiveRecorder(TorchDispatchMode):
     """Records (kind, result bytes, description) of every collective op
-    dispatched while it is active."""
+    dispatched while it is active; with a ``mesh`` also the mesh dim whose
+    process group each one ran on (``dims``, one entry a record: the dim's
+    name, or None for another group)."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         super().__init__()
         self.records: list = []
+        self.dims: list = []
+        self._names = ({} if mesh is None else
+                       {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names})
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -80,6 +97,16 @@ class CollectiveRecorder(TorchDispatchMode):
             res = args[0] if func.namespace == "c10d" else out
             shapes = [tuple(t.shape) for t in _tensors(res)]
             self.records.append((kind, _nbytes(res), f"{func} {shapes}"))
+            self.dims.append(self._names.get(_group_name(args)) if self._names else None)
+        return out
+
+    def by_dim(self) -> dict:
+        """{mesh dim: {kind: [count, result bytes]}} of the records."""
+        out: dict = {}
+        for (kind, nbytes, _), dim in zip(self.records, self.dims):
+            c = out.setdefault(dim, {}).setdefault(kind, [0, 0.0])
+            c[0] += 1
+            c[1] += nbytes
         return out
 
 

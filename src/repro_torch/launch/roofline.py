@@ -14,10 +14,11 @@ from the analytic model (``launch.flops``), collective bytes from the dry
 run's recorded collectives (``launch.hlo_analysis``).  A mesh of more than
 8 GPUs crosses nodes, whose network is slower than NVLink: such a cell is
 flagged (``crosses_nodes``), as the JAX package flags the pod axis, and its
-collective term is optimistic.  The records are of the port's FSDP + DP
-step, with no tensor parallelism over 'model' (each row's ``parallelism``,
-from the record's meta, and the table's header say so): their collective
-bytes are not those of the JAX package's tensor-parallel layout.
+collective term is optimistic.  The records are of the port's step:
+tensor parallel over 'model' for the layers whose heads / columns divide
+it, the others' weights gathered over 'model', FSDP over 'data' (each
+row's ``parallelism``, from the record's meta, and the table's header say
+which layers).
 
 MODEL_FLOPS = 6·N_active·D for train, 2·N_active·D for inference; the ratio
 MODEL_FLOPS/FLOPs flags remat/masking/padding waste.

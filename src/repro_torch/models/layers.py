@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import spmd
+
 __all__ = [
     "rms_norm", "rope", "swiglu", "attention", "flash_attention",
     "decode_attention", "cache_write", "init_dense", "init_attn", "init_mlp",
@@ -114,7 +116,18 @@ def silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
-def swiglu(p, x):
+def swiglu(p, x, layer: str = "mlp"):
+    """The gated MLP of x [B,S,D].  Where ``layer`` runs tensor parallel
+    (``spmd``'s layout) each 'model' rank computes its d_ff columns
+    (column-parallel w_gate / w_up, row-parallel w_down) between "copy in"
+    and "reduce out"."""
+    ctx = spmd.active()
+    if ctx.tp_on(layer):
+        h = ctx.tp_in(x)
+        g = silu(h @ p.shard("w_gate"))
+        return ctx.tp_out((g * (h @ p.shard("w_up"))) @ p.shard("w_down"))
+    if ctx.splits_rows(x):      # others run TP: the 'model' ranks split the rows
+        return ctx.rows_split(lambda h: swiglu(p, h, layer), x)
     g = silu(x @ p["w_gate"])
     return (g * (x @ p["w_up"])) @ p["w_down"]
 

@@ -25,9 +25,13 @@ step against the KV/state caches, which it writes in place; modality caches
 On a device mesh (``distribute``) the parameters are DTensors placed by
 ``repro_torch.models.sharding``, batches and caches are DTensors placed by
 its batch and cache rules, and every call runs each rank's rows in the
-FSDP idiom of ``repro_torch.models.spmd`` (with ``cfg.seq_parallel`` its
-sequence slice too); the loss and the logits' values are the one-device
-model's.
+layout of ``repro_torch.models.spmd`` (with ``cfg.seq_parallel`` its
+sequence slice too): tensor parallel over 'model' where the layers' shards
+fall on whole heads and columns (``spmd.tp_layout``, ``self.layout``),
+FSDP over 'data'.  The embedding and the logits are vocab-parallel there:
+``loss_fn`` reduces each rank's logit slice over 'model' and never holds
+[B, S, vocab].  A decode step gathers its weights over 'model'.  The loss
+and the logits' values are the one-device model's.
 """
 from __future__ import annotations
 
@@ -85,6 +89,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = None
+        self.layout: dict = {}      # spmd.tp_layout on a mesh; {} off one
         tree = self._draw(self._generator(0))
         plan = cfg.scan_plan()
         for key, value in tree.items():
@@ -163,7 +168,10 @@ class Model(nn.Module):
         :meth:`params`' names; default ``sharding.param_shardings``), in
         place; returns :meth:`params`.  ``src_data_rank`` as
         ``distribute_tensor`` takes it (0: rank 0's values; None: each rank
-        keeps its own, equal on every rank)."""
+        keeps its own, equal on every rank).  On a 'model' dim > 1 the
+        layers of ``spmd.tp_layout`` run TP over it (recorded in
+        ``self.layout``); the rest gather their weights where they read
+        them (FSDP)."""
         from torch.distributed.tensor import distribute_tensor
 
         from repro_torch.models import sharding as sh
@@ -188,12 +196,20 @@ class Model(nn.Module):
                 setattr(mod, leaf, nn.Parameter(dt))
         self.mesh = mesh
         self.device = dev
+        n_model = spmd_lib.dim_size(mesh, "model") if "model" in mesh.mesh_dim_names else 1
+        self.layout = spmd_lib.tp_layout(cfg, n_model) if n_model > 1 else {}
         return self.params()
+
+    def tp_layers(self, decode: bool = False) -> tuple:
+        """The layers that run tensor parallel in a call (none in a decode
+        step)."""
+        return () if decode else tuple(k for k, v in self.layout.items() if v == "tp")
 
     def spmd_context(self, batch=None, *, manual: tuple = (), decode: bool = False,
                      microbatches: int = 1):
         """The mesh context of one call: the active one, or one from the
-        batch's row placement (``spmd.ONE_RANK`` without a mesh); the
+        batch's row placement (``spmd.ONE_RANK`` without a mesh), running
+        ``self.layout``'s TP layers (not in a decode step); without TP the
         'model' ranks split the rows too where each gets a multiple of
         ``microbatches`` of them (not in a decode step)."""
         ctx = spmd_lib.active()
@@ -206,7 +222,7 @@ class Model(nn.Module):
                       and tokens.to_local().shape[0] % (spmd_lib.dim_size(self.mesh, "model")
                                                         * microbatches) == 0)
         return spmd_lib.Spmd(self.mesh, rows=rows, seq=self.cfg.seq_parallel, manual=manual,
-                             model_rows=model_rows)
+                             model_rows=model_rows, tp=self.tp_layers(decode))
 
     def _entered(self, batch=None, **kw):
         return self.spmd_context(batch, **kw).entered()
@@ -218,12 +234,55 @@ class Model(nn.Module):
     def _embed(self, tokens):
         return self._p("wte")[tokens].to(torch_dtype(self.cfg.dtype))
 
-    def _logits(self, x):
+    def _embed_seq(self, tokens, pos_emb: bool = False):
+        """(embeddings [B, S_loc, D], positions [1, S_loc]) of a full-sequence
+        call in the residual stream's layout: under seq_parallel this
+        rank's sequence slice (``_sp_constraint``, as the JAX package
+        anchors it) and its global positions.  Vocab-parallel: each rank
+        looks up the tokens of its vocab slice (zeros elsewhere), summed
+        over 'model' by "reduce out" (under seq_parallel the reduce-scatter
+        onto the slice).  ``pos_emb``: the sinusoid position embeddings
+        added (the enc-dec's decoder)."""
         cfg = self.cfg
+        ctx = spmd_lib.active()
+        dt = torch_dtype(cfg.dtype)
+        if ctx.tp_on("vocab"):
+            w = ctx.tp_shard(self.wte)                    # [V / model, D]
+            idx, hit = _vocab_slice(tokens, w.shape[0], ctx)
+            e = w[idx].to(dt)
+            x = ctx.tp_out(torch.where(hit[..., None], e, torch.zeros_like(e)))
+        else:
+            x = _sp_constraint(self._embed(tokens), cfg)
+        start, positions = _seq_positions(x)
+        if pos_emb:
+            x = x + sinusoid_positions(x.shape[1], cfg.d_model, offset=start,
+                                       device=x.device).to(dt)[None]
+        return x, positions
+
+    def _logits(self, x, *, vocab_local: bool = False):
+        """Logits [B, S, V] of the residual stream ``x``.  Vocab-parallel on a
+        mesh: each rank's [B, S, V / model] slice over the whole sequence
+        (``vocab_local``), else gathered over 'model' (and cut to the
+        rank's sequence slice under seq_parallel).  A vocab that the
+        'model' ranks do not divide, while other layers run TP: each
+        computes its block of the rows, gathered over 'model'."""
+        cfg = self.cfg
+        ctx = spmd_lib.active()
+        if not ctx.tp_on("vocab") and ctx.splits_rows(x):
+            return ctx.rows_split(self._logits, x)
         x = rms_norm(x, self._p("ln_f"), cfg.norm_eps)
-        if cfg.tie_embeddings or cfg.family == "encdec":      # whisper ties
-            return x @ self._p("wte").T.to(torch_dtype(cfg.dtype))
-        return x @ self._p("lm_head")
+        tied = cfg.tie_embeddings or cfg.family == "encdec"      # whisper ties
+        if not ctx.tp_on("vocab"):
+            if tied:
+                return x @ self._p("wte").T.to(torch_dtype(cfg.dtype))
+            return x @ self._p("lm_head")
+        h = ctx.tp_in(x)
+        w = ctx.tp_shard(self.wte).T.to(torch_dtype(cfg.dtype)) if tied else \
+            ctx.tp_shard(self.lm_head)
+        logits = h @ w
+        if vocab_local:
+            return logits
+        return ctx.seq_slice(ctx.gather_model(logits, -1))
 
     def _run_stack(self, stack, x, aux):
         """The scanned superblocks; under autograd with remat='block' each
@@ -244,15 +303,15 @@ class Model(nn.Module):
         """-> (logits [B,S,V], aux_loss); on a mesh each rank's logits of its
         rows (and with seq_parallel its sequence slice)."""
         with self._entered(batch) as ctx:
-            return self._forward(ctx.local_batch(batch))
+            x, aux_loss = self._forward(ctx.local_batch(batch))
+            return self._logits(x), aux_loss
 
     def _forward(self, batch):
+        """(the final residual stream [B, S_loc, D], aux_loss)."""
         cfg = self.cfg
         if cfg.family == "encdec":
             return self._forward_encdec(batch)
-        tokens = batch["tokens"]
-        x = self._embed(tokens)
-        x, positions = _seq_shard(x, cfg)
+        x, positions = self._embed_seq(batch["tokens"])
         aux = {"positions": positions, "ctx": batch.get("vis_emb")}
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.head:
@@ -263,7 +322,7 @@ class Model(nn.Module):
         for blk in self.tail:
             x, a = blk(x, aux)
             aux_total = aux_total + a
-        return self._logits(x), aux_total
+        return x, aux_total
 
     def _encode(self, enc_emb):
         cfg = self.cfg
@@ -271,24 +330,19 @@ class Model(nn.Module):
         enc = enc_emb.to(dt)
         Se = enc.shape[1]
         enc = enc + sinusoid_positions(Se, cfg.d_model, device=enc.device).to(dt)[None]
-        enc, positions = _seq_shard(enc, cfg)
+        enc = _sp_constraint(enc, cfg)
+        _, positions = _seq_positions(enc)
         aux_e = {"positions": positions, "ctx": None}
         enc, _ = self._run_stack(self.enc_blocks, enc, aux_e)
         enc = rms_norm(enc, self._p("ln_enc"), cfg.norm_eps)
         return spmd_lib.active().gather_seq(enc)
 
     def _forward_encdec(self, batch):
-        cfg = self.cfg
-        dt = torch_dtype(cfg.dtype)
         enc = self._encode(batch["enc_emb"])
-        tokens = batch["tokens"]
-        Sd = tokens.shape[1]
-        y = self._embed(tokens)
-        y = y + sinusoid_positions(Sd, cfg.d_model, device=y.device).to(dt)[None]
-        y, positions = _seq_shard(y, cfg)
+        y, positions = self._embed_seq(batch["tokens"], pos_emb=True)
         aux_d = {"positions": positions, "ctx": enc}
         y, _ = self._run_stack(self.dec_blocks, y, aux_d)
-        return self._logits(y), torch.zeros((), dtype=torch.float32, device=y.device)
+        return y, torch.zeros((), dtype=torch.float32, device=y.device)
 
     # --------------------------------------------------------------- loss
     def loss_fn(self, batch):
@@ -299,24 +353,38 @@ class Model(nn.Module):
         every row and position."""
         with self._entered(batch) as ctx:
             batch = ctx.local_batch(batch)
-            logits, aux_loss = self._forward(batch)
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+            x, aux_loss = self._forward(batch)
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            # the targets; the sequence's last position has none
+            tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+            whole = ctx.tp_on("vocab") or ctx.splits_rows(x)
+            start = 0 if whole else ctx.seq_start(x.shape[1])
+            nll = self._nll(x, tgt.narrow(1, start, S if whole else x.shape[1]))
         n_rows = 1
         for a in ctx.rows:
             n_rows *= spmd_lib.dim_size(ctx.mesh, a)
-        start, s_loc = ctx.seq_start(logits.shape[1]), logits.shape[1]
-        # targets of this rank's positions; the sequence's last has none
-        tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).narrow(1, start, s_loc)
-        valid = (torch.arange(s_loc, device=tokens.device) + start) < S - 1
-        lg = f32(logits)
-        logz = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, tgt[..., None].long())[..., 0]
-        part = torch.sum(torch.where(valid[None, :], logz - gold, torch.zeros_like(logz)))
-        ce = ctx.sum_partial(part / (B * n_rows * (S - 1)))
+        valid = (torch.arange(nll.shape[1], device=tokens.device) + start) < S - 1
+        part = torch.sum(torch.where(valid[None, :], nll, torch.zeros_like(nll)))
+        ce = part / (B * n_rows * (S - 1))
+        # whole: every position of the rows, the same on every 'model' rank
+        ce = ctx.sum_rows(ce) if whole else ctx.sum_partial(ce)
         aux_loss = ctx.sum_partial(aux_loss / ctx.n_partial)
         loss = ce + AUX_LOSS_COEF * aux_loss
         return loss, {"ce": ce, "aux_loss": aux_loss}
+
+    def _nll(self, x, tgt):
+        """-log p(tgt) [B, S'] of the final residual stream ``x``: from each
+        rank's vocab slice of the logits of every position where the vocab
+        runs TP; where other layers do, each 'model' rank's block of the
+        rows, gathered (``[B, S, vocab]`` is never whole on a rank under
+        TP); else of this rank's positions."""
+        ctx = spmd_lib.active()
+        if ctx.tp_on("vocab"):
+            return cross_entropy(self._logits(x, vocab_local=True), tgt, ctx)
+        if ctx.splits_rows(x):
+            return ctx.rows_split(self._nll, x, tgt)
+        return cross_entropy(self._logits(x), tgt)
 
     # -------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_seq: int, enc_len: int = 0, dtype=None):
@@ -395,6 +463,51 @@ class Model(nn.Module):
         return cache
 
 
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of logits whose vocab is split
+    over 'model': the max and the sum of the exponentials all-reduced, in
+    ``torch.logsumexp``'s steps (bitwise it on one rank); the gradient of
+    each rank's slice is ``torch.logsumexp``'s, exp(logits - result)."""
+
+    @staticmethod
+    def forward(ctx, lg, spmd):
+        m = torch.amax(lg, dim=-1)
+        if spmd.n_model > 1:
+            m = spmd.reduce_model(m, "max")
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        sumexp = torch.sum(torch.exp(lg - m[..., None]), dim=-1)
+        if spmd.n_model > 1:
+            sumexp = spmd.reduce_model(sumexp, "sum")
+        out = torch.log(sumexp) + m
+        ctx.save_for_backward(lg, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, out = ctx.saved_tensors
+        return g[..., None] * torch.exp(lg - out[..., None]), None
+
+
+def cross_entropy(logits, tgt, ctx=spmd_lib.ONE_RANK):
+    """-log softmax(logits)[tgt] [B, S] in float32, of ``logits`` [B, S, V']
+    that hold this rank's slice of the vocab (rank r of n on 'model' holds
+    columns [r V', (r + 1) V')), never gathered: the log-sum-exp and the
+    target's logit reduced over 'model' (``ctx``; ``ONE_RANK``: the whole
+    vocab here)."""
+    lg = f32(logits)
+    idx, hit = _vocab_slice(tgt, lg.shape[-1], ctx)
+    gold = torch.gather(lg, -1, idx[..., None])[..., 0]
+    gold = ctx.psum_model(torch.where(hit, gold, torch.zeros_like(gold)))
+    return _LogSumExp.apply(lg, ctx) - gold
+
+
+def _vocab_slice(ids, v: int, ctx):
+    """(index into this rank's ``v`` vocab rows, clamped; whether the id is
+    one of them) of token ids, rank r of 'model' holding [r v, (r + 1) v)."""
+    idx = ids.long() - ctx.model_rank * v
+    return idx.clamp(0, v - 1), (idx >= 0) & (idx < v)
+
+
 def _put(c: dict, key: str, value, ctx) -> None:
     """``c[key] = value``; a DTensor leaf (a cache placed on a mesh) keeps
     its placement and takes its local block of ``value`` (``value`` holds
@@ -420,13 +533,12 @@ def _local_cache(tree, ctx):
     return tree
 
 
-def _seq_shard(x, cfg):
-    """(x, positions [1, S]): under seq_parallel on a mesh the rank's
-    sequence slice (``_sp_constraint`` on the embeddings, as the JAX
-    package anchors them) and its global positions."""
-    x = _sp_constraint(x, cfg)
+def _seq_positions(x):
+    """(start, positions [1, S_loc]) of ``x``, the residual stream's
+    sequence as this rank holds it: under seq_parallel on a mesh its slice
+    (``_sp_constraint``), whose global positions start at ``start``."""
     start = spmd_lib.active().seq_start(x.shape[1])
-    return x, (torch.arange(x.shape[1], device=x.device) + start)[None, :]
+    return start, (torch.arange(x.shape[1], device=x.device) + start)[None, :]
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import spmd
-from repro_torch.models.layers import f32, init_dense, normal, silu, torch_dtype
+from repro_torch.models.layers import f32, init_dense, normal, silu, swiglu, torch_dtype
 
 __all__ = ["init_moe", "moe_ffn"]
 
@@ -66,37 +66,45 @@ def moe_ffn(p, x, cfg, *, return_aux=False, no_drop=False):
     JAX package's: the tokens are gathered over the ranks holding different
     ones, every rank routes them all and computes its contiguous share of
     the (expert, slot) pairs, and a reduce-scatter returns each rank's
-    tokens (the shared experts are token-local).  Without dropping
-    (no_drop) a token's routing does not depend on the others: each rank
-    routes its own.  Off a mesh, and under no_drop, one rank holds every
-    token and every pair (``spmd.ONE_RANK``: the gather, the share and the
-    reduce-scatter are identities).
+    tokens (the shared experts are token-local).  Under tensor parallelism
+    the share is split over the row dims only: each 'model' rank computes
+    its pairs on its ``moe_d_ff`` columns of every expert (the experts'
+    'model' shards), the tokens and the gates entering by "copy in" and the
+    sum leaving by "reduce out"; the router stays replicated over 'model'.
+    Without dropping (no_drop) a token's routing does not depend on the
+    others: each rank routes its own.  Off a mesh, and under no_drop, one
+    rank holds every token and every pair (``spmd.ONE_RANK``: the gather,
+    the share and the reduce-scatter are identities).
     """
     ctx = spmd.active()
     if no_drop:
         ctx = spmd.ONE_RANK
-    out, aux = _routed(p, ctx.gather_tokens(x), cfg, no_drop=no_drop, share=ctx.share)
+    tp = ctx.tp_on("moe")
+    # each rank's router logits, gathered with the tokens (the router is
+    # token-local; its logits are E wide, the tokens D)
+    logits = ctx.gather_tokens(f32(x) @ p["router"])
+    xg = ctx.gather_tokens(ctx.copy_in(x) if tp else x)
+    out, aux = _routed(p, xg, logits, cfg, no_drop=no_drop, ctx=ctx, tp=tp)
     out = ctx.scatter_tokens(out)
+    if tp:
+        out = ctx.reduce_out(out)
     if cfg.n_shared_experts:
-        B, S, D = x.shape
-        xt = x.reshape(B * S, D)
-        sp = p["shared"]
-        g = silu(xt @ sp["w_gate"])
-        out = out + ((g * (xt @ sp["w_up"])) @ sp["w_down"]).reshape(B, S, D)
+        out = out + swiglu(p["shared"], x, layer="moe")
     return (out, aux) if return_aux else out
 
 
-def _routed(p, x, cfg, *, no_drop, share):
-    """The routed experts' sum [B, S, D] and the aux loss, over this rank's
-    (expert, slot) pairs: ``share(n)`` gives its [lo, hi) of the n = E * C
-    pairs in expert-major order (all of them on one rank)."""
+def _routed(p, x, logits, cfg, *, no_drop, ctx, tp):
+    """The routed experts' sum [B, S, D] and the aux loss of tokens ``x``
+    [B, S, D] routed by ``logits`` [B, S, E], over this rank's (expert,
+    slot) pairs: ``ctx.share(n)`` gives its [lo, hi) of the n = E * C pairs
+    in expert-major order (all of them on one rank); ``tp``: each pair on
+    this rank's 'model' shard of the experts' columns, its partial sum."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
 
-    logits = f32(xt) @ p["router"]                     # [T, E]
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(logits.reshape(T, E), dim=-1)
     gate, eid = torch.topk(probs, k, dim=-1)           # [T, k]
     gate = gate / torch.clamp(torch.sum(gate, dim=-1, keepdim=True), min=1e-9)  # renorm
 
@@ -112,16 +120,19 @@ def _routed(p, x, cfg, *, no_drop, share):
 
     # the experts holding this rank's pairs; a pair outside the share
     # computes zeros (masked like an invalid slot)
-    lo, hi = share(E * capacity)
+    lo, hi = ctx.share(E * capacity, tp=tp)
     e0, e1 = lo // capacity, -(-hi // capacity)
     pair = torch.arange(e0 * capacity, e1 * capacity, device=x.device).reshape(-1, capacity)
     mine = valid[e0:e1] & (pair >= lo) & (pair < hi)
     tok_idx, gate_ec = tok_idx[e0:e1], gate_ec[e0:e1]
 
+    w = p.shard if tp else p.__getitem__
+    if tp:      # the router's gates enter the experts' TP region
+        gate_ec = ctx.copy_in(gate_ec)
     x_e = xt[tok_idx] * mine[..., None].to(xt.dtype)       # [E', C, D]
-    h = silu(torch.einsum("ecd,edf->ecf", x_e, p["w_gate"][e0:e1])) * torch.einsum(
-        "ecd,edf->ecf", x_e, p["w_up"][e0:e1])
-    y_e = torch.einsum("ecf,efd->ecd", h, p["w_down"][e0:e1])      # [E', C, D]
+    h = silu(torch.einsum("ecd,edf->ecf", x_e, w("w_gate")[e0:e1])) * torch.einsum(
+        "ecd,edf->ecf", x_e, w("w_up")[e0:e1])
+    y_e = torch.einsum("ecf,efd->ecd", h, w("w_down")[e0:e1])      # [E', C, D]
     y_e = y_e * gate_ec[..., None].to(y_e.dtype)
     # one index_add_ an expert, in expert order: a token's k contributions
     # land one at a time, in the order of the JAX package's scatter-add (its

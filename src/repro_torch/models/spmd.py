@@ -2,8 +2,34 @@
 
 ``Model.distribute(mesh)`` turns every parameter into a DTensor placed by
 ``repro_torch.models.sharding.param_shardings`` (the JAX package's 2D rule:
-TP dim over 'model', FSDP dim over 'data', replicated over 'pod').  A call
-of the model under a mesh then runs in PyTorch's FSDP idiom:
+TP dim over 'model', FSDP dim over 'data', replicated over 'pod').  On a
+mesh whose 'model' dim is larger than 1 a call then runs tensor parallel
+over 'model' (``tp_layout``: the layers whose shards fall on whole heads /
+columns) and FSDP over 'data', as GSPMD runs the JAX package's step:
+
+- the batch rows split over the data axes only (``batch_shardings``); the
+  'model' ranks hold the same rows;
+- a TP layer reads its 'model' shard of each weight (gathered over 'data'
+  only, ``tp_shard``) between the Megatron pair over the 'model' group:
+  "copy in" (identity; the gradient all-reduced) before its column-parallel
+  weights, "reduce out" (all-reduce; the gradient as it is) after its
+  row-parallel one; with ``cfg.seq_parallel`` the pair is the all-gather of
+  the sequence and its reduce-scatter;
+- a TP leaf's gradient comes back reduce-scattered over 'data' (and summed
+  over the other data axes), never over 'model'; a replicated leaf read
+  inside a TP region (``tp_replica``: q_norm, k_norm) has its gradient
+  summed over 'model';
+- the other layers (MLA, the SSD, the RG-LRU, cross-attention, and a layer
+  whose heads or columns do not divide 'model') gather their weights over
+  'model' too and run in the FSDP idiom below, the 'model' ranks splitting
+  the rows where they divide them (``rows_split``: the outputs all-gathered
+  over 'model'), else computing the same rows; the MoE dispatch splits
+  its (expert, slot) pairs over the data axes only, each 'model' rank
+  computing its columns of them.
+
+In a decode step, on a mesh without a 'model' dim larger than 1, and
+where ``tp_layout`` runs no layer TP, every layer runs in PyTorch's FSDP
+idiom:
 
 - the batch's rows stay where ``batch_shardings`` put them: each rank
   computes on its own rows (the mesh dims that split dim 0 of the batch);
@@ -29,9 +55,9 @@ of the model under a mesh then runs in PyTorch's FSDP idiom:
 Without ``seq_parallel`` the 'model' ranks split each rank's rows further
 where they divide (``model_rows``: data parallelism over the whole mesh; a
 decode step, whose caches split over 'model', keeps them whole), else
-compute the same rows (no tensor parallelism); a mesh dim listed in ``manual`` (the pod axis under
-``compress_pod``) runs independent steps, its gradients left unreduced for
-the caller.  Every cross-rank step is a ``torch.autograd.Function`` over
+compute the same rows.  A mesh dim listed in ``manual`` (the pod axis
+under ``compress_pod``) runs independent steps, its gradients left
+unreduced for the caller.  Every cross-rank step is a ``torch.autograd.Function`` over
 ``torch.distributed``'s collectives on the process group of each mesh dim
 (``DeviceMesh.get_group``): all-gather, reduce-scatter and all-reduce of
 the tensors where they are, so nothing moves off the device and a
@@ -51,7 +77,8 @@ import contextvars
 import torch
 import torch.distributed as dist
 
-__all__ = ["Spmd", "ONE_RANK", "active", "local_param", "batch_rows", "full_tensor"]
+__all__ = ["Spmd", "ONE_RANK", "active", "local_param", "batch_rows", "full_tensor",
+           "tp_layout", "describe_layout"]
 
 
 def active():
@@ -161,6 +188,71 @@ class _SumPartial(torch.autograd.Function):
         return g, None, None
 
 
+class _CopyIn(torch.autograd.Function):
+    """Megatron's "copy in" over ``group``: the identity; the gradient
+    (each rank's partial sum, over its shard of a TP layer) all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, ctx.n), None, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Megatron's "reduce out" over ``group``: the all-reduce of each rank's
+    partial sum; the gradient as it is (every rank then differentiates the
+    same value)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        return _all_reduce(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """All-gather along ``dim`` over 'model'; the gradient reduce-scattered
+    where the 'model' ranks hold different parts of it (``partial``), else
+    cut to this rank's slice (every rank holds the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, rank, partial):
+        ctx.args = (dim, group, n, rank, partial)
+        return _all_gather(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n, rank, partial = ctx.args
+        if partial:
+            g = _reduce_scatter(g, dim, group, n)
+        else:
+            k = g.shape[dim] // n
+            g = g.narrow(dim, rank * k, k).contiguous()
+        return g, None, None, None, None, None
+
+
+class _SplitModel(torch.autograd.Function):
+    """This 'model' rank's block of rows of a tensor every 'model' rank holds
+    whole; the gradient (each rank its rows') all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, rank):
+        ctx.args = (group, n)
+        k = x.shape[0] // n
+        return x.narrow(0, rank * k, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n = ctx.args
+        return _all_gather(g, 0, group, n), None, None, None
+
+
 class _ParamGather(torch.autograd.Function):
     """A parameter's local shard -> the whole tensor.  Backward: the local
     gradient (Partial over ``partial``) reduce-scattered over each mesh dim
@@ -206,35 +298,93 @@ def full_tensor(t):
         return _ParamGather.apply(t.to_local(), mesh, shards, ())
 
 
+# layers that always gather their weights over 'model' (no TP path yet)
+GATHERED_LAYERS = ("mla", "ssd", "rglru", "cross_attention")
+
+
+def _kinds(cfg) -> set:
+    if cfg.family == "encdec":
+        return {"enc", "dec"}
+    plan = cfg.scan_plan()
+    return set(plan["head"]) | set(plan["pattern"]) | set(plan["tail"])
+
+
+def tp_layout(cfg, n_model: int) -> dict:
+    """How each layer of ``cfg`` runs on a 'model' dim of ``n_model`` ranks
+    under tensor parallelism: layer -> 'tp' or the reason it gathers its
+    weights over 'model' instead.  A layer runs TP where its 'model' shard
+    of every weight falls on whole heads (attention: ``n_heads`` and
+    ``n_kv_heads`` divide ``n_model``) or columns (``d_ff``, ``moe_d_ff``,
+    ``vocab``).  Only the layers ``cfg`` has are listed."""
+    kinds = _kinds(cfg)
+    mla = cfg.attn_kind == "mla"
+    has = {
+        "attention": bool(kinds & {"attn_local", "enc", "dec"})
+        or (not mla and bool(kinds & {"self", "dense_ffn", "moe"})),
+        "mlp": bool(kinds & {"self", "dense_ffn", "cross", "rglru", "attn_local", "enc",
+                             "dec"}),
+        "moe": "moe" in kinds,
+        "vocab": True,
+        "mla": mla and bool(kinds & {"self", "dense_ffn", "moe"}),
+        "ssd": "mamba" in kinds,
+        "rglru": "rglru" in kinds,
+        "cross_attention": bool(kinds & {"cross", "dec"}),
+    }
+    why = {
+        "attention": (cfg.n_heads % n_model or cfg.n_kv_heads % n_model) and
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads on {n_model} 'model' ranks",
+        "mlp": cfg.d_ff % n_model and f"d_ff {cfg.d_ff} on {n_model} 'model' ranks",
+        "moe": cfg.moe_d_ff % n_model and f"moe_d_ff {cfg.moe_d_ff} on {n_model} 'model' ranks",
+        "vocab": cfg.vocab % n_model and f"vocab {cfg.vocab} on {n_model} 'model' ranks",
+    }
+    out = {}
+    for layer, present in has.items():
+        if present:
+            out[layer] = ("gather: not ported to TP" if layer in GATHERED_LAYERS
+                          else f"gather: {why[layer]}" if why[layer] else "tp")
+    return out
+
+
+def describe_layout(layout: dict) -> str:
+    """One line of a ``tp_layout``: the TP layers, then the gathered ones."""
+    tp = [k for k, v in layout.items() if v == "tp"]
+    gathered = [f"{k} ({v[len('gather: '):]})" for k, v in layout.items() if v != "tp"]
+    return (f"TP over 'model': {', '.join(tp) or 'none'}"
+            + (f"; gathered over 'model': {', '.join(gathered)}" if gathered else ""))
+
+
 class Spmd:
     """One call's layout on ``mesh``: ``rows`` the mesh dims splitting the
     batch rows, ``seq`` whether 'model' splits the sequence, ``manual``
-    mesh dims whose ranks run independent steps.  ``mesh=None`` is one rank
-    holding every row, position and (expert, slot) pair (``ONE_RANK``, the
-    model off a mesh): every method is then the identity."""
+    mesh dims whose ranks run independent steps, ``tp`` the layers that run
+    tensor parallel over 'model' (``tp_layout``'s).  ``mesh=None`` is one
+    rank holding every row, position and (expert, slot) pair (``ONE_RANK``,
+    the model off a mesh): every method is then the identity."""
 
     def __init__(self, mesh, *, rows: tuple = (), seq: bool = False, manual: tuple = (),
-                 model_rows: bool = False):
+                 model_rows: bool = False, tp=()):
         names = () if mesh is None else mesh.mesh_dim_names
         if seq and mesh is not None and "model" not in names:
             raise ValueError(f"seq_parallel needs a 'model' mesh dim; the mesh has {names}")
         self.mesh = mesh
         self.names = names
-        self.seq = bool(seq) and "model" in names and dim_size(mesh, "model") > 1
+        self.n_model = dim_size(mesh, "model") if "model" in names else 1
+        self.model_rank = mesh.get_local_rank("model") if "model" in names else 0
+        self.seq = bool(seq) and self.n_model > 1
+        self.tp = frozenset(tp) if self.n_model > 1 else frozenset()
         # model_rows: the 'model' ranks split each rank's rows further
-        # (pure data parallelism over the whole mesh)
-        self.model_rows = bool(model_rows) and not self.seq and "model" in names
+        # (pure data parallelism over the whole mesh); never under TP
+        self.model_rows = bool(model_rows) and not self.seq and not self.tp and "model" in names
         rows = tuple(rows) + (("model",) if self.model_rows else ())
         self.rows = tuple(a for a in names if a in rows and a not in manual)
         self.partial = self.rows + (("model",) if self.seq else ())
-        self.n_model = dim_size(mesh, "model") if "model" in names else 1
-        self.model_rank = mesh.get_local_rank("model") if "model" in names else 0
 
     @classmethod
-    def for_rows(cls, mesh, n_rows: int, rows: tuple, *, seq: bool, manual: tuple = ()):
+    def for_rows(cls, mesh, n_rows: int, rows: tuple, *, seq: bool, manual: tuple = (),
+                 tp=()):
         """The context of a batch of ``n_rows`` rows held whole on each rank
-        (of its manual-dim group): split over ``rows`` (and 'model') where
-        they divide the rows, else computed whole."""
+        (of its manual-dim group): split over ``rows`` (and, without TP,
+        'model') where they divide the rows, else computed whole."""
         if mesh is None:
             return ONE_RANK
         size = 1
@@ -245,7 +395,7 @@ class Spmd:
             size = 1
         model_rows = (not seq and "model" in mesh.mesh_dim_names
                       and n_rows % (size * dim_size(mesh, "model")) == 0)
-        return cls(mesh, rows=rows, seq=seq, manual=manual, model_rows=model_rows)
+        return cls(mesh, rows=rows, seq=seq, manual=manual, model_rows=model_rows, tp=tp)
 
     def take_rows(self, batch: dict) -> dict:
         """This rank's block of rows (over ``rows``, mesh order, major
@@ -291,17 +441,119 @@ class Spmd:
         return tuple(plan + [(0, a) for a in reversed(self.rows)])
 
     # --------------------------------------------------------- parameters
+    def _shards(self, p) -> tuple:
+        from torch.distributed.tensor import Partial, Shard
+
+        if any(isinstance(pl, Partial) for pl in p.placements):
+            raise ValueError(f"a parameter with placements {p.placements}: Shard / Replicate only")
+        return tuple((pl.dim, a) for a, pl in zip(p.device_mesh.mesh_dim_names, p.placements)
+                     if isinstance(pl, Shard))
+
     def param(self, p):
         """A DTensor parameter gathered whole, its gradient reduced back to
         its shards over the dims whose ranks computed on other tokens."""
-        from torch.distributed.tensor import Partial, Shard
+        return _ParamGather.apply(p.to_local(), p.device_mesh, self._shards(p), self.partial)
 
-        mesh = p.device_mesh
-        if any(isinstance(pl, Partial) for pl in p.placements):
-            raise ValueError(f"a parameter with placements {p.placements}: Shard / Replicate only")
-        shards = tuple((pl.dim, a) for a, pl in zip(mesh.mesh_dim_names, p.placements)
-                       if isinstance(pl, Shard))
-        return _ParamGather.apply(p.to_local(), mesh, shards, self.partial)
+    def tp_shard(self, p):
+        """A TP layer's weight: its 'model' shard, gathered over the other
+        dims that shard it; the gradient (this shard's whole, computed on
+        every position of the rows) reduced over the row dims only."""
+        if not _is_dtensor(p):
+            return p
+        shards = self._shards(p)
+        if "model" not in {a for _, a in shards}:
+            raise ValueError(f"a tensor-parallel layer's weight of shape {tuple(p.shape)} is not "
+                             f"sharded over 'model' ({p.placements}); place it by "
+                             "param_shardings")
+        partial = tuple(a for a in self.partial if a != "model")
+        return _ParamGather.apply(p.to_local(), p.device_mesh,
+                                  tuple(s for s in shards if s[1] != "model"), partial)
+
+    def tp_replica(self, p):
+        """A leaf replicated over 'model' that a TP layer reads on its own
+        heads (q_norm, k_norm): gathered whole; its gradient also summed
+        over 'model'."""
+        if not _is_dtensor(p):
+            return p
+        partial = self.partial + (() if "model" in self.partial else ("model",))
+        return _ParamGather.apply(p.to_local(), p.device_mesh, self._shards(p), partial)
+
+    # ---------------------------------------------------- tensor parallel
+    def tp_on(self, layer: str) -> bool:
+        """Whether ``layer`` (a ``tp_layout`` name) runs tensor parallel."""
+        return layer in self.tp
+
+    def _model_group(self):
+        return self.mesh.get_group("model")
+
+    def copy_in(self, x):
+        """Megatron's "copy in" over 'model' where the 'model' ranks hold the
+        same tokens (without seq_parallel); the identity where their
+        gradients are summed later anyway ('model' in ``partial``)."""
+        if not self.tp or "model" in self.partial:
+            return x
+        return _CopyIn.apply(x, self._model_group(), self.n_model)
+
+    def reduce_out(self, y):
+        """Megatron's "reduce out" over 'model' (all-reduce forward), paired
+        with :meth:`copy_in`."""
+        if not self.tp or "model" in self.partial:
+            return y
+        return self.psum_model(y)
+
+    def psum_model(self, y):
+        """All-reduce over 'model'; the gradient as it is."""
+        if self.n_model == 1:
+            return y
+        return _ReduceOut.apply(y, self._model_group(), self.n_model)
+
+    def tp_in(self, x):
+        """A TP layer's input from this rank's residual stream: its whole
+        sequence (all-gather over 'model' under seq_parallel, the gradient
+        reduce-scattered), else ``copy_in``."""
+        return self.gather_seq(x) if self.seq else self.copy_in(x)
+
+    def tp_out(self, y):
+        """A TP layer's partial output back to the residual stream: the
+        reduce-scatter of the sequence over 'model' under seq_parallel (the
+        gradient all-gathered), else ``reduce_out``."""
+        if self.seq:
+            return _Scatter.apply(y, self.mesh, ((1, "model"),))
+        return self.reduce_out(y)
+
+    def splits_rows(self, x) -> bool:
+        """Whether :meth:`rows_split` splits ``x``'s rows: under TP without
+        seq_parallel, where the 'model' ranks divide them."""
+        return bool(self.tp) and not self.seq and x.shape[0] % self.n_model == 0
+
+    def rows_split(self, fn, *xs):
+        """``fn(*xs)`` for a layer that gathers its weights over 'model' while
+        others run TP (:meth:`splits_rows` must hold): the 'model' ranks
+        split the rows of ``xs`` (each a [B_loc, ...] tensor every 'model'
+        rank holds whole), each computes its rows in the FSDP idiom (its
+        weights' gradients summed over 'model' too), and the outputs are
+        all-gathered over 'model'."""
+        group, n, rank = self._model_group(), self.n_model, self.model_rank
+        sub = Spmd(self.mesh, rows=self.rows, model_rows=True)
+        parts = [_SplitModel.apply(x, group, n, rank) for x in xs]
+        with sub.entered():
+            y = fn(*parts)
+        return _GatherModel.apply(y, 0, group, n, rank, False)
+
+    def gather_model(self, x, dim: int):
+        """``x``'s 'model' shards along ``dim`` concatenated (vocab-parallel
+        logits made whole)."""
+        if self.n_model == 1:
+            return x
+        return _GatherModel.apply(x, dim % x.ndim, self._model_group(), self.n_model,
+                                  self.model_rank, "model" in self.partial)
+
+    def sum_rows(self, x):
+        """Sum over the row dims only (a value every 'model' rank holds
+        whole); the gradient as it is."""
+        if not self.rows:
+            return x
+        return _SumPartial.apply(x, self.mesh, self.rows)
 
     # -------------------------------------------------------- activations
     def seq_slice(self, x, dim: int = 1):
@@ -335,11 +587,14 @@ class Spmd:
             return y
         return _Scatter.apply(y, self.mesh, self._act_plan())
 
-    def share(self, n: int) -> tuple[int, int]:
+    def share(self, n: int, *, tp: bool = False) -> tuple[int, int]:
         """This rank's contiguous share [lo, hi) of n items split over the
-        ranks of the partial dims (mesh order, major first)."""
+        ranks of the partial dims (mesh order, major first); ``tp``: not over
+        'model' (its ranks split each item's columns instead)."""
         idx, size = 0, 1
         for a in self.partial:
+            if tp and a == "model":
+                continue
             k = dim_size(self.mesh, a)
             idx, size = idx * k + self.mesh.get_local_rank(a), size * k
         per = -(-n // size)

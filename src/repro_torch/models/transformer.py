@@ -57,6 +57,16 @@ class ParamTree(nn.Module):
     def __getitem__(self, key):
         return spmd.local_param(getattr(self, key))
 
+    def shard(self, key):
+        """A tensor-parallel layer's weight: its 'model' shard
+        (``Spmd.tp_shard``)."""
+        return spmd.active().tp_shard(getattr(self, key))
+
+    def replica(self, key):
+        """A replicated leaf read inside a tensor-parallel layer
+        (``Spmd.tp_replica``)."""
+        return spmd.active().tp_replica(getattr(self, key))
+
 
 class Block(ParamTree):
     """One layer of a kind: its parameters, ``forward`` (full sequence) and
@@ -99,46 +109,78 @@ def _replicated_constraint(x, cfg):
     return spmd.active().gather_seq(x) if cfg.seq_parallel else x
 
 
-def _qkv(p, x, cfg, positions):
+def _qkv(p, x, cfg, positions, *, tp=False):
+    """q [B,S,H,dh], k / v [B,S,KVH,dh]; ``tp``: this rank's heads, from the
+    'model' shards of the projections (the sequence as ``x`` holds it)."""
     B, S, _ = x.shape
-    H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    k = (x @ p["wk"]).reshape(B, S, KVH, dh)
-    v = (x @ p["wv"]).reshape(B, S, KVH, dh)
+    dh = cfg.d_head
+    w, norm = (p.shard, p.replica) if tp else (p.__getitem__, p.__getitem__)
+    q = (x @ w("wq")).reshape(B, S, -1, dh)
+    k = (x @ w("wk")).reshape(B, S, -1, dh)
+    v = (x @ w("wv")).reshape(B, S, -1, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, norm("q_norm"), cfg.norm_eps)
+        k = rms_norm(k, norm("k_norm"), cfg.norm_eps)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    if S > 1:  # decode keeps its own cache layout; q keeps this rank's positions
+    if S > 1 and not tp:  # decode keeps its own cache layout; q keeps this rank's positions
         k = _replicated_constraint(k, cfg)
         v = _replicated_constraint(v, cfg)
     return q, k, v
 
 
 def gqa_attention(p, x, cfg, positions, *, causal=True, window=0):
+    """Self-attention of x [B,S,D].  Under tensor parallelism each 'model'
+    rank attends with its heads (column-parallel wq / wk / wv) over the
+    whole sequence, and its row-parallel wo's partial sum is reduced out."""
+    ctx = spmd.active()
+    tp = ctx.tp_on("attention")
+    if not tp and ctx.splits_rows(x):
+        return ctx.rows_split(lambda h: gqa_attention(p, h, cfg, positions, causal=causal,
+                                                      window=window), x)
+    q_off = 0
+    if tp:
+        x = ctx.tp_in(x)
+        if ctx.seq:     # the whole sequence: its global positions
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    else:   # under seq_parallel q holds this rank's positions, k / v all of them
+        q_off = ctx.seq_start(x.shape[1])
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
-    # under seq_parallel q holds this rank's positions, k / v all of them
-    q_off = spmd.active().seq_start(S)
+    q, k, v = _qkv(p, x, cfg, positions, tp=tp)
     if k.shape[1] > cfg.flash_threshold:
         out = layers.flash_attention(q, k, v, causal=causal, window=window,
                                      q_chunk=min(cfg.attn_chunk_q, S), k_chunk=cfg.attn_chunk_k,
                                      q_offset=q_off, skip_masked=cfg.flash_skip)
     else:
         out = attention(q, k, v, causal=causal, window=window, q_offset=q_off)
-    return out.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
+    out = out.reshape(B, S, -1)
+    if tp:
+        return ctx.tp_out(out @ p.shard("wo"))
+    return out @ p["wo"]
 
 
 def _on_full_sequence(fn, x, cfg):
-    """fn(x) for a block that is not token-local (a recurrence, MLA): under
-    seq_parallel it runs on the sequence gathered over 'model' and each rank
-    keeps its slice; otherwise fn(x)."""
+    """fn(x) for a block that is not token-local (a recurrence, MLA) and
+    gathers its weights over 'model': under seq_parallel it runs on the
+    sequence gathered over 'model' and each rank keeps its slice; under TP
+    without it the 'model' ranks split the rows (``Spmd.rows_split``);
+    otherwise fn(x)."""
     ctx = spmd.active()
-    if not ctx.seq:
-        return fn(x)
-    return ctx.seq_slice(fn(ctx.gather_seq(x)))
+    if ctx.seq:
+        return ctx.seq_slice(fn(ctx.gather_seq(x)))
+    if ctx.splits_rows(x):
+        return ctx.rows_split(fn, x)
+    return fn(x)
+
+
+def _cross(p, x, c, cfg):
+    """cross_attention, which gathers its weights over 'model': under TP the
+    'model' ranks split the rows of x and of the context ``c``."""
+    ctx = spmd.active()
+    if ctx.splits_rows(x):
+        return ctx.rows_split(lambda h, k: cross_attention(p, h, k, cfg), x, c)
+    return cross_attention(p, x, c, cfg)
 
 
 def cross_attention(p, x, ctx, cfg):
@@ -291,7 +333,7 @@ def apply_block(kind: str, p, x, cfg: ModelConfig, aux: dict):
         return x + y, aux_loss
     if kind == "cross":
         ctx = aux["ctx"]
-        x = x + torch.tanh(p["gate_attn"]) * cross_attention(
+        x = x + torch.tanh(p["gate_attn"]) * _cross(
             p["xattn"], rms_norm(x, p["ln1"], cfg.norm_eps), ctx, cfg)
         x = x + torch.tanh(p["gate_mlp"]) * layers.swiglu(
             p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
@@ -318,7 +360,7 @@ def apply_block(kind: str, p, x, cfg: ModelConfig, aux: dict):
     if kind == "dec":
         x = x + gqa_attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
                               positions, causal=True, window=0)
-        x = x + cross_attention(p["xattn"], rms_norm(x, p["lnx"], cfg.norm_eps), aux["ctx"], cfg)
+        x = x + _cross(p["xattn"], rms_norm(x, p["lnx"], cfg.norm_eps), aux["ctx"], cfg)
         x = x + layers.swiglu(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
         return x, 0.0
     raise ValueError(kind)

@@ -507,9 +507,11 @@ class PrefetchPipeline:
             yield k, sl
 
     def close(self) -> None:
+        """Stop prefetching.  A fetch in flight runs to its end first, so
+        nothing records into the store's recorder once this returns."""
         self._fut = None
         if self._ex is not None:
-            self._ex.shutdown(wait=False, cancel_futures=True)
+            self._ex.shutdown(wait=True)
         self._ex = None
         self._sync = True
 

@@ -12,8 +12,10 @@ as the JAX package's train CLI donates its buffers; the state's moments
 are updated in place too.  On a device mesh (``Model.distribute(mesh)``)
 the parameters and the state are DTensors placed by
 ``repro_torch.models.sharding`` and the same step runs on them: each rank
-computes on its rows of the batch and the gradients come back reduced to
-the parameters' placements (``repro_torch.models.spmd``).
+computes on its rows of the batch (tensor parallel over 'model' where the
+model's layout says so) and the gradients come back reduced to the
+parameters' placements (``repro_torch.models.spmd``: a TP leaf's over the
+data axes only, never over 'model').
 
 Cross-pod compression (``compress_pod``): the pod axis crosses the slower
 inter-pod links, so its all-reduce is the one worth compressing.  Each pod
@@ -133,7 +135,8 @@ def _accum_grads(model, batch: dict, grad_accum: int, manual: tuple = ()):
     loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
     for i in range(grad_accum):
         mb = {k: v[i * n:(i + 1) * n] for k, v in full.items()}
-        ctx = spmd_lib.Spmd.for_rows(mesh, n, rows, seq=model.cfg.seq_parallel, manual=manual)
+        ctx = spmd_lib.Spmd.for_rows(mesh, n, rows, seq=model.cfg.seq_parallel, manual=manual,
+                                     tp=model.tp_layers())
         with ctx.entered():
             loss, _, grads = _grads(model, ctx.take_rows(mb))
         for k, g in grads.items():

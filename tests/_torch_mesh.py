@@ -35,11 +35,70 @@ def _model(arch: str, params: dict, **overrides):
     return model
 
 
+def _watched(model, mesh):
+    """A context that records, while a step runs: every collective
+    (``CollectiveRecorder`` on ``mesh``), every weight read (name, whole
+    shape, the shape the layer got, 'shard' for a TP layer's 'model' shard
+    or 'whole'), and the shape of every op output with the vocab as its
+    last dim and 3 or more dims (a [B, S, vocab] logits tensor)."""
+    import contextlib
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch.hlo_analysis import CollectiveRecorder
+    from repro_torch.models import spmd
+
+    names = {id(p): k for k, p in model.params().items()}
+    vocab = model.cfg.vocab
+    reads, logits = [], set()
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if hasattr(t, "shape") and t.ndim >= 3 and t.shape[-1] == vocab:
+                    logits.add(tuple(t.shape))
+            return out
+
+    def wrap(name, how):
+        orig = getattr(spmd.Spmd, name)
+
+        def read(self, p):
+            out = orig(self, p)
+            reads.append((names.get(id(p)), tuple(p.shape), tuple(out.shape), how))
+            return out
+        return orig, read
+
+    @contextlib.contextmanager
+    def watching():
+        saved = {n: wrap(n, how) for n, how in (("param", "whole"), ("tp_shard", "shard"),
+                                                 ("tp_replica", "whole"))}
+        rec = CollectiveRecorder(mesh)
+        try:
+            for n, (_, read) in saved.items():
+                setattr(spmd.Spmd, n, read)
+            with rec, Shapes():
+                yield
+        finally:
+            for n, (orig, _) in saved.items():
+                setattr(spmd.Spmd, n, orig)
+        watch["by_dim"] = {str(k): v for k, v in rec.by_dim().items()}
+        watch["model_gathers"] = [line for (kind, _, line), dim in zip(rec.records, rec.dims)
+                                  if kind == "all-gather" and dim == "model"]
+
+    watch = {"reads": reads, "logits": logits}
+    return watching, watch
+
+
 def train_steps(payload) -> list:
     """For each case (arch, mesh, overrides, compress, steps): the port's
     model from the payload's parameters distributed on the mesh, ``steps``
-    sharded train steps on the payload's batch; per step the metrics, and
-    the final parameters (full, float32) on rank 0."""
+    sharded train steps on the payload's batch; per step the metrics, the
+    model's TP layout and,
+    for a case marked ``watch``, what its first step read and sent
+    (``_watched``); the final parameters (full, float32) on rank 0."""
+    import contextlib
+
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import data_axes
@@ -52,24 +111,55 @@ def train_steps(payload) -> list:
         over = dict(case.get("overrides", {}))
         if over.get("seq_parallel"):
             over["dp_axes"] = data_axes(mesh)
-        model = _model(case["arch"], payload["params"][case["arch"]], **over)
+        key = case.get("key", case["arch"])     # params and batch of an overridden config
+        model = _model(case["arch"], payload["params"][key], **over)
         params = model.distribute(mesh, src_data_rank=None)
         tcfg = TrainConfig(opt=OptConfig(**case.get("opt", {})),
                            grad_accum=case.get("grad_accum", 1),
                            compress_pod=case.get("compress", False))
         state = init_train_state(model, params, tcfg)
         step = make_train_step(model, tcfg, mesh)
+        watching, watch = (_watched(model, mesh) if case.get("watch")
+                           else (contextlib.nullcontext, None))
         metrics = []
-        for _ in range(case.get("steps", 1)):
-            params, state, m = step(params, state, payload["batch"][case["arch"]])
+        for i in range(case.get("steps", 1)):
+            with watching() if i == 0 else contextlib.nullcontext():
+                params, state, m = step(params, state, payload["batch"][key])
             metrics.append({k: float(v) for k, v in m.items()})
         full = {k: _np(v) for k, v in params.items()}
         ef = {k: _np(v) for k, v in state.get("ef", {}).items()}
-        rec = {"metrics": metrics}
+        rec = {"metrics": metrics, "layout": model.layout, "watch": watch}
         if dist.get_rank() == 0:
             rec["params"], rec["ef"] = full, ef
         out.append(rec)
     return out
+
+
+def vocab_loss(payload) -> dict:
+    """``cross_entropy`` of the payload's logits [B, S, V] (the same on every
+    rank) from this rank's vocab slice on its mesh's 'model' dim, against
+    ``torch.logsumexp`` of the whole logits: the largest relative difference
+    of the losses and the largest difference of the gradients (this rank's
+    slice)."""
+    import torch
+
+    from repro_torch.models import spmd
+    from repro_torch.models.model import cross_entropy
+
+    mesh = _cached_mesh(*payload["mesh"])
+    ctx = spmd.Spmd(mesh, tp=("vocab",))
+    lg = torch.from_numpy(payload["logits"]).requires_grad_(True)
+    tgt = torch.from_numpy(payload["tgt"])
+    v = lg.shape[-1] // ctx.n_model
+    part = lg.detach()[..., ctx.model_rank * v:(ctx.model_rank + 1) * v].requires_grad_(True)
+    got = cross_entropy(part, tgt, ctx)
+    (g_got,) = torch.autograd.grad(got.sum(), [part])
+    want = torch.logsumexp(lg, -1) - torch.gather(lg, -1, tgt[..., None].long())[..., 0]
+    (g_want,) = torch.autograd.grad(want.sum(), [lg])
+    g_want = g_want[..., ctx.model_rank * v:(ctx.model_rank + 1) * v]
+    return {"loss": float(((got - want).abs() / want.abs()).max()),
+            "grad": float((g_got - g_want).abs().max()),
+            "slice": tuple(part.shape)}
 
 
 def pipeline(payload) -> dict:
@@ -186,11 +276,12 @@ def adamw_refusal(payload) -> str | None:
 
 
 def mesh_all(payload) -> dict:
-    """Every part of one spawn: the layout, the train steps (plain,
-    seq_parallel, compress_pod), the serving path, the pipeline and the
-    checkpoint."""
+    """Every part of one spawn: the layout, the train steps (tensor
+    parallel plain and seq_parallel, compress_pod), the vocab-parallel loss,
+    the serving path, the pipeline and the checkpoint."""
     return {"layout": layout(payload["layout"]),
             "steps": train_steps(payload["steps"]),
+            "vocab_loss": vocab_loss(payload["vocab_loss"]),
             "serve": serve(payload["serve"]),
             "adamw_refusal": adamw_refusal(payload["layout"]),
             "pipeline": pipeline(payload["pipeline"]),

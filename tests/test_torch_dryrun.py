@@ -7,7 +7,8 @@ subprocess.  Each record has the JAX package's record keys, its
 ``argument_bytes`` the local shards' bytes computed by hand from the
 sharding rules, and a sharded step shows its all-gathers (and, training,
 its reduce-scatters).  A record fitted from 1 and 2 superblocks (and two
-microbatch counts) equals the whole trace's.  The scans and the flash
+microbatch counts) equals the whole trace's, and each LM record names
+the layers its step ran tensor parallel over 'model'.  The scans and the flash
 loop the trace runs: RG-LRU at S = 32768 dispatches few ops, and the
 RG-LRU and SSD scans and the slab-batched flash attention match the JAX
 package's."""
@@ -187,6 +188,27 @@ def test_argument_bytes_are_the_local_shards(records, cell):
             return _local(c.shape, s, sizes) * c.element_size()
         want += walk(cache, cspecs)
     assert rec["memory"]["argument_bytes"] == want
+
+
+@pytest.mark.parametrize("cell", LM, ids=["-".join(c[1:]) for c in LM])
+def test_record_names_its_tp_layers(records, cell):
+    """Each LM record's meta gives the layout its step ran: a train or
+    prefill step ``spmd.tp_layout`` of the config on the mesh's 2-wide
+    'model' dim (qwen3: attention, MLP and vocab TP; DeepSeek: its MLA
+    gathered over 'model', its MLP, MoE experts and vocab TP), named in
+    ``parallelism``; a decode step none (every weight gathered)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import spmd
+
+    meta = records[cell]["meta"]
+    if cell[1].endswith("decode_32k"):
+        assert meta["layout"] == {} and meta["parallelism"].startswith("decode: "), meta
+        return
+    want = spmd.tp_layout(smoke_config(cell[1].split("@")[0]), 2)
+    assert meta["layout"] == want
+    tp = [k for k, v in want.items() if v == "tp"]
+    assert tp and meta["parallelism"].startswith(f"TP over 'model': {', '.join(tp)}")
+    assert ("mla (not ported to TP)" in meta["parallelism"]) == cell[1].startswith("deepseek")
 
 
 @pytest.mark.parametrize("mesh", MESHES)

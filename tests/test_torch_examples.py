@@ -76,6 +76,18 @@ def _disk(store, **kw):
     return J.PMVEngine(None, store=store, residency="disk", strategy="vertical", **kw)
 
 
+def _landed(engine) -> None:
+    """Wait for the block fetch that each prepared disk executor of the JAX
+    engine ``engine`` still has in flight after ``run`` (the next
+    iteration's first block): it records a ``store.fetch`` span, a
+    'disk_io' launch of the calibration feed, when it lands.  The port's
+    example waits for its own with ``PMVEngine.close``."""
+    for *_, meta in engine._prep_cache.values():
+        pipe = getattr(meta.get("executor"), "_pipeline", None)
+        if pipe is not None and pipe._fut is not None:
+            pipe._fut[1].result()
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_example_raises_without_a_card(name, monkeypatch):
     """No ``--device`` and no CUDA device: the example raises the port's
@@ -210,7 +222,9 @@ def test_trace_run_matches_jax(tmp_path):
     store = str(tmp_path / "jstore")
     jingest(s["edges"], n, s["b"], store)
     rec = JRecorder()
-    r = _disk(store, obs=rec).run(J.pagerank(n), max_iters=30, tol=1e-6)
+    jeng = _disk(store, obs=rec)
+    r = jeng.run(J.pagerank(n), max_iters=30, tol=1e-6)
+    _landed(jeng)
     assert (s["iterations"], s["converged"]) == (r.iterations, r.converged)
     assert s["io_elems"] == [x["io_elems"] for x in r.per_iter]
     assert s["store_bytes_read"] == r.totals["store_bytes_read"]

@@ -2,8 +2,13 @@
 
 One module-scoped spawn (``tests/_torch_mesh.py:mesh_all``) runs every
 part on a (2, 2, 2) ('pod', 'data', 'model') mesh: the layout of a batch
-and of weights, the sharded train step (plain and ``seq_parallel``) of the
-qwen3-1.7B and Mixtral smoke configs, ``compress_pod``, the serving path
+and of weights, the sharded train step (tensor parallel over 'model', plain
+and ``seq_parallel``) of the qwen3-1.7B and Mixtral smoke configs, what the
+TP step reads and sends (each TP layer's weights as 1 / model shards, no
+all-gather of them over 'model', no [B, S, vocab] logits), the steps whose
+attention (on a (2, 4) ('data', 'model') mesh, 2 KV heads) or vocab (255
+tokens) falls back to the gather, the vocab-parallel loss,
+``compress_pod``, the serving path
 (the prefill forward and serve_steps of qwen3-1.7B, DeepSeek-V2-Lite (MLA +
 MoE) and Whisper (cross caches), with decode_seq_shard on and off),
 ``pipeline_apply``, AdamW's refusal of a gradient off its parameter's
@@ -14,6 +19,7 @@ the compressed step, the pipeline) in one subprocess with 8 forced host
 devices, as ``tests/test_distributed.py`` does."""
 from __future__ import annotations
 
+import ast
 import os
 import pickle
 import subprocess
@@ -32,6 +38,8 @@ from repro_torch.models.convert import flatten_tree, params_to_tree
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH = ((2, 2, 2), ("pod", "data", "model"))
+MESH_2x4 = ((2, 4), ("data", "model"))     # 2 KV heads on 4 'model' ranks: no TP attention
+VOCAB_ODD, VOCAB_ODD_KEY = 255, "qwen3_1_7b@vocab255"
 ARCHS = ("qwen3_1_7b", "mixtral_8x22b")
 B, S = 8, 32                   # rows divide pod x data; S > flash_threshold (16)
 LAYOUT_PARAMS = {"wq": (64, 64), "wo": (64, 64), "wte": (256, 64), "router": (64, 4),
@@ -139,20 +147,31 @@ def _jax_serving(pair, batch) -> dict:
 def world(tmp_path_factory):
     """(rank results, JAX mesh references, one-device JAX steps, pairs)."""
     pairs = {a: Pair(a) for a in ARCHS + SERVE_ARCHS[1:]}
+    # a vocab the 'model' dim does not divide: the logits and the loss split
+    # the rows over 'model' instead
+    pairs[VOCAB_ODD_KEY] = Pair("qwen3_1_7b", vocab=VOCAB_ODD)
     params = {a: {k: v.numpy() for k, v in p.state.items()} for a, p in pairs.items()}
-    batches = {a: _batch(pairs[a].tcfg, seed=3) for a in ARCHS}
+    batches = {a: _batch(pairs[a].tcfg, seed=3) for a in ARCHS + (VOCAB_ODD_KEY,)}
     serve_batches = {a: _serve_batch(pairs[a].tcfg, seed=5) for a in SERVE_ARCHS}
     rng = np.random.default_rng(0)
     ws = (rng.standard_normal((STAGES, D, D)) * 0.3).astype(np.float32)
     micro = rng.standard_normal((MICRO, MB, D)).astype(np.float32)
-    cases = [{"arch": a, "mesh": MESH, "overrides": ov} for a in ARCHS
+    cases = [{"arch": a, "mesh": MESH, "overrides": ov, "watch": True} for a in ARCHS
              for ov in ({}, {"seq_parallel": True})]
     cases.append({"arch": "qwen3_1_7b", "mesh": MESH, "compress": True})
     cases.append({"arch": "mixtral_8x22b", "mesh": MESH, "grad_accum": 2})
+    cases += [{"arch": "qwen3_1_7b", "mesh": MESH_2x4, "overrides": ov, "watch": True}
+              for ov in ({}, {"seq_parallel": True})]
+    cases += [{"arch": "qwen3_1_7b", "key": VOCAB_ODD_KEY, "mesh": MESH, "watch": True,
+               "overrides": {"vocab": VOCAB_ODD, **ov}} for ov in ({}, {"seq_parallel": True})]
+    lg_rng = np.random.default_rng(11)
+    vocab_logits = (lg_rng.standard_normal((2, 8, 512)) * 4).astype(np.float32)
+    vocab_tgt = lg_rng.integers(0, 512, size=(2, 8)).astype(np.int64)
     ckpt_dir = str(tmp_path_factory.mktemp("mesh_ckpt"))
     payload = {
         "layout": {"mesh": MESH, "params": LAYOUT_PARAMS, "batch": LAYOUT_BATCH},
         "steps": {"cases": cases, "params": params, "batch": batches},
+        "vocab_loss": {"mesh": MESH, "logits": vocab_logits, "tgt": vocab_tgt},
         "serve": {"mesh": MESH, "cases": SERVE_CASES, "params": params,
                   "batch": serve_batches},
         "pipeline": {"mesh": MESH, "ws": ws, "micro": micro},
@@ -171,7 +190,7 @@ def world(tmp_path_factory):
         jax_proc = subprocess.Popen([sys.executable, "-c", JAX_MESH, os.path.join(d, "in.pkl"),
                                      os.path.join(d, "out.pkl")], env=env, cwd=str(ROOT),
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        one_device = {a: jax_step(pairs[a], batches[a]) for a in ARCHS}
+        one_device = {a: jax_step(pairs[a], batches[a]) for a in ARCHS + (VOCAB_ODD_KEY,)}
         one_device["mixtral_8x22b", 2] = jax_step(pairs["mixtral_8x22b"],
                                                   batches["mixtral_8x22b"], grad_accum=2)
         serving = {a: _jax_serving(pairs[a], serve_batches[a]) for a in SERVE_ARCHS}
@@ -208,25 +227,150 @@ def test_local_slices_are_jaxs(world, name):
         np.testing.assert_array_equal(res["layout"][name], want, err_msg=f"rank {rank}")
 
 
-@pytest.mark.parametrize("case", range(4), ids=[f"{a}-{m}" for a in ARCHS
-                                                for m in ("plain", "seq_parallel")])
+STEP_CASES = {f"{a}-{m}": i for i, (a, m) in enumerate(
+    (a, m) for a in ARCHS for m in ("plain", "seq_parallel"))}
+STEP_CASES.update({"qwen3_1_7b-2x4-attention_gathered": 6,
+                   "qwen3_1_7b-2x4-attention_gathered-seq_parallel": 7,
+                   "qwen3_1_7b-vocab255_gathered": 8,
+                   "qwen3_1_7b-vocab255_gathered-seq_parallel": 9})
+ODD_VOCAB = {k: v for k, v in STEP_CASES.items() if "vocab255" in k}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES.values()), ids=list(STEP_CASES))
 def test_sharded_step_matches_jax(world, case):
-    """One sharded step on (2, 2, 2), plain and with seq_parallel, against
-    the JAX package's one-device make_train_step with the default
-    OptConfig: loss within rel 1e-6, grad_norm within rel 1e-5 and every
-    parameter within 1e-6 (the same on every rank)."""
+    """One sharded step, tensor parallel over 'model' on (2, 2, 2) (plain
+    and with seq_parallel), on (2, 4) with the attention gathered, and with
+    a 255-token vocab gathered, against the JAX package's one-device
+    make_train_step of the same config with the default OptConfig: loss
+    within rel 1e-6, grad_norm within rel 1e-5 and every parameter within
+    1e-6 (the same on every rank)."""
     spec = world["cases"][case]
-    arch = spec["arch"]
-    (j_params, _, j_metrics), _ = world["one_device"][arch]
+    arch, key = spec["arch"], spec.get("key", spec["arch"])
+    (j_params, _, j_metrics), _ = world["one_device"][key]
     got = world["ranks"][0]["steps"][case]
     m = got["metrics"][0]
     np.testing.assert_allclose(m["loss"], float(j_metrics["loss"]), rtol=1e-6)
     np.testing.assert_allclose(m["grad_norm"], float(j_metrics["grad_norm"]), rtol=1e-5)
     for r in world["ranks"][1:]:
         assert r["steps"][case]["metrics"] == got["metrics"]
-    cfg = world["pairs"][arch].tcfg
+    cfg = world["pairs"][key].tcfg
     assert_trees_close(_port_tree(got["params"], cfg), jax_np(j_params), rtol=0.0, atol=1e-6,
                        what=f"{arch} {spec.get('overrides')}")
+
+
+_TP_LEAVES = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.w_gate", "mlp.w_up",
+              "mlp.w_down", "moe.w_gate", "moe.w_up", "moe.w_down", "wte", "lm_head")
+
+
+def _tp_leaf(name: str, layout: dict) -> bool:
+    """Whether ``layout`` runs the layer of leaf ``name`` tensor parallel."""
+    layer = ("attention" if ".attn." in name else "mlp" if ".mlp." in name
+             else "moe" if ".moe." in name else "vocab" if name in ("wte", "lm_head") else None)
+    return (layer is not None and layout.get(layer) == "tp"
+            and any(name.endswith(t) for t in _TP_LEAVES))
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES.values()), ids=list(STEP_CASES))
+def test_tp_layers_read_model_shards_and_gather_none(world, case):
+    """The TP step on every rank: each TP layer reads each of its weights as
+    its 1 / model shard (the 'model' dim's size) and never whole, every TP
+    leaf is read, and no all-gather over 'model' moves a weight: without
+    seq_parallel there is none, with it each is the sequence of an
+    activation [S, B_loc, ...] (counted by ``CollectiveRecorder`` on the
+    mesh)."""
+    spec = world["cases"][case]
+    n_model = spec["mesh"][0][spec["mesh"][1].index("model")]
+    sp = spec.get("overrides", {}).get("seq_parallel", False)
+    for rank, r in enumerate(world["ranks"]):
+        got = r["steps"][case]
+        layout, watch = got["layout"], got["watch"]
+        tp_reads = [x for x in watch["reads"] if _tp_leaf(x[0], layout)]
+        assert tp_reads and {x[0] for x in tp_reads} == {
+            k for k in world["ranks"][0]["steps"][case]["params"] if _tp_leaf(k, layout)}
+        for name, whole, local, how in tp_reads:
+            assert how == "shard" and np.prod(local) * n_model == np.prod(whole), (rank, name)
+        if set(layout.values()) == {"tp"}:
+            if not sp:
+                assert watch["model_gathers"] == [], (rank, watch["model_gathers"][:3])
+            for line in watch["model_gathers"]:
+                shape = ast.literal_eval(line.split(" ", 1)[1])[0]   # the result's shape
+                assert shape[0] == S, (rank, line)
+        assert watch["by_dim"]["model"]["all-reduce"][0] > 0     # reduce out / copy in
+
+
+def test_loss_never_builds_full_vocab_logits(world):
+    """No op of a step whose vocab runs TP outputs [B_loc, S, vocab] (the
+    loss reduces each rank's [B_loc, S, vocab / model] slice over 'model');
+    the steps with a 255-token vocab, which gather the logits' weight
+    whole, do (the watch sees such tensors)."""
+    for rank, r in enumerate(world["ranks"]):
+        for name, case in STEP_CASES.items():
+            logits = r["steps"][case]["watch"]["logits"]
+            assert bool(logits) == (name in ODD_VOCAB), (rank, name, logits)
+
+
+def test_attention_falls_back_to_the_gather(world):
+    """qwen3's smoke config (4 heads, 2 KV heads) on a 4-wide 'model' dim:
+    the layout records the attention as gathered over 'model' and why, its
+    weights are read whole (all-gathered over 'model'), while the MLP and
+    the vocab still read 1 / 4 shards."""
+    case = STEP_CASES["qwen3_1_7b-2x4-attention_gathered"]
+    for rank, r in enumerate(world["ranks"]):
+        got = r["steps"][case]
+        assert got["layout"] == {"attention": "gather: 4 heads / 2 kv heads on 4 'model' ranks",
+                                 "mlp": "tp", "vocab": "tp"}
+        reads = got["watch"]["reads"]
+        attn = [x for x in reads if ".attn.w" in x[0]]
+        assert attn and all(how == "whole" and local == whole for _, whole, local, how in attn)
+        mlp = [x for x in reads if ".mlp." in x[0] or x[0] in ("wte", "lm_head")]
+        assert mlp and all(how == "shard" and np.prod(local) * 4 == np.prod(whole)
+                           for _, whole, local, how in mlp)
+        assert got["watch"]["model_gathers"], rank
+
+
+def test_vocab_parallel_loss_on_the_mesh(world):
+    """``cross_entropy`` of each rank's half of [2, 8, 512] logits on the
+    'model' dim: the loss within rel 1e-6 of ``torch.logsumexp`` of the
+    whole logits (a loss near 10 has float32 steps of 1e-6), the gradient
+    of the rank's slice within 1e-6 of the slice of its gradient."""
+    for rank, r in enumerate(world["ranks"]):
+        res = r["vocab_loss"]
+        assert res["slice"] == (2, 8, 256), rank
+        assert res["loss"] <= 1e-6 and res["grad"] <= 1e-6, (rank, res)
+
+
+def test_vocab_parallel_loss_bitwise_on_one_rank():
+    """On one rank ``cross_entropy`` (the vocab-parallel steps, no
+    reduction) is ``torch.logsumexp`` minus the target's logit bit for bit
+    at float32, its gradient too."""
+    from repro_torch.models.model import cross_entropy
+
+    rng = np.random.default_rng(7)
+    lg = torch.from_numpy((rng.standard_normal((3, 16, 1000)) * 5).astype(np.float32))
+    lg.requires_grad_(True)
+    tgt = torch.from_numpy(rng.integers(0, 1000, size=(3, 16)))
+    got = cross_entropy(lg, tgt)
+    want = torch.logsumexp(lg, -1) - torch.gather(lg, -1, tgt[..., None])[..., 0]
+    assert torch.equal(got, want)
+    (g_got,) = torch.autograd.grad(got.sum(), [lg])
+    (g_want,) = torch.autograd.grad(want.sum(), [lg])
+    assert torch.equal(g_got, g_want)
+
+
+@pytest.mark.parametrize("case", list(ODD_VOCAB.values()), ids=["plain", "seq_parallel"])
+def test_odd_vocab_falls_back_to_the_gather(world, case):
+    """qwen3's smoke config with a 255-token vocab on (2, 2, 2): the layout
+    records the vocab as gathered over 'model' (why: 255 on 2 ranks), the
+    attention and the MLP still TP; ``wte`` (tied: the embedding and the
+    logits) is read whole on every rank (the step itself is held to the
+    JAX package by ``test_sharded_step_matches_jax``)."""
+    for rank, r in enumerate(world["ranks"]):
+        got = r["steps"][case]
+        assert got["layout"] == {"attention": "tp", "mlp": "tp",
+                                 "vocab": "gather: vocab 255 on 2 'model' ranks"}, rank
+        vocab = [x for x in got["watch"]["reads"] if x[0] in ("wte", "lm_head")]
+        assert {x[0] for x in vocab} == {"wte"}, (rank, vocab)
+        assert all(how == "whole" and local == whole for _, whole, local, how in vocab), rank
 
 
 def test_grad_accum_microbatches_match_jax(world):
@@ -288,13 +432,12 @@ def test_pipeline_matches_jax(world):
                                atol=1e-5)
 
 
-def _rank_rows(rank: int, n_blocks: int) -> slice:
-    """Rank ``rank``'s block of the batch rows split into ``n_blocks`` over
-    ('pod', 'data') (and 'model' when there are 8), major axis first: the
-    mesh is row-major over the ranks."""
-    p, d, m = rank // 4, (rank // 2) % 2, rank % 2
-    idx = p * 2 + d if n_blocks == 4 else (p * 2 + d) * 2 + m
-    n = B // n_blocks
+def _rank_rows(rank: int) -> slice:
+    """Rank ``rank``'s block of the batch rows split over ('pod', 'data'),
+    major axis first (the mesh is row-major over the ranks; the 'model'
+    ranks hold the same rows)."""
+    idx = rank // 2
+    n = B // 4
     return slice(idx * n, (idx + 1) * n)
 
 
@@ -306,9 +449,10 @@ def _rank_rows(rank: int, n_blocks: int) -> slice:
 def test_sharded_serving_matches_jax(world, case):
     """The serving path on (2, 2, 2) against the JAX package's one-device
     forward and serve_step, at the serve tests' rtol / atol 1e-4, on every
-    rank's own block.  Prefill forward: each rank its row of B = 8 (rows
-    over ('pod', 'data') and 'model'), or under seq_parallel its 2 rows and
-    its half of the sequence.  Decode (8 serve_steps after prefill_cache):
+    rank's own block.  Prefill forward, tensor parallel over 'model' (the
+    logits gathered over the vocab): each rank its 2 rows of B = 8 (rows
+    over ('pod', 'data'); the 'model' ranks hold the same rows), under
+    seq_parallel its half of the sequence of them.  Decode (8 serve_steps after prefill_cache):
     each rank its 2 rows ('model' ranks hold the same rows), the caches
     placed by cache_shardings -- with decode_seq_shard every cache's 8 slots
     split over 'model' (split-KV decode: the owner writes a slot, each rank
@@ -324,16 +468,16 @@ def test_sharded_serving_matches_jax(world, case):
         if spec.get("forward"):
             if sp:
                 half = SERVE_S // 2
-                ref = want["forward"][_rank_rows(rank, 4), m * half:(m + 1) * half]
+                ref = want["forward"][_rank_rows(rank), m * half:(m + 1) * half]
             else:
-                ref = want["forward"][_rank_rows(rank, 8)]
+                ref = want["forward"][_rank_rows(rank)]
             np.testing.assert_allclose(got["forward"], ref, rtol=1e-4, atol=1e-4,
                                        err_msg=f"rank {rank} forward")
         if spec.get("steps"):
             split = any("Shard(dim=1)" in p for p in got["split"])
             assert split == seq_shard, got["split"]
             for t, lg in enumerate(got["decode"]):
-                np.testing.assert_allclose(lg, want["decode"][t][_rank_rows(rank, 4)],
+                np.testing.assert_allclose(lg, want["decode"][t][_rank_rows(rank)],
                                            rtol=1e-4, atol=1e-4,
                                            err_msg=f"rank {rank} decode step {t}")
 
@@ -365,7 +509,8 @@ def test_checkpoint_reshards_bitwise(world, target):
 def test_chip_smoke_mesh_phase_on_cpu(capsys):
     """The smoke's mesh phase rehearsed on the host: part (b), its 8 gloo
     ranks (``chip_smoke.py --mesh-rank``) on CPU tensors, every part held
-    against the one-rank run.  Part (a), NCCL, needs the card; part (c) is
+    against the one-rank run, the TP steps' collectives printed by mesh dim
+    (no all-gather over 'model' in a plain step).  Part (a), NCCL, needs the card; part (c) is
     the dry-run CLI (tests/test_torch_dryrun.py)."""
     import importlib.util
 
@@ -381,3 +526,6 @@ def test_chip_smoke_mesh_phase_on_cpu(capsys):
         assert f"(2, 2, 2) {part}:" in out and "raised:" not in out, part
     assert "mesh gloo checkpoint" in out
     assert out.count("-> ok") == 6, out[-3000:]
+    for part in ("qwen3_1_7b step", "mixtral_8x22b step"):   # TP, no gather over 'model'
+        line = next(ln for ln in out.splitlines() if f"(2, 2, 2) {part} collectives" in ln)
+        assert "TP over 'model': attention" in line and line.endswith("over 'model' 0"), line

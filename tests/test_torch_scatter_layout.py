@@ -115,7 +115,7 @@ def test_batched_compacted_rows_on_a_served_family(compacted):
     assert _check_compacted(compacted, "served rwr") >= 6
 
 
-@settings(max_examples=40)
+@settings(max_examples=40, deadline=None)
 @given(data=st.data())
 def test_compacted_rows_on_random_partials(data):
     """Random partials (a random share of identities, a random Q or none)
